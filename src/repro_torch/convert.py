@@ -1,0 +1,88 @@
+"""Convert the reference's parameter trees into the port's.
+
+``from_jax_params(tree)`` takes a JAX param pytree whose array leaves
+were turned into numpy arrays (``jax.tree_util.tree_map(np.asarray,
+params)``; a ``VQWeight`` stays a node with numpy ``idx``/``codebooks``/
+``scale`` and its static ``K, N, d, n, splits``) and returns the port's
+params on ``device``:
+
+  * dicts map key by key; numpy arrays become tensors of the same dtype
+    (bf16 included);
+  * a VQWeight-like node (anything with ``idx``, ``codebooks``,
+    ``scale``, ``K``, ``N``, ``d``, ``n``, ``splits``) becomes the port's
+    ``VQWeight``;
+  * the stacked layer axis the reference scans over (``"layers"``,
+    leading dim L on every leaf) becomes a list of L per-layer dicts.
+
+The port imports nothing of the reference: the VQWeight is recognized by
+its attributes.
+"""
+from __future__ import annotations
+
+import types
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.core.vq import VQWeight
+
+_VQ_FIELDS = ("idx", "codebooks", "scale", "K", "N", "d", "n", "splits")
+_STACKED = ("layers",)
+
+
+def _is_vq(node: Any) -> bool:
+    return all(hasattr(node, f) for f in _VQ_FIELDS)
+
+
+def to_tensor(a: Any, device: torch.device) -> torch.Tensor:
+    """numpy (or array-like) -> tensor of the same dtype on ``device``
+    (a copy: arrays handed out by JAX are read-only)."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bf16: reinterpret the bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _convert(node: Any, device: torch.device) -> Any:
+    if _is_vq(node):
+        return VQWeight(idx=to_tensor(node.idx, device),
+                        codebooks=to_tensor(node.codebooks, device),
+                        scale=to_tensor(node.scale, device), K=int(node.K),
+                        N=int(node.N), d=int(node.d), n=int(node.n),
+                        splits=tuple(int(s) for s in node.splits))
+    if isinstance(node, dict):
+        return {k: (_unstack(v, device) if k in _STACKED
+                    else _convert(v, device)) for k, v in node.items()}
+    return to_tensor(node, device)
+
+
+def _index(node: Any, i: int) -> Any:
+    """Layer ``i`` of a stacked subtree."""
+    if _is_vq(node):
+        return types.SimpleNamespace(
+            idx=node.idx[i], codebooks=node.codebooks[i],
+            scale=node.scale[i], K=node.K, N=node.N, d=node.d, n=node.n,
+            splits=node.splits)
+    if isinstance(node, dict):
+        return {k: _index(v, i) for k, v in node.items()}
+    return np.asarray(node)[i]
+
+
+def _leading(node: Any) -> int:
+    if _is_vq(node):
+        return int(np.shape(node.idx)[0])
+    if isinstance(node, dict):
+        return _leading(next(iter(node.values())))
+    return int(np.shape(node)[0])
+
+
+def _unstack(node: Any, device: torch.device) -> list:
+    return [_convert(_index(node, i), device) for i in range(_leading(node))]
+
+
+def from_jax_params(tree: Any, *, device: DeviceLike = None) -> Any:
+    """The port's params for a numpy-leaved JAX param tree (see module
+    docstring). ``device`` defaults to "cuda"."""
+    return _convert(tree, resolve_device(device))

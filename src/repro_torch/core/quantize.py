@@ -1,0 +1,136 @@
+"""Model-level VQ quantization pass (``repro/core/quantize.py``,
+``quantize_params`` with ``method="synthetic"``).
+
+Every eligible FC weight under a block segment becomes ``{"vq":
+VQWeight}``; same-input projection families are grouped into one wide
+leaf (wq|wk|wv -> "wqkv", gate|up -> "gu") with recorded ``splits``.
+Embeddings, lm_head and norms stay dense (large fp32 leaves cast to bf16
+for serving).
+
+``synthetic`` reads only each weight's SHAPE, so it accepts params whose
+block weights live on the ``meta`` device (``Model.init(...,
+block_device="meta")``): a full-width model is then built straight from
+shapes on the target device, never materializing its dense block
+weights. ``fit`` (k-means), quantizing the LM head and the shard-aware
+grouping options are not ported yet (ROADMAP A2).
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.core.vq import VQWeight, synthetic_vq
+from repro_torch.models.common import ModelConfig
+
+_BLOCK_SEGMENTS = (
+    "layers", "pre_layers", "groups", "trail", "encoder", "decoder", "experts",
+)
+_MIN_DIM = 64  # don't quantize tiny matrices
+
+# same-input projection families: (member keys, grouped key, sibling that
+# identifies the consumer), as in the reference
+_GROUP_FAMILIES = (
+    (("wq", "wk", "wv"), "wqkv", "wo"),
+    (("wq", "wk", "wv"), "wqkv", "w_if"),
+    (("wq", "wkv_a"), "wq_kva", "wkv_b"),
+    (("gate", "up"), "gu", "down"),
+)
+_NO_GROUP_KEYS = ("cross_attn", "xattn")
+_BF16_MIN_SIZE = 65536
+
+
+def _eligible(path: Tuple[str, ...], w: torch.Tensor) -> bool:
+    if not any(seg in path for seg in _BLOCK_SEGMENTS):
+        return False
+    if w.ndim < 2:
+        return False
+    return w.shape[-2] >= _MIN_DIM and w.shape[-1] >= _MIN_DIM
+
+
+def _to_serving_dtype(leaf: torch.Tensor) -> torch.Tensor:
+    if leaf.dtype != torch.float32 or leaf.numel() < _BF16_MIN_SIZE:
+        return leaf
+    return leaf.to(torch.bfloat16)
+
+
+def quantize_params(params: Any, cfg: ModelConfig, *,
+                    method: str = "synthetic",
+                    generator: Optional[torch.Generator] = None,
+                    device: DeviceLike = None) -> Any:
+    """Replace eligible {"w": ...} linears with {"vq": VQWeight} built on
+    ``device`` from ``generator`` (a generator on that device), grouping
+    same-input families; cast large dense fp32 leaves to bf16.
+
+    Raises:
+      NotImplementedError: ``method`` other than "synthetic".
+      ValueError: a dense leaf that must be kept lives on the meta device.
+    """
+    if method != "synthetic":
+        raise NotImplementedError(
+            f"quantize method {method!r} is not ported yet (ROADMAP A2: "
+            "fit_vq/kmeans); use method='synthetic' or convert JAX-quantized "
+            "params with repro_torch.convert.from_jax_params")
+    dev = resolve_device(device)
+    if generator is None:
+        raise ValueError("quantize_params(method='synthetic') needs a "
+                         "torch.Generator on the target device")
+    d, n, C = cfg.vq_d, cfg.vq_n, cfg.vq_C
+    def make_vq(K: int, N: int, splits=()) -> VQWeight:
+        return synthetic_vq(generator, K, N, d=d, n=n, C=C, splits=splits,
+                            device=dev)
+
+    def groupable(node, path, members, sibling) -> bool:
+        if path and path[-1] in _NO_GROUP_KEYS:
+            return False
+        if sibling not in node or not all(m in node for m in members):
+            return False
+        shapes = []
+        for m in members:
+            sub = node[m]
+            if not (isinstance(sub, dict) and "w" in sub
+                    and _eligible(path + (m,), sub["w"])):
+                return False
+            shapes.append(tuple(sub["w"].shape))
+        if any(s[:-1] != shapes[0][:-1] for s in shapes):
+            return False
+        has_b = [("b" in node[m]) for m in members]
+        return all(has_b) or not any(has_b)
+
+    def group(node, path):
+        out = dict(node)
+        for members, gkey, sibling in _GROUP_FAMILIES:
+            if not groupable(out, path, members, sibling):
+                continue
+            splits = tuple(int(out[m]["w"].shape[-1]) for m in members)
+            K = int(out[members[0]]["w"].shape[-2])
+            grouped = {"vq": make_vq(K, sum(splits), splits)}
+            if "b" in out[members[0]]:
+                grouped["b"] = torch.cat(
+                    [out[m]["b"] for m in members], dim=-1).to(dev)
+            for m in members:
+                del out[m]
+            out[gkey] = grouped
+        return out
+
+    def walk(node, path):
+        if isinstance(node, list):
+            return [walk(v, path + (str(i),)) for i, v in enumerate(node)]
+        if isinstance(node, dict):
+            if "vq" in node:
+                return node
+            if "w" in node and _eligible(path, node["w"]):
+                w = node["w"]
+                new = {kk: vv.to(dev) for kk, vv in node.items() if kk != "w"}
+                new["vq"] = make_vq(int(w.shape[-2]), int(w.shape[-1]))
+                return new
+            node = group(node, path)
+            return {kk: walk(vv, path + (kk,)) for kk, vv in node.items()}
+        if node.is_meta:
+            raise ValueError(
+                f"dense leaf {'/'.join(path)} has no values (meta device); "
+                "only quantized block weights may be built from shapes")
+        return _to_serving_dtype(node.to(dev))
+
+    return walk(params, ())

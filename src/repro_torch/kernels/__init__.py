@@ -1,0 +1,30 @@
+"""Hand-written CUDA kernels of the port, one package each, mirroring
+``repro/kernels``: ``ops.py`` (the wrapper, its ``launches`` counter and
+plan backend), ``ref.py`` (the plain PyTorch version) and
+``csrc/<name>.cu`` (the kernel, built by ``build.py`` at first use).
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises. Only a launch on the card adds to its
+``launches`` count.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.kernels.build import KERNEL_NAMES
+
+
+def wrappers() -> Dict[str, object]:
+    """name -> wrapper function of every ported kernel."""
+    return {name: getattr(importlib.import_module(
+        f"repro_torch.kernels.{name}.ops"), name) for name in KERNEL_NAMES}
+
+
+def reset_launch_counts() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in wrappers().items()}

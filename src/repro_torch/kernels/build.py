@@ -1,0 +1,165 @@
+"""Build and load the port's CUDA C++ kernels.
+
+Each kernel lives in ``kernels/<name>/csrc/<name>.cu`` behind a plain C
+interface. At first use it is compiled with ``nvcc`` for Hopper
+(``-gencode arch=compute_90a,code=sm_90a``) into a shared library under
+``build/repro_torch_kernels/`` at the repository root and loaded with
+``ctypes``; the library name carries a hash of the source and flags, so
+an edited source rebuilds. Nothing here runs at import time.
+
+Every C entry point takes raw device pointers and the CUDA stream as
+``void*`` (``ctypes.c_void_p``) and sizes as ``int``, launches on that
+stream, allocates nothing and returns ``cudaGetLastError()``; the Python
+wrapper raises when it is non-zero (``check``).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional, Tuple
+
+import torch
+
+KERNEL_NAMES = ("fused_vq_matmul", "flash_decode", "dequant_gemv")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_PKG = Path(__file__).resolve().parent
+BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch_kernels"
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_BOUND: Dict[Tuple[str, str], object] = {}
+_LOCK = threading.Lock()
+# ptxas report (registers / shared memory / spills) of each build in this
+# process, for logs
+BUILD_LOG: Dict[str, str] = {}
+
+
+def source_path(name: str) -> Path:
+    return _PKG / name / "csrc" / f"{name}.cu"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME  # toolkit discovery; slow import
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels are built at first "
+                       "use and need the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(source_path(name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start_build(name: str) -> Tuple[Path, Optional[subprocess.Popen], Path]:
+    out = _lib_path(name)
+    if out.exists():
+        return out, None, out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return out, proc, tmp
+
+
+def _finish_build(name: str, out: Path, proc: Optional[subprocess.Popen],
+                  tmp: Path) -> None:
+    if proc is None:
+        return
+    log, _ = proc.communicate()
+    BUILD_LOG[name] = log
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {source_path(name)}:\n{log}")
+    os.replace(tmp, out)  # atomic: concurrent builders agree on the result
+
+
+def build_all(names: Iterable[str] = KERNEL_NAMES) -> float:
+    """Compile every kernel not yet built, one ``nvcc`` per source, all
+    started together; load them. Returns the wall seconds spent."""
+    t0 = time.perf_counter()
+    names = list(names)
+    with _LOCK:
+        started: List = [(n, *_start_build(n)) for n in names]
+        for n, out, proc, tmp in started:
+            _finish_build(n, out, proc, tmp)
+    for n in names:
+        load(n)
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building it on first use."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            out, proc, tmp = _start_build(name)
+            _finish_build(name, out, proc, tmp)
+            lib = ctypes.CDLL(str(out))
+            _LIBS[name] = lib
+        return lib
+
+
+def bind(name: str, symbol: str, n_ptrs: int, n_ints: int):
+    """``symbol`` of kernel ``name`` with argtypes ``n_ptrs`` pointers,
+    ``n_ints`` ints and a trailing stream pointer; restype int."""
+    fn = _BOUND.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BOUND[(name, symbol)] = fn
+    return fn
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """Handle of PyTorch's current CUDA stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_vq_operands(kernel: str, X, vq, c_max: int = 4) -> None:
+    """Raise ValueError unless the VQ kernels take these operands: x
+    (M, V, 8) fp32 contiguous; a VQWeight with 1..c_max codebooks of 256
+    centroids, contiguous uint8 (C, V, N) indices, fp32 (C, 8, 256)
+    codebooks and (N,) scale, all on x's device."""
+    M, V, d = X.shape
+    C, N = vq.C, vq.N
+    ok = (d == 8 and 1 <= C <= c_max
+          and vq.idx.dtype == torch.uint8 and vq.idx.is_contiguous()
+          and tuple(vq.idx.shape) == (C, V, N)
+          and vq.codebooks.dtype == torch.float32
+          and vq.codebooks.is_contiguous()
+          and tuple(vq.codebooks.shape) == (C, 8, 256)
+          and vq.scale.dtype == torch.float32
+          and vq.scale.is_contiguous() and tuple(vq.scale.shape) == (N,)
+          and vq.idx.device == vq.codebooks.device == vq.scale.device
+          == X.device)
+    if not ok:
+        raise ValueError(
+            f"{kernel}: the kernel takes x (M, V, 8) and a VQWeight with 1..{c_max} "
+            f"codebooks of 256 centroids: contiguous uint8 (C, V, N) indices, "
+            f"fp32 (C, 8, 256) codebooks, fp32 (N,) scale, all on x's device; "
+            f"got x {tuple(X.shape)} on {X.device}, idx {vq.idx.dtype} "
+            f"{tuple(vq.idx.shape)} on {vq.idx.device}, codebooks "
+            f"{vq.codebooks.dtype} {tuple(vq.codebooks.shape)}, scale "
+            f"{vq.scale.dtype} {tuple(vq.scale.shape)}")
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

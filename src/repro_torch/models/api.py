@@ -1,0 +1,84 @@
+"""Model facade of the port (``repro/models/api.py``), dense family only:
+
+    model = build_model(cfg)
+    params = model.init(generator, device="cuda")
+    qparams = model.quantize(params, generator=generator, device="cuda")
+    logits, caches = model.prefill(params, {"tokens": tokens}, rc)
+    logits, caches = model.decode(params, tokens, positions, caches, rc)
+
+``init``/``quantize``/``init_cache`` default to ``device="cuda"`` and
+raise without a GPU unless the caller passes ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.core.quantize import quantize_params
+from repro_torch.models import transformer
+from repro_torch.models.common import ModelConfig, RunConfig
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ModelConfig
+
+    def init(self, generator: torch.Generator, *, device: DeviceLike = None,
+             block_device: DeviceLike = None) -> Any:
+        """Dense params drawn from ``generator`` (on ``device``).
+        ``block_device="meta"`` gives the block linears shapes only, for
+        ``quantize(method="synthetic")`` to build at full width without
+        materializing the dense block weights."""
+        dev = resolve_device(device)
+        block = dev if block_device is None else torch.device(block_device)
+        return transformer.init_params(generator, self.cfg, device=dev,
+                                       block_device=block)
+
+    def quantize(self, params: Any, *, method: str = "synthetic",
+                 generator: Optional[torch.Generator] = None,
+                 device: DeviceLike = None) -> Any:
+        return quantize_params(params, self.cfg, method=method,
+                               generator=generator, device=device)
+
+    def forward(self, params: Any, batch: Dict[str, Any], rc: RunConfig,
+                caches=None) -> Tuple[torch.Tensor, Any]:
+        return transformer.forward(params, batch["tokens"], rc, self.cfg,
+                                   positions=batch.get("positions"),
+                                   caches=caches)
+
+    def _mask_pad_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        pad = self.cfg.padded_vocab - self.cfg.vocab_size
+        if not pad:
+            return logits
+        neg = torch.full((*logits.shape[:-1], pad), -1e30,
+                         dtype=logits.dtype, device=logits.device)
+        return torch.cat([logits[..., :self.cfg.vocab_size], neg], dim=-1)
+
+    def init_cache(self, batch: int, max_len: int, dtype=None, *,
+                   device: DeviceLike = None) -> Any:
+        return transformer.init_cache(self.cfg, batch, max_len,
+                                      dtype or self.cfg.act_dtype,
+                                      resolve_device(device))
+
+    def prefill(self, params, batch: Dict[str, Any], rc: RunConfig):
+        return self.forward(params, batch, rc.replace(mode="prefill"))
+
+    def decode(self, params, tokens, positions, caches, rc: RunConfig):
+        """tokens (B, 1), positions (B, 1); ``caches`` is updated in place
+        and returned."""
+        batch = {"tokens": tokens, "positions": positions}
+        return self.forward(params, batch, rc.replace(mode="decode"),
+                            caches=caches)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    """The model of ``cfg``: the dense family with full attention."""
+    if (cfg.family != "dense" or cfg.use_mla or cfg.first_dense_layers
+            or cfg.sliding_window or cfg.local_window):
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense family with full attention is "
+            "ported (other families and windowed attention: ROADMAP A12)")
+    return Model(cfg)

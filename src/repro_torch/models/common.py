@@ -1,0 +1,377 @@
+"""Shared model building blocks of the dense family (the subset of
+``repro/models/common.py`` the serving path reaches): configs, linear
+layers (dense / VQ through the planner), rmsnorm, rotary embeddings,
+blocked prefill attention, decode attention over the contiguous fp KV
+cache, the SwiGLU MLP, embedding and LM head.
+
+Params are plain dicts of tensors (VQWeight nodes after quantization);
+every initializer draws from an explicit ``torch.Generator``.
+
+Unlike the functional reference, decode updates the KV cache IN PLACE
+(the new token's K/V rows and the ``len`` leaf), which saves a full copy
+of the cache per step; ``attention_fwd`` returns the same cache dict.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import ops as core_ops
+from repro_torch.core import plan as plan_mod
+from repro_torch.core.plan import PlanPolicy
+
+Params = Any
+
+
+# ---------------------------------------------------------------------------
+# Configs
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description; the same fields and defaults as the
+    reference's ``ModelConfig`` (only the dense family is ported)."""
+
+    name: str
+    family: str                      # dense | moe | xlstm | rglru | whisper | vision
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 128
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    sliding_window: int = 0
+    local_window: int = 0
+    use_mla: bool = False
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    first_dense_layers: int = 0
+    capacity_factor: float = 1.25
+    rec_pattern: Tuple[str, ...] = ()
+    d_rnn: int = 0
+    conv_width: int = 4
+    xlstm_pattern: Tuple[str, ...] = ()
+    is_encoder_decoder: bool = False
+    encoder_layers: int = 0
+    cross_attn_period: int = 0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    vq_d: int = 8
+    vq_n: int = 8
+    vq_C: int = 2
+
+    @property
+    def act_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 128."""
+        return ((self.vocab_size + 127) // 128) * 128
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Static execution-mode knobs: the run ``mode`` (train | prefill |
+    decode), the matmul ``plan_policy`` and the prefill attention chunk."""
+
+    mode: str = "train"
+    plan_policy: PlanPolicy = PlanPolicy()
+    attn_chunk: int = 1024
+
+    @property
+    def policy(self) -> PlanPolicy:
+        return self.plan_policy
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)
+
+    def replace_policy(self, **kw) -> "RunConfig":
+        return dataclasses.replace(
+            self, plan_policy=dataclasses.replace(self.plan_policy, **kw))
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+
+def _dense_init(gen: torch.Generator, K: int, N: int, device) -> torch.Tensor:
+    if torch.device(device).type == "meta":  # shape only: quantized later
+        return torch.empty((K, N), device="meta")
+    return torch.randn((K, N), generator=gen, device=device) / math.sqrt(K)
+
+
+def make_linear(gen, K: int, N: int, *, device, bias: bool = False) -> Params:
+    p = {"w": _dense_init(gen, K, N, device)}
+    if bias:
+        p["b"] = torch.zeros((N,), device=device)
+    return p
+
+
+def make_rmsnorm(d: int, device) -> Params:
+    return {"g": torch.ones((d,), device=device)}
+
+
+def make_attention(gen, cfg: ModelConfig, *, device, block_device) -> Params:
+    bias = cfg.qkv_bias
+    p = {
+        "wq": make_linear(gen, cfg.d_model, cfg.q_dim, device=block_device, bias=bias),
+        "wk": make_linear(gen, cfg.d_model, cfg.kv_dim, device=block_device, bias=bias),
+        "wv": make_linear(gen, cfg.d_model, cfg.kv_dim, device=block_device, bias=bias),
+        "wo": make_linear(gen, cfg.q_dim, cfg.d_model, device=block_device),
+    }
+    if cfg.qk_norm:
+        p["qnorm"] = make_rmsnorm(cfg.head_dim, device)
+        p["knorm"] = make_rmsnorm(cfg.head_dim, device)
+    return p
+
+
+def make_mlp(gen, d_model: int, d_ff: int, *, block_device) -> Params:
+    return {"gate": make_linear(gen, d_model, d_ff, device=block_device),
+            "up": make_linear(gen, d_model, d_ff, device=block_device),
+            "down": make_linear(gen, d_ff, d_model, device=block_device)}
+
+
+def make_embedding(gen, vocab: int, d: int, device) -> Params:
+    return {"emb": torch.randn((vocab, d), generator=gen, device=device) * 0.02}
+
+
+# ---------------------------------------------------------------------------
+# Linear apply — the single place where EVA enters the model
+# ---------------------------------------------------------------------------
+
+
+def linear(p: Params, x: torch.Tensor, rc: RunConfig, *,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Apply a (possibly VQ-quantized) linear layer: the (spec, policy)
+    pair resolves through the planner to one backend (dense ``fp``, EVA
+    ``eva_fused`` in decode, ``dequant`` elsewhere)."""
+    out_dtype = out_dtype or x.dtype
+    pl = plan_mod.plan_node(p, x, mode=rc.mode, policy=rc.policy,
+                            out_dtype=out_dtype)
+    y = pl.execute(x, p["vq"] if "vq" in p else p["w"])
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def grouped_linear(p: Params, x: torch.Tensor, rc: RunConfig
+                   ) -> Tuple[torch.Tensor, ...]:
+    """One wide matmul for a grouped family, sliced at its split points."""
+    return core_ops.split_grouped_outputs(linear(p, x, rc), p["vq"])
+
+
+# ---------------------------------------------------------------------------
+# Norms & rotary
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * p["g"].float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) int32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., None].float() * freqs               # (B, S, hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def _attn_chunk_scores(q, k, scale):
+    # q: (B, Sq, H, hd), k: (B, Ck, Hk, hd) -> scores (B, H, Sq, Ck)
+    B, Sq, H, hd = q.shape
+    Hk = k.shape[2]
+    qg = q.reshape(B, Sq, Hk, H // Hk, hd)
+    s = torch.einsum("bshgd,bchd->bhgsc", qg.float(), k.float())
+    return (s * scale).reshape(B, H, Sq, k.shape[1])
+
+
+def _attn_chunk_apply(p, v):
+    # p: (B, H, Sq, Ck), v: (B, Ck, Hk, hd) -> (B, Sq, H, hd)
+    B, H, Sq, Ck = p.shape
+    Hk = v.shape[2]
+    pg = p.reshape(B, Hk, H // Hk, Sq, Ck)
+    o = torch.einsum("bhgsc,bchd->bshgd", pg, v.float())
+    return o.reshape(B, Sq, H, v.shape[-1])
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      chunk: int = 1024) -> torch.Tensor:
+    """Memory-bounded causal attention (prefill): q in chunks, kv chunks
+    folded with an online softmax, -1e30 masking (the reference's
+    ``blocked_attention`` with ``causal=True``, no window)."""
+    B, Sq, H, hd = q.shape
+    hd_v = v.shape[-1]
+    Skv = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    cq, ck = min(chunk, Sq), min(chunk, Skv)
+    pq, pk = (-Sq) % cq, (-Skv) % ck
+    if pq:
+        q = F.pad(q, (0, 0, 0, 0, 0, pq))
+    if pk:
+        k = F.pad(k, (0, 0, 0, 0, 0, pk))
+        v = F.pad(v, (0, 0, 0, 0, 0, pk))
+    nq, nk = q.shape[1] // cq, k.shape[1] // ck
+    dev = q.device
+
+    outs = []
+    for iq in range(nq):
+        qi = q[:, iq * cq:(iq + 1) * cq]
+        q_pos = iq * cq + torch.arange(cq, device=dev)
+        m = torch.full((B, H, cq), -1e30, device=dev)
+        l = torch.zeros((B, H, cq), device=dev)
+        acc = torch.zeros((B, cq, H, hd_v), device=dev)
+        for jk in range(nk):
+            lo, hi = jk * ck, jk * ck + ck - 1
+            s = _attn_chunk_scores(qi, k[:, lo:hi + 1], scale)   # (B,H,cq,ck)
+            pos_c = torch.arange(lo, hi + 1, device=dev)
+            mask = (pos_c[None, :] <= q_pos[:, None]) & (pos_c < Skv)[None, :]
+            s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            o = _attn_chunk_apply(p, v[:, lo:hi + 1])             # (B,cq,H,hd)
+            acc = acc * corr.transpose(1, 2)[..., None] + o
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None])
+    return torch.cat(outs, dim=1)[:, :Sq].to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: torch.Tensor
+                     ) -> torch.Tensor:
+    """Plain attention over a contiguous cache; ``cache_len`` counts the
+    Sq queries just written: query i sits at ``cache_len - Sq + i``."""
+    B, S, Hk, hd = k_cache.shape
+    Sq = q.shape[1]
+    s = _attn_chunk_scores(q, k_cache, 1.0 / math.sqrt(hd))  # (B, H, Sq, S)
+    pos = torch.arange(S, device=q.device)
+    qpos = cache_len[:, None] - Sq + torch.arange(Sq, device=q.device)[None, :]
+    valid = pos[None, None, :] <= qpos[..., None]               # (B, Sq, S)
+    s = torch.where(valid[:, None], s, torch.full_like(s, -1e30))
+    return _attn_chunk_apply(torch.softmax(s, dim=-1), v_cache).to(q.dtype)
+
+
+def attention_fwd(p: Params, x: torch.Tensor, rc: RunConfig, cfg: ModelConfig,
+                  *, positions: torch.Tensor, cache: Optional[Dict] = None
+                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Causal self-attention over the contiguous fp cache. Decode writes
+    the new K/V rows and ``len`` into ``cache`` in place (positions past
+    capacity are dropped) and attends through ``flash_decode`` under
+    ``impl="cuda"`` (one new token)."""
+    B, S, _ = x.shape
+    H, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if "wqkv" in p:
+        q, k, v = grouped_linear(p["wqkv"], x, rc)
+    else:
+        q, k, v = (linear(p[n], x, rc) for n in ("wq", "wk", "wv"))
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, Hk, hd)
+    v = v.reshape(B, S, Hk, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["qnorm"], q, cfg.norm_eps)
+        k = rmsnorm(p["knorm"], k, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if rc.mode == "decode" and cache is not None:
+        Sc = cache["k"].shape[1]
+        cache_len = cache["len"]                                   # (B,)
+        slot = cache_len[:, None] + torch.arange(S, device=x.device,
+                                                 dtype=cache_len.dtype)
+        fits = (slot < Sc)[..., None, None]
+        slot = slot.clamp(max=Sc - 1).long()
+        b_iota = torch.arange(B, device=x.device)[:, None]
+        for name, new in (("k", k), ("v", v)):
+            buf = cache[name]
+            buf[b_iota, slot] = torch.where(fits, new.to(buf.dtype),
+                                            buf[b_iota, slot])
+        cache["len"].copy_(cache_len + S)
+        new_len = cache["len"]
+        if rc.policy.impl == "cuda" and S == 1:
+            from repro_torch.kernels.flash_decode import flash_decode
+
+            o = flash_decode(q, cache["k"], cache["v"], new_len)
+        else:
+            o = decode_attention(q, cache["k"], cache["v"], new_len)
+        new_cache = cache
+    elif cache is not None:
+        raise NotImplementedError(
+            "chunked prefill over an existing cache is not ported yet "
+            "(ROADMAP A8)")
+    else:
+        o = blocked_attention(q, k, v, chunk=rc.attn_chunk)
+        if rc.mode == "prefill":
+            new_cache = {"k": k, "v": v,
+                         "len": (positions[:, -1] + 1).to(torch.int32)}
+    y = linear(p["wo"], o.reshape(B, S, H * hd), rc)
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP, embedding, LM head
+# ---------------------------------------------------------------------------
+
+
+def mlp_fwd(p: Params, x: torch.Tensor, rc: RunConfig) -> torch.Tensor:
+    if "gu" in p:
+        g, u = grouped_linear(p["gu"], x, rc)
+    else:
+        g, u = linear(p["gate"], x, rc), linear(p["up"], x, rc)
+    return linear(p["down"], F.silu(g) * u, rc)
+
+
+def embed(p: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return p["emb"][tokens].to(dtype)
+
+
+def lm_head(p: Optional[Params], x: torch.Tensor, rc: RunConfig,
+            emb_params=None) -> torch.Tensor:
+    if p is None:  # tied
+        w = emb_params["emb"].t().to(x.dtype)
+        return core_ops.fp_matmul(x, w, out_dtype=torch.float32)
+    return linear(p, x, rc, out_dtype=torch.float32)

@@ -1,0 +1,95 @@
+"""Decoder-only transformer, dense family (``repro/models/transformer.py``
+without MoE/MLA). The reference scans a stacked layer axis; here
+``params["layers"]`` is a list of per-layer dicts walked by a Python
+loop, and the decode cache keeps the reference's stacked layout
+``{"body": {"k": (L, B, S, Hk, hd), "v": ..., "len": (L, B)}}`` so each
+layer reads and updates its slice in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models import common as cm
+from repro_torch.models.common import ModelConfig, RunConfig
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, *, device,
+                block_device) -> Any:
+    """Dense params drawn from ``gen``; the block linears go to
+    ``block_device`` (``"meta"`` keeps only their shapes)."""
+    layers = []
+    for _ in range(cfg.num_layers):
+        layers.append({
+            "attn_norm": cm.make_rmsnorm(cfg.d_model, device),
+            "mlp_norm": cm.make_rmsnorm(cfg.d_model, device),
+            "attn": cm.make_attention(gen, cfg, device=device,
+                                      block_device=block_device),
+            "mlp": cm.make_mlp(gen, cfg.d_model, cfg.d_ff,
+                               block_device=block_device),
+        })
+    params = {
+        "embedding": cm.make_embedding(gen, cfg.padded_vocab, cfg.d_model,
+                                       device),
+        "layers": layers,
+        "final_norm": cm.make_rmsnorm(cfg.d_model, device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = cm.make_linear(gen, cfg.d_model, cfg.padded_vocab,
+                                           device=device)
+    return params
+
+
+def _layer_fwd(lp: Any, x: torch.Tensor, rc: RunConfig, cfg: ModelConfig, *,
+               positions: torch.Tensor, cache: Optional[Dict]
+               ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    h = cm.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+    a, new_cache = cm.attention_fwd(lp["attn"], h, rc, cfg, positions=positions,
+                                    cache=cache)
+    x = x + a
+    h = cm.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+    return x + cm.mlp_fwd(lp["mlp"], h, rc), new_cache
+
+
+def forward(params: Any, tokens: torch.Tensor, rc: RunConfig,
+            cfg: ModelConfig, *, positions: Optional[torch.Tensor] = None,
+            caches: Optional[Any] = None) -> Tuple[torch.Tensor, Optional[Any]]:
+    """tokens (B, S) -> fp32 logits (B, S, padded_vocab) and the caches:
+    a fresh stacked cache in prefill, ``caches`` updated in place in
+    decode, None otherwise."""
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(B, S)
+    x = cm.embed(params["embedding"], tokens, cfg.act_dtype)
+    body = None if caches is None else caches["body"]
+    fresh = []
+    for i, lp in enumerate(params["layers"]):
+        cache = None if body is None else {
+            "k": body["k"][i], "v": body["v"][i], "len": body["len"][i]}
+        x, nc = _layer_fwd(lp, x, rc, cfg, positions=positions, cache=cache)
+        if body is None and nc is not None:
+            fresh.append(nc)
+    x = cm.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = cm.lm_head(params.get("lm_head"), x, rc,
+                        emb_params=params["embedding"])
+    if caches is not None:
+        return logits, caches
+    if rc.mode == "prefill":
+        return logits, {"body": {n: torch.stack([c[n] for c in fresh])
+                                 for n in ("k", "v", "len")}}
+    return logits, None
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device
+               ) -> Dict[str, Any]:
+    """Zeroed stacked decode cache (contiguous fp; ring, quantized and
+    paged layouts are not ported yet)."""
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"body": {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "len": torch.zeros((cfg.num_layers, batch), dtype=torch.int32,
+                           device=device),
+    }}

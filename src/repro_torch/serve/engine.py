@@ -1,0 +1,439 @@
+"""Continuous-batching serving engine (``repro/serve/engine.py``, the
+contiguous non-speculative subset).
+
+Prefill runs per request at its power-of-two length bucket (every VQ
+linear through the dequant kernel); decode runs as one batched step over
+all slots (every VQ linear through the fused EVA kernel, attention
+through flash-decode), so every streamed index tile serves every active
+request. Free slots are fed token 0 at position 0.
+
+    uid = engine.submit(GenerationRequest(...))
+    events = engine.step()
+    for ev in engine.stream(uid): ...
+    engine.generate(prompts, n)
+
+The decode step runs eagerly; ``trace_counts["decode"]`` counts builds of
+the decode step (one per engine) and ``trace_counts["prefill"]`` the
+prefill buckets used so far — the steps a CUDA-graph capture would cover.
+Paged KV (ROADMAP A8), compressed KV (A9), speculative decoding (A10)
+and the resilience layer (A11) are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from collections import deque
+from typing import Any, Deque, Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, resolve_device, tensor_device
+from repro_torch.models.api import Model
+from repro_torch.models.common import RunConfig
+from repro_torch.serve import api
+from repro_torch.serve.api import (GenerationRequest, RequestOutput,
+                                   SamplingParams, StreamEvent)
+from repro_torch.serve.kvcache import cache_bytes, pad_prefill_cache
+from repro_torch.serve.metrics import EngineMetrics
+from repro_torch.serve.scheduler import QueueFull, Scheduler, TrackedRequest
+
+log = logging.getLogger(__name__)
+
+# prompts pad to power-of-two length buckets from this size up to max_len
+MIN_PREFILL_BUCKET = 8
+
+
+def _insert_slot(batched: Any, single: Any, b: int) -> None:
+    """Copy a batch-1 cache tree (batch on axis 1) into slot ``b``."""
+    if isinstance(batched, dict):
+        for k, v in batched.items():
+            _insert_slot(v, single[k], b)
+    else:
+        batched[:, b].copy_(single[:, 0])
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    num_slots: int = 4
+    max_len: int = 256
+    max_queue: int = 256               # submit() rejects past this bound
+    max_retained: int = 1024           # finished outputs kept for output()
+    paged: bool = False                # ROADMAP A8
+    kv_bits: int = 16                  # ROADMAP A9
+    speculate_k: int = 0               # ROADMAP A10
+
+
+class Engine:
+    def __init__(self, model: Model, params: Any, rc: RunConfig,
+                 ecfg: EngineConfig, *, device: DeviceLike = None):
+        if ecfg.paged:
+            raise NotImplementedError(
+                "paged KV caches are not ported yet (ROADMAP A8)")
+        if ecfg.kv_bits != 16:
+            raise NotImplementedError(
+                f"kv_bits={ecfg.kv_bits}: compressed KV caches are not ported "
+                "yet (ROADMAP A9)")
+        if ecfg.speculate_k:
+            raise NotImplementedError(
+                "speculative decoding is not ported yet (ROADMAP A10)")
+        self.device = resolve_device(device)
+        p_dev = tensor_device(params)
+        if p_dev is not None and p_dev.type != self.device.type:
+            raise ValueError(f"params live on {p_dev}, engine runs on "
+                             f"{self.device}")
+        self.model = model
+        self.params = params
+        self.rc = rc
+        self.ecfg = ecfg
+        self.sched = Scheduler(ecfg.num_slots, max_queue=ecfg.max_queue)
+        self.metrics_counters = EngineMetrics(num_slots=ecfg.num_slots)
+        self.caches = model.init_cache(ecfg.num_slots, ecfg.max_len,
+                                       device=self.device)
+        self.metrics_counters.kv_bytes_in_use = cache_bytes(self.caches)
+
+        B = ecfg.num_slots
+        self.positions = np.zeros((B,), np.int32)
+        self.last_token = np.zeros((B,), np.int32)
+        self.temperature = np.ones((B,), np.float32)
+        self.top_k = np.zeros((B,), np.int32)
+        self.top_p = np.ones((B,), np.float32)
+        self.greedy = np.ones((B,), bool)
+        self.stop_ids = np.full((B, api.MAX_STOP_IDS), -1, np.int32)
+        self.remaining = np.zeros((B,), np.int32)
+        self.active = np.zeros((B,), bool)
+        self.generators: List[Optional[torch.Generator]] = [None] * B
+
+        self._outputs: Dict[int, RequestOutput] = {}
+        self._buffers: Dict[int, Deque[StreamEvent]] = {}
+        self._pending: List[StreamEvent] = []
+        self._retired: Deque[int] = deque()
+
+        self.trace_counts = {"decode": 0, "prefill": 0}
+        self._buckets = api.prefill_buckets(ecfg.max_len, MIN_PREFILL_BUCKET)
+        self._built_buckets: set = set()
+        self._rc_decode = rc.replace(mode="decode")
+        self._rc_prefill = rc.replace(mode="prefill")
+        self._decode_fn = self._make_decode_fn()
+
+    # ------------------------------------------------------------ admission
+    def _admission_error(self, request: GenerationRequest) -> Optional[str]:
+        if request.prompt_len > self.ecfg.max_len:
+            return (f"prompt length {request.prompt_len} exceeds max_len "
+                    f"{self.ecfg.max_len}")
+        need = request.prompt_len + request.max_new_tokens - 1
+        if need > self.ecfg.max_len:
+            return (f"prompt_len + max_new_tokens - 1 = {need} exceeds the "
+                    f"cache capacity max_len={self.ecfg.max_len}")
+        return None
+
+    def submit(self, request: GenerationRequest) -> int:
+        """Admission-checked submit: an unservable request or a full queue
+        rejects at once with a terminal ``finish_reason="rejected"``."""
+        if not isinstance(request, GenerationRequest):
+            raise TypeError(f"submit() takes a GenerationRequest, got "
+                            f"{type(request).__name__}")
+        if len(request.stop_set) > api.MAX_STOP_IDS:
+            raise ValueError(f"request has {len(request.stop_set)} stop ids; "
+                             f"the engine supports at most {api.MAX_STOP_IDS}")
+        self.metrics_counters.submitted += 1
+        why = self._admission_error(request)
+        if why is not None:
+            return self._reject(why)
+        try:
+            uid = self.sched.submit(request)
+        except QueueFull as e:
+            return self._reject(str(e))
+        self._buffers[uid] = deque()
+        return uid
+
+    def _reject(self, why: str) -> int:
+        uid = self.sched.next_uid()
+        log.info("request %d rejected: %s", uid, why)
+        self.metrics_counters.rejected += 1
+        self._outputs[uid] = RequestOutput(uid=uid, tokens=(),
+                                           finish_reason="rejected")
+        self._buffers[uid] = deque()
+        self._pending.append(StreamEvent(uid=uid, index=-1, token=None,
+                                         finish_reason="rejected"))
+        self._retain(uid)
+        return uid
+
+    def _retain(self, uid: int) -> None:
+        self._retired.append(uid)
+        while len(self._retired) > self.ecfg.max_retained:
+            old = self._retired.popleft()
+            self._outputs.pop(old, None)
+            self._buffers.pop(old, None)
+
+    # ------------------------------------------------------------- prefill
+    def _sample_row(self, logits: torch.Tensor, slot: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sample slot ``slot``'s first token from its (1, V) logits row."""
+        dev = logits.device
+        tok = api.sample_tokens(
+            logits, [self.generators[slot]],
+            torch.tensor(self.temperature[slot:slot + 1], device=dev),
+            torch.tensor(self.top_k[slot:slot + 1], device=dev),
+            torch.tensor(self.top_p[slot:slot + 1], device=dev),
+            [bool(self.greedy[slot])])
+        return tok, api.token_logprobs(logits, tok)
+
+    def _prefill_one(self, slot: int, tr: TrackedRequest
+                     ) -> Tuple[int, bool]:
+        """Prefill the request in ``slot``, sample its first token, insert
+        its cache. Returns (token, bad)."""
+        req, sp = tr.request, tr.request.sampling
+        c = tr.prompt_len
+        # edge-pad to the bucket: causally masked for the real rows
+        chunk = np.pad(req.prompt, (0, api.bucket_for(c, self._buckets) - c),
+                       mode="edge")
+        if len(chunk) not in self._built_buckets:
+            self._built_buckets.add(len(chunk))
+            self.trace_counts["prefill"] += 1
+        self.temperature[slot] = sp.temperature
+        self.top_k[slot] = sp.top_k
+        self.top_p[slot] = sp.top_p
+        self.greedy[slot] = sp.greedy
+        gen = None
+        if not sp.greedy:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(sp.seed)
+        self.generators[slot] = gen
+        tokens = torch.tensor(chunk[None], dtype=torch.int32,
+                              device=self.device)
+        with torch.no_grad():
+            logits, cache = self.model.prefill(self.params, {"tokens": tokens},
+                                               self._rc_prefill)
+            last = logits[0, c - 1, :self.model.cfg.vocab_size][None]
+            tok, lp = self._sample_row(last, slot)
+        if not bool(torch.isfinite(last).all()):
+            return int(tok[0]), True
+        _insert_slot(self.caches, pad_prefill_cache(
+            cache, self.ecfg.max_len, true_len=c), slot)
+        tok = int(tok[0])
+        stop = sorted(req.stop_set)
+        self.positions[slot] = c
+        self.stop_ids[slot, :] = -1
+        self.stop_ids[slot, :len(stop)] = stop
+        self.active[slot] = True
+        tr.generated.append(tok)
+        if sp.logprobs:
+            tr.logprobs.append(float(lp[0]))
+        self.last_token[slot] = tok
+        self.remaining[slot] = req.max_new_tokens - 1
+        return tok, False
+
+    def _prefill_step_events(self, slot: int,
+                             events: List[StreamEvent]) -> None:
+        m = self.metrics_counters
+        tr = self.sched.slots[slot]
+        t0 = time.perf_counter()
+        tok, bad = self._prefill_one(slot, tr)
+        dt = time.perf_counter() - t0
+        tr.prefill_s += dt
+        m.prefill_s += dt
+        m.prefill_prompt_tokens += tr.prompt_len
+        m.prefills += 1
+        if bad:
+            m.poisoned_slot_steps += 1
+            events.append(StreamEvent(tr.uid, 0, None, "error"))
+            self._finish_slot(slot, "error")
+            return
+        tr.decode_t0 = time.perf_counter()
+        m.tokens_generated += 1
+        reason = None
+        if tok in tr.stop_set:
+            reason = "stop"
+        elif int(self.remaining[slot]) <= 0:
+            reason = "length"
+        lp = tr.logprobs[-1] if tr.request.sampling.logprobs else None
+        events.append(StreamEvent(tr.uid, 0, tok, reason, logprob=lp))
+        if reason is not None:
+            self._finish_slot(slot, reason)
+
+    # -------------------------------------------------------------- decode
+    def _make_decode_fn(self):
+        """Build the batched decode step: model decode + sampling and
+        stopping over every slot. Returns host arrays (tok, done, bad,
+        logprobs)."""
+        self.trace_counts["decode"] += 1
+        model, rc, vocab = self.model, self._rc_decode, self.model.cfg.vocab_size
+
+        def decode(params, caches, tokens, positions, generators,
+                   temperature, top_k, top_p, greedy, stop_ids, remaining,
+                   active):
+            dev = self.device
+            t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            with torch.no_grad():
+                logits, _ = model.decode(params, t(tokens)[:, None],
+                                         t(positions)[:, None], caches, rc)
+                logits = logits[:, 0, :vocab]
+                act = t(active)
+                tok, done, bad = api.sample_and_stop(
+                    logits, generators=generators, temperature=t(temperature),
+                    top_k=t(top_k), top_p=t(top_p), greedy=greedy,
+                    stop_ids=t(stop_ids), remaining=t(remaining), active=act)
+                lp = api.token_logprobs(logits, tok)
+            return (tok.cpu().numpy(), done.cpu().numpy(), bad.cpu().numpy(),
+                    lp.cpu().numpy())
+
+        return decode
+
+    def _timeout_sweep(self) -> List[StreamEvent]:
+        """Finish requests past their ``deadline_s``: queued ones before
+        they waste a prefill, active ones before another decode step."""
+        events: List[StreamEvent] = []
+        now = time.perf_counter()
+        for tr in self.sched.prune_queue(lambda r: r.expired(now)):
+            self.metrics_counters.count_finish("timeout")
+            self._outputs[tr.uid] = RequestOutput(
+                uid=tr.uid, tokens=(), finish_reason="timeout",
+                queue_wait_s=now - tr.submit_t)
+            events.append(StreamEvent(tr.uid, -1, None, "timeout"))
+            self._retain(tr.uid)
+        for b in list(self.sched.active_slots()):
+            tr = self.sched.slots[b]
+            if tr.expired(now):
+                events.append(
+                    StreamEvent(tr.uid, len(tr.generated), None, "timeout"))
+                self._finish_slot(b, "timeout")
+        return events
+
+    def step(self) -> List[StreamEvent]:
+        """One tick: deadline sweep, admit + prefill queued requests, one
+        batched decode step over the active slots, retire finished
+        requests (in the step their stop condition is met). Returns the
+        tick's StreamEvents."""
+        m = self.metrics_counters
+        events: List[StreamEvent] = list(self._pending)
+        self._pending.clear()
+        events.extend(self._timeout_sweep())
+
+        for slot in self.sched.admit():
+            tr = self.sched.slots[slot]
+            tr.queue_wait_s = time.perf_counter() - tr.submit_t
+            m.admitted += 1
+            m.queue_wait_s += tr.queue_wait_s
+            self._prefill_step_events(slot, events)
+
+        active_idx = np.nonzero(self.active)[0]
+        if active_idx.size:
+            t0 = time.perf_counter()
+            tok, done, bad, lps = self._decode_fn(
+                self.params, self.caches,
+                np.where(self.active, self.last_token, 0),
+                np.where(self.active, self.positions, 0),
+                self.generators, self.temperature, self.top_k, self.top_p,
+                list(np.where(self.active, self.greedy, True)),
+                self.stop_ids, self.remaining, self.active)
+            n_bad = int(np.count_nonzero(bad))
+            m.decode_steps += 1
+            m.decode_slot_steps += int(active_idx.size)
+            m.decode_s += time.perf_counter() - t0
+            m.tokens_generated += int(active_idx.size) - n_bad
+            m.poisoned_slot_steps += n_bad
+            emit = self.active & ~bad
+            self.positions += emit
+            self.remaining -= emit
+            self.last_token = np.where(emit, tok, self.last_token)
+            for b in active_idx:
+                b = int(b)
+                tr = self.sched.slots[b]
+                if bad[b]:
+                    events.append(StreamEvent(tr.uid, len(tr.generated),
+                                              None, "error"))
+                    self._finish_slot(b, "error")
+                    continue
+                t = int(tok[b])
+                reason = None
+                if done[b]:
+                    reason = "stop" if t in tr.stop_set else "length"
+                lpb = None
+                if tr.request.sampling.logprobs:
+                    lpb = float(lps[b])
+                    tr.logprobs.append(lpb)
+                events.append(StreamEvent(tr.uid, len(tr.generated), t,
+                                          reason, logprob=lpb))
+                tr.generated.append(t)
+                if reason is not None:
+                    self._finish_slot(b, reason)
+
+        for ev in events:
+            buf = self._buffers.get(ev.uid)
+            if buf is not None:
+                buf.append(ev)
+        return events
+
+    def _finish_slot(self, slot: int, reason: str) -> TrackedRequest:
+        tr = self.sched.finish(slot)
+        self.active[slot] = False
+        self.generators[slot] = None
+        self.metrics_counters.count_finish(reason)
+        decode_s = (time.perf_counter() - tr.decode_t0
+                    if len(tr.generated) > 1 else 0.0)
+        self._outputs[tr.uid] = RequestOutput(
+            uid=tr.uid, tokens=tuple(tr.generated),
+            logprobs=tuple(tr.logprobs), finish_reason=reason,
+            queue_wait_s=tr.queue_wait_s, prefill_s=tr.prefill_s,
+            decode_s=decode_s)
+        self._retain(tr.uid)
+        return tr
+
+    # ------------------------------------------------------------ streaming
+    @property
+    def idle(self) -> bool:
+        return self.sched.idle and not self._pending
+
+    def output(self, uid: int) -> Optional[RequestOutput]:
+        """The terminal RequestOutput once ``uid`` finished (else None)."""
+        return self._outputs.get(uid)
+
+    def stream(self, uid: int) -> Iterator[StreamEvent]:
+        """Yield ``uid``'s events, stepping the engine as needed; ends
+        after the terminal event. KeyError for an unknown or already
+        drained uid."""
+        buf = self._buffers.get(uid)
+        if buf is None:
+            raise KeyError(f"request {uid} is unknown or already streamed")
+        while True:
+            while buf:
+                ev = buf.popleft()
+                yield ev
+                if ev.done:
+                    self._buffers.pop(uid, None)
+                    return
+            if self.idle:
+                raise RuntimeError(
+                    f"engine idle but request {uid} never finished")
+            self.step()
+
+    def metrics(self) -> Dict[str, float]:
+        return self.metrics_counters.snapshot()
+
+    def generate(self, prompts: Sequence[np.ndarray], max_new_tokens: int,
+                 sampling: Optional[SamplingParams] = None
+                 ) -> Dict[int, List[int]]:
+        """Serve a batch of prompts to completion: {uid: tokens} in
+        submission order (greedy by default). Unservable prompts raise
+        before anything is queued."""
+        sampling = sampling or api.GREEDY
+        reqs = [GenerationRequest(prompt=p, max_new_tokens=max_new_tokens,
+                                  sampling=sampling) for p in prompts]
+        bad = {i: why for i, r in enumerate(reqs)
+               if (why := self._admission_error(r)) is not None}
+        if bad:
+            raise ValueError(f"generate(): unservable prompt(s) {bad}")
+        uids = []
+        for r in reqs:
+            while len(self.sched.queue) >= self.sched.max_queue:
+                self.step()
+            uids.append(self.submit(r))
+        while not self.idle:
+            self.step()
+        results: Dict[int, List[int]] = {}
+        for uid in uids:
+            results[uid] = list(self._outputs[uid].tokens)
+            self._buffers.pop(uid, None)
+        return results

@@ -1,0 +1,77 @@
+"""Engine counters (``repro/serve/metrics.py``, the contiguous
+non-speculative subset). Invariants the tests pin:
+
+  tokens_generated == prefills + decode_slot_steps - poisoned_slot_steps
+                   == number of token-bearing StreamEvents
+  finished         == finished_stop + finished_length + errors + timeouts
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict
+
+
+@dataclasses.dataclass
+class EngineMetrics:
+    num_slots: int
+    submitted: int = 0
+    admitted: int = 0
+    rejected: int = 0
+    finished: int = 0
+    finished_stop: int = 0
+    finished_length: int = 0
+    errors: int = 0                  # lanes whose logits went non-finite
+    timeouts: int = 0                # deadline_s expiries
+    prefills: int = 0
+    prefill_prompt_tokens: int = 0
+    kv_bytes_in_use: int = 0         # the contiguous cache, allocated once
+    decode_steps: int = 0
+    decode_slot_steps: int = 0       # active lanes summed over decode steps
+    poisoned_slot_steps: int = 0
+    tokens_generated: int = 0
+    queue_wait_s: float = 0.0
+    prefill_s: float = 0.0
+    decode_s: float = 0.0
+    started_at: float = dataclasses.field(default_factory=time.perf_counter)
+
+    def count_finish(self, reason: str) -> None:
+        self.finished += 1
+        if reason == "stop":
+            self.finished_stop += 1
+        elif reason == "length":
+            self.finished_length += 1
+        elif reason == "error":
+            self.errors += 1
+        elif reason == "timeout":
+            self.timeouts += 1
+        else:
+            raise ValueError(
+                f"not a finish reason for a served request: {reason!r}")
+
+    @property
+    def slot_occupancy(self) -> float:
+        """Mean fraction of slots doing useful work per decode step."""
+        if self.decode_steps == 0:
+            return 0.0
+        return self.decode_slot_steps / (self.decode_steps * self.num_slots)
+
+    @property
+    def decode_tokens_per_s(self) -> float:
+        if self.decode_s <= 0.0:
+            return 0.0
+        return self.decode_slot_steps / self.decode_s
+
+    @property
+    def tokens_per_s(self) -> float:
+        dt = time.perf_counter() - self.started_at
+        return self.tokens_generated / dt if dt > 0.0 else 0.0
+
+    def snapshot(self) -> Dict[str, float]:
+        out = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+               if f.name != "started_at"}
+        out["uptime_s"] = time.perf_counter() - self.started_at
+        out["slot_occupancy"] = self.slot_occupancy
+        out["decode_tokens_per_s"] = self.decode_tokens_per_s
+        out["tokens_per_s"] = self.tokens_per_s
+        return out

@@ -1,0 +1,117 @@
+"""Request scheduler for continuous batching (``repro/serve/scheduler.py``):
+a bounded queue of ``TrackedRequest``s admitted earliest-deadline-first
+into free decode slots."""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Deque, List, Optional
+
+from repro_torch.serve.api import GenerationRequest
+
+
+class QueueFull(Exception):
+    """Raised by ``Scheduler.submit`` at ``max_queue``; the engine rejects
+    the request instead of queueing it."""
+
+
+@dataclasses.dataclass
+class TrackedRequest:
+    """Engine-side runtime record of one submitted request."""
+
+    uid: int
+    request: GenerationRequest
+    generated: List[int] = dataclasses.field(default_factory=list)
+    logprobs: List[float] = dataclasses.field(default_factory=list)
+    submit_t: float = dataclasses.field(default_factory=time.perf_counter)
+    queue_wait_s: float = 0.0
+    prefill_s: float = 0.0
+    decode_t0: float = 0.0
+
+    @property
+    def prompt_len(self) -> int:
+        return self.request.prompt_len
+
+    @property
+    def stop_set(self) -> frozenset:
+        return self.request.stop_set
+
+    @property
+    def deadline_t(self) -> Optional[float]:
+        if self.request.deadline_s is None:
+            return None
+        return self.submit_t + self.request.deadline_s
+
+    def expired(self, now: Optional[float] = None) -> bool:
+        dl = self.deadline_t
+        if dl is None:
+            return False
+        return (time.perf_counter() if now is None else now) > dl
+
+
+class Scheduler:
+    def __init__(self, num_slots: int, max_queue: int = 256):
+        if num_slots < 1:
+            raise ValueError(f"num_slots must be >= 1, got {num_slots}")
+        if max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        self.num_slots = num_slots
+        self.max_queue = max_queue
+        self.queue: Deque[TrackedRequest] = deque()
+        self.slots: List[Optional[TrackedRequest]] = [None] * num_slots
+        self._uid = 0
+
+    def next_uid(self) -> int:
+        """Allocate a uid without enqueueing (rejections get one too)."""
+        self._uid += 1
+        return self._uid
+
+    def submit(self, request: GenerationRequest) -> int:
+        if len(self.queue) >= self.max_queue:
+            raise QueueFull(f"scheduler queue is at max_queue={self.max_queue}")
+        uid = self.next_uid()
+        self.queue.append(TrackedRequest(uid, request))
+        return uid
+
+    def free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.slots) if r is None]
+
+    def admit(self) -> List[int]:
+        """Move queued requests into free slots, earliest deadline first
+        (no-deadline requests behind, FIFO among themselves). Returns the
+        slots to prefill."""
+        admitted = []
+        for i in self.free_slots():
+            if not self.queue:
+                break
+            best = min(range(len(self.queue)), key=lambda j: (
+                self.queue[j].deadline_t if self.queue[j].deadline_t
+                is not None else float("inf"), j))
+            self.slots[i] = self.queue[best]
+            del self.queue[best]
+            admitted.append(i)
+        return admitted
+
+    def active_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.slots) if r is not None]
+
+    def prune_queue(self, predicate) -> List[TrackedRequest]:
+        """Remove (and return) queued requests matching ``predicate``."""
+        kept: Deque[TrackedRequest] = deque()
+        removed: List[TrackedRequest] = []
+        for tr in self.queue:
+            (removed if predicate(tr) else kept).append(tr)
+        self.queue = kept
+        return removed
+
+    def finish(self, slot: int) -> TrackedRequest:
+        r = self.slots[slot]
+        if r is None:
+            raise ValueError(f"slot {slot} is free")
+        self.slots[slot] = None
+        return r
+
+    @property
+    def idle(self) -> bool:
+        return not self.queue and not self.active_slots()

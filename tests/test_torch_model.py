@@ -1,0 +1,183 @@
+"""Port of the dense transformer, held against the JAX reference on the
+llama2 SMOKE config at fp32, with the reference's params converted (not
+regenerated: the reference's synthetic quantization salts its keys per
+process). Logits must agree within 1e-4 * max|logit| (fp32
+reassociation through two layers of attention and VQ matmuls), for the
+dense and the 2-bit VQ params, in prefill and in decode; and the port's
+own token-by-token decode must reproduce its full-sequence forward."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.models import build_model as jax_build_model
+from repro.models.common import RunConfig as JaxRunConfig
+from repro.serve.kvcache import pad_prefill_cache as jax_pad_prefill_cache
+from repro_torch.configs import get_smoke_config
+from repro_torch.convert import from_jax_params
+from repro_torch.models import RunConfig, build_model
+from repro_torch.serve.kvcache import pad_prefill_cache
+
+torch.set_num_threads(1)
+KEY = jax.random.PRNGKey(0)
+B, S_PROMPT, N_GEN, CAP = 2, 12, 4, 32
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg = dataclasses.replace(jax_smoke_config("llama2_7b"), dtype="float32")
+    jm = jax_build_model(jcfg)
+    dense = jm.init(KEY)
+    vq = jm.quantize(dense, method="synthetic", key=KEY)
+    cfg = dataclasses.replace(get_smoke_config("llama2_7b"), dtype="float32")
+    conv = lambda t: from_jax_params(jax.tree_util.tree_map(np.asarray, t),
+                                     device="cpu")
+    tokens = np.array(jax.random.randint(KEY, (B, S_PROMPT + N_GEN), 0,
+                                           jcfg.vocab_size), np.int32)
+    return {"jm": jm, "m": build_model(cfg), "tokens": tokens,
+            "params": {"dense": (dense, conv(dense)), "vq": (vq, conv(vq))}}
+
+
+def _close(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    bound = 1e-4 * np.abs(want).max()
+    assert np.abs(got - want).max() <= bound, (np.abs(got - want).max(), bound)
+
+
+def test_config_fields_match_reference():
+    from repro.models.common import ModelConfig as JaxModelConfig
+    from repro_torch.models.common import ModelConfig
+
+    mine = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
+    ref = {f.name: f.default for f in dataclasses.fields(JaxModelConfig)}
+    assert mine == ref
+    assert dataclasses.asdict(get_smoke_config("llama2_7b")) == \
+        dataclasses.asdict(jax_smoke_config("llama2_7b"))
+
+
+@pytest.mark.parametrize("kind", ["dense", "vq"])
+def test_prefill_logits_match_jax(models, kind):
+    jp, tp = models["params"][kind]
+    toks = models["tokens"][:, :S_PROMPT]
+    want, _ = models["jm"].prefill(jp, {"tokens": jnp.asarray(toks)},
+                                   JaxRunConfig(remat=False, attn_chunk=8))
+    with torch.no_grad():
+        got, cache = models["m"].prefill(tp, {"tokens": torch.from_numpy(toks)},
+                                         RunConfig(attn_chunk=8))
+    _close(got.numpy(), want)
+    assert cache["body"]["k"].shape == (2, B, S_PROMPT, 4, 32)
+    assert cache["body"]["len"].tolist() == [[S_PROMPT] * B] * 2
+
+
+@pytest.mark.parametrize("kind", ["dense", "vq"])
+def test_decode_logits_match_jax(models, kind):
+    """Prefill, pad the cache, then N_GEN decode steps on both sides."""
+    jp, tp = models["params"][kind]
+    jm, m, toks = models["jm"], models["m"], models["tokens"]
+    _, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :S_PROMPT])},
+                       JaxRunConfig(remat=False, attn_chunk=8))
+    jc = jax_pad_prefill_cache(jc, CAP)
+    with torch.no_grad():
+        _, tc = m.prefill(tp, {"tokens": torch.from_numpy(toks[:, :S_PROMPT])},
+                          RunConfig(attn_chunk=8))
+        tc = pad_prefill_cache(tc, CAP)
+        for i in range(N_GEN):
+            pos = S_PROMPT + i
+            want, jc = jm.decode(jp, jnp.asarray(toks[:, pos:pos + 1]),
+                                 jnp.full((B, 1), pos, jnp.int32), jc,
+                                 JaxRunConfig(remat=False))
+            got, tc = m.decode(tp, torch.from_numpy(toks[:, pos:pos + 1]),
+                               torch.full((B, 1), pos, dtype=torch.int32), tc,
+                               RunConfig())
+            _close(got.numpy(), want)
+    assert tc["body"]["len"].tolist() == [[S_PROMPT + N_GEN] * B] * 2
+
+
+@pytest.mark.parametrize("kind", ["dense", "vq"])
+def test_decode_reproduces_full_forward(models, kind):
+    """The port on its own: prefill + token-by-token decode equals the
+    full-sequence forward at every generated position."""
+    _, tp = models["params"][kind]
+    m, toks = models["m"], torch.from_numpy(models["tokens"])
+    with torch.no_grad():
+        full, _ = m.forward(tp, {"tokens": toks}, RunConfig(attn_chunk=8))
+        pre, cache = m.prefill(tp, {"tokens": toks[:, :S_PROMPT]},
+                               RunConfig(attn_chunk=8))
+        _close(pre[:, -1].numpy(), full[:, S_PROMPT - 1].numpy())
+        cache = pad_prefill_cache(cache, CAP)
+        for i in range(N_GEN):
+            pos = S_PROMPT + i
+            got, cache = m.decode(tp, toks[:, pos:pos + 1],
+                                  torch.full((B, 1), pos, dtype=torch.int32),
+                                  cache, RunConfig())
+            _close(got[:, 0].numpy(), full[:, pos].numpy())
+
+
+def test_decode_plain_policy_matches_kernel_policy(models):
+    """impl="torch" (the plain formulations the card is compared with)
+    and impl="cuda" (kernel wrappers, plain on the CPU) give the same
+    logits."""
+    _, tp = models["params"]["vq"]
+    m, toks = models["m"], torch.from_numpy(models["tokens"])
+    outs = []
+    for impl in ("cuda", "torch"):
+        rc = RunConfig(attn_chunk=8).replace_policy(impl=impl)
+        with torch.no_grad():
+            _, cache = m.prefill(tp, {"tokens": toks[:, :S_PROMPT]}, rc)
+            cache = pad_prefill_cache(cache, CAP)
+            got, _ = m.decode(tp, toks[:, S_PROMPT:S_PROMPT + 1],
+                              torch.full((B, 1), S_PROMPT, dtype=torch.int32),
+                              cache, rc)
+        outs.append(got.numpy())
+    _close(outs[0], outs[1])
+
+
+def test_mask_pad_vocab_and_unported_families():
+    from repro_torch.models.common import ModelConfig
+
+    cfg = dataclasses.replace(get_smoke_config("llama2_7b"), vocab_size=500)
+    m = build_model(cfg)
+    out = m._mask_pad_vocab(torch.zeros(2, cfg.padded_vocab))
+    assert out.shape == (2, 512) and out[0, 500].item() == np.float32(-1e30)
+    with pytest.raises(NotImplementedError, match="A12"):
+        build_model(ModelConfig(name="x", family="moe", num_layers=1,
+                                d_model=8, num_heads=1, num_kv_heads=1,
+                                d_ff=8, vocab_size=8))
+    if not torch.cuda.is_available():  # no GPU: the default device raises
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            m.init(torch.Generator())
+
+
+def test_planner_dispatch_by_mode_and_policy(models):
+    """decode -> eva_fused, prefill -> dequant, dense -> fp; equal
+    (spec, policy) pairs return the SAME plan; bad policies raise."""
+    from repro_torch.core import ops
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.plan import PlanPolicy, plan_node
+
+    _, tp = models["params"]["vq"]
+    node = tp["layers"][0]["attn"]["wqkv"]
+    x = torch.zeros((4, 1, 128))
+    pol = PlanPolicy()
+    dec = plan_node(node, x, mode="decode", policy=pol)
+    pre = plan_node(node, x, mode="prefill", policy=pol)
+    assert (dec.backend, pre.backend) == ("eva_fused", "dequant")
+    assert dec.spec.splits == (128, 128, 128) and dec.spec.M == 4
+    assert dec.cost.macs == ops.vq_gemm_macs(4, 128, 8, 2, 8)
+    assert dec.cost.lookup_adds == ops.epilogue_adds(4, 128, 384, 2, 8)
+    hits = plan_mod._PLANNER.cache_info().hits
+    assert plan_node(node, x, mode="decode", policy=pol) is dec
+    assert plan_mod._PLANNER.cache_info().hits == hits + 1
+    forced = plan_node(node, x, mode="decode",
+                       policy=PlanPolicy(vq_mode="dequant", impl="torch"))
+    assert forced.backend == "dequant" and forced.policy.impl == "torch"
+    dense = plan_node(tp["lm_head"], x, mode="decode", policy=pol)
+    assert dense.backend == "fp" and dense.spec.kind == "dense"
+    for bad in ({"vq_mode": "fast"}, {"impl": "pallas"}):
+        with pytest.raises(ValueError):
+            PlanPolicy(**bad)
