@@ -5,16 +5,22 @@
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel of the serving path from kernels/*/csrc;
-  3. check each kernel against its plain PyTorch version at the main
-     path's full-width llama2-7b shapes (tolerance, bitwise determinism)
+  2. build every CUDA kernel of the serving paths from kernels/*/csrc, one
+     nvcc per source, all started together;
+  3. check each kernel against its plain PyTorch version at the serving
+     paths' full-width llama2-7b shapes (tolerance, bitwise determinism)
      and time it (CUDA events, median, L2 flushed between runs) beside its
      plain version, one PyTorch library call computing the same function,
      and its bound on this card;
   4. serve 8 greedy requests on full-width llama2-7b (32 layers, 2-bit VQ
      weights drawn on the card from a seed, bf16 activations, 4 slots,
-     max_len 512) through the Engine, counting kernel launches; then one
-     decode step through the plain versions, for the logits drift;
+     max_len 512) through the Engine twice, counting kernel launches per
+     phase: with the fp KV cache (kv_bits=16: fused_vq_matmul,
+     flash_decode, dequant_gemv), then with the 4-bit KV-VQ cache and INT8
+     prefill (kv_bits=4, int8_prefill: fused_vq_matmul, flash_decode_kvq,
+     dequant_gemv, int8_gemm); after each, one decode step through the
+     plain versions, for the logits drift, and a profile of the decode
+     step;
   5. a {"kernels": [...]} summary line, the card line, and the result
      line {"ok": true, "device": {...}} last.
 
@@ -24,6 +30,7 @@ before printing any result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -35,6 +42,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # H100 SXM, fp32 outside the tensor cores
+INT8_OPS = 1979e12             # H100 SXM, dense int8 tensor cores
 SLOTS, MAX_LEN, N_REQUESTS, MAX_NEW = 4, 512, 8, 32
 SEED = 0
 LINEARS = (("wqkv", 4096, 12288), ("wo", 4096, 4096), ("gu", 4096, 22016),
@@ -43,6 +51,15 @@ REPLACES = {
     "fused_vq_matmul": "src/repro/kernels/fused_vq_matmul/kernel.py:49",
     "flash_decode": "src/repro/kernels/flash_decode/kernel.py:33",
     "dequant_gemv": "src/repro/kernels/dequant_gemv/kernel.py:20",
+    "int8_gemm": "src/repro/kernels/int8_gemm/kernel.py:22",
+    "flash_decode_kvq": "src/repro/kernels/flash_decode/kernel.py:73",
+}
+# the CUDA functions of each kernel, as the profiler names them
+KERNEL_FUNCTIONS = {
+    "fused_vq_kernel": "fused_vq_matmul", "split_reduce_kernel":
+    "fused_vq_matmul (split reduce)", "flash_decode_kernel": "flash_decode",
+    "flash_decode_kvq_kernel": "flash_decode_kvq",
+    "dequant_gemv_kernel": "dequant_gemv", "int8_gemm_kernel": "int8_gemm",
 }
 
 
@@ -50,8 +67,8 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple:
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -90,19 +107,26 @@ class Timer:
 def check_kernels(torch, timer):
     """Phase 3: every kernel against its plain version at full width."""
     import torch.nn.functional as F
-    from repro_torch.core.vq import dequantize, synthetic_vq
+    from repro_torch.core.ops import quantize_int8
+    from repro_torch.core.vq import (KVQuantConfig, dequantize, kv_decode,
+                                     kv_encode, kv_grid_codebooks, synthetic_vq)
     from repro_torch.kernels.dequant_gemv import dequant_gemv
-    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_kvq,
+                                                  flash_decode_kvq_ref,
+                                                  flash_decode_ref)
     from repro_torch.kernels.fused_vq_matmul import fused_vq_matmul
+    from repro_torch.kernels.int8_gemm import int8_gemm, int8_gemm_ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {n: [] for n in REPLACES}
 
-    def record(kernel, case, got, want, tol, fn, plain, library, nbytes, flops):
+    def record(kernel, case, got, want, tol, fn, plain, library, nbytes, flops,
+               peak=FP32_FLOPS):
         err = (got.float() - want.float()).abs().max().item()
         again = fn()
         det = bool(torch.equal(got, again))
-        b_ms, b_by = bound_ms(nbytes, flops)
+        b_ms, b_by = bound_ms(nbytes, flops, peak)
         row = {"kernel": kernel, "case": case, "max_abs_err": err, "tol": tol,
                "bitwise_equal": det, "kernel_ms": timer(fn),
                "plain_ms": timer(plain), "library_ms": timer(library),
@@ -157,18 +181,68 @@ def check_kernels(torch, timer):
            lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask),
            2 * q.numel() * 2 + tot * 2 * H * hd * 2 + B * 4,
            tot * H * hd * 4)
+
+    # KV-VQ decode attention over the same K/V, encoded as the engine's
+    # cache holds it (uint8 indices, bf16 scales, grid codebooks); the
+    # library call is SDPA over the cache dequantized to bf16
+    for kv_bits in (4, 2):
+        kvq = KVQuantConfig(kv_bits=kv_bits)
+        cb = kv_grid_codebooks(H, hd, kvq, device="cuda")
+        k_idx, k_s = kv_encode(k, cb)
+        v_idx, v_s = kv_encode(v, cb)
+        k_s, v_s = k_s.bfloat16(), v_s.bfloat16()
+        ops = (q, k_idx, v_idx, k_s, v_s, lengths, cb, cb)
+        kd = kv_decode(k_idx, k_s, cb).bfloat16().transpose(1, 2)
+        vd = kv_decode(v_idx, v_s, cb).bfloat16().transpose(1, 2)
+        run = lambda: flash_decode_kvq(*ops)
+        got, want = run(), flash_decode_kvq_ref(*ops)
+        RG = kvq.idx_width(hd)
+        record("flash_decode_kvq",
+               {"B": B, "H": H, "Hk": H, "hd": hd, "S": MAX_LEN,
+                "lengths": lengths.tolist(), "kv_bits": kv_bits,
+                "dtype": "bfloat16"},
+               got, want, 2.0 ** -7 * max(1.0, want.float().abs().max().item()),
+               run, lambda: flash_decode_kvq_ref(*ops),
+               lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask),
+               # qd table, index rows and fp32 scales up to the lengths, V
+               # codebooks, lengths, bf16 output
+               B * H * RG * 256 * 4 + tot * H * (2 * RG + 2 * 4)
+               + cb.numel() * 4 + B * 4 + q.numel() * 2,
+               tot * H * (RG + 2 * hd + hd * kvq.residual))
+        del kd, vd
+
+    # INT8 GEMM at the prefill lm_head shape (bf16 activations and head,
+    # quantized as the wrapper quantizes them); the library call is
+    # torch._int_mm on the same int8 operands (B column-major, the layout
+    # cuBLAS's int8 GEMM takes) with the same two scale multiplies
+    K, N = 4096, 32000
+    w = torch.randn((K, N), generator=gen, device="cuda").bfloat16()
+    wq, ws = quantize_int8(w, axis=0)
+    wq_cm = wq.t().contiguous().t()
+    emit({"phase": "int8_weight_quantization", "K": K, "N": N,
+          "ms_per_call": timer(lambda: quantize_int8(w, axis=0))})
+    for M in (64, 256):
+        x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+        xq, xs = quantize_int8(x, axis=-1)
+        run = lambda: int8_gemm(xq, wq, xs, ws)
+        got, want = run(), int8_gemm_ref(xq, wq, xs, ws)
+        record("int8_gemm", {"M": M, "K": K, "N": N}, got, want, 0.0, run,
+               lambda: int8_gemm_ref(xq, wq, xs, ws),
+               lambda: torch._int_mm(xq, wq_cm).float() * xs * ws,
+               M * K + K * N + 4 * M + 4 * N + 4 * M * N, 2 * M * N * K,
+               peak=INT8_OPS)
     return rows
 
 
 def serve(torch):
-    """Phase 4: full-width llama2-7b through the Engine."""
+    """Phase 4: full-width llama2-7b through the Engine, first with the fp
+    KV cache, then with the 4-bit KV-VQ cache and INT8 prefill. Returns
+    each phase's kernel launches."""
     import numpy as np
-    from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.core.plan import PlanPolicy
     from repro_torch.models import RunConfig, build_model
-    from repro_torch.serve import Engine, EngineConfig, GenerationRequest
-    from repro_torch.serve.kvcache import pad_prefill_cache
+    from repro_torch.serve import EngineConfig
 
     cfg = get_config("llama2_7b")
     model = build_model(cfg)
@@ -181,12 +255,46 @@ def serve(torch):
           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "bits_per_weight": 2,
           "seconds": time.perf_counter() - t0,
           "device_bytes": torch.cuda.memory_allocated()})
-    rc = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
-    ecfg = EngineConfig(num_slots=SLOTS, max_len=MAX_LEN)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
                for n in rng.integers(32, 201, N_REQUESTS)]
 
+    fp = serve_phase(
+        torch, model, params, prompts, "serve",
+        RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda")),
+        EngineConfig(num_slots=SLOTS, max_len=MAX_LEN),
+        ("fused_vq_matmul", "flash_decode", "dequant_gemv"))
+    kvq = serve_phase(
+        torch, model, params, prompts, "serve_kvq",
+        RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda",
+                                         int8_prefill=True)),
+        EngineConfig(num_slots=SLOTS, max_len=MAX_LEN, kv_bits=4),
+        ("fused_vq_matmul", "flash_decode_kvq", "dequant_gemv", "int8_gemm"))
+    same = [sum(a == b for a, b in zip(fp["tokens"][i], kvq["tokens"][i]))
+            for i in range(N_REQUESTS)]
+    first = [next((j for j, (a, b) in enumerate(zip(fp["tokens"][i],
+                                                     kvq["tokens"][i]))
+                   if a != b), MAX_NEW) for i in range(N_REQUESTS)]
+    emit({"phase": "kv_bits_4_vs_16", "greedy_token_agreement":
+          sum(same) / (N_REQUESTS * MAX_NEW), "first_divergence": first,
+          "kv_bytes_in_use": {"16": fp["kv_bytes"], "4": kvq["kv_bytes"]},
+          "kv_bytes_ratio": fp["kv_bytes"] / kvq["kv_bytes"]})
+    return {"serve": fp["launches"], "serve_kvq": kvq["launches"]}
+
+
+def serve_phase(torch, model, params, prompts, name, rc, ecfg, required):
+    """Serve ``prompts`` greedily to MAX_NEW tokens through a fresh Engine
+    (after a short warm-up one), with every kernel count set to 0 just
+    before and read just after; fail unless each kernel in ``required``
+    launched. Then one decode step through the kernels and through the
+    plain versions, and a profile of the decode step."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.core.quantize import kv_codebook_tree
+    from repro_torch.serve import Engine, GenerationRequest
+    from repro_torch.serve.kvcache import encode_prefill_cache, pad_prefill_cache
+
+    cfg = model.cfg
     Engine(model, params, rc, ecfg, device="cuda").generate([prompts[0][:16]], 2)
     eng = Engine(model, params, rc, ecfg, device="cuda")
     torch.cuda.synchronize()
@@ -200,31 +308,40 @@ def serve(torch):
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     m = eng.metrics()
+    tokens = []
     for uid, p in zip(uids, prompts):
         out = eng.output(uid)
-        emit({"request": uid, "prompt_len": len(p), "tokens": out.num_tokens,
-              "finish": out.finish_reason, "prefill_ms": out.prefill_s * 1e3,
+        emit({"phase": name, "request": uid, "prompt_len": len(p),
+              "tokens": out.num_tokens, "finish": out.finish_reason,
+              "prefill_ms": out.prefill_s * 1e3,
               "decode_ms_per_step": out.decode_s * 1e3 / max(1, out.num_tokens - 1),
               "decode_tok_per_s": out.decode_tokens_per_s})
         assert out.finish_reason == "length" and out.num_tokens == MAX_NEW
         assert all(0 <= t < cfg.vocab_size for t in out.tokens)
-    emit({"phase": "serve", "requests": N_REQUESTS, "slots": SLOTS,
-          "max_len": MAX_LEN, "wall_s": wall,
+        tokens.append(list(out.tokens))
+    emit({"phase": name, "requests": N_REQUESTS, "slots": SLOTS,
+          "max_len": MAX_LEN, "kv_bits": ecfg.kv_bits,
+          "int8_prefill": rc.policy.int8_prefill, "wall_s": wall,
           "tokens_generated": m["tokens_generated"],
           "tok_per_s": m["tokens_generated"] / wall,
           "decode_steps": m["decode_steps"],
           "decode_ms_per_step": m["decode_s"] * 1e3 / m["decode_steps"],
           "prefill_s": m["prefill_s"], "slot_occupancy": m["slot_occupancy"],
-          "launches": launches,
+          "kv_bytes_in_use": m["kv_bytes_in_use"], "launches": launches,
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
-    missing = [k for k, n in launches.items() if n == 0]
-    assert not missing, f"kernels never launched on the main path: {missing}"
+    missing = [k for k in required if launches[k] == 0]
+    assert not missing, f"{name}: kernels never launched on its path: {missing}"
 
-    # one decode step through the kernels and through the plain versions
+    # one decode step through the kernels and through the plain versions,
+    # on the engine's params and run config (codebooks attached, kv_vq set)
+    params, rc = eng.params, eng.rc
     toks = torch.tensor(np.stack([p[:64] for p in prompts[:SLOTS]]),
                         dtype=torch.int32, device="cuda")
     with torch.no_grad():
         _, cache = model.prefill(params, {"tokens": toks}, rc)
+        if eng.kvq is not None:
+            cache = encode_prefill_cache(cache, kv_codebook_tree(params),
+                                         eng.kvq)
         cache = pad_prefill_cache(cache, 128)
         step = (toks[:, -1:], torch.full((SLOTS, 1), 64, dtype=torch.int32,
                                          device="cuda"))
@@ -236,18 +353,20 @@ def serve(torch):
     drift = (got - want).abs().max().item()
     rel = drift / want.abs().max().item()
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    emit({"phase": "plain_decode_step", "max_abs_logit_drift": drift,
+    emit({"phase": f"{name}_plain_decode_step", "max_abs_logit_drift": drift,
           "rel_drift": rel, "argmax_agreement": agree,
           "finite": bool(torch.isfinite(got).all())})
     assert bool(torch.isfinite(got).all()) and rel <= 0.05 and agree >= 0.75
-    profile_decode(torch, model, params, cache, step, rc)
-    return launches
+    profile_decode(torch, model, params, cache, step, rc, name)
+    return {"launches": launches, "tokens": tokens,
+            "kv_bytes": m["kv_bytes_in_use"]}
 
 
-def profile_decode(torch, model, params, cache, step, rc, steps: int = 5):
+def profile_decode(torch, model, params, cache, step, rc, name, steps: int = 5):
     """Where one batched decode step's time goes: host wall per step
     (synchronized, no profiler) against the device time of its kernels
-    (torch.profiler), grouped by kernel."""
+    (torch.profiler), grouped by the port's kernels (each CUDA function
+    matched by its whole name) and everything else."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad():
@@ -269,12 +388,12 @@ def profile_decode(torch, model, params, cache, step, rc, steps: int = 5):
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         n_kernels += 1
-        name = ev.name
-        key = next((k for k in ("fused_vq", "split_reduce", "flash_decode")
-                    if k in name), "other")
+        key = next((label for fn, label in KERNEL_FUNCTIONS.items()
+                    if re.search(rf"\b{fn}\b", ev.name)), "other")
         groups[key] = groups.get(key, 0.0) + ev.time_range.elapsed_us()
     busy_ms = sum(groups.values()) / 1e3 / steps
-    emit({"phase": "decode_profile", "batch": SLOTS, "wall_ms_per_step": wall_ms,
+    emit({"phase": f"{name}_decode_profile", "batch": SLOTS,
+          "wall_ms_per_step": wall_ms,
           "device_busy_ms_per_step": busy_ms if n_kernels else None,
           "idle_share": (1 - busy_ms / wall_ms) if n_kernels else None,
           "device_kernels_per_step": n_kernels / steps,
@@ -303,17 +422,23 @@ def main() -> int:
     timer = Timer(torch)
     rows = check_kernels(torch, timer)
     launches = serve(torch)
+    phase_of = {"flash_decode": "serve", "flash_decode_kvq": "serve_kvq",
+                "int8_gemm": "serve_kvq"}
 
     summary = []
     for name, replaces in REPLACES.items():
         rs = rows[name]
         if name == "fused_vq_matmul":  # one decode layer at M = slots
             rs = [r for r in rs if r["case"]["M"] == SLOTS]
+        elif name in ("flash_decode_kvq", "int8_gemm"):  # the served case
+            rs = [r for r in rs if r["case"].get("kv_bits", 4) == 4
+                  and r["case"].get("M", 256) == 256]
         tot = lambda key: sum(r[key] for r in rs)
         summary.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
-            "replaces": replaces, "launches": launches[name],
+            "source": str(build.source_path(name).relative_to(ROOT)),
+            "replaces": replaces,
+            "launches": launches[phase_of.get(name, "serve")][name],
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"),
             "bound_ms": tot("bound_ms"),

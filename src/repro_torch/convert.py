@@ -12,7 +12,10 @@ params on ``device``:
     ``scale``, ``K``, ``N``, ``d``, ``n``, ``splits``) becomes the port's
     ``VQWeight``;
   * the stacked layer axis the reference scans over (``"layers"``,
-    leading dim L on every leaf) becomes a list of L per-layer dicts.
+    leading dim L on every leaf) becomes a list of L per-layer dicts —
+    attached KV-VQ codebooks included: an attention node's ``kv_cb``
+    {"k", "v"} of shape (L, Hk, R, 256, vd) becomes one (Hk, R, 256, vd)
+    pair per layer.
 
 The port imports nothing of the reference: the VQWeight is recognized by
 its attributes.

@@ -2,6 +2,11 @@
 ``repro/core/ops.py`` this slice needs).
 
   fp_matmul       : dense matmul (the dense ``lm_head``).
+  quantize_int8   : symmetric per-slice int8 quantization.
+  int8_matmul     : the INT8 prefill formulation (per-token int8
+                    activations x per-channel int8 weights, exact integer
+                    accumulation, fp dequant) — the plain version of the
+                    ``int8_gemm`` kernel's wrapper.
   dequant_matmul  : conventional VQ — reconstruct W_hat, then matmul (the
                     plain formulation every VQ kernel is held against).
 
@@ -25,6 +30,38 @@ def fp_matmul(x: torch.Tensor, w: torch.Tensor, *,
     reference keeps the fp32 accumulator — equal at fp32)."""
     out_dtype = out_dtype or x.dtype
     return torch.matmul(x, w).to(out_dtype)
+
+
+def quantize_int8(x: torch.Tensor, axis: int = -1
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-slice int8 quantization along ``axis``: returns
+    (int8 q, fp32 scale with ``axis`` kept as 1). ``torch.round`` rounds
+    half to even, as ``jnp.round`` does."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=axis, keepdim=True)
+    scale = torch.clamp(absmax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def int8_dot(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Exact integer product of int8 (M, K) and (K, N) operands, as an
+    integer-valued float64 tensor: every partial sum is bounded by
+    127^2 * K < 2^53, so float64 accumulates exactly in any order (CUDA
+    has no integer matmul, and an int8 ``torch.matmul`` would overflow)."""
+    return torch.matmul(xq.double(), wq.double())
+
+
+def int8_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """INT8 prefill path: per-token int8 activations x per-channel int8
+    weights -> exact integer accumulation -> fp32 ``(acc * xs) * ws``."""
+    out_dtype = out_dtype or x.dtype
+    lead, K = x.shape[:-1], x.shape[-1]
+    xq, xs = quantize_int8(x.reshape(-1, K), axis=-1)      # (M, K), (M, 1)
+    wq, ws = quantize_int8(w, axis=0)                       # (K, N), (1, N)
+    y = int8_dot(xq, wq).float() * xs * ws
+    return y.reshape(*lead, w.shape[-1]).to(out_dtype)
 
 
 def dequant_matmul(x: torch.Tensor, vq: VQWeight, *,

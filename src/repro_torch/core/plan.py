@@ -2,21 +2,35 @@
 subset of ``repro/core/plan.py`` the serving path needs).
 
   LinearSpec : frozen, hashable shape + weight-kind signature of one
-               matmul site, derived from ``(x, param node)``.
-  PlanPolicy : frozen, validated execution policy (vq_mode, impl).
+               matmul site, derived from ``(x, param node)``; the
+               KV-VQ decode-attention site is matmul-shaped too
+               (``kvq_attention_spec``).
+  PlanPolicy : frozen, validated execution policy (vq_mode, impl,
+               int8_prefill).
   MatmulPlan : the chosen backend, its resolved config and cost estimate,
                and the ``run`` callable.
   Planner    : LRU cache (LinearSpec, PlanPolicy) -> MatmulPlan; the same
                pair returns the SAME plan object.
 
-Three backends register: ``fp`` (dense, ``torch.matmul``) here, and
-``eva_fused`` / ``dequant`` from ``kernels/fused_vq_matmul/ops.py`` and
-``kernels/dequant_gemv/ops.py`` (imported lazily on the first plan).
+Backends by weight kind (``fp`` and ``int8_torch`` register here, the
+others from the kernel wrappers in ``_KERNEL_BACKEND_MODULES``, imported
+lazily on the first plan):
+
+  dense    : ``fp`` (``torch.matmul``) on any impl;
+  int8     : ``int8_torch`` | ``int8_cuda`` (kernel B6) — dense prefill
+             matmuls under ``int8_prefill``;
+  vq       : ``eva_fused`` (B1) in decode, ``dequant`` (B3) elsewhere;
+  kvq_attn : ``kvq_dequant_torch`` | ``kvq_flash_cuda`` (B7) — decode
+             attention over a vector-quantized KV cache.
+
 ``impl="cuda"`` runs the hand-written kernels (their wrappers take the
 plain version only for tensors on the CPU); ``impl="torch"`` runs the
 plain PyTorch formulations on any device — the reference a run on the
 card is compared with. Cost ranking, calibration and backend quarantine
-are not ported (ROADMAP A4): exactly one backend matches each pair.
+are not ported (ROADMAP A4), so exactly one backend matches each pair:
+where the reference lets ``int8_jnp`` and ``kvq_dequant_jnp`` match
+every impl and ranks them against the kernels, the port's matchers split
+the int8 and kvq_attn kinds by impl instead.
 """
 from __future__ import annotations
 
@@ -31,7 +45,7 @@ import torch
 from repro_torch.core import ops
 from repro_torch.core.vq import VQWeight
 
-WEIGHT_KINDS = ("dense", "vq")
+WEIGHT_KINDS = ("dense", "int8", "vq", "kvq_attn")
 VQ_MODES = ("none", "eva", "dequant")
 IMPLS = ("cuda", "torch")
 
@@ -42,8 +56,10 @@ def _dtype_name(dt: torch.dtype) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class LinearSpec:
-    """Shape + weight-kind signature of one matmul site. The VQ geometry
-    fields are zero for dense sites."""
+    """Shape + weight-kind signature of one matmul site. ``kind`` is the
+    resolved weight kind: "dense", "int8" (a dense weight run through the
+    INT8 prefill GEMM), "vq" or "kvq_attn" (see ``kvq_attention_spec``).
+    The VQ geometry fields are zero for dense and int8 sites."""
 
     M: int
     K: int
@@ -73,9 +89,12 @@ class LinearSpec:
 
     @classmethod
     def for_dense(cls, w: torch.Tensor, *, M: int, x_dtype: torch.dtype,
-                  out_dtype: torch.dtype) -> "LinearSpec":
+                  out_dtype: torch.dtype, kind: str = "dense"
+                  ) -> "LinearSpec":
+        """Spec for a dense (.., K, N) weight; ``kind`` may be "int8" for
+        the INT8 prefill GEMM path (ValueError on an unknown kind)."""
         return cls(M=int(M), K=int(w.shape[-2]), N=int(w.shape[-1]),
-                   kind="dense", x_dtype=_dtype_name(x_dtype),
+                   kind=kind, x_dtype=_dtype_name(x_dtype),
                    out_dtype=_dtype_name(out_dtype))
 
 
@@ -87,10 +106,12 @@ class PlanPolicy:
                   EVA in decode, the dequant baseline elsewhere).
     ``impl``    : "cuda" (the hand-written kernels) | "torch" (the plain
                   PyTorch formulations).
+    ``int8_prefill`` : route dense prefill matmuls through the INT8 GEMM.
     """
 
     vq_mode: str = "none"
     impl: str = "cuda"
+    int8_prefill: bool = False
 
     def __post_init__(self):
         if self.vq_mode not in VQ_MODES:
@@ -134,6 +155,19 @@ class MatmulPlan:
         return self.run(x, leaf)
 
 
+def kvq_attention_spec(*, B: int, S: int, H: int, Hk: int, hd: int,
+                       idx_width: int, entries: int, x_dtype: torch.dtype,
+                       out_dtype: torch.dtype) -> LinearSpec:
+    """Spec of a KV-VQ decode-attention site (kind="kvq_attn"), mapped
+    onto the matmul fields as in the reference: M=batch, K=cache length
+    S, N=H*hd, C=Hk, V=idx_width (uint8 indices per token and head),
+    k=entries (codebook rows), d=hd."""
+    return LinearSpec(M=int(B), K=int(S), N=int(H * hd), kind="kvq_attn",
+                      x_dtype=_dtype_name(x_dtype),
+                      out_dtype=_dtype_name(out_dtype), C=int(Hk),
+                      V=int(idx_width), k=int(entries), d=int(hd))
+
+
 def vq_weight_bytes(spec: LinearSpec) -> int:
     """Compressed per-call weight traffic of a VQ leaf."""
     idx = spec.C * spec.V * spec.N * (1 if spec.k <= 256 else 4)
@@ -157,6 +191,8 @@ _REGISTRY_LOCK = threading.Lock()
 _KERNEL_BACKEND_MODULES = (
     "repro_torch.kernels.fused_vq_matmul.ops",
     "repro_torch.kernels.dequant_gemv.ops",
+    "repro_torch.kernels.int8_gemm.ops",
+    "repro_torch.kernels.flash_decode.ops",
 )
 
 
@@ -226,6 +262,11 @@ class Planner:
 _PLANNER = Planner()  # the process-global planner of every model layer
 
 
+def plan(spec: LinearSpec, policy: PlanPolicy) -> MatmulPlan:
+    """Resolve (spec, policy) through the default planner's cache."""
+    return _PLANNER.plan(spec, policy)
+
+
 def plan_node(p: Dict[str, Any], x: torch.Tensor, *, mode: str,
               policy: PlanPolicy, out_dtype=None) -> MatmulPlan:
     """Plan one linear param node ({"w": ...} or {"vq": ...}) for input
@@ -238,8 +279,10 @@ def plan_node(p: Dict[str, Any], x: torch.Tensor, *, mode: str,
                                  out_dtype=out_dtype)
         return _PLANNER.plan(spec, policy.resolve_vq_mode(mode))
     w = p["w"]
+    kind = "int8" if (mode == "prefill" and policy.int8_prefill) else "dense"
     spec = LinearSpec.for_dense(w, M=x.numel() // int(w.shape[-2]),
-                                x_dtype=x.dtype, out_dtype=out_dtype)
+                                x_dtype=x.dtype, out_dtype=out_dtype,
+                                kind=kind)
     return _PLANNER.plan(spec, policy)
 
 
@@ -257,4 +300,18 @@ def _plan_fp(spec: LinearSpec, policy: PlanPolicy) -> MatmulPlan:
     return MatmulPlan("fp", spec, policy, (), cost, run)
 
 
+def _plan_int8_torch(spec: LinearSpec, policy: PlanPolicy) -> MatmulPlan:
+    out_dt = getattr(torch, spec.out_dtype)
+
+    def run(x, w):
+        return ops.int8_matmul(x, w, out_dtype=out_dt)
+
+    cost = PlanCost(macs=spec.M * spec.K * spec.N, lookup_adds=0,
+                    weight_bytes=spec.K * spec.N)
+    return MatmulPlan("int8_torch", spec, policy, (), cost, run)
+
+
 register_backend("fp", lambda s, p: s.kind == "dense", _plan_fp)
+register_backend("int8_torch",
+                 lambda s, p: s.kind == "int8" and p.impl == "torch",
+                 _plan_int8_torch)

@@ -13,15 +13,23 @@ block_device="meta")``): a full-width model is then built straight from
 shapes on the target device, never materializing its dense block
 weights. ``fit`` (k-means), quantizing the LM head and the shard-aware
 grouping options are not ported yet (ROADMAP A2).
+
+``attach_kv_codebooks`` gives every attention node the per-head KV-VQ
+codebooks a compressed cache encodes against (``kv_cb``: {"k", "v"} of
+shape (Hk, R, 256, vec_d)), and ``kv_codebook_tree`` collects them
+stacked by layer, the layout ``serve/kvcache.encode_prefill_cache``
+takes. Only the calibration-free grid codebooks are ported; calibrated
+(k-means) ones wait for ROADMAP A9.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch import DeviceLike, resolve_device
-from repro_torch.core.vq import VQWeight, synthetic_vq
+from repro_torch import DeviceLike, resolve_device, tensor_device
+from repro_torch.core.vq import (KVQuantConfig, VQWeight, kv_grid_codebooks,
+                                 synthetic_vq)
 from repro_torch.models.common import ModelConfig
 
 _BLOCK_SEGMENTS = (
@@ -38,6 +46,8 @@ _GROUP_FAMILIES = (
     (("gate", "up"), "gu", "down"),
 )
 _NO_GROUP_KEYS = ("cross_attn", "xattn")
+# cache subtree of each stacked param segment (the dense family has one)
+_KV_STACK_SEGMENTS = {"layers": "body"}
 _BF16_MIN_SIZE = 65536
 
 
@@ -134,3 +144,71 @@ def quantize_params(params: Any, cfg: ModelConfig, *,
         return _to_serving_dtype(node.to(dev))
 
     return walk(params, ())
+
+
+def _is_gqa_attn_node(node: Any, path: Tuple[str, ...]) -> bool:
+    return (isinstance(node, dict) and "wo" in node
+            and ("wq" in node or "wqkv" in node) and "wkv_b" not in node
+            and (not path or path[-1] not in _NO_GROUP_KEYS))
+
+
+def attach_kv_codebooks(params: Any, cfg: ModelConfig,
+                        kvq: KVQuantConfig) -> Any:
+    """A new param tree whose every attention node carries ``kv_cb`` =
+    {"k", "v"}: the deterministic ``kv_grid_codebooks`` lattice of
+    ``kvq`` (Hk, R, 256, vec_d), on the params' device, one tensor shared
+    by all layers (read only). Idempotent: existing ``kv_cb`` nodes are
+    replaced; everything else is shared with ``params``, not copied.
+
+    Raises:
+      ValueError: head_dim not divisible by ``kvq.vec_d``.
+    """
+    cb = kv_grid_codebooks(cfg.num_kv_heads, cfg.head_dim, kvq,
+                           device=tensor_device(params))
+
+    def walk(node, path):
+        if isinstance(node, list):
+            return [walk(v, path + (str(i),)) for i, v in enumerate(node)]
+        if not isinstance(node, dict):
+            return node
+        if _is_gqa_attn_node(node, path):
+            return {**node, "kv_cb": {"k": cb, "v": cb}}
+        return {k: walk(v, path + (k,)) for k, v in node.items()}
+
+    return walk(params, ())
+
+
+def kv_codebook_tree(params: Any) -> Dict[str, Any]:
+    """The attached ``kv_cb`` nodes keyed by cache subtree, each leaf
+    stacked over the layers of its segment: {"body": {"k": (L, Hk, R,
+    256, vd), "v": ...}}.
+
+    Raises:
+      ValueError: params carry no kv_cb nodes (attach first)."""
+    found: Dict[str, list] = {}
+
+    def walk(node, stack):
+        if isinstance(node, list):
+            for v in node:
+                walk(v, stack)
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                if k == "kv_cb" and stack:
+                    found.setdefault(stack, []).append(v)
+                else:
+                    walk(v, _KV_STACK_SEGMENTS.get(k, stack))
+
+    walk(params, None)
+    if not found:
+        raise ValueError("params carry no kv_cb nodes "
+                         "(run attach_kv_codebooks first)")
+    return {stack: {n: torch.stack([c[n] for c in cbs]) for n in cbs[0]}
+            for stack, cbs in found.items()}
+
+
+def calibrate_kv_codebooks(*args, **kwargs):
+    """Not ported: the reference fits with k-means seeded from
+    ``jax.random``."""
+    raise NotImplementedError(
+        "calibrate_kv_codebooks (k-means KV codebooks) is not ported yet "
+        "(ROADMAP A9); attach_kv_codebooks gives the grid codebooks")

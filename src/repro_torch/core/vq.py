@@ -17,8 +17,10 @@ A grouped projection family (Wq|Wk|Wv, W_gate|W_up) is ONE wide VQWeight
 of shape (K, sum N_i) with one codebook set; ``splits`` records the member
 widths (``()`` for an ordinary weight).
 
-``fit_vq``/``kmeans`` and the KV half are not on the serving path and are
-not ported yet (ROADMAP A2, A9).
+The KV half (``KVQuantConfig``, ``kv_scale``, ``kv_grid_codebooks``,
+``kv_encode``, ``kv_decode``) vector-quantizes K/V cache slices against
+per-head codebooks. ``fit_vq``/``kmeans`` and the k-means KV codebooks
+(``fit_kv_codebooks``) are not ported yet (ROADMAP A2, A9).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import dataclasses
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -99,3 +102,163 @@ def split_grouped(vq: VQWeight) -> Tuple[VQWeight, ...]:
                             d=vq.d, n=vq.n))
         lo = hi
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# KV-cache vector quantization
+# ---------------------------------------------------------------------------
+#
+# A (.., Hk, hd) K/V slice stores as uint8 indices (.., Hk, R*G) with
+# G = hd // vec_d (R additive residual stages of 256 entries, one uint8
+# each) plus ONE fp scale per (token, head). Effective bits per channel
+# are 8*R/vec_d: KVQuantConfig(kv_bits=4) is 4-bit KV, kv_bits=2 2-bit.
+
+KV_VARIANTS = ("outlier", "rms")
+
+
+@dataclasses.dataclass(frozen=True)
+class KVQuantConfig:
+    """Frozen geometry/variant selector for vector-quantized KV caches.
+
+    Args:
+      kv_bits: effective stored bits per K/V channel (4 or 2).
+      residual: number of additive codebook stages R (>= 1); 8*R/vec_d
+        = kv_bits.
+      variant: per-(token, head) scale rule applied before assignment:
+        "outlier" divides by the absmax channel, "rms" by 2*rms.
+      entries: codebook entries per stage; fixed at 256 (one uint8).
+
+    Raises:
+      ValueError: on unknown variant, unsupported kv_bits, entries != 256,
+        or a (kv_bits, residual) pair with non-integral vec_d.
+    """
+
+    kv_bits: int = 4
+    residual: int = 1
+    variant: str = "outlier"
+    entries: int = 256
+
+    def __post_init__(self):
+        if self.kv_bits not in (2, 4):
+            raise ValueError(f"kv_bits must be 2 or 4, got {self.kv_bits}")
+        if self.entries != 256:
+            raise ValueError(
+                f"entries is fixed at 256 (uint8 index), got {self.entries}")
+        if self.variant not in KV_VARIANTS:
+            raise ValueError(
+                f"unknown variant {self.variant!r}; expected one of {KV_VARIANTS}")
+        if self.residual < 1 or (8 * self.residual) % self.kv_bits:
+            raise ValueError(
+                f"residual={self.residual} does not give integral vec_d at "
+                f"kv_bits={self.kv_bits}")
+
+    @property
+    def vec_d(self) -> int:
+        """Channels per code group (8*R/kv_bits)."""
+        return (8 * self.residual) // self.kv_bits
+
+    def groups(self, dim: int) -> int:
+        """Code groups per head of width ``dim``; dim must divide by vec_d."""
+        if dim % self.vec_d:
+            raise ValueError(
+                f"head dim {dim} not divisible by vec_d={self.vec_d}")
+        return dim // self.vec_d
+
+    def idx_width(self, dim: int) -> int:
+        """uint8 indices stored per (token, head): R * groups(dim)."""
+        return self.residual * self.groups(dim)
+
+
+def kv_scale(x: torch.Tensor, variant: str = "outlier") -> torch.Tensor:
+    """Per-(token, head) normalization scale over the trailing channel
+    axis: fp32 ``x.shape[:-1]``, clamped away from zero."""
+    xf = x.float()
+    if variant == "outlier":
+        s = xf.abs().amax(dim=-1)
+    elif variant == "rms":
+        s = 2.0 * torch.sqrt(torch.mean(xf * xf, dim=-1))
+    else:
+        raise ValueError(f"unknown variant {variant!r}")
+    return torch.clamp(s, min=1e-8)
+
+
+def kv_grid_codebooks(num_heads: int, dim: int, kvq: KVQuantConfig, *,
+                      device=None) -> torch.Tensor:
+    """Deterministic per-head codebooks: a uniform lattice over the
+    scale-normalized range [-1, 1]^vec_d, stage r shrunk by levels^-r
+    (vec_d=2: a 16-level int4 grid per channel; vec_d=4: 4 levels).
+    Returns fp32 (Hk, R, 256, vec_d), the same lattice for every head."""
+    vd, R = kvq.vec_d, kvq.residual
+    levels = int(round(kvq.entries ** (1.0 / vd)))
+    if levels ** vd != kvq.entries:
+        raise ValueError(
+            f"no integral grid: entries={kvq.entries} has no {vd}-th root "
+            "(fitted KV codebooks are not ported yet, ROADMAP A9)")
+    kvq.groups(dim)  # validate divisibility here, not at encode
+    axis = np.linspace(-1.0, 1.0, levels, dtype=np.float32)
+    grid = np.stack(np.meshgrid(*([axis] * vd), indexing="ij"),
+                    axis=-1).reshape(kvq.entries, vd)
+    stages = np.stack([grid * float(levels) ** (-r) for r in range(R)])
+    return torch.from_numpy(stages).to(device).expand(
+        num_heads, R, kvq.entries, vd).contiguous()
+
+
+def fit_kv_codebooks(*args, **kwargs):
+    """Not ported: the reference seeds its k-means from ``jax.random``."""
+    raise NotImplementedError(
+        "fit_kv_codebooks (k-means KV codebooks) is not ported yet "
+        "(ROADMAP A9); use kv_grid_codebooks")
+
+
+def kv_encode(x: torch.Tensor, cb: torch.Tensor, variant: str = "outlier"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize a K/V slice against per-head codebooks.
+
+    Args:
+      x: (..., Hk, dim) fp K or V values.
+      cb: (Hk, R, 256, vec_d) codebooks; the geometry is read off its shape.
+      variant: scale rule of the KVQuantConfig the codebooks belong to.
+
+    Returns:
+      (idx, scale): uint8 indices (..., Hk, R*G) and fp32 per-(token,
+      head) scales (..., Hk). Each stage takes the argmin of
+      ``|c|^2 - 2 x.c`` (the reference's formula; ``torch.argmin`` keeps
+      the first minimum as ``jnp.argmin`` does, so indices agree bit for
+      bit away from exact ties).
+    """
+    Hk, R, E, vd = cb.shape
+    lead = x.shape[:-2]
+    G = x.shape[-1] // vd
+    scale = kv_scale(x, variant)                            # (..., Hk)
+    resid = (x.float() / scale[..., None]).reshape(*lead, Hk, G, vd)
+    cbf = cb.float()
+    h_iota = torch.arange(Hk, device=x.device).reshape(
+        (1,) * len(lead) + (Hk, 1))
+    idxs = []
+    for r in range(R):
+        cbr = cbf[:, r]                                     # (Hk, E, vd)
+        dots = torch.einsum("...hgc,hec->...hge", resid, cbr)
+        d2 = torch.sum(cbr * cbr, dim=-1)                   # (Hk, E)
+        a = torch.argmin(d2[:, None, :] - 2.0 * dots, dim=-1)  # (..., Hk, G)
+        resid = resid - cbr[h_iota, a]
+        idxs.append(a.to(torch.uint8))
+    idx = torch.stack(idxs, dim=-2)                         # (..., Hk, R, G)
+    return idx.reshape(*lead, Hk, R * G), scale
+
+
+def kv_decode(idx: torch.Tensor, scale: torch.Tensor, cb: torch.Tensor
+              ) -> torch.Tensor:
+    """Dequantize-oracle reconstruction of a KV-VQ slice: idx (..., Hk,
+    R*G) uint8, scale (..., Hk) any float dtype, cb (Hk, R, 256, vec_d)
+    -> fp32 (..., Hk, G*vec_d)."""
+    Hk, R, E, vd = cb.shape
+    lead = idx.shape[:-2]
+    G = idx.shape[-1] // R
+    a = idx.reshape(*lead, Hk, R, G).long()
+    h_iota = torch.arange(Hk, device=idx.device).reshape(
+        (1,) * len(lead) + (Hk, 1, 1))
+    r_iota = torch.arange(R, device=idx.device).reshape(
+        (1,) * len(lead) + (1, R, 1))
+    chosen = cb.float()[h_iota, r_iota, a]                  # (..., Hk, R, G, vd)
+    xn = chosen.sum(dim=-3)                                 # (..., Hk, G, vd)
+    return xn.reshape(*lead, Hk, G * vd) * scale[..., None].float()

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the port, one package each, mirroring
 ``repro/kernels``: ``ops.py`` (the wrapper, its ``launches`` counter and
 plan backend), ``ref.py`` (the plain PyTorch version) and
-``csrc/<name>.cu`` (the kernel, built by ``build.py`` at first use).
+``csrc/<name>.cu`` (the kernel, built by ``build.py`` at first use). A
+kernel may share its package with another (``build.kernel_dir``):
+``flash_decode_kvq`` lives in ``flash_decode``, as in the reference.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. Only a launch on the card adds to its
@@ -12,13 +14,15 @@ from __future__ import annotations
 import importlib
 from typing import Dict
 
-from repro_torch.kernels.build import KERNEL_NAMES
+from repro_torch.kernels.build import KERNEL_NAMES, kernel_dir
 
 
 def wrappers() -> Dict[str, object]:
-    """name -> wrapper function of every ported kernel."""
+    """name -> wrapper function of every ported kernel (the function of
+    that name in its package's ``ops.py``)."""
     return {name: getattr(importlib.import_module(
-        f"repro_torch.kernels.{name}.ops"), name) for name in KERNEL_NAMES}
+        f"repro_torch.kernels.{kernel_dir(name)}.ops"), name)
+        for name in KERNEL_NAMES}
 
 
 def reset_launch_counts() -> None:

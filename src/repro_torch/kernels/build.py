@@ -1,7 +1,9 @@
 """Build and load the port's CUDA C++ kernels.
 
-Each kernel lives in ``kernels/<name>/csrc/<name>.cu`` behind a plain C
-interface. At first use it is compiled with ``nvcc`` for Hopper
+Each kernel lives in ``kernels/<dir>/csrc/<name>.cu`` behind a plain C
+interface, where ``<dir>`` is the kernel's package (``kernel_dir``: its
+own name, except for kernels that share a package with another, as
+``flash_decode_kvq`` shares ``flash_decode``, as in the reference). At first use it is compiled with ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library under
 ``build/repro_torch_kernels/`` at the repository root and loaded with
 ``ctypes``; the library name carries a hash of the source and flags, so
@@ -26,7 +28,10 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
-KERNEL_NAMES = ("fused_vq_matmul", "flash_decode", "dequant_gemv")
+KERNEL_NAMES = ("fused_vq_matmul", "flash_decode", "dequant_gemv",
+                "int8_gemm", "flash_decode_kvq")
+# kernels whose package is named after another kernel
+_SHARED_DIRS = {"flash_decode_kvq": "flash_decode"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,8 +46,13 @@ _LOCK = threading.Lock()
 BUILD_LOG: Dict[str, str] = {}
 
 
+def kernel_dir(name: str) -> str:
+    """The package under ``kernels/`` that holds kernel ``name``."""
+    return _SHARED_DIRS.get(name, name)
+
+
 def source_path(name: str) -> Path:
-    return _PKG / name / "csrc" / f"{name}.cu"
+    return _PKG / kernel_dir(name) / "csrc" / f"{name}.cu"
 
 
 def _nvcc() -> str:

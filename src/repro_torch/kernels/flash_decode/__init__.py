@@ -1,2 +1,3 @@
-from repro_torch.kernels.flash_decode.ops import flash_decode
-from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+from repro_torch.kernels.flash_decode.ops import flash_decode, flash_decode_kvq
+from repro_torch.kernels.flash_decode.ref import (flash_decode_kvq_ref,
+                                                  flash_decode_ref)

@@ -1,10 +1,14 @@
-"""Plain PyTorch version of the flash-decode kernel (``repro``'s
-``flash_decode_ref``): masked softmax over the whole fp cache."""
+"""Plain PyTorch versions of the flash-decode kernels (``repro``'s
+``flash_decode_ref`` and ``flash_decode_kvq_ref``): masked softmax over
+the whole fp cache; for the KV-VQ cache, the dequantize oracle —
+reconstruct the fp cache through ``core.vq.kv_decode``, then attend."""
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.core.vq import kv_decode
 
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -21,3 +25,16 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def flash_decode_kvq_ref(q: torch.Tensor, k_idx: torch.Tensor,
+                         v_idx: torch.Tensor, k_s: torch.Tensor,
+                         v_s: torch.Tensor, lengths: torch.Tensor,
+                         cb_k: torch.Tensor, cb_v: torch.Tensor
+                         ) -> torch.Tensor:
+    """q (B, H, hd), k_idx/v_idx (B, S, Hk, R*G) uint8, k_s/v_s (B, S,
+    Hk), lengths (B,), cb_k/cb_v (Hk, R, 256, vd) -> (B, H, hd) in q's
+    dtype."""
+    k = kv_decode(k_idx, k_s, cb_k)
+    v = kv_decode(v_idx, v_s, cb_v)
+    return flash_decode_ref(q, k, v, lengths)

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.core.quantize import quantize_params
+from repro_torch.core.vq import KVQuantConfig
 from repro_torch.models import transformer
 from repro_torch.models.common import ModelConfig, RunConfig
 
@@ -58,10 +59,14 @@ class Model:
         return torch.cat([logits[..., :self.cfg.vocab_size], neg], dim=-1)
 
     def init_cache(self, batch: int, max_len: int, dtype=None, *,
-                   device: DeviceLike = None) -> Any:
+                   device: DeviceLike = None, kv_int8: bool = False,
+                   kvq: Optional[KVQuantConfig] = None) -> Any:
+        """Decode caches: fp, or with ``kv_int8`` / ``kvq`` (a
+        ``core.vq.KVQuantConfig``) the int8 or KV-VQ layout."""
         return transformer.init_cache(self.cfg, batch, max_len,
                                       dtype or self.cfg.act_dtype,
-                                      resolve_device(device))
+                                      resolve_device(device),
+                                      kv_int8=kv_int8, kvq=kvq)
 
     def prefill(self, params, batch: Dict[str, Any], rc: RunConfig):
         return self.forward(params, batch, rc.replace(mode="prefill"))

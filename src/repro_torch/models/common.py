@@ -1,8 +1,10 @@
 """Shared model building blocks of the dense family (the subset of
 ``repro/models/common.py`` the serving path reaches): configs, linear
-layers (dense / VQ through the planner), rmsnorm, rotary embeddings,
-blocked prefill attention, decode attention over the contiguous fp KV
-cache, the SwiGLU MLP, embedding and LM head.
+layers (dense / VQ / INT8 through the planner), rmsnorm, rotary
+embeddings, blocked prefill attention, decode attention over the
+contiguous KV cache — fp, int8 (``k``/``v`` int8 + bf16 ``k_s``/``v_s``)
+or KV-VQ (uint8 codebook indices + bf16 scales, the codebooks under the
+attention params' ``kv_cb``) — the SwiGLU MLP, embedding and LM head.
 
 Params are plain dicts of tensors (VQWeight nodes after quantization);
 every initializer draws from an explicit ``torch.Generator``.
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.core import ops as core_ops
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.plan import PlanPolicy
+from repro_torch.core.vq import KVQuantConfig, kv_decode, kv_encode
 
 Params = Any
 
@@ -97,11 +100,14 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     """Static execution-mode knobs: the run ``mode`` (train | prefill |
-    decode), the matmul ``plan_policy`` and the prefill attention chunk."""
+    decode), the matmul ``plan_policy``, the prefill attention chunk and
+    ``kv_vq``, the KV-VQ config whose scale variant decode appends encode
+    with (the cache layout itself is read off the cache's leaves)."""
 
     mode: str = "train"
     plan_policy: PlanPolicy = PlanPolicy()
     attn_chunk: int = 1024
+    kv_vq: Optional[KVQuantConfig] = None
 
     @property
     def policy(self) -> PlanPolicy:
@@ -295,13 +301,42 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return _attn_chunk_apply(torch.softmax(s, dim=-1), v_cache).to(q.dtype)
 
 
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8 quantization of a K/V slice: x
+    (B, S, Hk, hd) -> (int8 values, bf16 (B, S, Hk) scales)."""
+    absmax = x.float().abs().amax(dim=-1)
+    scale = torch.clamp(absmax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(x.float() / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _kvq_decode_attention(q, k_idx, v_idx, k_s, v_s, lengths, cb_k, cb_v,
+                          rc: RunConfig) -> torch.Tensor:
+    """Attend over a KV-VQ cache. A single query resolves through the
+    planner (``kind="kvq_attn"``: the dequantize oracle under
+    impl="torch", kernel B7 under impl="cuda"); several queries
+    dequantize and attend, as the reference does."""
+    if q.shape[1] == 1:
+        B, S, Hk, idx_w = k_idx.shape
+        spec = plan_mod.kvq_attention_spec(
+            B=B, S=S, H=q.shape[2], Hk=Hk, hd=q.shape[3], idx_width=idx_w,
+            entries=cb_k.shape[-2], x_dtype=q.dtype, out_dtype=q.dtype)
+        return plan_mod.plan(spec, rc.policy).execute(
+            (q, k_idx, v_idx, k_s, v_s, lengths, cb_k, cb_v), None)
+    return decode_attention(q, kv_decode(k_idx, k_s, cb_k),
+                            kv_decode(v_idx, v_s, cb_v), lengths)
+
+
 def attention_fwd(p: Params, x: torch.Tensor, rc: RunConfig, cfg: ModelConfig,
                   *, positions: torch.Tensor, cache: Optional[Dict] = None
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Causal self-attention over the contiguous fp cache. Decode writes
-    the new K/V rows and ``len`` into ``cache`` in place (positions past
-    capacity are dropped) and attends through ``flash_decode`` under
-    ``impl="cuda"`` (one new token)."""
+    """Causal self-attention. Decode writes the new tokens' K/V rows —
+    fp, int8-quantized or KV-VQ-encoded, as the cache's leaves say — and
+    ``len`` into ``cache`` in place (positions past capacity are dropped),
+    then attends: the fp cache through ``flash_decode`` under
+    ``impl="cuda"`` (one new token), the KV-VQ cache through its planned
+    backend, the int8 cache through plain torch (the reference has no
+    kernel for it)."""
     B, S, _ = x.shape
     H, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "wqkv" in p:
@@ -323,16 +358,38 @@ def attention_fwd(p: Params, x: torch.Tensor, rc: RunConfig, cfg: ModelConfig,
         cache_len = cache["len"]                                   # (B,)
         slot = cache_len[:, None] + torch.arange(S, device=x.device,
                                                  dtype=cache_len.dtype)
-        fits = (slot < Sc)[..., None, None]
+        fits = slot < Sc                                           # (B, S)
         slot = slot.clamp(max=Sc - 1).long()
         b_iota = torch.arange(B, device=x.device)[:, None]
-        for name, new in (("k", k), ("v", v)):
+
+        kvq_cache = "k_s" in cache and cache["k"].dtype == torch.uint8
+        if kvq_cache:
+            variant = rc.kv_vq.variant if rc.kv_vq is not None else "outlier"
+            cb_k, cb_v = p["kv_cb"]["k"], p["kv_cb"]["v"]
+            (k, k_s), (v, v_s) = (kv_encode(k, cb_k, variant),
+                                  kv_encode(v, cb_v, variant))
+            rows = {"k": k, "v": v, "k_s": k_s, "v_s": v_s}
+        elif "k_s" in cache:  # int8 cache
+            (k, k_s), (v, v_s) = _quantize_kv(k), _quantize_kv(v)
+            rows = {"k": k, "v": v, "k_s": k_s, "v_s": v_s}
+        else:
+            rows = {"k": k, "v": v}
+        for name, new in rows.items():
             buf = cache[name]
-            buf[b_iota, slot] = torch.where(fits, new.to(buf.dtype),
+            keep = fits.reshape(fits.shape + (1,) * (new.dim() - 2))
+            buf[b_iota, slot] = torch.where(keep, new.to(buf.dtype),
                                             buf[b_iota, slot])
         cache["len"].copy_(cache_len + S)
         new_len = cache["len"]
-        if rc.policy.impl == "cuda" and S == 1:
+        if kvq_cache:
+            o = _kvq_decode_attention(q, cache["k"], cache["v"], cache["k_s"],
+                                      cache["v_s"], new_len, cb_k, cb_v, rc)
+        elif "k_s" in cache:
+            bf = torch.bfloat16
+            o = decode_attention(
+                q, cache["k"].to(bf) * cache["k_s"][..., None].to(bf),
+                cache["v"].to(bf) * cache["v_s"][..., None].to(bf), new_len)
+        elif rc.policy.impl == "cuda" and S == 1:
             from repro_torch.kernels.flash_decode import flash_decode
 
             o = flash_decode(q, cache["k"], cache["v"], new_len)

@@ -2,8 +2,9 @@
 without MoE/MLA). The reference scans a stacked layer axis; here
 ``params["layers"]`` is a list of per-layer dicts walked by a Python
 loop, and the decode cache keeps the reference's stacked layout
-``{"body": {"k": (L, B, S, Hk, hd), "v": ..., "len": (L, B)}}`` so each
-layer reads and updates its slice in place.
+``{"body": {"k": (L, B, S, Hk, hd), "v": ..., "len": (L, B)}}`` (plus
+``k_s``/``v_s`` (L, B, S, Hk) scale leaves for the int8 and KV-VQ
+layouts) so each layer reads and updates its slice in place.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.vq import KVQuantConfig
 from repro_torch.models import common as cm
 from repro_torch.models.common import ModelConfig, RunConfig
 
@@ -66,8 +68,7 @@ def forward(params: Any, tokens: torch.Tensor, rc: RunConfig,
     body = None if caches is None else caches["body"]
     fresh = []
     for i, lp in enumerate(params["layers"]):
-        cache = None if body is None else {
-            "k": body["k"][i], "v": body["v"][i], "len": body["len"][i]}
+        cache = None if body is None else {n: t[i] for n, t in body.items()}
         x, nc = _layer_fwd(lp, x, rc, cfg, positions=positions, cache=cache)
         if body is None and nc is not None:
             fresh.append(nc)
@@ -82,14 +83,28 @@ def forward(params: Any, tokens: torch.Tensor, rc: RunConfig,
     return logits, None
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device
-               ) -> Dict[str, Any]:
-    """Zeroed stacked decode cache (contiguous fp; ring, quantized and
-    paged layouts are not ported yet)."""
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"body": {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "len": torch.zeros((cfg.num_layers, batch), dtype=torch.int32,
-                           device=device),
-    }}
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device, *,
+               kv_int8: bool = False,
+               kvq: Optional[KVQuantConfig] = None) -> Dict[str, Any]:
+    """Zeroed stacked decode cache, contiguous: fp ``k``/``v`` in
+    ``dtype``; with ``kv_int8``, int8 ``k``/``v`` and bf16 per-(token,
+    head) ``k_s``/``v_s`` scales; with ``kvq``, uint8 codebook indices
+    (``kvq.idx_width(head_dim)`` per token and head) and the same bf16
+    scale leaves. Ring and paged layouts are not ported yet."""
+    if kvq is not None and kv_int8:
+        raise ValueError("kvq is mutually exclusive with kv_int8")
+    L, Hk = cfg.num_layers, cfg.num_kv_heads
+    lead = (L, batch, max_len, Hk)
+    body = {"len": torch.zeros((L, batch), dtype=torch.int32, device=device)}
+    if kvq is not None or kv_int8:
+        width, kdt = ((kvq.idx_width(cfg.head_dim), torch.uint8)
+                      if kvq is not None else (cfg.head_dim, torch.int8))
+        for n in ("k", "v"):
+            body[n] = torch.zeros(lead + (width,), dtype=kdt, device=device)
+            body[n + "_s"] = torch.zeros(lead, dtype=torch.bfloat16,
+                                         device=device)
+    else:
+        for n in ("k", "v"):
+            body[n] = torch.zeros(lead + (cfg.head_dim,), dtype=dtype,
+                                  device=device)
+    return {"body": body}

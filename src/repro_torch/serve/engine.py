@@ -2,10 +2,17 @@
 contiguous non-speculative subset).
 
 Prefill runs per request at its power-of-two length bucket (every VQ
-linear through the dequant kernel); decode runs as one batched step over
+linear through the dequant kernel; dense linears through the INT8 GEMM
+under ``PlanPolicy.int8_prefill``); decode runs as one batched step over
 all slots (every VQ linear through the fused EVA kernel, attention
 through flash-decode), so every streamed index tile serves every active
 request. Free slots are fed token 0 at position 0.
+
+``EngineConfig.kv_bits`` selects the KV cache layout: 16 = fp, 8 = int8
+values + bf16 scales (attended through plain torch), 4/2 = KV-VQ uint8
+codebook indices + bf16 scales (the grid codebooks attach to the params;
+decode attention through the KV-VQ flash-decode kernel). Prefill runs in
+fp and its cache is quantized explicitly before slot insertion.
 
     uid = engine.submit(GenerationRequest(...))
     events = engine.step()
@@ -15,8 +22,8 @@ request. Free slots are fed token 0 at position 0.
 The decode step runs eagerly; ``trace_counts["decode"]`` counts builds of
 the decode step (one per engine) and ``trace_counts["prefill"]`` the
 prefill buckets used so far — the steps a CUDA-graph capture would cover.
-Paged KV (ROADMAP A8), compressed KV (A9), speculative decoding (A10)
-and the resilience layer (A11) are not ported yet.
+Paged KV (ROADMAP A8), speculative decoding (A10) and the resilience
+layer (A11) are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,12 +37,16 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device, tensor_device
+from repro_torch.core.quantize import attach_kv_codebooks, kv_codebook_tree
+from repro_torch.core.vq import KVQuantConfig
 from repro_torch.models.api import Model
 from repro_torch.models.common import RunConfig
 from repro_torch.serve import api
 from repro_torch.serve.api import (GenerationRequest, RequestOutput,
                                    SamplingParams, StreamEvent)
-from repro_torch.serve.kvcache import cache_bytes, pad_prefill_cache
+from repro_torch.serve.kvcache import (cache_bytes, encode_prefill_cache,
+                                       pad_prefill_cache,
+                                       quantize_prefill_cache_int8)
 from repro_torch.serve.metrics import EngineMetrics
 from repro_torch.serve.scheduler import QueueFull, Scheduler, TrackedRequest
 
@@ -61,7 +72,9 @@ class EngineConfig:
     max_queue: int = 256               # submit() rejects past this bound
     max_retained: int = 1024           # finished outputs kept for output()
     paged: bool = False                # ROADMAP A8
-    kv_bits: int = 16                  # ROADMAP A9
+    # bits per stored KV channel: 16 = fp, 8 = int8 + k_s/v_s scales,
+    # 4/2 = KV-VQ (uint8 codebook indices; codebooks attach to params)
+    kv_bits: int = 16
     speculate_k: int = 0               # ROADMAP A10
 
 
@@ -71,10 +84,9 @@ class Engine:
         if ecfg.paged:
             raise NotImplementedError(
                 "paged KV caches are not ported yet (ROADMAP A8)")
-        if ecfg.kv_bits != 16:
-            raise NotImplementedError(
-                f"kv_bits={ecfg.kv_bits}: compressed KV caches are not ported "
-                "yet (ROADMAP A9)")
+        if ecfg.kv_bits not in (16, 8, 4, 2):
+            raise ValueError(
+                f"kv_bits={ecfg.kv_bits} unsupported; expected 16/8/4/2")
         if ecfg.speculate_k:
             raise NotImplementedError(
                 "speculative decoding is not ported yet (ROADMAP A10)")
@@ -83,6 +95,21 @@ class Engine:
         if p_dev is not None and p_dev.type != self.device.type:
             raise ValueError(f"params live on {p_dev}, engine runs on "
                              f"{self.device}")
+        # the compressed KV layout; the cache kwargs are passed only when
+        # one is active, so model stubs need not accept them
+        self.kvq: Optional[KVQuantConfig] = None
+        self.kv_int8 = ecfg.kv_bits == 8
+        self._cache_kw: Dict[str, Any] = (
+            {"kv_int8": True} if self.kv_int8 else {})
+        if ecfg.kv_bits in (4, 2):
+            self.kvq = KVQuantConfig(kv_bits=ecfg.kv_bits)
+            try:  # keep codebooks the caller attached
+                self._kv_cb = kv_codebook_tree(params)
+            except ValueError:
+                params = attach_kv_codebooks(params, model.cfg, self.kvq)
+                self._kv_cb = kv_codebook_tree(params)
+            rc = rc.replace(kv_vq=self.kvq)
+            self._cache_kw["kvq"] = self.kvq
         self.model = model
         self.params = params
         self.rc = rc
@@ -90,7 +117,7 @@ class Engine:
         self.sched = Scheduler(ecfg.num_slots, max_queue=ecfg.max_queue)
         self.metrics_counters = EngineMetrics(num_slots=ecfg.num_slots)
         self.caches = model.init_cache(ecfg.num_slots, ecfg.max_len,
-                                       device=self.device)
+                                       device=self.device, **self._cache_kw)
         self.metrics_counters.kv_bytes_in_use = cache_bytes(self.caches)
 
         B = ecfg.num_slots
@@ -180,6 +207,17 @@ class Engine:
             [bool(self.greedy[slot])])
         return tok, api.token_logprobs(logits, tok)
 
+    def _encode_cache(self, cache: Any) -> Any:
+        """Quantize an fp prefill cache into the engine's compressed KV
+        layout (kv_bits < 16) before slot insertion, whose ``copy_`` would
+        truncate rather than quantize. No-op at kv_bits=16."""
+        with torch.no_grad():
+            if self.kvq is not None:
+                return encode_prefill_cache(cache, self._kv_cb, self.kvq)
+            if self.kv_int8:
+                return quantize_prefill_cache_int8(cache)
+        return cache
+
     def _prefill_one(self, slot: int, tr: TrackedRequest
                      ) -> Tuple[int, bool]:
         """Prefill the request in ``slot``, sample its first token, insert
@@ -211,7 +249,7 @@ class Engine:
         if not bool(torch.isfinite(last).all()):
             return int(tok[0]), True
         _insert_slot(self.caches, pad_prefill_cache(
-            cache, self.ecfg.max_len, true_len=c), slot)
+            self._encode_cache(cache), self.ecfg.max_len, true_len=c), slot)
         tok = int(tok[0])
         stop = sorted(req.stop_set)
         self.positions[slot] = c
