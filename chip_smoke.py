@@ -10,18 +10,30 @@ Phases (any failure exits non-zero):
   3. check each kernel against its plain PyTorch version at the serving
      paths' full-width llama2-7b shapes (tolerance, bitwise determinism)
      and time it (CUDA events, median, L2 flushed between runs) beside its
-     plain version, one PyTorch library call computing the same function,
-     and its bound on this card;
+     plain version, one PyTorch library call computing the same function
+     (where one exists), and its bound on this card; the two-kernel EVA
+     split (vq_gemm, then oc_lookup) is also held against the fused
+     kernel;
   4. serve 8 greedy requests on full-width llama2-7b (32 layers, 2-bit VQ
      weights drawn on the card from a seed, bf16 activations, 4 slots,
-     max_len 512) through the Engine twice, counting kernel launches per
-     phase: with the fp KV cache (kv_bits=16: fused_vq_matmul,
-     flash_decode, dequant_gemv), then with the 4-bit KV-VQ cache and INT8
-     prefill (kv_bits=4, int8_prefill: fused_vq_matmul, flash_decode_kvq,
+     max_len 512) through the Engine, counting kernel launches per phase:
+     `serve`, the fp KV cache (kv_bits=16: fused_vq_matmul, flash_decode,
+     dequant_gemv); `serve_kvq`, the 4-bit KV-VQ cache and INT8 prefill
+     (kv_bits=4, int8_prefill: fused_vq_matmul, flash_decode_kvq,
      dequant_gemv, int8_gemm); after each, one decode step through the
      plain versions, for the logits drift, and a profile of the decode
-     step;
-  5. a {"kernels": [...]} summary line, the card line, and the result
+     step. Both rank the planner's backends analytically;
+  5. `calibration`: time `plan.execute` of the two decode EVA backends
+     (eva_fused, eva_split) at the four decode linears x M in {1, 2, 4,
+     8}, fit the port's cost model to those rows, print what the fitted
+     model picks at each decode site and save the fit to
+     build/calibration_torch.json (never the default calibration path);
+  6. `serve_split`, last: the default planner ranks with a pinned
+     calibration that prices eva_fused above eva_split, and the fp-cache
+     phase is served again through vq_gemm + oc_lookup (fused_vq_matmul
+     must launch 0 times), with its plain decode step and profile; the
+     planner is restored afterwards;
+  7. a {"kernels": [...]} summary line, the card line, and the result
      line {"ok": true, "device": {...}} last.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
@@ -44,6 +56,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # H100 SXM, fp32 outside the tensor cores
 INT8_OPS = 1979e12             # H100 SXM, dense int8 tensor cores
 SLOTS, MAX_LEN, N_REQUESTS, MAX_NEW = 4, 512, 8, 32
+HOST_REPS = 50                 # back-to-back calls per host-clock timing
 SEED = 0
 LINEARS = (("wqkv", 4096, 12288), ("wo", 4096, 4096), ("gu", 4096, 22016),
            ("down", 11008, 4096))
@@ -53,13 +66,19 @@ REPLACES = {
     "dequant_gemv": "src/repro/kernels/dequant_gemv/kernel.py:20",
     "int8_gemm": "src/repro/kernels/int8_gemm/kernel.py:22",
     "flash_decode_kvq": "src/repro/kernels/flash_decode/kernel.py:73",
+    "vq_gemm": "src/repro/kernels/vq_gemm/kernel.py:24",
+    "oc_lookup": "src/repro/kernels/oc_lookup/kernel.py:33",
 }
+# the two EVA backends that match every decode VQ site
+DECODE_BACKENDS = ("eva_fused", "eva_split")
 # the CUDA functions of each kernel, as the profiler names them
 KERNEL_FUNCTIONS = {
     "fused_vq_kernel": "fused_vq_matmul", "split_reduce_kernel":
     "fused_vq_matmul (split reduce)", "flash_decode_kernel": "flash_decode",
     "flash_decode_kvq_kernel": "flash_decode_kvq",
     "dequant_gemv_kernel": "dequant_gemv", "int8_gemm_kernel": "int8_gemm",
+    "vq_gemm_kernel": "vq_gemm", "oc_lookup_kernel": "oc_lookup",
+    "oc_split_reduce_kernel": "oc_lookup (split reduce)",
 }
 
 
@@ -117,9 +136,11 @@ def check_kernels(torch, timer):
                                                   flash_decode_ref)
     from repro_torch.kernels.fused_vq_matmul import fused_vq_matmul
     from repro_torch.kernels.int8_gemm import int8_gemm, int8_gemm_ref
+    from repro_torch.kernels.oc_lookup import eva_split_matmul, oc_lookup
+    from repro_torch.kernels.vq_gemm import vq_gemm
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows = {n: [] for n in REPLACES}
+    rows = {n: [] for n in (*REPLACES, "eva_split_matmul")}
 
     def record(kernel, case, got, want, tol, fn, plain, library, nbytes, flops,
                peak=FP32_FLOPS):
@@ -129,7 +150,8 @@ def check_kernels(torch, timer):
         b_ms, b_by = bound_ms(nbytes, flops, peak)
         row = {"kernel": kernel, "case": case, "max_abs_err": err, "tol": tol,
                "bitwise_equal": det, "kernel_ms": timer(fn),
-               "plain_ms": timer(plain), "library_ms": timer(library),
+               "plain_ms": timer(plain),
+               "library_ms": timer(library) if library else None,
                "bound_ms": b_ms, "bound_by": b_by}
         emit(row)
         if not (err <= tol and det):
@@ -161,6 +183,55 @@ def check_kernels(torch, timer):
                    want, tol, run, plain, lambda: torch.matmul(xb, w),
                    nbytes, flops)
             del vq, w
+
+    # the two-kernel split: vq_gemm (B4) at the decode linears and one
+    # ragged shape, oc_lookup (B5) fed B4's output codebook, and the pair
+    # against its plain version and the fused kernel at M = slots
+    cases = [(M, name, K, N) for M in (1, SLOTS) for name, K, N in LINEARS]
+    for M, name, K, N in cases + [(3, "ragged", 296, 1030)]:
+        vq = synthetic_vq(gen, K, N, C=C, device="cuda")
+        vq.scale = torch.rand(N, generator=gen, device="cuda") + 0.5
+        x = torch.randn((M, K), generator=gen, device="cuda")
+        V, cb = K // 8, vq.codebooks
+        case = {"M": M, "linear": name, "K": K, "N": N}
+        xf = x.reshape(M * V, 8)
+        run = lambda: vq_gemm(x, cb)
+        O, want = run(), vq_gemm(x, cb, use_kernel=False)
+        record("vq_gemm", case, O, want,
+               1e-4 * max(1.0, want.abs().max().item()), run,
+               lambda: vq_gemm(x, cb, use_kernel=False),
+               lambda: torch.matmul(xf[None], cb),
+               M * K * 4 + C * 8 * 256 * 4 + C * M * V * 256 * 4,
+               C * M * V * 256 * 8 * 2)
+        run = lambda: oc_lookup(O, vq.idx, vq.scale)
+        got = run()
+        want = oc_lookup(O, vq.idx, vq.scale, use_kernel=False)
+        # no single PyTorch call computes the lookup-and-add
+        record("oc_lookup", case, got, want,
+               1e-4 * max(1.0, want.abs().max().item()), run,
+               lambda: oc_lookup(O, vq.idx, vq.scale, use_kernel=False), None,
+               C * V * N + C * M * V * 256 * 4 + N * 4 + M * N * 4,
+               C * M * V * N + M * N)
+        if M == SLOTS:
+            xb, w = x.to(torch.bfloat16), dequantize(vq).to(torch.bfloat16)
+            run = lambda: eva_split_matmul(x, vq, out_dtype=torch.float32)
+            got = run()
+            want = eva_split_matmul(x, vq, out_dtype=torch.float32,
+                                    use_kernel=False)
+            tol = 1e-4 * max(1.0, want.abs().max().item())
+            fused = fused_vq_matmul(x, vq, out_dtype=torch.float32)
+            vs_fused = (got - fused).abs().max().item()
+            emit({"phase": "eva_split_vs_fused", "case": case,
+                  "max_abs_diff": vs_fused, "tol": tol})
+            assert vs_fused <= tol, f"eva_split vs fused {case}: {vs_fused}"
+            record("eva_split_matmul", case, got, want, tol, run,
+                   lambda: eva_split_matmul(x, vq, out_dtype=torch.float32,
+                                            use_kernel=False),
+                   lambda: torch.matmul(xb, w),
+                   M * K * 4 + C * V * N + C * 8 * 256 * 4 + N * 4 + M * N * 4,
+                   C * M * V * 256 * 8 * 2 + C * M * V * N + M * N)
+            del w
+        del vq, O
 
     B, H, hd = SLOTS, 32, 128
     lengths = torch.tensor([1, MAX_LEN, 200, 64], dtype=torch.int32,
@@ -234,10 +305,11 @@ def check_kernels(torch, timer):
     return rows
 
 
-def serve(torch):
-    """Phase 4: full-width llama2-7b through the Engine, first with the fp
-    KV cache, then with the 4-bit KV-VQ cache and INT8 prefill. Returns
-    each phase's kernel launches."""
+def serve(torch, timer):
+    """Phases 4-6: full-width llama2-7b through the Engine, first with the
+    fp KV cache, then with the 4-bit KV-VQ cache and INT8 prefill; the
+    calibration of the decode backends; last, the fp cache again through
+    the two-kernel split. Returns each serve phase's kernel launches."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.plan import PlanPolicy
@@ -279,7 +351,118 @@ def serve(torch):
           sum(same) / (N_REQUESTS * MAX_NEW), "first_divergence": first,
           "kv_bytes_in_use": {"16": fp["kv_bytes"], "4": kvq["kv_bytes"]},
           "kv_bytes_ratio": fp["kv_bytes"] / kvq["kv_bytes"]})
-    return {"serve": fp["launches"], "serve_kvq": kvq["launches"]}
+    calibration(torch, timer, cfg, params)
+    split = serve_split(torch, model, params, prompts)
+    same = [sum(a == b for a, b in zip(fp["tokens"][i], split["tokens"][i]))
+            for i in range(N_REQUESTS)]
+    emit({"phase": "split_vs_fused", "greedy_token_agreement":
+          sum(same) / (N_REQUESTS * MAX_NEW)})
+    return {"serve": fp["launches"], "serve_kvq": kvq["launches"],
+            "serve_split": split["launches"]}
+
+
+def calibration(torch, timer, cfg, params):
+    """Phase 5: time each decode EVA backend's ``plan.execute`` at the four
+    decode linears x M in {1, 2, 4, 8} (eva-bench-rows/v1 rows), fit the
+    port's cost model to them and print the choice the fitted model makes
+    at every decode site of the served model. The fit is saved under
+    build/, never at the default calibration path."""
+    from repro_torch.core import calibrate
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.vq import synthetic_vq
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    act = cfg.act_dtype
+    policy = plan_mod.PlanPolicy(vq_mode="eva", impl="cuda")
+    rows = []
+    for name, K, N in LINEARS:
+        vq = synthetic_vq(gen, K, N, C=2, device="cuda")
+        for M in (1, 2, 4, 8):
+            x = torch.randn((M, K), generator=gen, device="cuda").to(act)
+            spec = plan_mod.LinearSpec.for_vq(vq, M=M, x_dtype=act,
+                                              out_dtype=act)
+            plans = plan_mod.candidate_plans(spec, policy)
+            for backend in DECODE_BACKENDS:
+                pl = plans[backend]
+                us = timer(lambda: pl.execute(x, vq)) * 1e3
+                # back to back on the host clock: the decode step is
+                # host-bound, so the host's cost per call is shown too
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(HOST_REPS):
+                    pl.execute(x, vq)
+                torch.cuda.synchronize()
+                host_us = (time.perf_counter() - t0) * 1e6 / HOST_REPS
+                c = pl.cost
+                rows.append({
+                    "module": "chip_smoke", "name": f"calibration/{name}/M{M}",
+                    "us_per_call": us,
+                    "derived": {"backend": backend, "plan": pl.describe(),
+                                "macs": c.macs, "lookup_adds": c.lookup_adds,
+                                "weight_bytes": c.weight_bytes,
+                                "intermediate_bytes": c.intermediate_bytes,
+                                "launches": c.launches}})
+                emit({"phase": "calibration_row", "backend": backend,
+                      "linear": name, "M": M, "us_per_call": us,
+                      "host_clock_us_per_call": host_us})
+        del vq
+    fit = calibrate.fit_calibration({"schema": "eva-bench-rows/v1",
+                                     "rows": rows},
+                                    source="chip_smoke.py calibration phase")
+    for backend in DECODE_BACKENDS:
+        e = fit.get(backend)
+        assert e is not None and e.rows >= calibrate.MIN_FIT_ROWS, backend
+        emit({"phase": "calibration_fit", "backend": backend,
+              "overhead_us": e.overhead_us, "us_per_mac": e.us_per_mac,
+              "us_per_add": e.us_per_add, "us_per_byte": e.us_per_byte,
+              "rows": e.rows, "mean_abs_rel_err": e.mean_abs_rel_err})
+    planner = plan_mod.Planner(calibration=fit)
+    choice = {}
+    for path, pl in plan_mod.preplan_params(params, policy, mode="decode",
+                                            m=SLOTS, act_dtype=act,
+                                            planner=planner):
+        if pl.spec.kind == "vq":
+            choice.setdefault(path[-1], (pl.backend, pl.provenance,
+                                         pl.describe_ranking()))
+    emit({"phase": "calibration_choice", "M": SLOTS,
+          "sites": {k: {"backend": b, "provenance": p, "ranking": r}
+                    for k, (b, p, r) in choice.items()}})
+    out = ROOT / "build" / "calibration_torch.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    calibrate.save_calibration(fit, str(out))
+
+
+def serve_split(torch, model, params, prompts):
+    """Phase 6: the fp-cache serve phase with the default planner pinned
+    to the two-kernel split (a calibration that prices eva_fused above
+    eva_split, with enough rows to be used); the planner is restored
+    after, whatever happens."""
+    from repro_torch.core import calibrate
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.plan import PlanPolicy
+    from repro_torch.models import RunConfig
+    from repro_torch.serve import EngineConfig
+
+    planner = plan_mod.default_planner()
+    before = planner.calibration
+    entry = lambda us: calibrate.BackendCalibration(
+        overhead_us=us, us_per_mac=0.0, us_per_add=0.0, us_per_byte=0.0,
+        rows=calibrate.MIN_FIT_ROWS)
+    planner.reload_calibration(calibrate.Calibration(
+        calibrate.SCHEMA, "pinned: eva_split below eva_fused",
+        {"eva_fused": entry(1e6), "eva_split": entry(1.0)}))
+    planner.cache_clear()
+    try:
+        out = serve_phase(
+            torch, model, params, prompts, "serve_split",
+            RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda")),
+            EngineConfig(num_slots=SLOTS, max_len=MAX_LEN),
+            ("vq_gemm", "oc_lookup", "flash_decode", "dequant_gemv"))
+    finally:
+        planner.reload_calibration(before)
+        planner.cache_clear()
+    assert out["launches"]["fused_vq_matmul"] == 0, out["launches"]
+    return out
 
 
 def serve_phase(torch, model, params, prompts, name, rc, ecfg, required):
@@ -421,14 +604,16 @@ def main() -> int:
                     for n, log in build.BUILD_LOG.items()}})
     timer = Timer(torch)
     rows = check_kernels(torch, timer)
-    launches = serve(torch)
+    launches = serve(torch, timer)
     phase_of = {"flash_decode": "serve", "flash_decode_kvq": "serve_kvq",
-                "int8_gemm": "serve_kvq"}
+                "int8_gemm": "serve_kvq", "vq_gemm": "serve_split",
+                "oc_lookup": "serve_split"}
 
     summary = []
     for name, replaces in REPLACES.items():
         rs = rows[name]
-        if name == "fused_vq_matmul":  # one decode layer at M = slots
+        if name in ("fused_vq_matmul", "vq_gemm", "oc_lookup"):
+            # one decode layer at M = slots
             rs = [r for r in rs if r["case"]["M"] == SLOTS]
         elif name in ("flash_decode_kvq", "int8_gemm"):  # the served case
             rs = [r for r in rs if r["case"].get("kv_bits", 4) == 4
@@ -443,7 +628,8 @@ def main() -> int:
             "ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"),
             "bound_ms": tot("bound_ms"),
             "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"],
-            "library_ms": tot("library_ms")})
+            "library_ms": (None if any(r["library_ms"] is None for r in rs)
+                           else tot("library_ms"))})
     emit({"kernels": summary})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,8 @@ subset of ``repro/core/plan.py`` the serving path needs).
   PlanPolicy : frozen, validated execution policy (vq_mode, impl,
                int8_prefill).
   MatmulPlan : the chosen backend, its resolved config and cost estimate,
-               and the ``run`` callable.
+               the predicted time that ranked it, and the ``run``
+               callable.
   Planner    : LRU cache (LinearSpec, PlanPolicy) -> MatmulPlan; the same
                pair returns the SAME plan object.
 
@@ -19,18 +20,36 @@ lazily on the first plan):
   dense    : ``fp`` (``torch.matmul``) on any impl;
   int8     : ``int8_torch`` | ``int8_cuda`` (kernel B6) — dense prefill
              matmuls under ``int8_prefill``;
-  vq       : ``eva_fused`` (B1) in decode, ``dequant`` (B3) elsewhere;
+  vq       : ``eva_fused`` (B1) or ``eva_split`` (B4 ``vq_gemm`` then B5
+             ``oc_lookup``) in decode, ``dequant`` (B3) elsewhere;
   kvq_attn : ``kvq_dequant_torch`` | ``kvq_flash_cuda`` (B7) — decode
              attention over a vector-quantized KV cache.
 
 ``impl="cuda"`` runs the hand-written kernels (their wrappers take the
 plain version only for tensors on the CPU); ``impl="torch"`` runs the
 plain PyTorch formulations on any device — the reference a run on the
-card is compared with. Cost ranking, calibration and backend quarantine
-are not ported (ROADMAP A4), so exactly one backend matches each pair:
-where the reference lets ``int8_jnp`` and ``kvq_dequant_jnp`` match
-every impl and ranks them against the kernels, the port's matchers split
-the int8 and kvq_attn kinds by impl instead.
+card is compared with.
+
+Selection is COST-RANKED, as in the reference: the planner builds every
+backend whose matcher accepts (spec, policy), prices each candidate's
+``PlanCost`` through the per-backend time model of ``core/calibrate.py``
+(constants fitted on the card when a calibration is loaded, the shared
+analytic rates otherwise) and picks the cheapest; registration order
+breaks exact ties. Today the genuine choice is a decode VQ site, where
+``eva_fused`` and ``eva_split`` both match; analytically the fused kernel
+wins.
+
+Two deliberate divergences from the reference:
+
+  * No execute-time fallback chain, no backend quarantine and no
+    degrade-to-plain path (the reference's ``_chain_run`` and
+    ``record_backend_failure``): on the card a failing kernel raises, it
+    never hands its work to another backend or to the plain version.
+    They belong to the resilience layer (ROADMAP A11).
+  * The ``int8`` and ``kvq_attn`` kinds stay split by impl, where the
+    reference lets ``int8_jnp`` and ``kvq_dequant_jnp`` match every impl
+    and ranks them against the kernels: a plain version is never a
+    ranking candidate on the card.
 """
 from __future__ import annotations
 
@@ -38,10 +57,11 @@ import collections
 import dataclasses
 import importlib
 import threading
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core import calibrate as calibrate_mod
 from repro_torch.core import ops
 from repro_torch.core.vq import VQWeight
 
@@ -131,17 +151,25 @@ class PlanPolicy:
 
 @dataclasses.dataclass(frozen=True)
 class PlanCost:
-    """Analytic estimates: multiply-accumulates, add-only lookup or
-    reconstruction work, and per-call weight bytes."""
+    """Analytic estimates for ranking: multiply-accumulates, add-only
+    lookup or reconstruction work, per-call weight bytes, the extra
+    device-memory round trip of multi-kernel formulations (the split
+    backend's (C, M, V, 2^n) output codebook; 0 for single-kernel
+    paths) and kernel launches per call."""
 
     macs: int
     lookup_adds: int
     weight_bytes: int
+    intermediate_bytes: int = 0
+    launches: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
 class MatmulPlan:
-    """A frozen, executable matmul choice."""
+    """A frozen, executable matmul choice. ``predicted_us``,
+    ``provenance`` and ``ranking`` record how the Planner ranked this
+    backend against the other eligible candidates ("analytic" constants
+    or a fitted "eva-calibration/v1" entry)."""
 
     backend: str
     spec: LinearSpec
@@ -149,10 +177,36 @@ class MatmulPlan:
     config: Tuple[Tuple[str, Any], ...]
     cost: PlanCost
     run: Callable[[Any, Any], Any]
+    predicted_us: Optional[float] = None
+    provenance: str = "analytic"
+    ranking: Tuple[Tuple[str, float], ...] = ()
 
     def execute(self, x, leaf):
         """Run the planned matmul on ``leaf`` (a VQWeight or dense w)."""
         return self.run(x, leaf)
+
+    @property
+    def config_dict(self) -> Dict[str, Any]:
+        return dict(self.config)
+
+    def describe(self) -> str:
+        """One line: backend, shape, resolved config and the ranked
+        prediction (``pred=..us(analytic|eva-calibration/v1)``)."""
+        s = self.spec
+        parts = [self.backend, f"M={s.M}", f"K={s.K}", f"N={s.N}"]
+        if s.splits:
+            parts.append(f"splits={len(s.splits)}")
+        parts += [f"{k}={v}" for k, v in self.config]
+        if self.predicted_us is not None:
+            parts.append(f"pred={self.predicted_us:.0f}us({self.provenance})")
+        return " ".join(parts)
+
+    def describe_ranking(self) -> str:
+        """The ranked candidates, cheapest first ('' when only one
+        backend was eligible)."""
+        if len(self.ranking) < 2:
+            return ""
+        return " < ".join(f"{b}={us:.0f}us" for b, us in self.ranking)
 
 
 def kvq_attention_spec(*, B: int, S: int, H: int, Hk: int, hd: int,
@@ -188,8 +242,11 @@ class _Backend:
 
 _REGISTRY: "collections.OrderedDict[str, _Backend]" = collections.OrderedDict()
 _REGISTRY_LOCK = threading.Lock()
+# registration order breaks ranking ties, as in the reference: the fused
+# kernel's module comes before the split pair's
 _KERNEL_BACKEND_MODULES = (
     "repro_torch.kernels.fused_vq_matmul.ops",
+    "repro_torch.kernels.oc_lookup.ops",
     "repro_torch.kernels.dequant_gemv.ops",
     "repro_torch.kernels.int8_gemm.ops",
     "repro_torch.kernels.flash_decode.ops",
@@ -200,7 +257,9 @@ def register_backend(name: str,
                      matcher: Callable[[LinearSpec, PlanPolicy], bool],
                      planner_fn: Callable[[LinearSpec, PlanPolicy], MatmulPlan],
                      ) -> None:
-    """Register (or idempotently re-register) a matmul backend."""
+    """Register (or idempotently re-register) a matmul backend. Every
+    backend whose matcher accepts a (spec, policy) pair is a ranking
+    candidate; registration order breaks exact ties."""
     with _REGISTRY_LOCK:
         _REGISTRY[name] = _Backend(name, matcher, planner_fn)
 
@@ -215,21 +274,43 @@ CacheInfo = collections.namedtuple("CacheInfo", "hits misses currsize maxsize")
 
 
 class Planner:
-    """LRU-cached (LinearSpec, PlanPolicy) -> MatmulPlan resolver."""
+    """LRU-cached, cost-ranked (LinearSpec, PlanPolicy) -> MatmulPlan
+    resolver.
 
-    def __init__(self, maxsize: int = 1024):
+    ``calibration="default"`` loads the port's calibration file
+    (``calibrate.load_default_calibration``: $EVA_TORCH_CALIBRATION, else
+    ./CALIBRATION_TORCH.json; analytic when absent); None ranks
+    analytically; a ``Calibration`` is used as given.
+    ``reload_calibration`` swaps the model for FUTURE planning without
+    touching cached plans; ``cache_clear`` re-ranks every site."""
+
+    def __init__(self, maxsize: int = 1024, calibration: Any = "default"):
         self._cache: "collections.OrderedDict[Tuple[LinearSpec, PlanPolicy], MatmulPlan]" = (
             collections.OrderedDict())
         self._maxsize = maxsize
         self._lock = threading.Lock()
         self._hits = 0
         self._misses = 0
+        self._calibration: Optional[calibrate_mod.Calibration] = None
+        self.reload_calibration(calibration)
+
+    @property
+    def calibration(self) -> Optional[calibrate_mod.Calibration]:
+        """The loaded cost-model constants (None = analytic only)."""
+        return self._calibration
+
+    def reload_calibration(self, calibration: Any = "default") -> None:
+        """Swap the cost model used for future planning. Cached plans are
+        untouched: the same (spec, policy) keeps returning the SAME plan
+        object until ``cache_clear``."""
+        self._calibration = (calibrate_mod.load_default_calibration()
+                             if calibration == "default" else calibration)
 
     def plan(self, spec: LinearSpec, policy: PlanPolicy) -> MatmulPlan:
-        """Resolve (spec, policy) to the registered backend that matches.
+        """Resolve (spec, policy) to the cheapest eligible backend.
 
         Raises:
-          ValueError: no backend, or more than one, matches the pair."""
+          ValueError: no registered backend matches the pair."""
         key = (spec, policy)
         with self._lock:
             hit = self._cache.get(key)
@@ -237,16 +318,12 @@ class Planner:
                 self._hits += 1
                 self._cache.move_to_end(key)
                 return hit
-        registered_backends()
-        with _REGISTRY_LOCK:
-            matched = [be for be in _REGISTRY.values()
-                       if be.matcher(spec, policy)]
-        if len(matched) != 1:
+        matched = self._match_all(spec, policy)
+        if not matched:
             raise ValueError(
-                f"{len(matched)} registered backends match spec={spec} "
-                f"policy={policy} (want exactly one); registered: "
-                f"{tuple(_REGISTRY)}")
-        built = matched[0].planner_fn(spec, policy)
+                f"no registered backend matches spec={spec} policy={policy}; "
+                f"registered: {tuple(_REGISTRY)}")
+        built = self._rank(matched, spec, policy)
         with self._lock:
             self._misses += 1
             self._cache[key] = built
@@ -254,17 +331,89 @@ class Planner:
                 self._cache.popitem(last=False)
         return built
 
+    def _rank(self, matched: Tuple[_Backend, ...], spec: LinearSpec,
+              policy: PlanPolicy) -> MatmulPlan:
+        """Build every candidate, price it, pick the cheapest (registration
+        order breaks ties) and record the ranking on the chosen plan.
+
+        Candidates are compared under ONE model: calibrated when EVERY
+        candidate has a usable fitted entry, analytic otherwise — fitted
+        microseconds against analytic constants would be no comparison."""
+        candidates = [be.planner_fn(spec, policy) for be in matched]
+        entries = [self._usable_entry(c.backend) for c in candidates]
+        if all(e is not None for e in entries):
+            prov = self._calibration.version
+        else:
+            prov = "analytic"
+            entries = [None] * len(candidates)
+        scored: List[Tuple[float, int, MatmulPlan]] = []
+        for order, (candidate, entry) in enumerate(zip(candidates, entries)):
+            us = calibrate_mod.predict_us(
+                candidate.cost, entry or calibrate_mod.ANALYTIC)
+            scored.append((us, order, candidate))
+        scored.sort(key=lambda t: (t[0], t[1]))
+        us, _, chosen = scored[0]
+        return dataclasses.replace(
+            chosen, predicted_us=us, provenance=prov,
+            ranking=tuple((c.backend, round(u, 3)) for u, _, c in scored))
+
+    def _usable_entry(self, backend: str
+                      ) -> Optional[calibrate_mod.BackendCalibration]:
+        """The backend's fitted entry when it rests on at least
+        ``calibrate.MIN_FIT_ROWS`` samples, else None."""
+        calib = self._calibration
+        entry = calib.get(backend) if calib is not None else None
+        if entry is not None and entry.rows >= calibrate_mod.MIN_FIT_ROWS:
+            return entry
+        return None
+
+    @staticmethod
+    def _match_all(spec: LinearSpec, policy: PlanPolicy
+                   ) -> Tuple[_Backend, ...]:
+        registered_backends()
+        with _REGISTRY_LOCK:  # snapshot: register_backend may race
+            backends = tuple(_REGISTRY.values())
+        return tuple(be for be in backends if be.matcher(spec, policy))
+
     def cache_info(self) -> CacheInfo:
         return CacheInfo(self._hits, self._misses, len(self._cache),
                          self._maxsize)
+
+    def cache_clear(self) -> None:
+        """Drop every cached plan and reset the hit/miss counters."""
+        with self._lock:
+            self._cache.clear()
+            self._hits = 0
+            self._misses = 0
 
 
 _PLANNER = Planner()  # the process-global planner of every model layer
 
 
+def default_planner() -> Planner:
+    """The process-global Planner every model-layer entry point uses."""
+    return _PLANNER
+
+
 def plan(spec: LinearSpec, policy: PlanPolicy) -> MatmulPlan:
     """Resolve (spec, policy) through the default planner's cache."""
     return _PLANNER.plan(spec, policy)
+
+
+def candidate_plans(spec: LinearSpec, policy: PlanPolicy
+                    ) -> Dict[str, MatmulPlan]:
+    """Every matching backend's plan by name, unranked and uncached — for
+    timing each candidate, as a calibration run does."""
+    return {be.name: be.planner_fn(spec, policy)
+            for be in Planner._match_all(spec, policy)}
+
+
+def first_match_backend(spec: LinearSpec, policy: PlanPolicy
+                        ) -> Optional[str]:
+    """The backend a first-match dispatch would choose (registration
+    order), for showing ranked-vs-first-match decisions."""
+    matched = Planner._match_all(spec, policy)
+    return matched[0].name if matched else None
 
 
 def plan_node(p: Dict[str, Any], x: torch.Tensor, *, mode: str,
@@ -284,6 +433,55 @@ def plan_node(p: Dict[str, Any], x: torch.Tensor, *, mode: str,
                                 x_dtype=x.dtype, out_dtype=out_dtype,
                                 kind=kind)
     return _PLANNER.plan(spec, policy)
+
+
+def preplan_params(params: Any, policy: PlanPolicy, *, mode: str, m: int,
+                   act_dtype: torch.dtype, planner: Optional[Planner] = None,
+                   ) -> List[Tuple[Tuple[Any, ...], MatmulPlan]]:
+    """Walk a param tree (dicts, and the list of ``layers``) and plan
+    every linear leaf at ``m`` tokens in flight under run ``mode``,
+    warming the planner cache; returns (path, plan) pairs for logs.
+    Pre-planning is a warm-up plus a report, never a constraint."""
+    planner = planner or _PLANNER
+    out: List[Tuple[Tuple[Any, ...], MatmulPlan]] = []
+
+    def walk(node, path):
+        if isinstance(node, (list, tuple)):
+            for i, sub in enumerate(node):
+                walk(sub, path + (i,))
+            return
+        if not isinstance(node, dict):
+            return
+        if "vq" in node:
+            spec = LinearSpec.for_vq(node["vq"], M=m, x_dtype=act_dtype,
+                                     out_dtype=act_dtype)
+            out.append((path, planner.plan(spec, policy.resolve_vq_mode(mode))))
+            return
+        w = node.get("w")
+        if isinstance(w, torch.Tensor) and w.dim() >= 2:
+            kind = "int8" if (mode == "prefill" and policy.int8_prefill) \
+                else "dense"
+            spec = LinearSpec.for_dense(w, M=m, x_dtype=act_dtype,
+                                        out_dtype=act_dtype, kind=kind)
+            out.append((path, planner.plan(spec, policy)))
+            return
+        for key, sub in node.items():
+            walk(sub, path + (key,))
+
+    walk(params, ())
+    return out
+
+
+def preplan_prefill_buckets(params: Any, policy: PlanPolicy, *,
+                            buckets: Tuple[int, ...], act_dtype: torch.dtype,
+                            planner: Optional[Planner] = None,
+                            ) -> Dict[int, List[Tuple[Tuple[Any, ...],
+                                                      MatmulPlan]]]:
+    """Plan every linear leaf at EACH prefill length bucket: the engine
+    pads prompts to these lengths, so prefill runs at exactly these M."""
+    return {m: preplan_params(params, policy, mode="prefill", m=m,
+                              act_dtype=act_dtype, planner=planner)
+            for m in buckets}
 
 
 def _plan_fp(spec: LinearSpec, policy: PlanPolicy) -> MatmulPlan:

@@ -29,7 +29,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import torch
 
 KERNEL_NAMES = ("fused_vq_matmul", "flash_decode", "dequant_gemv",
-                "int8_gemm", "flash_decode_kvq")
+                "int8_gemm", "flash_decode_kvq", "vq_gemm", "oc_lookup")
 # kernels whose package is named after another kernel
 _SHARED_DIRS = {"flash_decode_kvq": "flash_decode"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

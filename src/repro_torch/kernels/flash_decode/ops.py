@@ -199,17 +199,38 @@ def _kvq_idx_bytes(spec: plan_mod.LinearSpec) -> int:
             + 4 * spec.M * spec.K * spec.C)
 
 
+def _kvq_cost(spec: plan_mod.LinearSpec, use_kernel: bool
+              ) -> plan_mod.PlanCost:
+    """The reference's cost terms (``kvq_dequant_jnp`` and
+    ``kvq_flash_pallas``), so both packages price a site alike."""
+    if not use_kernel:
+        # dequantize-then-attend: QK+PV macs over the rebuilt cache, plus
+        # a round trip of the two fp32 rebuilt planes
+        return plan_mod.PlanCost(
+            macs=2 * spec.M * spec.K * spec.N,
+            lookup_adds=2 * spec.M * spec.K * spec.C * spec.V,
+            weight_bytes=_kvq_idx_bytes(spec),
+            intermediate_bytes=8 * spec.M * spec.K * spec.C * spec.d,
+            launches=3)
+    # the S-independent query/K-codebook table (N * entries macs per row)
+    # and per-token index gathers; the only intermediate is the qd table
+    H = spec.N // spec.d
+    return plan_mod.PlanCost(
+        macs=spec.M * spec.N * spec.k,
+        lookup_adds=spec.M * spec.K * (H + spec.C) * spec.V,
+        weight_bytes=_kvq_idx_bytes(spec),
+        intermediate_bytes=4 * spec.M * H * spec.V * spec.k,
+        launches=1)
+
+
 def _plan_kvq(backend: str, use_kernel: bool):
     def planner_fn(spec: plan_mod.LinearSpec,
                    policy: plan_mod.PlanPolicy) -> plan_mod.MatmulPlan:
         def run(operands, _leaf):
             return flash_decode_kvq(*operands, use_kernel=use_kernel)
 
-        cost = plan_mod.PlanCost(
-            macs=2 * spec.M * spec.K * spec.N,
-            lookup_adds=2 * spec.M * spec.K * spec.C * spec.V,
-            weight_bytes=_kvq_idx_bytes(spec))
-        return plan_mod.MatmulPlan(backend, spec, policy, (), cost, run)
+        return plan_mod.MatmulPlan(backend, spec, policy, (),
+                                   _kvq_cost(spec, use_kernel), run)
 
     return planner_fn
 

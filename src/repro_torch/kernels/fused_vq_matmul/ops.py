@@ -1,5 +1,6 @@
 """Wrapper of the fused EVA matmul kernel (``csrc/fused_vq_matmul.cu``)
-and its plan backend ``eva_fused`` — the decode path of every VQ linear.
+and its plan backend ``eva_fused`` — the decode path of every VQ linear
+unless a calibration ranks the two-kernel ``eva_split`` below it.
 
 Accepts activations of any leading shape and a VQWeight. CPU tensors take
 the plain version (``ref.py``); CUDA tensors launch the kernel, which

@@ -1,0 +1,139 @@
+"""Wrapper of the OC-lookup kernel (``csrc/oc_lookup.cu``), the two-kernel
+EVA matmul ``eva_split_matmul`` and its plan backend ``eva_split``.
+
+The split backend is the paper's architecture drawn at kernel
+granularity, with no fusion: ``vq_gemm`` (B4) writes the full (C, M, V,
+2^n) output codebook to device memory and ``oc_lookup`` (B5) gathers and
+adds over it. Against the fused kernel (``eva_fused``) it pays one more
+round trip of the output codebook and a second launch, priced as
+``PlanCost.intermediate_bytes`` and ``launches``; the ranked Planner
+decides per site which side wins (analytically the fused kernel; a
+calibration fitted on the card may flip it).
+
+CPU tensors take the plain version (``ref.py``); CUDA tensors launch the
+kernel, which reads the uint8 index matrix as stored (never widened), or
+the wrapper raises. A grouped family (``splits``) is a wider N.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core import ops as core_ops
+from repro_torch.core import plan as plan_mod
+from repro_torch.core.vq import VQWeight
+from repro_torch.kernels import build
+from repro_torch.kernels.fused_vq_matmul.ops import _sm_count, select_split
+from repro_torch.kernels.oc_lookup.ref import oc_lookup_ref
+from repro_torch.kernels.vq_gemm.ops import vq_gemm
+
+_NAME = "oc_lookup"
+C_MAX = 4
+
+
+def select_lookup_split(M: int, V: int, N: int, C: int,
+                        sm_count: int) -> Tuple[int, int, int]:
+    """(bv, v_per_split, splits) of the lookup kernel. It keeps the fused
+    kernel's tiles (1024 columns and <= 8 rows of M per CTA, 32 prefetched
+    index words a thread, 96 KB of shared memory for 2 CTAs per SM), and
+    its shared-memory slab is the output codebook alone (no x slab)."""
+    return select_split(M, V, N, C, sm_count, d=0)
+
+
+def _launch(O: torch.Tensor, I: torch.Tensor,
+            scale: torch.Tensor) -> torch.Tensor:
+    C, M, V, k = O.shape
+    N = I.shape[-1]
+    dev = O.device
+    ok = (1 <= C <= C_MAX and k == 256 and O.dtype == torch.float32
+          and O.is_contiguous() and O.data_ptr() % 16 == 0
+          and I.dtype == torch.uint8 and I.is_contiguous()
+          and tuple(I.shape) == (C, V, N)
+          and scale.dtype == torch.float32 and scale.is_contiguous()
+          and tuple(scale.shape) == (N,)
+          and I.device == scale.device == dev)
+    if not ok:
+        raise ValueError(
+            f"{_NAME}: the kernel takes a contiguous, 16-byte aligned fp32 "
+            f"output codebook (C, M, V, 256) with 1..{C_MAX} codebooks, "
+            f"contiguous uint8 (C, V, N) indices and an fp32 (N,) scale, all "
+            f"on one device; got O {O.dtype} {tuple(O.shape)} on {dev}, "
+            f"indices {I.dtype} {tuple(I.shape)} on {I.device}, scale "
+            f"{scale.dtype} {tuple(scale.shape)} on {scale.device}")
+    bv, vps, splits = select_lookup_split(M, V, N, C, _sm_count(dev.index or 0))
+    y = torch.empty((M, N), dtype=torch.float32, device=dev)
+    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
+          if splits > 1 else None)
+    fn = build.bind(_NAME, "oc_lookup_launch", 5, 7)
+    with torch.cuda.device(dev):
+        err = fn(O.data_ptr(), I.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                 ws.data_ptr() if ws is not None else None,
+                 M, V, N, C, bv, vps, splits, build.stream_of(O))
+    build.check(err, _NAME)
+    oc_lookup.launches += 1
+    return y
+
+
+def oc_lookup(O: torch.Tensor, I: torch.Tensor, scale: torch.Tensor, *,
+              use_kernel: bool = True) -> torch.Tensor:
+    """y (M, N) fp32 = scale * the lookup-and-add of output codebook O
+    (C, M, V, k) by indices I (C, V, N). ``use_kernel=False`` runs the
+    plain version on any device."""
+    if use_kernel and O.is_cuda:
+        return _launch(O, I, scale)
+    if use_kernel and O.device.type != "cpu":
+        raise ValueError(f"{_NAME}: no kernel for device {O.device}")
+    return oc_lookup_ref(O, I, scale)
+
+
+oc_lookup.launches = 0
+
+
+def eva_split_matmul(x: torch.Tensor, vq: VQWeight, *,
+                     out_dtype: Optional[torch.dtype] = None,
+                     use_kernel: bool = True) -> torch.Tensor:
+    """y = x @ W_hat as two kernels with the (C, M, V, 2^n) output
+    codebook in device memory between them."""
+    out_dtype = out_dtype or x.dtype
+    lead = x.shape[:-1]
+    O = vq_gemm(x, vq.codebooks, use_kernel=use_kernel)
+    y = oc_lookup(O, vq.idx, vq.scale, use_kernel=use_kernel)
+    return y.reshape(*lead, vq.N).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Plan backend: eva_split competes with eva_fused at every decode VQ site
+# ---------------------------------------------------------------------------
+
+
+def _match_eva_split(spec: plan_mod.LinearSpec,
+                     policy: plan_mod.PlanPolicy) -> bool:
+    return spec.kind == "vq" and policy.vq_mode == "eva"
+
+
+def _plan_eva_split(spec: plan_mod.LinearSpec,
+                    policy: plan_mod.PlanPolicy) -> plan_mod.MatmulPlan:
+    out_dt = getattr(torch, spec.out_dtype)
+    use_kernel = policy.impl == "cuda"
+
+    def run(x, vq):
+        return eva_split_matmul(x, vq, out_dtype=out_dt, use_kernel=use_kernel)
+
+    # the reference's terms: one launch per kernel (the lookup's split
+    # reduce is not counted, so rankings compare one to one with it) and
+    # the output codebook written and read back
+    oc_bytes = 4 * spec.C * spec.M * spec.V * spec.k
+    cost = plan_mod.PlanCost(
+        macs=core_ops.vq_gemm_macs(spec.M, spec.K,
+                                   max(spec.k.bit_length() - 1, 0), spec.C,
+                                   spec.d),
+        lookup_adds=core_ops.epilogue_adds(spec.M, spec.K, spec.N, spec.C,
+                                           spec.d),
+        weight_bytes=plan_mod.vq_weight_bytes(spec),
+        intermediate_bytes=2 * oc_bytes,
+        launches=2)
+    return plan_mod.MatmulPlan("eva_split", spec, policy, (), cost, run)
+
+
+plan_mod.register_backend("eva_split", _match_eva_split, _plan_eva_split)

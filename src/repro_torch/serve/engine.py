@@ -4,9 +4,13 @@ contiguous non-speculative subset).
 Prefill runs per request at its power-of-two length bucket (every VQ
 linear through the dequant kernel; dense linears through the INT8 GEMM
 under ``PlanPolicy.int8_prefill``); decode runs as one batched step over
-all slots (every VQ linear through the fused EVA kernel, attention
-through flash-decode), so every streamed index tile serves every active
-request. Free slots are fed token 0 at position 0.
+all slots (every VQ linear through the EVA backend the planner ranks
+first — the fused kernel, unless a calibration prices the vq_gemm +
+oc_lookup split below it — attention through flash-decode), so every
+streamed index tile serves every active request. Free slots are fed
+token 0 at position 0. At construction every linear is pre-planned at
+the decode and prefill shapes (``Engine.plans``) and the plans and
+rankings are logged.
 
 ``EngineConfig.kv_bits`` selects the KV cache layout: 16 = fp, 8 = int8
 values + bf16 scales (attended through plain torch), 4/2 = KV-VQ uint8
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device, tensor_device
+from repro_torch.core import plan as plan_mod
 from repro_torch.core.quantize import attach_kv_codebooks, kv_codebook_tree
 from repro_torch.core.vq import KVQuantConfig
 from repro_torch.models.api import Model
@@ -142,7 +147,35 @@ class Engine:
         self._built_buckets: set = set()
         self._rc_decode = rc.replace(mode="decode")
         self._rc_prefill = rc.replace(mode="prefill")
+        self.plans = self._preplan()
         self._decode_fn = self._make_decode_fn()
+
+    def _preplan(self) -> Dict[str, List[Tuple[Tuple[Any, ...], Any]]]:
+        """Plan every linear at the shapes it runs at — decode at M =
+        num_slots, prefill at each length bucket — warming the planner
+        cache, and log each distinct plan and, where more than one
+        backend matched, its ranking."""
+        act = self.model.cfg.act_dtype
+        plans = {"decode": plan_mod.preplan_params(
+            self.params, self.rc.policy, mode="decode",
+            m=self.ecfg.num_slots, act_dtype=act)}
+        for m, pl in plan_mod.preplan_prefill_buckets(
+                self.params, self.rc.policy, buckets=self._buckets,
+                act_dtype=act).items():
+            plans[f"prefill@{m}"] = pl
+        for phase, pls in plans.items():
+            uniq: Dict[str, int] = {}
+            rankings: Dict[str, int] = {}
+            for _path, pl in pls:
+                uniq[pl.describe()] = uniq.get(pl.describe(), 0) + 1
+                rk = pl.describe_ranking()
+                if rk:
+                    rankings[rk] = rankings.get(rk, 0) + 1
+            for desc, count in sorted(uniq.items()):
+                log.info("%s plan [%d leaves] %s", phase, count, desc)
+            for rk, count in sorted(rankings.items()):
+                log.info("%s ranking [%d leaves] %s", phase, count, rk)
+        return plans
 
     # ------------------------------------------------------------ admission
     def _admission_error(self, request: GenerationRequest) -> Optional[str]:

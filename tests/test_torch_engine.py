@@ -4,6 +4,7 @@ on llama2 SMOKE at fp32 with converted params, dense and 2-bit VQ; the
 ``EngineMetrics`` invariants of tests/test_engine.py hold; and the
 engine runs on the CPU only when asked to."""
 import dataclasses
+import logging
 
 import numpy as np
 import pytest
@@ -17,6 +18,8 @@ from repro.models.common import RunConfig as JaxRunConfig
 from repro.serve import Engine as JaxEngine, EngineConfig as JaxEngineConfig
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import from_jax_params
+from repro_torch.core import calibrate
+from repro_torch.core import plan as plan_mod
 from repro_torch.models import RunConfig, build_model
 from repro_torch.serve import (Engine, EngineConfig, GenerationRequest,
                                SamplingParams)
@@ -69,6 +72,59 @@ def test_greedy_streams_identical_to_jax_engine(setup, kind):
     got = eng.generate(prompts, 6)
     assert got == want
     assert eng.trace_counts == {"decode": 1, "prefill": 2}  # buckets 8, 16
+
+
+def _vq_backends(eng, phase="decode"):
+    return {pl.backend for _, pl in eng.plans[phase] if pl.spec.kind == "vq"}
+
+
+@pytest.fixture
+def split_pinned():
+    """The default planner ranks with a calibration that prices
+    ``eva_fused`` above ``eva_split``; restored and its cache cleared
+    afterwards (the planner is process-global, and a worker runs every
+    test of a file)."""
+    planner = plan_mod.default_planner()
+    before = planner.calibration
+    entry = lambda us: calibrate.BackendCalibration(
+        overhead_us=us, us_per_mac=0.0, us_per_add=0.0, us_per_byte=0.0,
+        rows=calibrate.MIN_FIT_ROWS)
+    planner.reload_calibration(calibrate.Calibration(
+        calibrate.SCHEMA, "pinned: eva_split below eva_fused",
+        {"eva_fused": entry(1e6), "eva_split": entry(1.0)}))
+    planner.cache_clear()
+    yield planner
+    planner.reload_calibration(before)
+    planner.cache_clear()
+
+
+def test_split_backend_streams_identical_to_jax_engine(setup, split_pinned):
+    """Decode through the two-kernel split (vq_gemm, then oc_lookup)
+    gives the JAX engine's greedy streams."""
+    rng = np.random.default_rng(0)
+    prompts = [_prompt(rng, setup["cfg"], n) for n in (5, 9, 7, 4, 6)]
+    jeng = JaxEngine(setup["jm"], setup["params"]["vq"][0],
+                     JaxRunConfig(mode="decode", remat=False, attn_chunk=16),
+                     JaxEngineConfig(num_slots=2, max_len=32))
+    want = jeng.generate(prompts, 6)
+    eng = _engine(setup)
+    assert _vq_backends(eng) == {"eva_split"}
+    assert _vq_backends(eng, "prefill@8") == {"dequant"}
+    assert eng.generate(prompts, 6) == want
+
+
+def test_default_ranking_plans_fused_and_logs_it(setup, caplog):
+    """With no calibration file the analytic model ranks the fused kernel
+    first at every decode site; the engine pre-plans decode and every
+    prefill bucket and logs the ranking."""
+    with caplog.at_level(logging.INFO, logger="repro_torch.serve.engine"):
+        eng = _engine(setup)
+    assert sorted(eng.plans) == ["decode", "prefill@16", "prefill@32",
+                                 "prefill@8"]
+    assert _vq_backends(eng) == {"eva_fused"}
+    assert {pl.provenance for _, pl in eng.plans["decode"]} == {"analytic"}
+    ranking = [r.message for r in caplog.records if "ranking" in r.message]
+    assert any("eva_fused" in m and "eva_split" in m for m in ranking)
 
 
 def test_metrics_consistent_with_stream_events(setup):
