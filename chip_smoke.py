@@ -11,9 +11,11 @@ Phases (any failure exits non-zero):
      paths' full-width llama2-7b shapes (tolerance, bitwise determinism)
      and time it (CUDA events, median, L2 flushed between runs) beside its
      plain version, one PyTorch library call computing the same function
-     (where one exists), and its bound on this card; the two-kernel EVA
-     split (vq_gemm, then oc_lookup) is also held against the fused
-     kernel;
+     (where one exists), and its bound on this card; dequant_gemv with
+     fp32 and bf16 x at the prefill layer and bf16 x at a 64-token
+     bucket, with bf16 torch.matmul timed beside its fp32 library call;
+     the two-kernel EVA split (vq_gemm, then oc_lookup) is also held
+     against the fused kernel;
   4. serve 8 greedy requests on full-width llama2-7b (32 layers, 2-bit VQ
      weights drawn on the card from a seed, bf16 activations, 4 slots,
      max_len 512) through the Engine, counting kernel launches per phase:
@@ -55,6 +57,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # H100 SXM, fp32 outside the tensor cores
 INT8_OPS = 1979e12             # H100 SXM, dense int8 tensor cores
+BF16_FLOPS = 989e12            # H100 SXM, dense bf16 tensor cores
 SLOTS, MAX_LEN, N_REQUESTS, MAX_NEW = 4, 512, 8, 32
 HOST_REPS = 50                 # back-to-back calls per host-clock timing
 SEED = 0
@@ -76,7 +79,11 @@ KERNEL_FUNCTIONS = {
     "fused_vq_kernel": "fused_vq_matmul", "split_reduce_kernel":
     "fused_vq_matmul (split reduce)", "flash_decode_kernel": "flash_decode",
     "flash_decode_kvq_kernel": "flash_decode_kvq",
-    "dequant_gemv_kernel": "dequant_gemv", "int8_gemm_kernel": "int8_gemm",
+    "kvq_merge_kernel": "flash_decode_kvq (merge)",
+    "dequant_gemv_kernel": "dequant_gemv",
+    "dequant_reduce_kernel": "dequant_gemv (split reduce)",
+    "dequant_split_x_kernel": "dequant_gemv (x split)",
+    "int8_gemm_kernel": "int8_gemm",
     "vq_gemm_kernel": "vq_gemm", "oc_lookup_kernel": "oc_lookup",
     "oc_split_reduce_kernel": "oc_lookup (split reduce)",
 }
@@ -143,7 +150,9 @@ def check_kernels(torch, timer):
     rows = {n: [] for n in (*REPLACES, "eva_split_matmul")}
 
     def record(kernel, case, got, want, tol, fn, plain, library, nbytes, flops,
-               peak=FP32_FLOPS):
+               peak=FP32_FLOPS, extra=None):
+        """``extra``: other PyTorch calls timed beside the library call,
+        as {row key: call}."""
         err = (got.float() - want.float()).abs().max().item()
         again = fn()
         det = bool(torch.equal(got, again))
@@ -152,6 +161,7 @@ def check_kernels(torch, timer):
                "bitwise_equal": det, "kernel_ms": timer(fn),
                "plain_ms": timer(plain),
                "library_ms": timer(library) if library else None,
+               **{k: timer(f) for k, f in (extra or {}).items()},
                "bound_ms": b_ms, "bound_by": b_by}
         emit(row)
         if not (err <= tol and det):
@@ -160,29 +170,54 @@ def check_kernels(torch, timer):
         rows[kernel].append(row)
 
     C = 2
-    for M, kernel, fn_k in ((1, "fused_vq_matmul", fused_vq_matmul),
-                            (SLOTS, "fused_vq_matmul", fused_vq_matmul),
-                            (MAX_LEN, "dequant_gemv", dequant_gemv)):
+    for M in (1, SLOTS):
         for name, K, N in LINEARS:
             vq = synthetic_vq(gen, K, N, C=C, device="cuda")
             x = torch.randn((M, K), generator=gen, device="cuda")
             xb = x.to(torch.bfloat16)
             w = dequantize(vq).to(torch.bfloat16)
-            run = lambda: fn_k(x, vq, out_dtype=torch.float32)
-            plain = lambda: fn_k(x, vq, out_dtype=torch.float32,
-                                 use_kernel=False)
+            run = lambda: fused_vq_matmul(x, vq, out_dtype=torch.float32)
+            plain = lambda: fused_vq_matmul(x, vq, out_dtype=torch.float32,
+                                            use_kernel=False)
             got, want = run(), plain()
             tol = 1e-4 * max(1.0, want.abs().max().item())
             V = K // 8
-            nbytes = M * K * 4 + C * V * N + C * 8 * 256 * 4 + N * 4 + M * N * 4
-            if kernel == "fused_vq_matmul":
-                flops = C * M * V * 256 * 8 * 2 + C * M * V * N + M * N
-            else:
-                flops = 2 * M * K * N + C * V * N * 8 + M * N
-            record(kernel, {"M": M, "linear": name, "K": K, "N": N}, got,
-                   want, tol, run, plain, lambda: torch.matmul(xb, w),
-                   nbytes, flops)
+            record("fused_vq_matmul", {"M": M, "linear": name, "K": K, "N": N},
+                   got, want, tol, run, plain, lambda: torch.matmul(xb, w),
+                   M * K * 4 + C * V * N + C * 8 * 256 * 4 + N * 4 + M * N * 4,
+                   C * M * V * 256 * 8 * 2 + C * M * V * N + M * N)
             del vq, w
+
+    # B3 at the prefill layer (M = MAX_LEN) with fp32 x (the reference's
+    # precision: three bf16 products) and with bf16 x (the served dtype:
+    # two), and at a small bucket. The library call computing the same
+    # function is fp32 torch.matmul on the dequantized fp32 weights (TF32
+    # off); bf16 torch.matmul on bf16-rounded weights is timed beside it,
+    # at lower precision (it misses the tolerance). Bound: the products'
+    # flops at the bf16 tensor-core rate.
+    for M, x_dtype in ((MAX_LEN, torch.float32), (MAX_LEN, torch.bfloat16),
+                       (64, torch.bfloat16)):
+        for name, K, N in LINEARS:
+            vq = synthetic_vq(gen, K, N, C=C, device="cuda")
+            x = torch.randn((M, K), generator=gen, device="cuda").to(x_dtype)
+            x32, xb = x.float(), x.to(torch.bfloat16)
+            w = dequantize(vq)
+            wb = w.to(torch.bfloat16)
+            run = lambda: dequant_gemv(x, vq, out_dtype=torch.float32)
+            plain = lambda: dequant_gemv(x, vq, out_dtype=torch.float32,
+                                         use_kernel=False)
+            got, want = run(), plain()
+            tol = 1e-4 * max(1.0, want.abs().max().item())
+            V = K // 8
+            products = 3 if x_dtype == torch.float32 else 2
+            record("dequant_gemv", {"M": M, "linear": name, "K": K, "N": N,
+                                    "x": str(x_dtype).split(".")[-1]},
+                   got, want, tol, run, plain, lambda: torch.matmul(x32, w),
+                   x.numel() * x.element_size() + C * V * N + C * 8 * 256 * 4
+                   + N * 4 + M * N * 4, products * 2 * M * K * N,
+                   peak=BF16_FLOPS,
+                   extra={"library_bf16_ms": lambda: torch.matmul(xb, wb)})
+            del vq, w, wb
 
     # the two-kernel split: vq_gemm (B4) at the decode linears and one
     # ragged shape, oc_lookup (B5) fed B4's output codebook, and the pair
@@ -275,11 +310,15 @@ def check_kernels(torch, timer):
                got, want, 2.0 ** -7 * max(1.0, want.float().abs().max().item()),
                run, lambda: flash_decode_kvq_ref(*ops),
                lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask),
-               # qd table, index rows and fp32 scales up to the lengths, V
-               # codebooks, lengths, bf16 output
-               B * H * RG * 256 * 4 + tot * H * (2 * RG + 2 * 4)
-               + cb.numel() * 4 + B * 4 + q.numel() * 2,
-               tot * H * (RG + 2 * hd + hd * kvq.residual))
+               # the function's inputs — q, the index rows and bf16 scales up
+               # to the lengths, both codebooks, the lengths — and its bf16
+               # output; operations: the table (RG x 256 entries of vd FMAs
+               # per query head) and per position the score gathers, the V
+               # rebuild and the weighted sum
+               q.numel() * 2 + tot * H * (2 * RG + 2 * 2) + 2 * cb.numel() * 4
+               + B * 4 + q.numel() * 2,
+               B * H * RG * 256 * 2 * kvq.vec_d
+               + tot * H * (RG + 2 * hd + hd * kvq.residual))
         del kd, vd
 
     # INT8 GEMM at the prefill lm_head shape (bf16 activations and head,
@@ -618,6 +657,9 @@ def main() -> int:
         elif name in ("flash_decode_kvq", "int8_gemm"):  # the served case
             rs = [r for r in rs if r["case"].get("kv_bits", 4) == 4
                   and r["case"].get("M", 256) == 256]
+        elif name == "dequant_gemv":  # the prefill layer, served bf16 x
+            rs = [r for r in rs if r["case"]["M"] == MAX_LEN
+                  and r["case"]["x"] == "bfloat16"]
         tot = lambda key: sum(r[key] for r in rs)
         summary.append({
             "name": name, "route": "cuda",
@@ -629,7 +671,10 @@ def main() -> int:
             "bound_ms": tot("bound_ms"),
             "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": (None if any(r["library_ms"] is None for r in rs)
-                           else tot("library_ms"))})
+                           else tot("library_ms")),
+            # B3: bf16 torch.matmul on bf16-rounded weights, lower precision
+            **({"library_bf16_ms": tot("library_bf16_ms")}
+               if "library_bf16_ms" in rs[0] else {})})
     emit({"kernels": summary})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

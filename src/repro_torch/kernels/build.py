@@ -143,9 +143,9 @@ def stream_of(t: torch.Tensor) -> int:
 
 def check_vq_operands(kernel: str, X, vq, c_max: int = 4) -> None:
     """Raise ValueError unless the VQ kernels take these operands: x
-    (M, V, 8) fp32 contiguous; a VQWeight with 1..c_max codebooks of 256
-    centroids, contiguous uint8 (C, V, N) indices, fp32 (C, 8, 256)
-    codebooks and (N,) scale, all on x's device."""
+    (M, V, 8), its dtype the caller's to check; a VQWeight with 1..c_max
+    codebooks of 256 centroids, contiguous uint8 (C, V, N) indices, fp32
+    (C, 8, 256) codebooks and (N,) scale, all on x's device."""
     M, V, d = X.shape
     C, N = vq.C, vq.N
     ok = (d == 8 and 1 <= C <= c_max

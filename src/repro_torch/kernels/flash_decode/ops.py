@@ -92,17 +92,18 @@ _KVQ = "flash_decode_kvq"
 KVQ_BLOCK_S = 512   # the reference wrapper's S-block (its padding rule)
 KVQ_VEC_D = (2, 4, 8)
 KVQ_MAX_R = 2
+KVQ_CHUNK = 256     # positions per CTA of the split-S kernel
 
 
 def kvq_operands(q: torch.Tensor, k_s: torch.Tensor, v_s: torch.Tensor,
                  cb_k: torch.Tensor, cb_v: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
-    """What the kernel reads besides the indices, built as the reference
-    wrapper builds it in plain jnp: the query / K-codebook dot table
-    ``qd = (q . cb_k) / sqrt(hd)`` as fp32 (B, Hk, g, R*G, 256) — computed
-    once per step, independent of S — and fp32 copies of the scales and
-    the V codebooks."""
+    """The query / K-codebook dot table ``qd = (q . cb_k) / sqrt(hd)`` as
+    fp32 (B, Hk, g, R*G, 256), built as the reference wrapper builds it in
+    plain jnp, and fp32 copies of the scales and the V codebooks: the
+    formulation the CPU tests hold the kernel's arithmetic to (the kernel
+    builds each CTA's slice of the table itself)."""
     B, H, hd = q.shape
     Hk, R, E, vd = cb_k.shape
     G, g = hd // vd, H // Hk
@@ -122,6 +123,12 @@ def kvq_padded_len(S: int) -> int:
     return -(-S // bs) * bs
 
 
+def kvq_splits(S: int, chunk: int) -> int:
+    """CTAs per (row, kv head) over the padded cache: one per ``chunk``
+    positions, from the host-known S."""
+    return -(-kvq_padded_len(S) // chunk)
+
+
 def _launch_kvq(q, k_idx, v_idx, k_s, v_s, lengths, cb_k, cb_v
                 ) -> torch.Tensor:
     B, H, hd = q.shape
@@ -135,31 +142,38 @@ def _launch_kvq(q, k_idx, v_idx, k_s, v_s, lengths, cb_k, cb_v
           and k_idx.dtype == torch.uint8 and v_idx.dtype == torch.uint8
           and v_idx.shape == k_idx.shape and tuple(k_idx.shape[:2]) == (B, S)
           and tuple(k_s.shape) == (B, S, Hk) and v_s.shape == k_s.shape
+          and k_s.dtype in (torch.float32, torch.bfloat16)
+          and v_s.dtype == k_s.dtype
           and cb_v.shape == cb_k.shape
+          and cb_k.dtype == cb_v.dtype == torch.float32
           and lengths.dtype == torch.int32 and tuple(lengths.shape) == (B,)
-          and all(t.device == dev for t in (k_s, v_s, cb_k, cb_v))
           and all(t.device == dev and t.is_contiguous()
-                  for t in (k_idx, v_idx, lengths)))
+                  for t in (k_idx, v_idx, k_s, v_s, cb_k, cb_v, lengths)))
     if not ok:
         raise ValueError(
             f"{_KVQ}: the kernel takes q (B, H, hd) float32 or bfloat16 with "
             f"hd in {HEAD_DIMS} and at most {MAX_GROUP} query heads per kv "
-            f"head, contiguous uint8 k/v indices (B, S, Hk, R*hd/vd), k/v "
-            f"scales (B, S, Hk), codebooks (Hk, R, 256, vd) with vd in "
+            f"head, contiguous uint8 k/v indices (B, S, Hk, R*hd/vd), "
+            f"contiguous bfloat16 or float32 k/v scales (B, S, Hk), "
+            f"contiguous float32 codebooks (Hk, R, 256, vd) with vd in "
             f"{KVQ_VEC_D} and R <= {KVQ_MAX_R}, int32 (B,) lengths, all on "
             f"one device; got q {q.dtype} {tuple(q.shape)} on {dev}, "
             f"indices {k_idx.dtype} {tuple(k_idx.shape)} on {k_idx.device}, "
-            f"scales {tuple(k_s.shape)}, codebooks {tuple(cb_k.shape)}, "
-            f"lengths {lengths.dtype} {tuple(lengths.shape)}")
-    qd, ks, vs, cbv = kvq_operands(q, k_s, v_s, cb_k, cb_v)
+            f"scales {k_s.dtype} {tuple(k_s.shape)}, codebooks {cb_k.dtype} "
+            f"{tuple(cb_k.shape)}, lengths {lengths.dtype} "
+            f"{tuple(lengths.shape)}")
+    chunk = KVQ_CHUNK
     o = torch.empty_like(q)
-    fn = build.bind(_KVQ, "flash_decode_kvq_launch", 8, 9)
+    ws = torch.empty(B * H * kvq_splits(S, chunk) * (hd + 2),
+                     dtype=torch.float32, device=dev)
+    fn = build.bind(_KVQ, "flash_decode_kvq_launch", 10, 11)
     with torch.cuda.device(dev):
-        err = fn(qd.data_ptr(), k_idx.data_ptr(), v_idx.data_ptr(),
-                 ks.data_ptr(), vs.data_ptr(), cbv.data_ptr(),
-                 lengths.data_ptr(), o.data_ptr(), B, S, kvq_padded_len(S),
-                 H, Hk, hd, R, vd, 1 if q.dtype == torch.bfloat16 else 0,
-                 build.stream_of(q))
+        err = fn(q.data_ptr(), k_idx.data_ptr(), v_idx.data_ptr(),
+                 k_s.data_ptr(), v_s.data_ptr(), cb_k.data_ptr(),
+                 cb_v.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+                 ws.data_ptr(), B, S, kvq_padded_len(S), H, Hk, hd, R, vd,
+                 chunk, int(q.dtype == torch.bfloat16),
+                 int(k_s.dtype == torch.bfloat16), build.stream_of(q))
     build.check(err, _KVQ)
     flash_decode_kvq.launches += 1
     return o

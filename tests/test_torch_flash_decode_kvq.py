@@ -17,7 +17,8 @@ import torch
 from repro_torch.core.vq import KVQuantConfig, kv_grid_codebooks
 from repro_torch.kernels.flash_decode import (flash_decode_kvq,
                                               flash_decode_kvq_ref)
-from repro_torch.kernels.flash_decode.ops import kvq_operands, kvq_padded_len
+from repro_torch.kernels.flash_decode.ops import (KVQ_CHUNK, kvq_operands,
+                                                  kvq_padded_len, kvq_splits)
 
 torch.set_num_threads(1)
 
@@ -47,11 +48,16 @@ def _jax_wrapper(args, **kw):
                               **kw))
 
 
-def _kernel_formulation(q, k_idx, v_idx, k_s, v_s, lengths, cb_k, cb_v):
+def _kernel_formulation(q, k_idx, v_idx, k_s, v_s, lengths, cb_k, cb_v,
+                        chunk=KVQ_CHUNK):
     """What csrc/flash_decode_kvq.cu computes, in plain torch over the
-    wrapper's operands: score = k_s * sum_j qd[j, k_idx[j]], vhat[c] =
-    v_s * sum_r cb_v[r, v_idx[r*G + c//vd], c % vd], padded positions
-    holding zero indices and scales, masked softmax over S_pad."""
+    reference wrapper's operands: score = k_s * sum_j qd[j, k_idx[j]],
+    vhat[c] = v_s * sum_r cb_v[r, v_idx[r*G + c//vd], c % vd], padded
+    positions holding zero indices and scales, positions past the length
+    masked; the padded cache cut into splits of ``chunk`` positions, each
+    folded into its own (m, l, acc) over the positions it walks (none past
+    the walked length: a neutral (-inf, 0, 0)), then merged in split
+    order."""
     qd, ks, vs, cbv = kvq_operands(q, k_s, v_s, cb_k, cb_v)
     B, S, Hk, RG = k_idx.shape
     g, R, vd = qd.shape[2], cbv.shape[1], cbv.shape[3]
@@ -64,15 +70,33 @@ def _kernel_formulation(q, k_idx, v_idx, k_s, v_s, lengths, cb_k, cb_v):
     Sp = S + pad
     ki = kidx.permute(0, 2, 3, 1)[:, :, None].expand(B, Hk, g, RG, Sp)
     s = qd.gather(-1, ki).sum(dim=3) * ks.permute(0, 2, 1)[:, :, None]
-    valid = torch.arange(Sp)[None, :] < lengths[:, None]
-    s = torch.where(valid[:, None, None], s, torch.full_like(s, -1e30))
-    p = torch.softmax(s, dim=-1)                       # (B, Hk, g, Sp)
+    pos = torch.arange(Sp)[None, :]
+    s = torch.where((pos < lengths[:, None])[:, None, None], s,
+                    torch.full_like(s, -1e30))
+    walked = torch.where(lengths > 0, lengths.clamp(max=Sp), Sp)
+    s = torch.where((pos < walked[:, None])[:, None, None], s,
+                    torch.full_like(s, -torch.inf))       # (B, Hk, g, Sp)
     c = torch.arange(hd)
     heads = torch.arange(Hk)[None, None, :, None]
     rows = sum(cbv[:, r][heads, vidx[..., r * GR + c // vd], c % vd]
                for r in range(R))                      # (B, Sp, Hk, hd)
     vhat = rows * vs[..., None]
-    o = torch.einsum("bkgs,bskd->bkgd", p, vhat)
+    parts = []
+    for lo in range(0, Sp, chunk):
+        sk, vk = s[..., lo:lo + chunk], vhat[:, lo:lo + chunk]
+        m = sk.amax(dim=-1)
+        live = torch.isfinite(m)
+        p = torch.exp(sk - torch.where(live, m, 0.0)[..., None])
+        parts.append((m, p.sum(dim=-1),
+                      torch.einsum("bkgs,bskd->bkgd", p, vk)))
+    mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l = torch.zeros_like(mx)
+    acc = torch.zeros(mx.shape + (hd,))
+    for m, lk, ak in parts:                             # in split order
+        f = torch.exp(m - mx)
+        l = l + lk * f
+        acc = acc + ak * f[..., None]
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.reshape(B, Hk * g, hd).to(q.dtype)
 
 
@@ -104,6 +128,31 @@ def test_kernel_formulation_matches_jax_pallas_interpret(
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("chunk,splits", [(37, 1), (19, 2), (8, 5)])
+def test_kernel_formulation_split_merge_matches_jax_pallas_interpret(
+        chunk, splits):
+    """The split-S merge at 1, 2 and 5 splits: an empty row, a length on a
+    chunk boundary (16 = 2 * 8), S = 37 not a multiple of the chunk."""
+    args = _inputs(3, 37, 8, 2, 32, [0, 16, 37], 4, 1, seed=2)
+    assert kvq_splits(37, chunk) == splits
+    want = _jax_wrapper(args)
+    got = _kernel_formulation(*(torch.from_numpy(a) for a in args),
+                              chunk=chunk)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_formulation_splits_over_padding():
+    """Five splits over a cache padded from 520 to 1024 positions, with an
+    empty row (it averages V over the padding too) and a row ending on a
+    chunk boundary."""
+    args = _inputs(3, 520, 2, 1, 32, [0, 410, 9], 4, 1, seed=3)
+    assert kvq_splits(520, 205) == 5
+    want = _jax_wrapper(args)
+    got = _kernel_formulation(*(torch.from_numpy(a) for a in args),
+                              chunk=205)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 def test_operands_and_no_launch_on_cpu():
     args = [torch.from_numpy(a) for a in
             _inputs(2, 16, 4, 2, 32, [3, 16], 4, 2)]
@@ -113,6 +162,8 @@ def test_operands_and_no_launch_on_cpu():
     assert ks.dtype == vs.dtype == cbv.dtype == torch.float32
     assert [kvq_padded_len(s) for s in (16, 512, 513, 1100)] == \
         [16, 512, 1024, 1536]
+    assert [kvq_splits(s, 64) for s in (16, 64, 65, 512, 513)] == \
+        [1, 1, 2, 8, 16]
     before = flash_decode_kvq.launches
     got = flash_decode_kvq(args[0][:, None], *args[1:])
     assert got.shape == (2, 1, 4, 32)
@@ -155,7 +206,7 @@ def _tol(want):
 @pytest.mark.parametrize("B,S,H,Hk,hd,lengths,kv_bits,residual", [
     (4, 512, 32, 32, 128, [1, 512, 200, 64], 4, 1),  # llama2-7b decode
     (4, 512, 32, 32, 128, [1, 512, 200, 64], 2, 1),
-    (3, 300, 32, 8, 128, [300, 5, 150], 4, 1),   # g=4: qd read through L2
+    (3, 300, 32, 8, 128, [300, 5, 150], 4, 1),   # g=4: two head chunks
     (2, 70, 16, 2, 64, [70, 33], 4, 2),          # g=8, two stages
     (2, 600, 4, 4, 32, [0, 600], 2, 1),          # empty row over padding
 ])
@@ -175,7 +226,26 @@ def test_kernel_matches_plain(cuda, B, S, H, Hk, hd, lengths, kv_bits,
 
 
 @pytest.mark.cuda
-def test_kernel_bitwise_deterministic(cuda):
-    args = _card(4, 512, 32, 32, 128, [1, 512, 77, 300], 4, 1,
+@pytest.mark.parametrize("kv_bits", [4, 2])
+@pytest.mark.parametrize("H,Hk", [(8, 8), (16, 4), (16, 2)])  # g = 1, 4, 8
+def test_kernel_split_edges(cuda, H, Hk, kv_bits):
+    """Rows longer than one chunk, lengths on chunk edges, an empty row and
+    a row ending one past an edge, against the split formulation."""
+    lengths = [2 * KVQ_CHUNK, KVQ_CHUNK, 0, 3 * KVQ_CHUNK + 1]
+    args = _card(4, 3 * KVQ_CHUNK + 64, H, Hk, 128, lengths, kv_bits, 1,
+                 torch.bfloat16, seed=1)
+    before = flash_decode_kvq.launches
+    got = flash_decode_kvq(*args)
+    torch.cuda.synchronize()
+    assert flash_decode_kvq.launches == before + 1
+    want = _kernel_formulation(*(a.cpu() for a in args)).to(got.device)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _tol(want), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [4, 2])
+def test_kernel_bitwise_deterministic(cuda, kv_bits):
+    args = _card(4, 512, 32, 32, 128, [1, 512, 77, 300], kv_bits, 1,
                  torch.bfloat16)
     assert torch.equal(flash_decode_kvq(*args), flash_decode_kvq(*args))
