@@ -12,8 +12,9 @@ Phases (any failure exits non-zero):
      and time it (CUDA events, median, L2 flushed between runs) beside its
      plain version, one PyTorch library call computing the same function
      (where one exists), and its bound on this card; dequant_gemv with
-     fp32 and bf16 x at the prefill layer and bf16 x at a 64-token
-     bucket, with bf16 torch.matmul timed beside its fp32 library call;
+     fp32 and bf16 x at the prefill layer and bf16 x at the prefill
+     buckets of 256, 128, 64 and 32 tokens, with bf16 torch.matmul timed
+     beside its fp32 library call;
      the two-kernel EVA split (vq_gemm, then oc_lookup) is also held
      against the fused kernel;
   4. serve 8 greedy requests on full-width llama2-7b (32 layers, 2-bit VQ
@@ -190,13 +191,15 @@ def check_kernels(torch, timer):
 
     # B3 at the prefill layer (M = MAX_LEN) with fp32 x (the reference's
     # precision: three bf16 products) and with bf16 x (the served dtype:
-    # two), and at a small bucket. The library call computing the same
-    # function is fp32 torch.matmul on the dequantized fp32 weights (TF32
-    # off); bf16 torch.matmul on bf16-rounded weights is timed beside it,
-    # at lower precision (it misses the tolerance). Bound: the products'
-    # flops at the bf16 tensor-core rate.
+    # two), and with bf16 x at every bucket the served prefill runs (32,
+    # 64, 128 and 256 tokens: one kernel instance, a token tile, each).
+    # The library call computing the same function is fp32 torch.matmul on
+    # the dequantized fp32 weights (TF32 off); bf16 torch.matmul on
+    # bf16-rounded weights is timed beside it, at lower precision (it
+    # misses the tolerance). Bound: the products' flops at the bf16
+    # tensor-core rate.
     for M, x_dtype in ((MAX_LEN, torch.float32), (MAX_LEN, torch.bfloat16),
-                       (64, torch.bfloat16)):
+                       *((m, torch.bfloat16) for m in (256, 128, 64, 32))):
         for name, K, N in LINEARS:
             vq = synthetic_vq(gen, K, N, C=C, device="cuda")
             x = torch.randn((M, K), generator=gen, device="cuda").to(x_dtype)

@@ -42,15 +42,20 @@
 // C float2 gathers each, C a template argument), splits them and issues
 // the step's 2 or 3 wgmmas; while a warpgroup waits for them, the other
 // warpgroup rebuilds or multiplies. The rebuild on the CUDA cores takes
-// about as long as the products and the two overlap little: the kernel
-// sits near their sum (kernels/breakdown.py measures both). Ragged M,
-// N, K are masked: TMA zero-fills x past M and K, index bytes past N and
-// V are zero-filled and their columns not written. When the tiles cannot
-// fill the card (a small bucket, or N = 4096), the K range is split
-// across CTAs, which write partial sums to a (splits, M, N) workspace that
-// a second small kernel adds in split order before scaling; each output
-// is otherwise summed by one warpgroup in K order, so two runs are
-// bitwise equal.
+// about as long as the products and the two overlap little. A
+// warp-specialised layout (rebuild warpgroups writing W_hi^T and W_lo^T
+// into swizzled shared memory for the next stage while MMA warpgroups
+// keep a wgmma group in flight, both operands from shared memory) ran
+// slower at the 32- to 128-token buckets and with fp32 x, and only a few
+// per cent faster at 256 tokens and above: it has half the rebuilding
+// threads an SM and adds the W tiles' shared-memory stores and reads.
+// Ragged M, N, K are masked: TMA zero-fills x past M and K, index bytes
+// past N and V are zero-filled and their columns not written. When the
+// tiles cannot fill the card (a small bucket, or N = 4096), the K range is
+// split across CTAs, which write partial sums to a (splits, M, N)
+// workspace that a second small kernel adds in split order before
+// scaling; each output is otherwise summed by one warpgroup in K order,
+// so two runs are bitwise equal.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>

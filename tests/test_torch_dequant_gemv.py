@@ -93,6 +93,12 @@ def test_split_precision_matches_jax_pallas_interpret(C, x_dtype):
     (512, 512, 22016, (256, 1)),   # gu: 344 tiles fill the card
     (512, 512, 4096, (256, 2)),    # wo: 64 tiles, two K splits
     (32, 512, 4096, (32, 8)),      # the smallest bucket: 2 CTAs an SM
+    (32, 512, 22016, (32, 1)),     # gu: 172 tiles, no split
+    (64, 512, 4096, (64, 8)),      # every served bucket has its tile
+    (64, 1376, 4096, (64, 8)),
+    (128, 512, 4096, (128, 4)),
+    (128, 512, 12288, (128, 1)),
+    (256, 512, 12288, (256, 1)),
     (256, 1376, 4096, (256, 4)),   # down
     (1, 37, 1030, (32, 5)),        # ragged: splits stop at 5 stages
     (129, 64, 12288, (256, 1)),
@@ -140,7 +146,7 @@ def test_kernel_matches_plain(cuda, K, N, M, C):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [32, 64, 256, 512])
+@pytest.mark.parametrize("M", [32, 64, 128, 256, 512])
 @pytest.mark.parametrize("K,N", [(4096, 12288), (4096, 4096), (4096, 22016),
                                  (11008, 4096)])   # llama2-7b linears
 def test_kernel_bf16_x_matches_plain(cuda, K, N, M):
