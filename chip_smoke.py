@@ -13,8 +13,11 @@ Phases (any failure exits non-zero):
      plain version, one PyTorch library call computing the same function
      (where one exists), and its bound on this card; dequant_gemv with
      fp32 and bf16 x at the prefill layer and bf16 x at the prefill
-     buckets of 256, 128, 64 and 32 tokens, with bf16 torch.matmul timed
-     beside its fp32 library call;
+     buckets of 256, 128, 64 and 32 tokens; the VQ matmuls' library call
+     is fp32 torch.matmul on the dequantized weights, with bf16
+     torch.matmul timed beside it (a lower-precision function);
+     flash_decode at mixed lengths and with every row at max_len;
+     int8_gemm at every prefill bucket of the lm_head (32-256 tokens);
      the two-kernel EVA split (vq_gemm, then oc_lookup) is also held
      against the fused kernel;
   4. serve 8 greedy requests on full-width llama2-7b (32 layers, 2-bit VQ
@@ -79,6 +82,7 @@ DECODE_BACKENDS = ("eva_fused", "eva_split")
 KERNEL_FUNCTIONS = {
     "fused_vq_kernel": "fused_vq_matmul", "split_reduce_kernel":
     "fused_vq_matmul (split reduce)", "flash_decode_kernel": "flash_decode",
+    "flash_decode_merge_kernel": "flash_decode (merge)",
     "flash_decode_kvq_kernel": "flash_decode_kvq",
     "kvq_merge_kernel": "flash_decode_kvq (merge)",
     "dequant_gemv_kernel": "dequant_gemv",
@@ -170,13 +174,18 @@ def check_kernels(torch, timer):
                                  f"or not deterministic ({det})")
         rows[kernel].append(row)
 
+    # B1 at the decode linears. The library call computing the same
+    # function is fp32 torch.matmul on the dequantized fp32 weights (TF32
+    # off); bf16 torch.matmul on bf16-rounded weights is timed beside it,
+    # at lower precision (it misses the tolerance)
     C = 2
     for M in (1, SLOTS):
         for name, K, N in LINEARS:
             vq = synthetic_vq(gen, K, N, C=C, device="cuda")
             x = torch.randn((M, K), generator=gen, device="cuda")
             xb = x.to(torch.bfloat16)
-            w = dequantize(vq).to(torch.bfloat16)
+            w = dequantize(vq)
+            wb = w.to(torch.bfloat16)
             run = lambda: fused_vq_matmul(x, vq, out_dtype=torch.float32)
             plain = lambda: fused_vq_matmul(x, vq, out_dtype=torch.float32,
                                             use_kernel=False)
@@ -184,10 +193,11 @@ def check_kernels(torch, timer):
             tol = 1e-4 * max(1.0, want.abs().max().item())
             V = K // 8
             record("fused_vq_matmul", {"M": M, "linear": name, "K": K, "N": N},
-                   got, want, tol, run, plain, lambda: torch.matmul(xb, w),
+                   got, want, tol, run, plain, lambda: torch.matmul(x, w),
                    M * K * 4 + C * V * N + C * 8 * 256 * 4 + N * 4 + M * N * 4,
-                   C * M * V * 256 * 8 * 2 + C * M * V * N + M * N)
-            del vq, w
+                   C * M * V * 256 * 8 * 2 + C * M * V * N + M * N,
+                   extra={"library_bf16_ms": lambda: torch.matmul(xb, wb)})
+            del vq, w, wb
 
     # B3 at the prefill layer (M = MAX_LEN) with fp32 x (the reference's
     # precision: three bf16 products) and with bf16 x (the served dtype:
@@ -251,7 +261,8 @@ def check_kernels(torch, timer):
                C * V * N + C * M * V * 256 * 4 + N * 4 + M * N * 4,
                C * M * V * N + M * N)
         if M == SLOTS:
-            xb, w = x.to(torch.bfloat16), dequantize(vq).to(torch.bfloat16)
+            xb, w = x.to(torch.bfloat16), dequantize(vq)
+            wb = w.to(torch.bfloat16)
             run = lambda: eva_split_matmul(x, vq, out_dtype=torch.float32)
             got = run()
             want = eva_split_matmul(x, vq, out_dtype=torch.float32,
@@ -265,35 +276,46 @@ def check_kernels(torch, timer):
             record("eva_split_matmul", case, got, want, tol, run,
                    lambda: eva_split_matmul(x, vq, out_dtype=torch.float32,
                                             use_kernel=False),
-                   lambda: torch.matmul(xb, w),
+                   lambda: torch.matmul(x, w),
                    M * K * 4 + C * V * N + C * 8 * 256 * 4 + N * 4 + M * N * 4,
-                   C * M * V * 256 * 8 * 2 + C * M * V * N + M * N)
-            del w
+                   C * M * V * 256 * 8 * 2 + C * M * V * N + M * N,
+                   extra={"library_bf16_ms": lambda: torch.matmul(xb, wb)})
+            del w, wb
         del vq, O
 
+    # B2 at mixed lengths (the summary's case) and with every row at
+    # max_len (the cache the engine reaches as requests grow); the library
+    # call is SDPA over the padded cache with the length mask
     B, H, hd = SLOTS, 32, 128
-    lengths = torch.tensor([1, MAX_LEN, 200, 64], dtype=torch.int32,
-                           device="cuda")
     q = torch.randn((B, H, hd), generator=gen, device="cuda").bfloat16()
     k = torch.randn((B, MAX_LEN, H, hd), generator=gen, device="cuda").bfloat16()
     v = torch.randn((B, MAX_LEN, H, hd), generator=gen, device="cuda").bfloat16()
-    mask = (torch.arange(MAX_LEN, device="cuda")[None, :]
-            < lengths[:, None])[:, None, None, :]
     kt, vt, q4 = k.transpose(1, 2), v.transpose(1, 2), q[:, :, None, :]
-    run = lambda: flash_decode(q, k, v, lengths)
-    got, want = run(), flash_decode_ref(q, k, v, lengths)
-    tot = int(lengths.clamp(max=MAX_LEN).sum())
-    record("flash_decode", {"B": B, "H": H, "Hk": H, "hd": hd, "S": MAX_LEN,
-                            "lengths": lengths.tolist(), "dtype": "bfloat16"},
-           got, want, 2.0 ** -7 * max(1.0, want.float().abs().max().item()),
-           run, lambda: flash_decode_ref(q, k, v, lengths),
-           lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask),
-           2 * q.numel() * 2 + tot * 2 * H * hd * 2 + B * 4,
-           tot * H * hd * 4)
+    mask_of = lambda lens: (torch.arange(MAX_LEN, device="cuda")[None, :]
+                            < lens[:, None])[:, None, None, :]
+    mixed = torch.tensor([1, MAX_LEN, 200, 64], dtype=torch.int32, device="cuda")
+    for lengths in (mixed, torch.full((B,), MAX_LEN, dtype=torch.int32,
+                                      device="cuda")):
+        mask = mask_of(lengths)
+        run = lambda: flash_decode(q, k, v, lengths)
+        got, want = run(), flash_decode_ref(q, k, v, lengths)
+        tot = int(lengths.clamp(max=MAX_LEN).sum())
+        record("flash_decode", {"B": B, "H": H, "Hk": H, "hd": hd,
+                                "S": MAX_LEN, "lengths": lengths.tolist(),
+                                "dtype": "bfloat16"},
+               got, want, 2.0 ** -7 * max(1.0, want.float().abs().max().item()),
+               run, lambda: flash_decode_ref(q, k, v, lengths),
+               lambda: F.scaled_dot_product_attention(q4, kt, vt,
+                                                      attn_mask=mask),
+               2 * q.numel() * 2 + tot * 2 * H * hd * 2 + B * 4,
+               tot * H * hd * 4)
 
-    # KV-VQ decode attention over the same K/V, encoded as the engine's
-    # cache holds it (uint8 indices, bf16 scales, grid codebooks); the
-    # library call is SDPA over the cache dequantized to bf16
+    # KV-VQ decode attention over the same K/V at the mixed lengths,
+    # encoded as the engine's cache holds it (uint8 indices, bf16 scales,
+    # grid codebooks); the library call is SDPA over the cache dequantized
+    # to bf16
+    lengths, mask = mixed, mask_of(mixed)
+    tot = int(mixed.clamp(max=MAX_LEN).sum())
     for kv_bits in (4, 2):
         kvq = KVQuantConfig(kv_bits=kv_bits)
         cb = kv_grid_codebooks(H, hd, kvq, device="cuda")
@@ -324,8 +346,9 @@ def check_kernels(torch, timer):
                + tot * H * (RG + 2 * hd + hd * kvq.residual))
         del kd, vd
 
-    # INT8 GEMM at the prefill lm_head shape (bf16 activations and head,
-    # quantized as the wrapper quantizes them); the library call is
+    # INT8 GEMM at the prefill lm_head shape, at every bucket the served
+    # prefill runs (bf16 activations and head, quantized as the wrapper
+    # quantizes them); the library call is
     # torch._int_mm on the same int8 operands (B column-major, the layout
     # cuBLAS's int8 GEMM takes) with the same two scale multiplies
     K, N = 4096, 32000
@@ -334,7 +357,7 @@ def check_kernels(torch, timer):
     wq_cm = wq.t().contiguous().t()
     emit({"phase": "int8_weight_quantization", "K": K, "N": N,
           "ms_per_call": timer(lambda: quantize_int8(w, axis=0))})
-    for M in (64, 256):
+    for M in (32, 64, 128, 256):
         x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
         xq, xs = quantize_int8(x, axis=-1)
         run = lambda: int8_gemm(xq, wq, xs, ws)
@@ -660,6 +683,8 @@ def main() -> int:
         elif name in ("flash_decode_kvq", "int8_gemm"):  # the served case
             rs = [r for r in rs if r["case"].get("kv_bits", 4) == 4
                   and r["case"].get("M", 256) == 256]
+        elif name == "flash_decode":  # the mixed lengths
+            rs = [r for r in rs if len(set(r["case"]["lengths"])) > 1]
         elif name == "dequant_gemv":  # the prefill layer, served bf16 x
             rs = [r for r in rs if r["case"]["M"] == MAX_LEN
                   and r["case"]["x"] == "bfloat16"]
@@ -675,7 +700,8 @@ def main() -> int:
             "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": (None if any(r["library_ms"] is None for r in rs)
                            else tot("library_ms")),
-            # B3: bf16 torch.matmul on bf16-rounded weights, lower precision
+            # B1, B3: bf16 torch.matmul on bf16-rounded weights, lower
+            # precision
             **({"library_bf16_ms": tot("library_bf16_ms")}
                if "library_bf16_ms" in rs[0] else {})})
     emit({"kernels": summary})

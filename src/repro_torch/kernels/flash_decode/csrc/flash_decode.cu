@@ -1,28 +1,43 @@
-// Single-query (decode) GQA attention over a contiguous fp KV cache, with
-// an online softmax (flash-decoding), for Hopper (sm_90a).
+// Single-query (decode) GQA attention over a contiguous fp KV cache, split
+// over the cache (flash-decoding), for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_flash_decode_kernel` /
 // `flash_decode_pallas` (src/repro/kernels/flash_decode/kernel.py:33 and
 // :183): q (B, H, hd), k/v (B, S, Hk, hd) in the model dtype (bf16 or
 // fp32), lengths (B,) int32 -> o (B, H, hd) in q's dtype. Positions at or
 // past lengths[b] are masked with -1e30 and the result is acc / max(l,
-// 1e-30), as in the Pallas kernel (kernel.py:54-70).
+// 1e-30), as in the Pallas kernel (kernel.py:54-70); lengths[b] <= 0
+// attends over all S masked positions, which is what the Pallas kernel
+// computes there.
 //
-// Bound on this card: bytes. Each step reads every cached K and V row once
-// (B * len * 2 * Hk * hd * itemsize) and does 4 flops per element.
+// Bound on this card: bytes. A step reads every cached K and V row up to
+// the length once (B * len * 2 * Hk * hd * itemsize) and does 4 flops per
+// element: ~0.004 ms for llama2-7b's 32 heads x 4 rows at lengths
+// 1/512/200/64 in bf16, ~0.010 ms with all four rows at 512, at 3.35 TB/s.
 //
-// Design. One CTA per (kv head, batch row) serves the g = H/Hk query heads
-// that share the kv head. Its eight warps split the sequence into groups of
-// four positions (warp w takes groups w, w+8, ...); a lane holds hd/32
-// channels, so a K or V row is one coalesced vector load per lane and a
-// score is a warp-shuffle reduction. Each warp keeps its own fp32
-// online-softmax state (m, l, acc) per query head and updates it once per
-// group of four; the eight states are merged in warp order at the end, so
-// the reduction order is fixed and two runs are bitwise equal.
-// The loop stops after ceil(min(len, S) / 4) groups: positions past the
-// length are masked anyway, and this is the byte saving that matters at
-// short lengths. lengths[b] <= 0 attends over all S masked positions,
-// which is what the Pallas kernel computes there.
+// Design. One CTA per (row, kv head) walking the whole row is latency-
+// bound: the longest row takes many dependent rounds while short rows
+// leave their SMs idle. So:
+//  * Split over S. The grid is (kv head, row, split); a CTA takes CHUNK =
+//    64 positions of one row (the split count comes from the host-known
+//    S). A CTA whose chunk starts at or past its row's walked length
+//    exits at once and writes nothing; the merge reads only the splits
+//    below that length, so it never sees one.
+//  * Every load in flight before any arithmetic. A row of hd elements is
+//    read by LPR lanes with one 16-byte load each; the 256 threads take
+//    the chunk's rows in passes of 256 / LPR, so each thread issues all
+//    of its K and V loads (CHUNK * LPR / 256 of each) up front: 32 KB in
+//    flight per CTA for bf16 hd=128.
+//  * One load serves the GQA group: the g <= 8 query heads of the kv
+//    head are scored against each loaded row (a shuffle reduction over
+//    the row's LPR lanes). The scores go to shared memory, warp h takes
+//    head h's softmax over the chunk (max and sum by butterfly
+//    shuffles), and each thread folds its rows' V into (g, its channels)
+//    with the resulting weights; the row passes are summed by shuffles
+//    within a warp and in warp order across warps, into the chunk's
+//    (m, l, acc[hd]) fp32 partial.
+//  * A second kernel merges a (row, head)'s partials in split order, so
+//    two runs are bitwise equal (no atomics, no counters).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -30,212 +45,245 @@
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int GROUP = 4;  // positions per warp iteration
+constexpr int CHUNK = 64;  // positions per CTA: ops.py FD_CHUNK
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;  // also the most query heads per kv head
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// EPL contiguous elements -> fp32, with one vector load where it fits
-template <typename T, int EPL>
-__device__ __forceinline__ void load_f32(const T* __restrict__ p, float (&out)[EPL]) {
-  constexpr int BYTES = EPL * (int)sizeof(T);
-  alignas(16) T tmp[EPL];
-  if constexpr (BYTES >= 16) {
+__device__ __forceinline__ void to_f32(const uint4& w, float (&out)[8], __nv_bfloat16) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
 #pragma unroll
-    for (int i = 0; i < BYTES / 16; ++i)
-      reinterpret_cast<uint4*>(tmp)[i] = reinterpret_cast<const uint4*>(p)[i];
-  } else if constexpr (BYTES == 8) {
-    *reinterpret_cast<uint2*>(tmp) = *reinterpret_cast<const uint2*>(p);
-  } else if constexpr (BYTES == 4) {
-    *reinterpret_cast<uint32_t*>(tmp) = *reinterpret_cast<const uint32_t*>(p);
-  } else {
-#pragma unroll
-    for (int i = 0; i < EPL; ++i) tmp[i] = p[i];
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
   }
-#pragma unroll
-  for (int i = 0; i < EPL; ++i) out[i] = to_f(tmp[i]);
+}
+__device__ __forceinline__ void to_f32(const uint4& w, float (&out)[4], float) {
+  out[0] = __uint_as_float(w.x);
+  out[1] = __uint_as_float(w.y);
+  out[2] = __uint_as_float(w.z);
+  out[3] = __uint_as_float(w.w);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-// T: cache/query dtype; EPL = hd / 32 channels per lane; G >= g heads
-template <typename T, int EPL, int G>
-__global__ void __launch_bounds__(WARPS * 32)
+// the row's walked length: its length, or all S positions when it is <= 0
+__device__ __forceinline__ int walked(int L, int S) { return L > 0 ? min(L, S) : S; }
+
+// T: cache/query dtype; HD: head dim; G >= g query heads per kv head.
+// Partials: part_acc[((b*H + h) * splits + split) * HD + c], part_ml[(b*H
+// + h) * splits + split] = (m, l).
+template <typename T, int HD, int G>
+__global__ void __launch_bounds__(THREADS)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ lengths,
-                    T* __restrict__ o, int S, int H, int Hk, int g,
-                    float sm_scale) {
-  constexpr int HD = 32 * EPL;
-  __shared__ float m_s[WARPS][G];
-  __shared__ float l_s[WARPS][G];
-  __shared__ float a_s[WARPS][G][HD];
+                    float* __restrict__ part_acc, float2* __restrict__ part_ml, int S,
+                    int H, int Hk, float sm_scale) {
+  constexpr int EPL = 16 / (int)sizeof(T);  // elements per 16-byte load
+  constexpr int LPR = HD / EPL;             // lanes per row
+  constexpr int RPP = THREADS / LPR;        // rows per pass
+  constexpr int PPT = CHUNK / RPP;          // rows per thread
+  static_assert(LPR >= 4 && LPR <= 32 && PPT >= 1 && CHUNK % RPP == 0, "shape");
+  __shared__ float s_sm[G][CHUNK];          // scores, then weights
+  __shared__ float red[WARPS][G][HD];       // each warp's sum of its rows
+  __shared__ float2 ml_sm[G];
 
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
+  const int hk = blockIdx.x, b = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
+  const int g = H / Hk;
   const int L = lengths[b];
-  const int n_pos = L > 0 ? min(L, S) : S;
+  const int lo = split * CHUNK;
+  const int np = min(CHUNK, walked(L, S) - lo);
+  if (np <= 0) return;  // past the walked length: the merge stops before it
 
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int c = tid % LPR, r0 = tid / LPR;
+  const size_t row = (size_t)Hk * HD;  // elements between positions
+  const size_t off0 = ((size_t)b * S + lo) * row + (size_t)hk * HD + c * EPL;
+
+  // 1. all of this thread's K and V loads, then q
+  uint4 kr[PPT], vr[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i)  // rows past np re-read row np - 1
+    kr[i] = ld16(k + off0 + (size_t)min(r0 + i * RPP, np - 1) * row);
+#pragma unroll
+  for (int i = 0; i < PPT; ++i)
+    vr[i] = ld16(v + off0 + (size_t)min(r0 + i * RPP, np - 1) * row);
+  const size_t head0 = (size_t)b * H + (size_t)hk * g;  // first query head
   float qf[G][EPL];
 #pragma unroll
   for (int h = 0; h < G; ++h) {
     if (h < g) {
-      load_f32<T, EPL>(q + ((size_t)b * H + (size_t)hk * g + h) * HD + lane * EPL, qf[h]);
+      to_f32(ld16(q + (head0 + h) * HD + c * EPL), qf[h], T());
     } else {
 #pragma unroll
-      for (int i = 0; i < EPL; ++i) qf[h][i] = 0.f;
+      for (int e = 0; e < EPL; ++e) qf[h][e] = 0.f;
     }
   }
 
-  float m[G], l[G], acc[G][EPL];
+  // 2. scores: past np not a position at all (-inf); past the length
+  // (only when L <= 0) masked with -1e30
 #pragma unroll
-  for (int h = 0; h < G; ++h) {
-    m[h] = -1e30f;
-    l[h] = 0.f;
-#pragma unroll
-    for (int i = 0; i < EPL; ++i) acc[h][i] = 0.f;
-  }
-
-  const size_t row = (size_t)Hk * HD;  // elements between positions
-  const T* kb = k + (size_t)b * S * row + (size_t)hk * HD + lane * EPL;
-  const T* vb = v + (size_t)b * S * row + (size_t)hk * HD + lane * EPL;
-
-  for (int p0 = w * GROUP; p0 < n_pos; p0 += WARPS * GROUP) {
-    float kf[GROUP][EPL], vf[GROUP][EPL];
-#pragma unroll
-    for (int u = 0; u < GROUP; ++u) {
-      const int p = p0 + u;
-      if (p < n_pos) {
-        load_f32<T, EPL>(kb + (size_t)p * row, kf[u]);
-        load_f32<T, EPL>(vb + (size_t)p * row, vf[u]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < EPL; ++i) { kf[u][i] = 0.f; vf[u][i] = 0.f; }
-      }
-    }
+  for (int i = 0; i < PPT; ++i) {
+    float kf[EPL];
+    to_f32(kr[i], kf, T());
+    const int p = r0 + i * RPP;
 #pragma unroll
     for (int h = 0; h < G; ++h) {
       if (h >= g) continue;
-      float s[GROUP];
-      float s_max = -INFINITY;
+      float d = 0.f;
 #pragma unroll
-      for (int u = 0; u < GROUP; ++u) {
-        float d = 0.f;
+      for (int e = 0; e < EPL; ++e) d = fmaf(qf[h][e], kf[e], d);
 #pragma unroll
-        for (int i = 0; i < EPL; ++i) d = fmaf(qf[h][i], kf[u][i], d);
-        d = warp_sum(d) * sm_scale;
-        const int p = p0 + u;
-        // past the array: not a position at all; past the length: masked
-        s[u] = p >= n_pos ? -INFINITY : (p < L ? d : -1e30f);
-        s_max = fmaxf(s_max, s[u]);
-      }
-      const float m_new = fmaxf(m[h], s_max);
-      const float corr = expf(m[h] - m_new);
-      float psum = 0.f;
-      float pv[EPL];
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) pv[i] = 0.f;
-#pragma unroll
-      for (int u = 0; u < GROUP; ++u) {
-        const float pu = expf(s[u] - m_new);
-        psum += pu;
-#pragma unroll
-        for (int i = 0; i < EPL; ++i) pv[i] = fmaf(pu, vf[u][i], pv[i]);
-      }
-      l[h] = l[h] * corr + psum;
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) acc[h][i] = acc[h][i] * corr + pv[i];
-      m[h] = m_new;
-    }
-  }
-
-  // merge the warp states in warp order
-#pragma unroll
-  for (int h = 0; h < G; ++h) {
-    if (h < g) {
-      if (lane == 0) { m_s[w][h] = m[h]; l_s[w][h] = l[h]; }
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) a_s[w][h][lane * EPL + i] = acc[h][i];
+      for (int off = LPR / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+      if (c == 0) s_sm[h][p] = p >= np ? -INFINITY : (lo + p < L ? d * sm_scale : -1e30f);
     }
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < g * HD; e += WARPS * 32) {
-    const int h = e / HD;
-    const int dch = e - h * HD;
-    float mx = m_s[0][h];
+
+  // 3. warp h: the chunk's softmax for head h
+  if (w < g) {
+    const float s0 = s_sm[w][lane], s1 = s_sm[w][lane + 32];
+    float m = fmaxf(s0, s1);
 #pragma unroll
-    for (int ww = 1; ww < WARPS; ++ww) mx = fmaxf(mx, m_s[ww][h]);
-    float lsum = 0.f, asum = 0.f;
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    const float p0 = expf(s0 - m), p1 = expf(s1 - m);
+    s_sm[w][lane] = p0;
+    s_sm[w][lane + 32] = p1;
+    float l = p0 + p1;
 #pragma unroll
-    for (int ww = 0; ww < WARPS; ++ww) {
-      const float f = expf(m_s[ww][h] - mx);
-      lsum += l_s[ww][h] * f;
-      asum += a_s[ww][h][dch] * f;
+    for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (lane == 0) ml_sm[w] = make_float2(m, l);
+  }
+  __syncthreads();
+
+  // 4. the weighted V rows: this thread's rows in order, then the warp's
+  // row slots by a butterfly, then the warps in order
+  float vf[PPT][EPL];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) to_f32(vr[i], vf[i], T());
+#pragma unroll
+  for (int h = 0; h < G; ++h) {
+    if (h >= g) continue;
+    float acc[EPL];
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      const float p = s_sm[h][r0 + i * RPP];  // 0 past np
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[e] = fmaf(p, vf[i][e], acc[e]);
     }
-    o[((size_t)b * H + (size_t)hk * g + h) * HD + dch] =
-        from_f<T>(asum / fmaxf(lsum, 1e-30f));
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) {
+#pragma unroll
+      for (int off = LPR; off < 32; off <<= 1)
+        acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+    }
+    if (lane < LPR) {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) red[w][h][c * EPL + e] = acc[e];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < g * HD; i += THREADS) {
+    const int h = i / HD, ch = i - h * HD;
+    float a = 0.f;
+#pragma unroll
+    for (int ww = 0; ww < WARPS; ++ww) a += red[ww][h][ch];
+    part_acc[((head0 + h) * splits + split) * HD + ch] = a;
+    if (ch == 0) part_ml[(head0 + h) * splits + split] = ml_sm[h];
   }
 }
 
-template <typename T, int EPL>
-cudaError_t launch_g(const void* q, const void* k, const void* v,
-                     const int* lengths, void* o, int B, int S, int H, int Hk,
-                     cudaStream_t st) {
-  const int g = H / Hk;
-  const float sm_scale = 1.0f / sqrtf((float)(32 * EPL));
-  dim3 grid(Hk, B);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(o);
-  if (g <= 1)
-    flash_decode_kernel<T, EPL, 1><<<grid, WARPS * 32, 0, st>>>(qp, kp, vp, lengths, op, S, H, Hk, g, sm_scale);
-  else if (g <= 2)
-    flash_decode_kernel<T, EPL, 2><<<grid, WARPS * 32, 0, st>>>(qp, kp, vp, lengths, op, S, H, Hk, g, sm_scale);
-  else if (g <= 4)
-    flash_decode_kernel<T, EPL, 4><<<grid, WARPS * 32, 0, st>>>(qp, kp, vp, lengths, op, S, H, Hk, g, sm_scale);
-  else if (g <= 8)
-    flash_decode_kernel<T, EPL, 8><<<grid, WARPS * 32, 0, st>>>(qp, kp, vp, lengths, op, S, H, Hk, g, sm_scale);
-  else
-    return cudaErrorInvalidValue;
+// o[b, h, :] = sum_s acc_s f_s / max(sum_s l_s f_s, 1e-30), f_s =
+// exp(m_s - max m), over the row's live splits in order; one CTA per (row,
+// head)
+template <typename T>
+__global__ void flash_decode_merge_kernel(const float* __restrict__ part_acc,
+                                          const float2* __restrict__ part_ml,
+                                          const int* __restrict__ lengths, T* __restrict__ o,
+                                          int S, int H, int hd, int splits) {
+  const size_t bh = blockIdx.x;
+  const int live = (walked(lengths[bh / H], S) + CHUNK - 1) / CHUNK;
+  const float2* ml = part_ml + bh * splits;
+  float mx = -INFINITY;
+  for (int s = 0; s < live; ++s) mx = fmaxf(mx, ml[s].x);
+  for (int c = threadIdx.x; c < hd; c += blockDim.x) {
+    float lsum = 0.f, asum = 0.f;
+    for (int s = 0; s < live; ++s) {
+      const float f = expf(ml[s].x - mx);
+      lsum += ml[s].y * f;
+      asum += part_acc[(bh * splits + s) * hd + c] * f;
+    }
+    const float val = asum / fmaxf(lsum, 1e-30f);
+    if constexpr (sizeof(T) == 2)
+      o[bh * hd + c] = __float2bfloat16(val);
+    else
+      o[bh * hd + c] = val;
+  }
+}
+
+template <typename T, int HD, int G>
+cudaError_t launch_k(const void* q, const void* k, const void* v, const int* lengths,
+                     void* o, float* part_acc, float2* part_ml, int B, int S, int H,
+                     int Hk, cudaStream_t st) {
+  const int splits = (S + CHUNK - 1) / CHUNK;
+  dim3 grid(Hk, B, splits);
+  flash_decode_kernel<T, HD, G><<<grid, THREADS, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
+      part_acc, part_ml, S, H, Hk, 1.0f / sqrtf((float)HD));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_decode_merge_kernel<T><<<(unsigned)(B * H), HD < 128 ? HD : 128, 0, st>>>(
+      part_acc, part_ml, lengths, static_cast<T*>(o), S, H, HD, splits);
   return cudaGetLastError();
 }
 
+template <typename T, int HD>
+cudaError_t launch_g(const void* q, const void* k, const void* v, const int* lengths,
+                     void* o, float* part_acc, float2* part_ml, int B, int S, int H,
+                     int Hk, cudaStream_t st) {
+  const int g = H / Hk;
+  if (g <= 1) return launch_k<T, HD, 1>(q, k, v, lengths, o, part_acc, part_ml, B, S, H, Hk, st);
+  if (g <= 2) return launch_k<T, HD, 2>(q, k, v, lengths, o, part_acc, part_ml, B, S, H, Hk, st);
+  if (g <= 4) return launch_k<T, HD, 4>(q, k, v, lengths, o, part_acc, part_ml, B, S, H, Hk, st);
+  if (g <= 8) return launch_k<T, HD, 8>(q, k, v, lengths, o, part_acc, part_ml, B, S, H, Hk, st);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
-cudaError_t launch_t(const void* q, const void* k, const void* v,
-                     const int* lengths, void* o, int B, int S, int H, int Hk,
-                     int hd, cudaStream_t st) {
+cudaError_t launch_t(const void* q, const void* k, const void* v, const int* lengths,
+                     void* o, float* part_acc, float2* part_ml, int B, int S, int H,
+                     int Hk, int hd, cudaStream_t st) {
   switch (hd) {
-    case 32: return launch_g<T, 1>(q, k, v, lengths, o, B, S, H, Hk, st);
-    case 64: return launch_g<T, 2>(q, k, v, lengths, o, B, S, H, Hk, st);
-    case 128: return launch_g<T, 4>(q, k, v, lengths, o, B, S, H, Hk, st);
+    case 32: return launch_g<T, 32>(q, k, v, lengths, o, part_acc, part_ml, B, S, H, Hk, st);
+    case 64: return launch_g<T, 64>(q, k, v, lengths, o, part_acc, part_ml, B, S, H, Hk, st);
+    case 128: return launch_g<T, 128>(q, k, v, lengths, o, part_acc, part_ml, B, S, H, Hk, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// is_bf16: 1 for bfloat16 q/k/v/o, 0 for float32
+// q (B, H, hd), k/v (B, S, Hk, hd), o (B, H, hd): bfloat16 (is_bf16 = 1)
+// or float32, contiguous, 16-byte aligned; lengths (B,) int32; ws a fp32
+// workspace of B * H * splits * (hd + 2) floats, splits = ceil(S /
+// chunk); chunk must be CHUNK (the wrapper's FD_CHUNK).
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
-                                   const void* lengths, void* o, int B, int S,
-                                   int H, int Hk, int hd, int is_bf16,
+                                   const void* lengths, void* o, void* ws, int B, int S,
+                                   int H, int Hk, int hd, int chunk, int is_bf16,
                                    void* stream) {
-  if (B < 1 || S < 1 || Hk < 1 || H % Hk != 0) return (int)cudaErrorInvalidValue;
+  if (B < 1 || S < 1 || Hk < 1 || H % Hk != 0 || H / Hk > WARPS || chunk != CHUNK)
+    return (int)cudaErrorInvalidValue;
+  const size_t heads = (size_t)B * H * ((S + CHUNK - 1) / CHUNK);
+  float* part_acc = static_cast<float*>(ws);
+  float2* part_ml = reinterpret_cast<float2*>(part_acc + heads * hd);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
-  cudaError_t err = is_bf16
-      ? launch_t<__nv_bfloat16>(q, k, v, len, o, B, S, H, Hk, hd, st)
-      : launch_t<float>(q, k, v, len, o, B, S, H, Hk, hd, st);
+  cudaError_t err =
+      is_bf16 ? launch_t<__nv_bfloat16>(q, k, v, len, o, part_acc, part_ml, B, S, H, Hk, hd, st)
+              : launch_t<float>(q, k, v, len, o, part_acc, part_ml, B, S, H, Hk, hd, st);
   return (int)err;
 }

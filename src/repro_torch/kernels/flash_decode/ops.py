@@ -29,6 +29,13 @@ from repro_torch.kernels.flash_decode.ref import (flash_decode_kvq_ref,
 _NAME = "flash_decode"
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8
+FD_CHUNK = 64       # positions per CTA of the split-S kernel
+
+
+def fd_splits(S: int) -> int:
+    """CTAs per (row, kv head): one per ``FD_CHUNK`` positions of the
+    host-known S."""
+    return -(-S // FD_CHUNK)
 
 
 def _launch(q, k, v, lengths) -> torch.Tensor:
@@ -53,11 +60,13 @@ def _launch(q, k, v, lengths) -> torch.Tensor:
             f"{tuple(k.shape)} on {k.device}, lengths {lengths.dtype} "
             f"{tuple(lengths.shape)} on {lengths.device}")
     o = torch.empty_like(q)
-    fn = build.bind(_NAME, "flash_decode_launch", 5, 6)
+    ws = torch.empty(B * H * fd_splits(S) * (hd + 2), dtype=torch.float32,
+                     device=dev)
+    fn = build.bind(_NAME, "flash_decode_launch", 6, 7)
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                 o.data_ptr(), B, S, H, Hk, hd,
-                 1 if q.dtype == torch.bfloat16 else 0, build.stream_of(q))
+                 o.data_ptr(), ws.data_ptr(), B, S, H, Hk, hd, FD_CHUNK,
+                 int(q.dtype == torch.bfloat16), build.stream_of(q))
     build.check(err, _NAME)
     flash_decode.launches += 1
     return o

@@ -11,7 +11,7 @@ raises.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,7 +22,17 @@ from repro_torch.kernels import build
 from repro_torch.kernels.int8_gemm.ref import int8_gemm_ref
 
 _NAME = "int8_gemm"
-K_ALIGN, N_ALIGN = 16, 4  # the kernel loads 16-byte rows of x, 4-byte of w
+K_ALIGN, N_ALIGN = 16, 16  # TMA takes rows of x and w 16-byte aligned
+TOKEN_TILES = (32, 64, 128, 256)   # tokens per CTA: wgmma's N
+COLS_PER_CTA = 128                 # weight columns per CTA
+
+
+def launch_shape(M: int, N: int) -> Tuple[int, int, int]:
+    """(tokens per CTA, CTAs along N, CTAs along M) of a launch: the
+    smallest token tile that holds M (tiles of 256 above), so each weight
+    tile is read once for all of a prefill bucket's tokens."""
+    T = next((t for t in TOKEN_TILES if M <= t), TOKEN_TILES[-1])
+    return T, -(-N // COLS_PER_CTA), -(-M // T)
 
 
 def _launch(xq, wq, xs, ws) -> torch.Tensor:
@@ -44,10 +54,11 @@ def _launch(xq, wq, xs, ws) -> torch.Tensor:
             f"{tuple(wq.shape)} on {wq.device}, xs {xs.dtype} "
             f"{tuple(xs.shape)}, ws {ws.dtype} {tuple(ws.shape)}")
     y = torch.empty((M, N), dtype=torch.float32, device=dev)
-    fn = build.bind(_NAME, "int8_gemm_launch", 5, 3)
+    T = launch_shape(M, N)[0]
+    fn = build.bind(_NAME, "int8_gemm_launch", 5, 4)
     with torch.cuda.device(dev):
         err = fn(xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), ws.data_ptr(),
-                 y.data_ptr(), M, N, K, build.stream_of(xq))
+                 y.data_ptr(), M, N, K, T, build.stream_of(xq))
     build.check(err, _NAME)
     int8_gemm.launches += 1
     return y

@@ -1,17 +1,24 @@
 """Port of the flash-decode kernel: the plain PyTorch version against the
-JAX wrapper in Pallas interpret mode (CPU), and the CUDA kernel against
-the plain version on the card.
+JAX wrapper in Pallas interpret mode (CPU); the kernel's own formulation
+— the cache split into chunks, each folded into an (m, l, acc) partial
+(neutral past the length), the partials merged in split order — against
+the Pallas kernel in interpret mode; and the CUDA kernel against the
+plain version on the card.
 
 Tolerance: fp32 rtol=1e-5, atol=1e-5 — the online softmax folds the
 cache in blocks where the plain version normalizes once, which
-reassociates the sums over S. On the card, fp32 caches are held to
-1e-5 and bf16 caches to 2^-7 * max|o| (one bf16 rounding of the output
-on either side)."""
+reassociates the sums over S; the formulation is held to 1e-5 * max|o|
+for the same reason. On the card, fp32 caches are held to 1e-5 and bf16
+caches to 2^-7 * max|o| (one bf16 rounding of the output on either
+side)."""
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+from repro_torch.kernels.flash_decode.ops import FD_CHUNK, fd_splits
 
 torch.set_num_threads(1)
 
@@ -39,6 +46,85 @@ def test_plain_matches_jax_pallas_interpret(B, S, H, Hk, hd, lengths):
     got = flash_decode(*(torch.from_numpy(a) for a in (q, k, v, lens)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
+
+def _kernel_formulation(q, k, v, lengths, chunk=FD_CHUNK):
+    """What csrc/flash_decode.cu computes, in plain torch: scores of each
+    query head against its kv head's rows, positions past the length
+    masked with -1e30 (only a row of length <= 0 walks past it: over all S
+    positions); the cache cut into splits of ``chunk`` positions, each
+    folded into its own (m, l, acc) over the positions it walks (none past
+    the walked length: a neutral (-inf, 0, 0)), then merged in split
+    order and divided by max(l, 1e-30)."""
+    B, H, hd = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    g = H // Hk
+    qg = q.reshape(B, Hk, g, hd).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) / math.sqrt(hd)
+    pos = torch.arange(S)[None, :]
+    s = torch.where((pos < lengths[:, None])[:, None, None], s,
+                    torch.full_like(s, -1e30))
+    walked = torch.where(lengths > 0, lengths.clamp(max=S), S)
+    s = torch.where((pos < walked[:, None])[:, None, None], s,
+                    torch.full_like(s, -torch.inf))       # (B, Hk, g, S)
+    parts = []
+    for lo in range(0, S, chunk):
+        sk, vk = s[..., lo:lo + chunk], v[:, lo:lo + chunk].float()
+        m = sk.amax(dim=-1)
+        live = torch.isfinite(m)
+        p = torch.exp(sk - torch.where(live, m, 0.0)[..., None])
+        parts.append((m, p.sum(dim=-1),
+                      torch.einsum("bkgs,bskd->bkgd", p, vk)))
+    assert len(parts) == -(-S // chunk)
+    mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l = torch.zeros_like(mx)
+    acc = torch.zeros(mx.shape + (hd,))
+    for m, lk, ak in parts:                             # in split order
+        f = torch.exp(m - mx)
+        l = l + lk * f
+        acc = acc + ak * f[..., None]
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.reshape(B, H, hd).to(q.dtype)
+
+
+def _pallas(q, k, v, lens, block_s):
+    import jax.numpy as jnp
+    from repro.kernels.flash_decode.kernel import flash_decode_pallas
+
+    return np.asarray(flash_decode_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens),
+        block_s=block_s, interpret=True))
+
+
+def _assert_close(got, want):
+    err = np.abs(got - want).max()
+    assert err <= 1e-5 * max(1.0, np.abs(want).max()), err
+
+
+@pytest.mark.parametrize("H,Hk", [(8, 2), (8, 1)])      # GQA g=4 and g=8
+@pytest.mark.parametrize("chunk,splits", [(40, 1), (20, 2), (8, 5)])
+def test_kernel_formulation_split_merge_matches_jax_pallas_interpret(
+        H, Hk, chunk, splits):
+    """The split-S merge at 1, 2 and 5 splits over S = 40: an empty row,
+    a length on a chunk edge (16 = 2 * 8) and one past it, an over-long
+    length."""
+    q, k, v, lens = _inputs(4, 40, H, Hk, 32, [0, 16, 17, 41], seed=1)
+    assert -(-40 // chunk) == splits
+    want = _pallas(q, k, v, lens, block_s=8)
+    got = _kernel_formulation(*(torch.from_numpy(a) for a in
+                                (q, k, v, lens)), chunk=chunk)
+    _assert_close(got.numpy(), want)
+
+
+def test_kernel_formulation_at_the_kernel_chunk():
+    """The kernel's own chunk (64 positions) over S = 192: three splits,
+    lengths on, before and past the first chunk edge and an empty row."""
+    q, k, v, lens = _inputs(4, 192, 4, 4, 64, [63, 64, 65, 0], seed=2)
+    assert fd_splits(192) == 3 and FD_CHUNK == 64
+    want = _pallas(q, k, v, lens, block_s=64)
+    got = _kernel_formulation(*(torch.from_numpy(a) for a in
+                                (q, k, v, lens)))
+    _assert_close(got.numpy(), want)
 
 
 def test_4d_query_and_no_launch_on_cpu():
@@ -82,6 +168,9 @@ def _tol(want):
     (3, 300, 32, 8, 128, [300, 5, 150]),        # GQA g=4
     (2, 70, 16, 2, 64, [70, 33]),               # g=8, hd=64
     (2, 40, 4, 4, 32, [0, 41]),                 # empty and over-long lengths
+    (4, 130, 8, 8, 32, [63, 64, 65, 0]),        # around a chunk edge, hd=32
+    (4, 200, 16, 4, 64, [65, 0, 63, 64]),       # S not a multiple of 64
+    (4, 512, 32, 32, 128, [512] * 4),           # every row at max_len
 ])
 def test_kernel_matches_plain(cuda, B, S, H, Hk, hd, lengths, dtype):
     q, k, v, lens = _card(B, S, H, Hk, hd, lengths, dtype)
@@ -95,7 +184,8 @@ def test_kernel_matches_plain(cuda, B, S, H, Hk, hd, lengths, dtype):
 
 
 @pytest.mark.cuda
-def test_kernel_bitwise_deterministic(cuda):
-    q, k, v, lens = _card(4, 512, 32, 32, 128, [1, 512, 77, 300],
-                          torch.bfloat16)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lengths", [[1, 512, 77, 300], [512] * 4])
+def test_kernel_bitwise_deterministic(cuda, lengths, dtype):
+    q, k, v, lens = _card(4, 512, 32, 32, 128, lengths, dtype)
     assert torch.equal(flash_decode(q, k, v, lens), flash_decode(q, k, v, lens))
