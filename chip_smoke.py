@@ -5,8 +5,9 @@
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel of the serving paths from kernels/*/csrc, one
-     nvcc per source, all started together;
+  2. build every CUDA kernel of the serving paths from kernels/*/csrc (and
+     the lookup kernels' timing variants), one nvcc per library, all
+     started together;
   3. check each kernel against its plain PyTorch version at the serving
      paths' full-width llama2-7b shapes (tolerance, bitwise determinism)
      and time it (CUDA events, median, L2 flushed between runs) beside its
@@ -20,6 +21,11 @@ Phases (any failure exits non-zero):
      int8_gemm at every prefill bucket of the lm_head (32-256 tokens);
      the two-kernel EVA split (vq_gemm, then oc_lookup) is also held
      against the fused kernel;
+  3b. `breakdown`: fused_vq_matmul and oc_lookup against their
+     timing-only variants (no lookup, no index loads, no output codebook,
+     no split reduce; compile-time builds of the same sources) at the
+     four decode linears x M in {1, 4} and at the ragged case, and each
+     call timed twice back to back;
   4. serve 8 greedy requests on full-width llama2-7b (32 layers, 2-bit VQ
      weights drawn on the card from a seed, bf16 activations, 4 slots,
      max_len 512) through the Engine, counting kernel launches per phase:
@@ -44,6 +50,11 @@ Phases (any failure exits non-zero):
 
 Without a CUDA device, or outside a checkout of the repository, it fails
 before printing any result.
+
+    python3 chip_smoke.py --only check,breakdown
+
+runs a subset of the phases (check, breakdown, serve) and prints neither
+the summary nor the result line: a partial run for iterating.
 """
 from __future__ import annotations
 
@@ -370,6 +381,54 @@ def check_kernels(torch, timer):
     return rows
 
 
+def breakdown(torch, timer):
+    """Where the EVA lookup kernels' time goes: B1 (fused_vq_matmul) and
+    B5 (oc_lookup, fed vq_gemm's output codebook) against their
+    timing-only variants (kernels/build.py VARIANTS: no lookup, no index
+    loads, no output codebook, no split reduce) at the four decode
+    linears x M in {1, SLOTS} and at the ragged case, with the same
+    timer as the check phase. Rows, then one total per kernel and M."""
+    from repro_torch.core.vq import synthetic_vq
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_vq_matmul import fused_vq_matmul
+    from repro_torch.kernels.fused_vq_matmul.ops import run_variant as fused_variant
+    from repro_torch.kernels.oc_lookup import oc_lookup
+    from repro_torch.kernels.oc_lookup.ops import run_variant as lookup_variant
+    from repro_torch.kernels.vq_gemm import vq_gemm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    totals = {}
+    cases = [(M, name, K, N) for M in (1, SLOTS) for name, K, N in LINEARS]
+    for M, name, K, N in cases + [(3, "ragged", 296, 1030)]:
+        vq = synthetic_vq(gen, K, N, C=2, device="cuda")
+        x = torch.randn((M, K), generator=gen, device="cuda")
+        O = vq_gemm(x, vq.codebooks)
+        calls = {
+            "fused_vq_matmul": (
+                lambda: fused_vq_matmul(x, vq, out_dtype=torch.float32),
+                lambda v: (lambda: fused_variant(x, vq, v))),
+            "oc_lookup": (lambda: oc_lookup(O, vq.idx, vq.scale),
+                          lambda v: (lambda: lookup_variant(O, vq.idx,
+                                                            vq.scale, v)))}
+        for kernel, (full, variant) in calls.items():
+            # twice back to back: a cost paid once per launch sequence
+            # (shared-memory carveout, attribute calls) shows as a gap
+            # between "twice" and 2 x "kernel"
+            ms = {"kernel": timer(full), "twice": timer(lambda: (full(), full()))}
+            for v in build.VARIANTS[kernel]:
+                ms[v] = timer(variant(v))
+            emit({"phase": "breakdown", "kernel": kernel, "linear": name,
+                  "M": M, "K": K, "N": N, "ms": ms})
+            if name != "ragged":
+                tot = totals.setdefault((kernel, M), {})
+                for k, t in ms.items():
+                    tot[k] = tot.get(k, 0.0) + t
+        del vq, O
+    for (kernel, M), ms in totals.items():
+        emit({"phase": "breakdown_layer", "kernel": kernel, "M": M,
+              "ms_per_decode_layer": ms})
+
+
 def serve(torch, timer):
     """Phases 4-6: full-width llama2-7b through the Engine, first with the
     fp KV cache, then with the 4-bit KV-VQ cache and INT8 prefill; the
@@ -649,8 +708,20 @@ def profile_decode(torch, model, params, cache, step, rc, name, steps: int = 5):
                                   for k, v in sorted(groups.items())}})
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default=None,
+                    help="comma-separated subset of check,breakdown,serve "
+                         "(a partial run for iterating: it prints no "
+                         "summary and no result line)")
+    args = ap.parse_args(argv)
+    only = set(args.only.split(",")) if args.only else None
+    if only and not only <= {"check", "breakdown", "serve"}:
+        ap.error(f"--only takes check, breakdown, serve; got {args.only}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -668,7 +739,16 @@ def main() -> int:
                         if "registers" in ln or "spill" in ln][:4]
                     for n, log in build.BUILD_LOG.items()}})
     timer = Timer(torch)
+    if only is not None:
+        if "check" in only:
+            check_kernels(torch, timer)
+        if "breakdown" in only:
+            breakdown(torch, timer)
+        if "serve" in only:
+            serve(torch, timer)
+        return 0
     rows = check_kernels(torch, timer)
+    breakdown(torch, timer)
     launches = serve(torch, timer)
     phase_of = {"flash_decode": "serve", "flash_decode_kvq": "serve_kvq",
                 "int8_gemm": "serve_kvq", "vq_gemm": "serve_split",

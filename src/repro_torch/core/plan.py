@@ -46,10 +46,11 @@ Two deliberate divergences from the reference:
     ``record_backend_failure``): on the card a failing kernel raises, it
     never hands its work to another backend or to the plain version.
     They belong to the resilience layer (ROADMAP A11).
-  * The ``int8`` and ``kvq_attn`` kinds stay split by impl, where the
-    reference lets ``int8_jnp`` and ``kvq_dequant_jnp`` match every impl
-    and ranks them against the kernels: a plain version is never a
-    ranking candidate on the card.
+  * The ``kvq_attn`` kind stays split by impl, where the reference lets
+    ``kvq_dequant_jnp`` match every impl and ranks it against the kernel:
+    a plain version is never a ranking candidate on the card. (The
+    reference's ``int8_jnp`` matches only ``impl == "jnp"``, as the
+    port's plain ``int8`` backend matches only ``impl == "torch"``.)
 """
 from __future__ import annotations
 

@@ -13,6 +13,11 @@ Every C entry point takes raw device pointers and the CUDA stream as
 ``void*`` (``ctypes.c_void_p``) and sizes as ``int``, launches on that
 stream, allocates nothing and returns ``cudaGetLastError()``; the Python
 wrapper raises when it is non-zero (``check``).
+
+A kernel may also be built as a timing-only variant: the same source
+compiled with ``-DEVA_VARIANT=<k>`` (``VARIANTS`` names them), into a
+library of its own. ``chip_smoke.py``'s breakdown phase times them; no
+served path loads one.
 """
 from __future__ import annotations
 
@@ -32,14 +37,19 @@ KERNEL_NAMES = ("fused_vq_matmul", "flash_decode", "dequant_gemv",
                 "int8_gemm", "flash_decode_kvq", "vq_gemm", "oc_lookup")
 # kernels whose package is named after another kernel
 _SHARED_DIRS = {"flash_decode_kvq": "flash_decode"}
+# timing-only variants of a kernel, built with -DEVA_VARIANT=<index + 1>
+VARIANTS = {
+    name: ("no_lookup", "no_index", "no_o", "one_launch")
+    for name in ("fused_vq_matmul", "oc_lookup")
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch_kernels"
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
-_BOUND: Dict[Tuple[str, str], object] = {}
+_LIBS: Dict[Tuple[str, int], ctypes.CDLL] = {}
+_BOUND: Dict[Tuple[str, str, int], object] = {}
 _LOCK = threading.Lock()
 # ptxas report (registers / shared memory / spills) of each build in this
 # process, for logs
@@ -67,72 +77,94 @@ def _nvcc() -> str:
                        "use and need the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
+def variant_index(name: str, variant: str) -> int:
+    """The ``EVA_VARIANT`` value of a named variant of kernel ``name``
+    (0 is the kernel itself)."""
+    if variant == "kernel":
+        return 0
+    if variant not in VARIANTS.get(name, ()):
+        raise ValueError(f"{name} has no variant {variant!r}; it has "
+                         f"{VARIANTS.get(name, ())}")
+    return VARIANTS[name].index(variant) + 1
+
+
+def _flags(variant: int) -> Tuple[str, ...]:
+    return NVCC_FLAGS + ((f"-DEVA_VARIANT={variant}",) if variant else ())
+
+
+def _lib_path(name: str, variant: int = 0) -> Path:
     h = hashlib.sha256(source_path(name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(_flags(variant)).encode())
+    tag = f"-v{variant}" if variant else ""
+    return BUILD_DIR / f"lib{name}{tag}-{h.hexdigest()[:16]}.so"
 
 
-def _start_build(name: str) -> Tuple[Path, Optional[subprocess.Popen], Path]:
-    out = _lib_path(name)
+def _start_build(name: str, variant: int = 0
+                 ) -> Tuple[Path, Optional[subprocess.Popen], Path]:
+    out = _lib_path(name, variant)
     if out.exists():
         return out, None, out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
+    cmd = [_nvcc(), *_flags(variant), "-o", str(tmp), str(source_path(name))]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, proc, tmp
 
 
 def _finish_build(name: str, out: Path, proc: Optional[subprocess.Popen],
-                  tmp: Path) -> None:
+                  tmp: Path, variant: int = 0) -> None:
     if proc is None:
         return
     log, _ = proc.communicate()
-    BUILD_LOG[name] = log
+    BUILD_LOG[name + (f"[v{variant}]" if variant else "")] = log
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {source_path(name)}:\n{log}")
     os.replace(tmp, out)  # atomic: concurrent builders agree on the result
 
 
-def build_all(names: Iterable[str] = KERNEL_NAMES) -> float:
-    """Compile every kernel not yet built, one ``nvcc`` per source, all
-    started together; load them. Returns the wall seconds spent."""
+def build_all(names: Iterable[str] = KERNEL_NAMES,
+              variants: bool = True) -> float:
+    """Compile every kernel not yet built (and, with ``variants``, its
+    timing variants), one ``nvcc`` per library, all started together;
+    load them. Returns the wall seconds spent."""
     t0 = time.perf_counter()
-    names = list(names)
+    jobs = [(n, v) for n in names
+            for v in range(1 + (len(VARIANTS.get(n, ())) if variants else 0))]
     with _LOCK:
-        started: List = [(n, *_start_build(n)) for n in names]
-        for n, out, proc, tmp in started:
-            _finish_build(n, out, proc, tmp)
-    for n in names:
-        load(n)
+        started: List = [(n, v, *_start_build(n, v)) for n, v in jobs]
+        for n, v, out, proc, tmp in started:
+            _finish_build(n, out, proc, tmp, v)
+    for n, v in jobs:
+        load(n, v)
     return time.perf_counter() - t0
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, building it on first use."""
+def load(name: str, variant: int = 0) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (or of its timing variant
+    ``variant``), building it on first use."""
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get((name, variant))
         if lib is None:
-            out, proc, tmp = _start_build(name)
-            _finish_build(name, out, proc, tmp)
+            out, proc, tmp = _start_build(name, variant)
+            _finish_build(name, out, proc, tmp, variant)
             lib = ctypes.CDLL(str(out))
-            _LIBS[name] = lib
+            _LIBS[(name, variant)] = lib
         return lib
 
 
-def bind(name: str, symbol: str, n_ptrs: int, n_ints: int):
-    """``symbol`` of kernel ``name`` with argtypes ``n_ptrs`` pointers,
-    ``n_ints`` ints and a trailing stream pointer; restype int."""
-    fn = _BOUND.get((name, symbol))
+def bind(name: str, symbol: str, n_ptrs: int, n_ints: int, variant: int = 0):
+    """``symbol`` of kernel ``name`` (or of its timing variant) with
+    argtypes ``n_ptrs`` pointers, ``n_ints`` ints and a trailing stream
+    pointer; restype int."""
+    fn = _BOUND.get((name, symbol, variant))
     if fn is None:
-        fn = getattr(load(name), symbol)
+        fn = getattr(load(name, variant), symbol)
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _BOUND[(name, symbol)] = fn
+        _BOUND[(name, symbol, variant)] = fn
     return fn
 
 

@@ -33,7 +33,30 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef EVA_VARIANT
+#define EVA_VARIANT 0
+#endif
+
 namespace {
+
+// Timing-only variants, built with -DEVA_VARIANT=k (kernels/build.py
+// VARIANTS) for chip_smoke.py's breakdown phase; 0 is the kernel. Each
+// removes one part of the work and computes a wrong y:
+//   1 no_lookup:  add the index bytes themselves, no shared-memory read;
+//   2 no_index:   hashed constant indices, no index loads;
+//   3 no_o:       no output codebook in shared memory (fused: no
+//                 recompute; lookup: no copy);
+//   4 one_launch: the V splits' partial sums go straight to y, without
+//                 the second (split-reduce) launch.
+constexpr int kVariant = EVA_VARIANT;
+constexpr int kNoLookup = 1, kNoIndex = 2, kNoO = 3, kOneLaunch = 4;
+
+__device__ __forceinline__ uint32_t hashed_indices(int j, int v, int c) {
+  uint32_t h = (uint32_t)j * 0x9E3779B1u ^ (uint32_t)v * 0x85EBCA77u ^
+               (uint32_t)c * 0xC2B2AE3Du;
+  h ^= h >> 15;
+  return h * 0x2C1B3C6Du;
+}
 
 constexpr int THREADS = 256;            // == centroids per codebook
 constexpr int KC = 256;                 // 2^n, n = 8
@@ -90,7 +113,9 @@ fused_vq_kernel(const float* __restrict__ x,        // (M, V, D)
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         ib[vv][c] = 0u;
-        if (vv < nv && j0 < N) {
+        if (kVariant == kNoIndex) {
+          ib[vv][c] = hashed_indices(j0, vs + vv, c);
+        } else if (vv < nv && j0 < N) {
           const uint8_t* ip = idx + ((size_t)c * V + vs + vv) * N + j0;
           if (vec_ok) {
             ib[vv][c] = *reinterpret_cast<const uint32_t*>(ip);
@@ -103,14 +128,14 @@ fused_vq_kernel(const float* __restrict__ x,        // (M, V, D)
       }
     }
     // stage the x slab (mt rows of nv*D contiguous floats)
-    for (int e = t; e < mt * nv * D; e += THREADS) {
+    for (int e = t; kVariant != kNoO && e < mt * nv * D; e += THREADS) {
       const int m = e / (nv * D);
       const int r = e - m * (nv * D);
       xs[m * bv * D + r] = x[((size_t)(m0 + m) * V + vs) * D + r];
     }
     __syncthreads();
     // VQ-GEMM: this slab of the output codebook, one centroid per thread
-    for (int m = 0; m < mt; ++m) {
+    for (int m = 0; kVariant != kNoO && m < mt; ++m) {
       for (int vv = 0; vv < nv; ++vv) {
         const float* xr = xs + (m * bv + vv) * D;
         float xv[D];
@@ -139,7 +164,9 @@ fused_vq_kernel(const float* __restrict__ x,        // (M, V, D)
             if (m < mt) {
               const float* Om = Oc + (size_t)m * bv * KC;
 #pragma unroll
-              for (int q = 0; q < COLS; ++q) acc[m][q] += Om[(w >> (8 * q)) & 0xffu];
+              for (int q = 0; q < COLS; ++q) acc[m][q] += kVariant == kNoLookup
+                                   ? (float)((w >> (8 * q)) & 0xffu)
+                                   : Om[(w >> (8 * q)) & 0xffu];
             }
           }
         }
@@ -219,7 +246,7 @@ extern "C" int fused_vq_matmul_launch(const void* x, const void* cb,
     case 4: err = launch_c<4>(x, cb, idx, scale, out, M, V, N, bv, v_per_split, splits, fs, smem, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess || direct) return (int)err;
+  if (err != cudaSuccess || direct || kVariant == kOneLaunch) return (int)err;
   const size_t MN = (size_t)M * N;
   split_reduce_kernel<<<(unsigned)((MN + 255) / 256), 256, 0, st>>>(
       static_cast<const float*>(ws), static_cast<const float*>(scale),

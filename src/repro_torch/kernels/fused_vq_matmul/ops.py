@@ -52,7 +52,7 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _launch(X: torch.Tensor, vq: VQWeight) -> torch.Tensor:
+def _launch(X: torch.Tensor, vq: VQWeight, variant: int = 0) -> torch.Tensor:
     build.check_vq_operands(_NAME, X, vq)
     M, V, _ = X.shape
     C, N, dev = vq.C, vq.N, X.device
@@ -60,15 +60,23 @@ def _launch(X: torch.Tensor, vq: VQWeight) -> torch.Tensor:
     y = torch.empty((M, N), dtype=torch.float32, device=dev)
     ws = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
           if splits > 1 else None)
-    fn = build.bind(_NAME, "fused_vq_matmul_launch", 6, 7)
+    fn = build.bind(_NAME, "fused_vq_matmul_launch", 6, 7, variant)
     with torch.cuda.device(dev):
         err = fn(X.data_ptr(), vq.codebooks.data_ptr(), vq.idx.data_ptr(),
                  vq.scale.data_ptr(), y.data_ptr(),
                  ws.data_ptr() if ws is not None else None,
                  M, V, N, C, bv, vps, splits, build.stream_of(X))
     build.check(err, _NAME)
-    fused_vq_matmul.launches += 1
+    if not variant:
+        fused_vq_matmul.launches += 1
     return y
+
+
+def run_variant(x: torch.Tensor, vq: VQWeight, variant: str) -> torch.Tensor:
+    """Launch a timing-only variant of the kernel (``build.VARIANTS``) on
+    CUDA tensors; its y is wrong by design and it counts no launch."""
+    X = x.reshape(-1, vq.V, vq.d).float().contiguous()
+    return _launch(X, vq, build.variant_index(_NAME, variant))
 
 
 def fused_vq_matmul(x: torch.Tensor, vq: VQWeight, *,

@@ -38,7 +38,30 @@
 
 #include <atomic>
 
+#ifndef EVA_VARIANT
+#define EVA_VARIANT 0
+#endif
+
 namespace {
+
+// Timing-only variants, built with -DEVA_VARIANT=k (kernels/build.py
+// VARIANTS) for chip_smoke.py's breakdown phase; 0 is the kernel. Each
+// removes one part of the work and computes a wrong y:
+//   1 no_lookup:  add the index bytes themselves, no shared-memory read;
+//   2 no_index:   hashed constant indices, no index loads;
+//   3 no_o:       no output codebook in shared memory (fused: no
+//                 recompute; lookup: no copy);
+//   4 one_launch: the V splits' partial sums go straight to y, without
+//                 the second (split-reduce) launch.
+constexpr int kVariant = EVA_VARIANT;
+constexpr int kNoLookup = 1, kNoIndex = 2, kNoO = 3, kOneLaunch = 4;
+
+__device__ __forceinline__ uint32_t hashed_indices(int j, int v, int c) {
+  uint32_t h = (uint32_t)j * 0x9E3779B1u ^ (uint32_t)v * 0x85EBCA77u ^
+               (uint32_t)c * 0xC2B2AE3Du;
+  h ^= h >> 15;
+  return h * 0x2C1B3C6Du;
+}
 
 constexpr int THREADS = 256;
 constexpr int KC = 256;                 // 2^n, n = 8
@@ -85,7 +108,9 @@ oc_lookup_kernel(const float* __restrict__ O,       // (C, M, V, KC)
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         ib[vv][c] = 0u;
-        if (vv < nv && j0 < N) {
+        if (kVariant == kNoIndex) {
+          ib[vv][c] = hashed_indices(j0, vs + vv, c);
+        } else if (vv < nv && j0 < N) {
           const uint8_t* ip = idx + ((size_t)c * V + vs + vv) * N + j0;
           if (vec_ok) {
             ib[vv][c] = *reinterpret_cast<const uint32_t*>(ip);
@@ -101,7 +126,7 @@ oc_lookup_kernel(const float* __restrict__ O,       // (C, M, V, KC)
     // rows of 256 floats each, as float4
     const int row4 = KC / 4;
     const int n4 = C * mt * nv * row4;
-    for (int e = t; e < n4; e += THREADS) {
+    for (int e = t; kVariant != kNoO && e < n4; e += THREADS) {
       const int q = e % row4;
       const int row = e / row4;                 // (c, m, vv), vv fastest
       const int vv = row % nv;
@@ -126,7 +151,9 @@ oc_lookup_kernel(const float* __restrict__ O,       // (C, M, V, KC)
             if (m < mt) {
               const float* Om = Oc + (size_t)m * bv * KC;
 #pragma unroll
-              for (int q = 0; q < COLS; ++q) acc[m][q] += Om[(w >> (8 * q)) & 0xffu];
+              for (int q = 0; q < COLS; ++q) acc[m][q] += kVariant == kNoLookup
+                                   ? (float)((w >> (8 * q)) & 0xffu)
+                                   : Om[(w >> (8 * q)) & 0xffu];
             }
           }
         }
@@ -223,7 +250,7 @@ extern "C" int oc_lookup_launch(const void* O, const void* idx,
     case 4: err = launch_c<4>(O, idx, scale, out, M, V, N, bv, v_per_split, splits, fs, smem, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess || direct) return (int)err;
+  if (err != cudaSuccess || direct || kVariant == kOneLaunch) return (int)err;
   const size_t MN = (size_t)M * N;
   oc_split_reduce_kernel<<<(unsigned)((MN + 255) / 256), 256, 0, st>>>(
       static_cast<const float*>(ws), static_cast<const float*>(scale),

@@ -41,8 +41,8 @@ def select_lookup_split(M: int, V: int, N: int, C: int,
     return select_split(M, V, N, C, sm_count, d=0)
 
 
-def _launch(O: torch.Tensor, I: torch.Tensor,
-            scale: torch.Tensor) -> torch.Tensor:
+def _launch(O: torch.Tensor, I: torch.Tensor, scale: torch.Tensor,
+            variant: int = 0) -> torch.Tensor:
     C, M, V, k = O.shape
     N = I.shape[-1]
     dev = O.device
@@ -65,14 +65,22 @@ def _launch(O: torch.Tensor, I: torch.Tensor,
     y = torch.empty((M, N), dtype=torch.float32, device=dev)
     ws = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
           if splits > 1 else None)
-    fn = build.bind(_NAME, "oc_lookup_launch", 5, 7)
+    fn = build.bind(_NAME, "oc_lookup_launch", 5, 7, variant)
     with torch.cuda.device(dev):
         err = fn(O.data_ptr(), I.data_ptr(), scale.data_ptr(), y.data_ptr(),
                  ws.data_ptr() if ws is not None else None,
                  M, V, N, C, bv, vps, splits, build.stream_of(O))
     build.check(err, _NAME)
-    oc_lookup.launches += 1
+    if not variant:
+        oc_lookup.launches += 1
     return y
+
+
+def run_variant(O: torch.Tensor, I: torch.Tensor, scale: torch.Tensor,
+                variant: str) -> torch.Tensor:
+    """Launch a timing-only variant of the kernel (``build.VARIANTS``) on
+    CUDA tensors; its y is wrong by design and it counts no launch."""
+    return _launch(O, I, scale, build.variant_index(_NAME, variant))
 
 
 def oc_lookup(O: torch.Tensor, I: torch.Tensor, scale: torch.Tensor, *,

@@ -181,3 +181,127 @@ def test_planner_dispatch_by_mode_and_policy(models):
     for bad in ({"vq_mode": "fast"}, {"impl": "pallas"}):
         with pytest.raises(ValueError):
             PlanPolicy(**bad)
+
+
+
+def _cache_kind(models, kv_bits):
+    """The reference's VQ params (with KV codebooks attached below 8
+    bits), their conversion, and how each side turns a prefilled fp cache
+    into the cache of ``kv_bits``."""
+    from repro.core import quantize as jq
+    from repro.core import vq as jvq
+    from repro.serve import kvcache as jkv
+    from repro_torch.core import quantize as tq
+    from repro_torch.core import vq as tvq
+    from repro_torch.serve import kvcache as tkv
+
+    jp, _ = models["params"]["vq"]
+    jk = tk = None
+    if kv_bits < 8:
+        jk = jvq.KVQuantConfig(kv_bits=kv_bits)
+        tk = tvq.KVQuantConfig(kv_bits=kv_bits)
+        jp = jq.attach_kv_codebooks(jp, models["jm"].cfg, jk)
+    tp = from_jax_params(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    if kv_bits == 8:
+        jenc, tenc = (jkv.quantize_prefill_cache_int8,
+                      tkv.quantize_prefill_cache_int8)
+    elif kv_bits < 8:
+        jenc = lambda c: jkv.encode_prefill_cache(c, jq.kv_codebook_tree(jp), jk)
+        tenc = lambda c: tkv.encode_prefill_cache(c, tq.kv_codebook_tree(tp), tk)
+    else:
+        jenc = tenc = lambda c: c
+    return jp, tp, jk, tk, jenc, tenc
+
+
+def _assert_cache_as_reference(got, want, int_exact=True):
+    """Integer leaves and bf16 scales bit-equal; fp leaves within
+    1e-5 * max|leaf| (fp32 reassociation upstream of the write)."""
+    assert set(got) == set(want)
+    for name, w in want.items():
+        w, g = np.asarray(w), got[name]
+        g = (g.float() if g.dtype == torch.bfloat16 else g).numpy()
+        w = w.astype(np.float32) if w.dtype == jnp.bfloat16 else w
+        if np.issubdtype(w.dtype, np.integer) or name.endswith("_s"):
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            np.testing.assert_allclose(g, w, rtol=0,
+                                       atol=1e-5 * np.abs(w).max(),
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8, 4])
+def test_attention_window_past_capacity_drops_as_reference(models, kv_bits):
+    """One attention layer of the SMOKE config decodes a 3-token window
+    at len = capacity - 2 (rows of a prefilled fp, int8 or KV-VQ cache):
+    the reference writes with mode="drop", so the window's first two rows
+    land in the last two slots and the third is dropped. From the same
+    inputs the port leaves the same cache and the same output."""
+    from repro.models import common as jcm
+    from repro_torch.models import common as tcm
+
+    jp, tp, jk, tk, jenc, tenc = _cache_kind(models, kv_bits)
+    jpl = jax.tree_util.tree_map(lambda a: a[0], jp["layers"]["attn"])
+    tpl = tp["layers"][0]["attn"]
+    jcfg, cfg = models["jm"].cfg, models["m"].cfg
+    rng = np.random.default_rng(kv_bits)
+    cap, S, Hk, hd = S_PROMPT + 2, 3, cfg.num_kv_heads, cfg.head_dim
+    L = cfg.num_layers  # the codebook tree spans every layer
+    fp = {"body": {
+        "k": rng.standard_normal((L, B, S_PROMPT, Hk, hd)).astype(np.float32),
+        "v": rng.standard_normal((L, B, S_PROMPT, Hk, hd)).astype(np.float32),
+        "len": np.full((L, B), S_PROMPT, np.int32)}}
+    jc = jax_pad_prefill_cache(
+        jenc(jax.tree_util.tree_map(jnp.asarray, fp)), cap)
+    tc = pad_prefill_cache(
+        tenc(jax.tree_util.tree_map(lambda a: torch.from_numpy(a.copy()), fp)),
+        cap)
+    jc = {n: a[0] for n, a in jc["body"].items()}
+    tc = {n: t[0] for n, t in tc["body"].items()}
+    x = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S_PROMPT, S_PROMPT + S, dtype=np.int32),
+                          (B, S)).copy()
+    jy, jc = jcm.attention_fwd(jpl, jnp.asarray(x),
+                               jcm.RunConfig(mode="decode", remat=False,
+                                             kv_vq=jk),
+                               jcfg, positions=jnp.asarray(pos), cache=jc)
+    with torch.no_grad():
+        ty, tc2 = tcm.attention_fwd(tpl, torch.from_numpy(x),
+                                    RunConfig(mode="decode", kv_vq=tk), cfg,
+                                    positions=torch.from_numpy(pos), cache=tc)
+    assert tc2 is tc  # written in place
+    _assert_cache_as_reference(tc, jc)
+    want = np.asarray(jy)
+    np.testing.assert_allclose(ty.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    assert tc["len"].tolist() == [S_PROMPT + S] * B
+
+
+@pytest.mark.parametrize("kv_bits", [16, 4])
+def test_decode_window_past_capacity_drops_as_reference(models, kv_bits):
+    """The whole SMOKE model decodes a 3-token window at len = capacity
+    - 2 over its own prefilled fp or KV-VQ cache: the same cache as the
+    JAX model (KV-VQ indices and scales bit-equal, fp rows within
+    1e-5 * max|k|) and the same logits. (The int8 cache is held one
+    layer down, from identical inputs: through the whole model, fp32
+    reassociation between the two frameworks' prefill moves a few int8
+    roundings by one step, window or no window.)"""
+    jm, m, toks = models["jm"], models["m"], models["tokens"]
+    jp, tp, jk, tk, jenc, tenc = _cache_kind(models, kv_bits)
+    cap, S = S_PROMPT + 2, 3
+    _, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :S_PROMPT])},
+                       JaxRunConfig(remat=False, attn_chunk=8))
+    with torch.no_grad():
+        _, tc = m.prefill(tp, {"tokens": torch.from_numpy(toks[:, :S_PROMPT])},
+                          RunConfig(attn_chunk=8))
+    jc, tc = jax_pad_prefill_cache(jenc(jc), cap), pad_prefill_cache(tenc(tc), cap)
+    window = toks[:, S_PROMPT:S_PROMPT + S]
+    pos = np.broadcast_to(np.arange(S_PROMPT, S_PROMPT + S, dtype=np.int32),
+                          (B, S)).copy()
+    want, jc = jm.decode(jp, jnp.asarray(window), jnp.asarray(pos), jc,
+                         JaxRunConfig(remat=False, kv_vq=jk))
+    with torch.no_grad():
+        got, tc = m.decode(tp, torch.from_numpy(window), torch.from_numpy(pos),
+                           tc, RunConfig(kv_vq=tk))
+    _assert_cache_as_reference(tc["body"], jc["body"])
+    assert tc["body"]["len"].tolist() == [[S_PROMPT + S] * B] * 2
+    _close(got.numpy(), want)
