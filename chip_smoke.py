@@ -9,7 +9,9 @@ Phases (any failure exits non-zero):
      the lookup kernels' timing variants), one nvcc per library, all
      started together;
   3. check each kernel against its plain PyTorch version at the serving
-     paths' full-width llama2-7b shapes (tolerance, bitwise determinism)
+     paths' full-width llama2-7b shapes (tolerance, bitwise determinism;
+     the lookup kernels and vq_gemm at the four decode linears x M in
+     {1, 2, 4, 8} and at a ragged shape)
      and time it (CUDA events, median, L2 flushed between runs) beside its
      plain version, one PyTorch library call computing the same function
      (where one exists), and its bound on this card; dequant_gemv with
@@ -24,8 +26,10 @@ Phases (any failure exits non-zero):
   3b. `breakdown`: fused_vq_matmul and oc_lookup against their
      timing-only variants (no lookup, no index loads, no output codebook,
      no split reduce; compile-time builds of the same sources) at the
-     four decode linears x M in {1, 4} and at the ragged case, and each
-     call timed twice back to back;
+     four decode linears x M in {1, 4} and at the ragged case, each call
+     also timed twice back to back, and one run of the trace variant
+     (per-CTA %globaltimer stamps: entry, first slab landed, slab loop
+     done, cluster barrier, exit);
   4. serve 8 greedy requests on full-width llama2-7b (32 layers, 2-bit VQ
      weights drawn on the card from a seed, bf16 activations, 4 slots,
      max_len 512) through the Engine, counting kernel launches per phase:
@@ -76,6 +80,7 @@ BF16_FLOPS = 989e12            # H100 SXM, dense bf16 tensor cores
 SLOTS, MAX_LEN, N_REQUESTS, MAX_NEW = 4, 512, 8, 32
 HOST_REPS = 50                 # back-to-back calls per host-clock timing
 SEED = 0
+LOOKUP_M = (1, 2, SLOTS, 8)    # rows of M the lookup kernels are checked at
 LINEARS = (("wqkv", 4096, 12288), ("wo", 4096, 4096), ("gu", 4096, 22016),
            ("down", 11008, 4096))
 REPLACES = {
@@ -190,25 +195,26 @@ def check_kernels(torch, timer):
     # off); bf16 torch.matmul on bf16-rounded weights is timed beside it,
     # at lower precision (it misses the tolerance)
     C = 2
-    for M in (1, SLOTS):
-        for name, K, N in LINEARS:
-            vq = synthetic_vq(gen, K, N, C=C, device="cuda")
-            x = torch.randn((M, K), generator=gen, device="cuda")
-            xb = x.to(torch.bfloat16)
-            w = dequantize(vq)
-            wb = w.to(torch.bfloat16)
-            run = lambda: fused_vq_matmul(x, vq, out_dtype=torch.float32)
-            plain = lambda: fused_vq_matmul(x, vq, out_dtype=torch.float32,
-                                            use_kernel=False)
-            got, want = run(), plain()
-            tol = 1e-4 * max(1.0, want.abs().max().item())
-            V = K // 8
-            record("fused_vq_matmul", {"M": M, "linear": name, "K": K, "N": N},
-                   got, want, tol, run, plain, lambda: torch.matmul(x, w),
-                   M * K * 4 + C * V * N + C * 8 * 256 * 4 + N * 4 + M * N * 4,
-                   C * M * V * 256 * 8 * 2 + C * M * V * N + M * N,
-                   extra={"library_bf16_ms": lambda: torch.matmul(xb, wb)})
-            del vq, w, wb
+    lookup_cases = [(M, name, K, N) for M in LOOKUP_M for name, K, N in LINEARS]
+    lookup_cases.append((3, "ragged", 296, 1030))
+    for M, name, K, N in lookup_cases:
+        vq = synthetic_vq(gen, K, N, C=C, device="cuda")
+        x = torch.randn((M, K), generator=gen, device="cuda")
+        xb = x.to(torch.bfloat16)
+        w = dequantize(vq)
+        wb = w.to(torch.bfloat16)
+        run = lambda: fused_vq_matmul(x, vq, out_dtype=torch.float32)
+        plain = lambda: fused_vq_matmul(x, vq, out_dtype=torch.float32,
+                                        use_kernel=False)
+        got, want = run(), plain()
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        V = K // 8
+        record("fused_vq_matmul", {"M": M, "linear": name, "K": K, "N": N},
+               got, want, tol, run, plain, lambda: torch.matmul(x, w),
+               M * K * 4 + C * V * N + C * 8 * 256 * 4 + N * 4 + M * N * 4,
+               C * M * V * 256 * 8 * 2 + C * M * V * N + M * N,
+               extra={"library_bf16_ms": lambda: torch.matmul(xb, wb)})
+        del vq, w, wb
 
     # B3 at the prefill layer (M = MAX_LEN) with fp32 x (the reference's
     # precision: three bf16 products) and with bf16 x (the served dtype:
@@ -243,11 +249,10 @@ def check_kernels(torch, timer):
                    extra={"library_bf16_ms": lambda: torch.matmul(xb, wb)})
             del vq, w, wb
 
-    # the two-kernel split: vq_gemm (B4) at the decode linears and one
-    # ragged shape, oc_lookup (B5) fed B4's output codebook, and the pair
-    # against its plain version and the fused kernel at M = slots
-    cases = [(M, name, K, N) for M in (1, SLOTS) for name, K, N in LINEARS]
-    for M, name, K, N in cases + [(3, "ragged", 296, 1030)]:
+    # the two-kernel split: vq_gemm (B4) and oc_lookup (B5, fed B4's
+    # output codebook) at the decode linears and the ragged shape, and
+    # the pair against its plain version and the fused kernel at M = slots
+    for M, name, K, N in lookup_cases:
         vq = synthetic_vq(gen, K, N, C=C, device="cuda")
         vq.scale = torch.rand(N, generator=gen, device="cuda") + 0.5
         x = torch.randn((M, K), generator=gen, device="cuda")
@@ -418,7 +423,8 @@ def breakdown(torch, timer):
             for v in build.VARIANTS[kernel]:
                 ms[v] = timer(variant(v))
             emit({"phase": "breakdown", "kernel": kernel, "linear": name,
-                  "M": M, "K": K, "N": N, "ms": ms})
+                  "M": M, "K": K, "N": N, "ms": ms,
+                  "trace_us": trace_stats(torch, timer, variant("trace"))})
             if name != "ragged":
                 tot = totals.setdefault((kernel, M), {})
                 for k, t in ms.items():
@@ -427,6 +433,24 @@ def breakdown(torch, timer):
     for (kernel, M), ms in totals.items():
         emit({"phase": "breakdown_layer", "kernel": kernel, "M": M,
               "ms_per_decode_layer": ms})
+
+
+def trace_stats(torch, timer, run) -> dict:
+    """One run of a lookup kernel's trace variant, started as the timer
+    starts a run (L2 flushed, stream held busy): from each CTA's
+    %globaltimer stamps (entry, slab 0 landed, slab loop done, first
+    cluster barrier, exit) the span of the launch, the spread of CTA
+    starts and the median CTA's phases, in microseconds."""
+    timer.flush.bitwise_not_()
+    torch.cuda._sleep(Timer.SLEEP_CYCLES)
+    _, stamps = run()
+    torch.cuda.synchronize()
+    t = stamps.cpu().double() / 1e3
+    med = lambda a, b: float((t[:, b] - t[:, a]).median())
+    return {"ctas": int(t.shape[0]), "span": float(t[:, 4].max() - t[:, 0].min()),
+            "start_spread": float(t[:, 0].max() - t[:, 0].min()),
+            "first_slab": med(0, 1), "slab_loop": med(1, 2),
+            "to_cluster_barrier": med(2, 3), "cluster_reduce": med(3, 4)}
 
 
 def serve(torch, timer):

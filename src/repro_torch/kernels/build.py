@@ -39,7 +39,7 @@ KERNEL_NAMES = ("fused_vq_matmul", "flash_decode", "dequant_gemv",
 _SHARED_DIRS = {"flash_decode_kvq": "flash_decode"}
 # timing-only variants of a kernel, built with -DEVA_VARIANT=<index + 1>
 VARIANTS = {
-    name: ("no_lookup", "no_index", "no_o", "one_launch")
+    name: ("no_lookup", "no_index", "no_o", "one_launch", "trace")
     for name in ("fused_vq_matmul", "oc_lookup")
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -94,6 +94,8 @@ def _flags(variant: int) -> Tuple[str, ...]:
 
 def _lib_path(name: str, variant: int = 0) -> Path:
     h = hashlib.sha256(source_path(name).read_bytes())
+    for header in sorted(_PKG.glob("*/csrc/*.cuh")):  # headers sources include
+        h.update(header.read_bytes())
     h.update(" ".join(_flags(variant)).encode())
     tag = f"-v{variant}" if variant else ""
     return BUILD_DIR / f"lib{name}{tag}-{h.hexdigest()[:16]}.so"

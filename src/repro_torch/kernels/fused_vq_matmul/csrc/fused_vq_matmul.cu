@@ -7,249 +7,135 @@
 //   O[c, m, v, :] = x[m, v, :] . B[c]                 (VQ-GEMM, d=8 deep)
 //   y[m, j]       = scale[j] * sum_c sum_v O[c, m, v, I[c, v, j]]
 //
-// Bound on this card: bytes. At decode (M = a few slots) the work is
-// C*M*V*(2^n*d*2 + N) flops against C*V*N index bytes; the index matrix
-// dominates (12.6 MB for llama2-7b's grouped wqkv at 2 bits per weight),
-// so the least time is the index bytes over 3.35 TB/s.
+// Bound on this card: bytes — the index matrix (12.6 MB for llama2-7b's
+// grouped wqkv at 2 bits a weight) over 3.35 TB/s; the fp32 gather's
+// shared-memory floor sits above it at M >= 4 (eva_lookup.cuh).
 //
-// Design. The Pallas kernel keeps one row block's whole O (C, M, V, 256)
-// resident in VMEM across every N tile. At K=4096 that is 1 MiB per token
-// row — far beyond the 227 KB of shared memory a block may use. So here:
-//   * a CTA owns (N tile of 1024 columns, V range, M tile of <= 8 rows);
-//   * it walks its V range in slabs of `bv` rows. Per slab, every thread
-//     first issues all its index loads — 4 adjacent columns per 4-byte
-//     load of the uint8 indices, which stay uint8 in device memory and are
-//     never widened — so they are in flight together; meanwhile the CTA
-//     recomputes the slab's O (C, mt, bv, 256) into shared memory from x
-//     and the codebooks (one thread per centroid, its codebook column kept
-//     in registers); then each thread gathers its 4 columns;
-//   * sums stay in registers, in a fixed order (v, then c);
-//   * the V ranges of one N tile run on different CTAs, which write partial
-//     sums to a (splits, M, N) workspace; a second small kernel adds them
-//     in split order and applies the scale. No atomics: two runs are
-//     bitwise equal. With one split the first kernel scales and writes y.
-// Recomputing O per N tile costs 2^n*d/1024 = 2 flops per lookup add; the
-// wrapper sizes the V split so the grid fills the card.
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#ifndef EVA_VARIANT
-#define EVA_VARIANT 0
-#endif
+// Design: eva_lookup.cuh, with the output codebook recomputed per slab.
+// The Pallas kernel keeps one row block's whole O (C, M, V, 256) in VMEM
+// across every N tile; that is 1 MiB a token row at K=4096, far beyond
+// the 227 KB a CTA may use, so each CTA recomputes the O of the slab it
+// is on (C*256 entries x 32 (v, m) slots, 8 FMAs each) from x rows staged
+// with its index rows and the codebooks it transposed into shared memory
+// at start. That costs 2*256*8 / BN flops a lookup: BN stays at 1024
+// columns unless a 512-column tile fills the card better (tiles.py).
+#include "eva_lookup.cuh"
 
 namespace {
 
-// Timing-only variants, built with -DEVA_VARIANT=k (kernels/build.py
-// VARIANTS) for chip_smoke.py's breakdown phase; 0 is the kernel. Each
-// removes one part of the work and computes a wrong y:
-//   1 no_lookup:  add the index bytes themselves, no shared-memory read;
-//   2 no_index:   hashed constant indices, no index loads;
-//   3 no_o:       no output codebook in shared memory (fused: no
-//                 recompute; lookup: no copy);
-//   4 one_launch: the V splits' partial sums go straight to y, without
-//                 the second (split-reduce) launch.
-constexpr int kVariant = EVA_VARIANT;
-constexpr int kNoLookup = 1, kNoIndex = 2, kNoO = 3, kOneLaunch = 4;
+using eva::Args;
 
-__device__ __forceinline__ uint32_t hashed_indices(int j, int v, int c) {
-  uint32_t h = (uint32_t)j * 0x9E3779B1u ^ (uint32_t)v * 0x85EBCA77u ^
-               (uint32_t)c * 0xC2B2AE3Du;
-  h ^= h >> 15;
-  return h * 0x2C1B3C6Du;
+template <int C, int MW, int BN>
+__global__ void __launch_bounds__(eva::THREADS, 1)
+fused_vq_kernel(const Args a) {
+  eva::lookup_body<C, MW, BN, true>(a);
 }
 
-constexpr int THREADS = 256;            // == centroids per codebook
-constexpr int KC = 256;                 // 2^n, n = 8
-constexpr int D = 8;                    // VQ vector dimension
-constexpr int COLS = 4;                 // adjacent output columns per thread
-constexpr int BN = THREADS * COLS;      // output columns per CTA
-constexpr int MT_MAX = 8;               // x rows per CTA
-constexpr int IDX_REGS = 32;            // index words prefetched per slab
-
-// C codebooks; a slab is at most IDX_REGS / C index rows
-template <int C>
-__global__ void __launch_bounds__(THREADS, 2)
-fused_vq_kernel(const float* __restrict__ x,        // (M, V, D)
-                const float* __restrict__ cb,       // (C, D, KC)
-                const uint8_t* __restrict__ idx,    // (C, V, N)
-                const float* __restrict__ scale,    // (N,)
-                float* __restrict__ out,            // y (M, N) or ws (splits, M, N)
-                int M, int V, int N, int bv, int v_per_split,
-                int final_scale) {
-  constexpr int BV_MAX = IDX_REGS / C;
-  extern __shared__ float smem[];
-  const int t = threadIdx.x;
-  const int m0 = blockIdx.z * MT_MAX;
-  const int mt = min(MT_MAX, M - m0);
-  float* O = smem;                                  // (C, mt, bv, KC)
-  float* xs = smem + (size_t)C * mt * bv * KC;      // (mt, bv, D)
-
-  // codebook column e = t of every codebook, kept in registers
-  float b[C][D];
-#pragma unroll
-  for (int c = 0; c < C; ++c)
-#pragma unroll
-    for (int i = 0; i < D; ++i) b[c][i] = cb[((size_t)c * D + i) * KC + t];
-
-  const int j0 = blockIdx.x * BN + t * COLS;
-  const bool vec_ok = ((N & 3) == 0) &&
-                      ((reinterpret_cast<uintptr_t>(idx) & 3) == 0);
-  const int v_begin = blockIdx.y * v_per_split;
-  const int v_end = min(V, v_begin + v_per_split);
-
-  float acc[MT_MAX][COLS];
-#pragma unroll
-  for (int m = 0; m < MT_MAX; ++m)
-#pragma unroll
-    for (int q = 0; q < COLS; ++q) acc[m][q] = 0.f;
-
-  for (int vs = v_begin; vs < v_end; vs += bv) {
-    const int nv = min(bv, v_end - vs);
-    // issue every index load of this slab first (4 columns per word), so
-    // they are in flight together while the output codebook is computed
-    uint32_t ib[BV_MAX][C];
-#pragma unroll
-    for (int vv = 0; vv < BV_MAX; ++vv) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        ib[vv][c] = 0u;
-        if (kVariant == kNoIndex) {
-          ib[vv][c] = hashed_indices(j0, vs + vv, c);
-        } else if (vv < nv && j0 < N) {
-          const uint8_t* ip = idx + ((size_t)c * V + vs + vv) * N + j0;
-          if (vec_ok) {
-            ib[vv][c] = *reinterpret_cast<const uint32_t*>(ip);
-          } else {
-#pragma unroll
-            for (int q = 0; q < COLS; ++q)
-              if (j0 + q < N) ib[vv][c] |= (uint32_t)ip[q] << (8 * q);
-          }
-        }
-      }
-    }
-    // stage the x slab (mt rows of nv*D contiguous floats)
-    for (int e = t; kVariant != kNoO && e < mt * nv * D; e += THREADS) {
-      const int m = e / (nv * D);
-      const int r = e - m * (nv * D);
-      xs[m * bv * D + r] = x[((size_t)(m0 + m) * V + vs) * D + r];
-    }
-    __syncthreads();
-    // VQ-GEMM: this slab of the output codebook, one centroid per thread
-    for (int m = 0; kVariant != kNoO && m < mt; ++m) {
-      for (int vv = 0; vv < nv; ++vv) {
-        const float* xr = xs + (m * bv + vv) * D;
-        float xv[D];
-#pragma unroll
-        for (int i = 0; i < D; ++i) xv[i] = xr[i];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          float s = 0.f;
-#pragma unroll
-          for (int i = 0; i < D; ++i) s = fmaf(xv[i], b[c][i], s);
-          O[(((size_t)c * mt + m) * bv + vv) * KC + t] = s;
-        }
-      }
-    }
-    __syncthreads();
-    // lookup + add-only reduction over this slab, in (v, c) order
-#pragma unroll
-    for (int vv = 0; vv < BV_MAX; ++vv) {
-      if (vv < nv) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const uint32_t w = ib[vv][c];
-          const float* Oc = O + ((size_t)c * mt * bv + vv) * KC;
-#pragma unroll
-          for (int m = 0; m < MT_MAX; ++m) {
-            if (m < mt) {
-              const float* Om = Oc + (size_t)m * bv * KC;
-#pragma unroll
-              for (int q = 0; q < COLS; ++q) acc[m][q] += kVariant == kNoLookup
-                                   ? (float)((w >> (8 * q)) & 0xffu)
-                                   : Om[(w >> (8 * q)) & 0xffu];
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (j0 >= N) return;
-#pragma unroll
-  for (int m = 0; m < MT_MAX; ++m) {
-    if (m < mt) {
-#pragma unroll
-      for (int q = 0; q < COLS; ++q) {
-        const int j = j0 + q;
-        if (j < N) {
-          if (final_scale)
-            out[(size_t)(m0 + m) * N + j] = acc[m][q] * scale[j];
-          else
-            out[((size_t)blockIdx.y * M + m0 + m) * N + j] = acc[m][q];
-        }
-      }
-    }
-  }
-}
-
-// y[m, j] = scale[j] * sum_{s < splits} ws[s, m, j], summed in split order
 __global__ void split_reduce_kernel(const float* __restrict__ ws,
                                     const float* __restrict__ scale,
                                     float* __restrict__ y, int M, int N,
-                                    int splits) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t MN = (size_t)M * N;
-  if (i >= MN) return;
-  float s = 0.f;
-  for (int p = 0; p < splits; ++p) s += ws[(size_t)p * MN + i];
-  y[i] = s * scale[i % N];
+                                    int groups) {
+  eva::reduce_groups(ws, scale, y, M, N, groups);
+}
+
+template <int C, int MW, int BN>
+cudaError_t launch(const Args& a, int* max_clusters, cudaStream_t st) {
+  static std::atomic<bool> done[eva::MAX_DEVICES];
+  auto kernel = fused_vq_kernel<C, MW, BN>;
+  const size_t smem = eva::Layout<C, MW, BN, true>::smem(a.stages);
+  if (smem > (size_t)eva::SMEM_MAX) return cudaErrorInvalidValue;
+  cudaError_t err = eva::allow_smem(kernel, done);
+  if (err != cudaSuccess) return err;
+  if (max_clusters) return eva::max_clusters(kernel, a.cs, smem, max_clusters);
+  return eva::launch_cluster(kernel, a, BN, smem, st);
+}
+
+template <int C, int MW>
+cudaError_t by_bn(int bn, const Args& a, int* mc, cudaStream_t st) {
+  switch (bn) {
+    case 1024: return launch<C, MW, 1024>(a, mc, st);
+    case 512: return launch<C, MW, 512>(a, mc, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int C>
-cudaError_t launch_c(const void* x, const void* cb, const void* idx,
-                     const void* scale, float* out, int M, int V, int N,
-                     int bv, int v_per_split, int splits, int final_scale,
-                     size_t smem, cudaStream_t st) {
-  if (bv > IDX_REGS / C) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_vq_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((N + BN - 1) / BN, splits, (M + MT_MAX - 1) / MT_MAX);
-  fused_vq_kernel<C><<<grid, THREADS, smem, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(cb),
-      static_cast<const uint8_t*>(idx), static_cast<const float*>(scale), out,
-      M, V, N, bv, v_per_split, final_scale);
-  return cudaGetLastError();
+cudaError_t by_mw(int M, int bn, const Args& a, int* mc, cudaStream_t st) {
+  switch (M == 1 ? 1 : M == 2 ? 2 : 4) {
+    case 1: return by_bn<C, 1>(bn, a, mc, st);
+    case 2: return by_bn<C, 2>(bn, a, mc, st);
+    default: return by_bn<C, 4>(bn, a, mc, st);
+  }
+}
+
+cudaError_t dispatch(int C, int bn, const Args& a, int* mc, cudaStream_t st) {
+  if (a.M < 1 || a.V < 1 || a.N < 1 || a.stages < 1 || a.stages > 4 ||
+      a.cs < 1 || a.cs > eva::CS_MAX || a.groups < 1 || a.slabs_per_split < 1)
+    return cudaErrorInvalidValue;
+  switch (C) {  // timing variants are built for the served C = 2 only
+    case 2: return by_mw<2>(a.M, bn, a, mc, st);
+#if EVA_VARIANT == 0
+    case 1: return by_mw<1>(a.M, bn, a, mc, st);
+    case 3: return by_mw<3>(a.M, bn, a, mc, st);
+    case 4: return by_mw<4>(a.M, bn, a, mc, st);
+#endif
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+Args make_args(const void* x, const void* cb, const void* idx,
+               const void* scale, void* y, void* ws, int M, int V, int N,
+               int stages, int cs, int groups, int slabs_per_split) {
+  Args a;
+  a.x = static_cast<const float*>(x);
+  a.cb = static_cast<const float*>(cb);
+  a.O = nullptr;
+  a.idx = static_cast<const uint8_t*>(idx);
+  a.scale = static_cast<const float*>(scale);
+  a.y = static_cast<float*>(y);
+  a.ws = static_cast<float*>(ws);
+  a.trace = nullptr;
+  a.M = M; a.V = V; a.N = N;
+  a.stages = stages; a.cs = cs; a.groups = groups;
+  a.slabs_per_split = slabs_per_split;
+  a.idx_aligned = (N % 16 == 0) && (reinterpret_cast<uintptr_t>(idx) % 16 == 0);
+  return a;
 }
 
 }  // namespace
 
+// x (M, V, 8) fp32 and 16-byte aligned; cb (C, 8, 256) fp32; idx (C, V,
+// N) uint8; scale (N,) fp32; y (M, N) fp32; ws (groups, M, N) fp32 when
+// groups > 1; trace (grid CTAs x 5) u64 for the trace variant, else
+// null. The launch shape (bn, stages, cs, groups,
+// slabs_per_split) is tiles.lookup_tiles'.
 extern "C" int fused_vq_matmul_launch(const void* x, const void* cb,
                                       const void* idx, const void* scale,
-                                      void* y, void* ws, int M, int V, int N,
-                                      int C, int bv, int v_per_split,
-                                      int splits, void* stream) {
-  if (M < 1 || bv < 1) return (int)cudaErrorInvalidValue;
+                                      void* y, void* ws, void* trace,
+                                      int M, int V, int N,
+                                      int C, int bn, int stages, int cs,
+                                      int groups, int slabs_per_split,
+                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int mt_alloc = M < MT_MAX ? M : MT_MAX;
-  const size_t smem =
-      ((size_t)C * mt_alloc * bv * KC + (size_t)mt_alloc * bv * D) * sizeof(float);
-  const bool direct = splits == 1;
-  float* out = static_cast<float*>(direct ? y : ws);
-  const int fs = direct ? 1 : 0;
-  cudaError_t err;
-  switch (C) {
-    case 1: err = launch_c<1>(x, cb, idx, scale, out, M, V, N, bv, v_per_split, splits, fs, smem, st); break;
-    case 2: err = launch_c<2>(x, cb, idx, scale, out, M, V, N, bv, v_per_split, splits, fs, smem, st); break;
-    case 3: err = launch_c<3>(x, cb, idx, scale, out, M, V, N, bv, v_per_split, splits, fs, smem, st); break;
-    case 4: err = launch_c<4>(x, cb, idx, scale, out, M, V, N, bv, v_per_split, splits, fs, smem, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess || direct || kVariant == kOneLaunch) return (int)err;
+  Args a = make_args(x, cb, idx, scale, y, ws, M, V, N, stages, cs, groups,
+                     slabs_per_split);
+  a.trace = static_cast<unsigned long long*>(trace);
+  cudaError_t err = dispatch(C, bn, a, nullptr, st);
+  if (err != cudaSuccess || groups == 1 || eva::kVariant == eva::kOneLaunch)
+    return (int)err;
   const size_t MN = (size_t)M * N;
   split_reduce_kernel<<<(unsigned)((MN + 255) / 256), 256, 0, st>>>(
       static_cast<const float*>(ws), static_cast<const float*>(scale),
-      static_cast<float*>(y), M, N, splits);
+      static_cast<float*>(y), M, N, groups);
   return (int)cudaGetLastError();
+}
+
+// clusters of cs CTAs of this launch shape the current device holds at
+// once, into *out (for the tile model)
+extern "C" int fused_vq_matmul_max_clusters(void* out, int M, int C, int bn,
+                                            int stages, int cs, void* stream) {
+  (void)stream;
+  const Args a = make_args(nullptr, nullptr, nullptr, nullptr, nullptr,
+                           nullptr, M, 1, 16, stages, cs, 1, 1);
+  return (int)dispatch(C, bn, a, static_cast<int*>(out), nullptr);
 }

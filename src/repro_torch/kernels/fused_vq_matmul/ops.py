@@ -5,12 +5,13 @@ unless a calibration ranks the two-kernel ``eva_split`` below it.
 Accepts activations of any leading shape and a VQWeight. CPU tensors take
 the plain version (``ref.py``); CUDA tensors launch the kernel, which
 reads the uint8 index matrix as stored (never widened), or the wrapper
-raises. ``select_split`` is the kernel's tile model: the V-slab height
-that fits the output-codebook slab in shared memory, and the number of
-CTAs that split V so the grid fills the card.
+raises. ``select_split`` is the kernel's launch shape (``tiles.py``:
+column tile, index stages, the V splits summed in a thread-block
+cluster and, where a cluster cannot fill the card, by a second launch).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
@@ -20,31 +21,18 @@ from repro_torch.core import ops as core_ops
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.vq import VQWeight
 from repro_torch.kernels import build
+from repro_torch.kernels.fused_vq_matmul import tiles
 from repro_torch.kernels.fused_vq_matmul.ref import fused_vq_matmul_ref
 
 _NAME = "fused_vq_matmul"
-BN = 1024                      # output columns per CTA (256 threads x 4)
-MT_MAX = 8                     # x rows per CTA
-SMEM_BUDGET = 96 * 1024        # output-codebook + x slab: 2 CTAs per SM
-IDX_REGS = 32                  # index words a thread prefetches per slab
-CTAS_PER_SM = 2
 
 
 def select_split(M: int, V: int, N: int, C: int, sm_count: int,
-                 k: int = 256, d: int = 8) -> Tuple[int, int, int]:
-    """(bv, v_per_split, splits): the slab height whose O (C, mt, bv, k)
-    plus x slab fit SMEM_BUDGET and whose C*bv index words fit the
-    kernel's prefetch registers, and a V split that gives the grid about
-    CTAS_PER_SM CTAs per SM. Every split covers ``v_per_split`` rows (a
-    whole number of slabs) except possibly the last."""
-    mt = min(M, MT_MAX)
-    bv = max(1, min(IDX_REGS // C, V, SMEM_BUDGET // (4 * mt * (C * k + d))))
-    slabs = -(-V // bv)
-    tiles = -(-N // BN) * -(-M // MT_MAX)
-    want = max(1, -(-CTAS_PER_SM * sm_count // tiles))
-    splits = min(slabs, want)
-    v_per_split = -(-slabs // splits) * bv
-    return bv, v_per_split, -(-V // v_per_split)
+                 slots: Optional[Tuple[int, ...]] = None) -> tiles.LookupTiles:
+    """The kernel's launch shape (``tiles.lookup_tiles`` with the output
+    codebook recomputed in the kernel): column tile, index stages,
+    cluster size and clusters per tile, slabs per CTA."""
+    return tiles.lookup_tiles(M, V, N, C, sm_count, True, slots)
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,31 +40,69 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _launch(X: torch.Tensor, vq: VQWeight, variant: int = 0) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def cluster_slots(name: str, device_index: int, M: int, C: int,
+                  recompute: bool) -> Tuple[int, ...]:
+    """How many clusters of each size, at each column tile, the card
+    holds at once for kernel ``name`` (``fused_vq_matmul`` or
+    ``oc_lookup``) at this M and C, from cudaOccupancyMaxActiveClusters;
+    laid out as ``tiles.lookup_tiles`` reads them."""
+    fn = build.bind(name, f"{name}_max_clusters", 1, 5)
+    mw = tiles.lane_width(M)
+    out = ctypes.c_int(0)
+    held = []
+    with torch.cuda.device(device_index):
+        for bn in tiles.COLUMN_TILES:
+            stages = tiles.stages_for(C, mw, bn, recompute)
+            for cs in range(1, tiles.CS_MAX + 1):
+                if not stages:
+                    held.append(0)
+                    continue
+                out.value = 0
+                build.check(fn(ctypes.addressof(out), M, C, bn, stages, cs,
+                               None), f"{name} occupancy")
+                held.append(out.value)
+    return tuple(held)
+
+
+def _launch(X: torch.Tensor, vq: VQWeight, variant: int = 0,
+            trace: bool = False):
     build.check_vq_operands(_NAME, X, vq)
     M, V, _ = X.shape
     C, N, dev = vq.C, vq.N, X.device
-    bv, vps, splits = select_split(M, V, N, C, _sm_count(dev.index or 0))
+    if X.data_ptr() % 16:
+        X = X.clone()                  # the kernel stages x rows 16 bytes at a time
+    di = dev.index if dev.index is not None else torch.cuda.current_device()
+    t = select_split(M, V, N, C, _sm_count(di),
+                     cluster_slots(_NAME, di, M, C, True))
     y = torch.empty((M, N), dtype=torch.float32, device=dev)
-    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
-          if splits > 1 else None)
-    fn = build.bind(_NAME, "fused_vq_matmul_launch", 6, 7, variant)
+    ws = (torch.empty((t.groups, M, N), dtype=torch.float32, device=dev)
+          if t.groups > 1 else None)
+    stamps = (torch.zeros((tiles.grid_ctas(t, M, N), 5), dtype=torch.int64,
+                          device=dev) if trace else None)
+    fn = build.bind(_NAME, "fused_vq_matmul_launch", 7, 9, variant)
     with torch.cuda.device(dev):
         err = fn(X.data_ptr(), vq.codebooks.data_ptr(), vq.idx.data_ptr(),
                  vq.scale.data_ptr(), y.data_ptr(),
                  ws.data_ptr() if ws is not None else None,
-                 M, V, N, C, bv, vps, splits, build.stream_of(X))
+                 stamps.data_ptr() if stamps is not None else None,
+                 M, V, N, C, t.bn, t.stages, t.cs, t.groups,
+                 t.slabs_per_split, build.stream_of(X))
     build.check(err, _NAME)
     if not variant:
         fused_vq_matmul.launches += 1
-    return y
+    return (y, stamps) if trace else y
 
 
-def run_variant(x: torch.Tensor, vq: VQWeight, variant: str) -> torch.Tensor:
+def run_variant(x: torch.Tensor, vq: VQWeight, variant: str):
     """Launch a timing-only variant of the kernel (``build.VARIANTS``) on
-    CUDA tensors; its y is wrong by design and it counts no launch."""
+    CUDA tensors; it counts no launch. Returns y (wrong by design except
+    for "trace"), and for "trace" also the (CTAs, 5) int64 %globaltimer
+    stamps (ns) of each CTA: entry, slab 0 landed, slab loop done, first
+    cluster barrier, exit."""
     X = x.reshape(-1, vq.V, vq.d).float().contiguous()
-    return _launch(X, vq, build.variant_index(_NAME, variant))
+    return _launch(X, vq, build.variant_index(_NAME, variant),
+                   trace=variant == "trace")
 
 
 def fused_vq_matmul(x: torch.Tensor, vq: VQWeight, *,

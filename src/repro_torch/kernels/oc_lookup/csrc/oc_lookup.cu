@@ -8,252 +8,137 @@
 //
 //   y[m, j] = scale[j] * sum_c sum_v O[c, m, v, I[c, v, j]]
 //
-// Bound on this card: bytes. Each output is C*V adds against the C*V
-// uint8 indices of its column; the index matrix (C*V*N bytes) and one read
-// of O (C*M*V*1 KB) are the traffic. For llama2-7b's grouped `gu` at M=4
-// (V=512, N=22016, C=2): 22.5 MB of indices + 4.2 MB of O, 8.1 us at
-// 3.35 TB/s.
+// Bound on this card: bytes. The index matrix (C*V*N bytes) and one read
+// of O (C*M*V*1 KB) are the traffic: for llama2-7b's grouped `gu` at M=4
+// (V=512, N=22016, C=2), 22.5 MB of indices + 4.2 MB of O, 8.1 us at
+// 3.35 TB/s; the fp32 gather's shared-memory floor sits above it at
+// M >= 4 (eva_lookup.cuh).
 //
-// Design. The TPU kernel keeps the (M, bn) output block in VMEM across an
-// inner, sequential V grid axis. On Hopper CTAs run in no order, so:
-//   * a CTA owns (N tile of 1024 columns, V range, M tile of <= 8 rows)
-//     and walks its V range in slabs of `bv` rows, the sums of its 4
-//     adjacent columns per thread staying in registers;
-//   * per slab, every thread first issues all its index loads — 4 adjacent
-//     columns per 4-byte load, so a warp reads 128 contiguous bytes of an
-//     index row; the indices stay uint8 in device memory, never widened —
-//     then the CTA copies the slab's O (C, mt, bv, 256) into shared memory
-//     with 16-byte loads, and each thread gathers its columns from it and
-//     adds in a fixed order (v, then c);
-//   * a few column tiles cannot fill 132 SMs (N=4096 gives 4), so the V
-//     ranges of one tile run on different CTAs, which write partial sums
-//     to a (splits, M, N) workspace; a second small kernel adds them in
-//     split order and applies the scale. No atomics: two runs are bitwise
-//     equal. With one split the first kernel scales and writes y.
-// The gather reads random words of a shared-memory row, so lanes of a warp
-// collide on banks; the paper's conflict-free lookup order is left for a
-// later version.
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <atomic>
-
-#ifndef EVA_VARIANT
-#define EVA_VARIANT 0
-#endif
+// Design: eva_lookup.cuh (the same kernel body as fused_vq_matmul.cu),
+// with the slab's O read from device memory instead of recomputed: each
+// thread loads its 16-byte pieces of the next slab's O rows (C x 4
+// float4, all in flight during this slab's lookups) and stores them
+// entry-major, a quarter-warp's lanes on distinct slab rows so the
+// stores are conflict-free. The TPU kernel keeps the (M, bn) output
+// block in VMEM across a sequential V grid axis; here the V splits of a
+// column tile are the CTAs of a cluster, summed through distributed
+// shared memory in rank order.
+#include "../../fused_vq_matmul/csrc/eva_lookup.cuh"
 
 namespace {
 
-// Timing-only variants, built with -DEVA_VARIANT=k (kernels/build.py
-// VARIANTS) for chip_smoke.py's breakdown phase; 0 is the kernel. Each
-// removes one part of the work and computes a wrong y:
-//   1 no_lookup:  add the index bytes themselves, no shared-memory read;
-//   2 no_index:   hashed constant indices, no index loads;
-//   3 no_o:       no output codebook in shared memory (fused: no
-//                 recompute; lookup: no copy);
-//   4 one_launch: the V splits' partial sums go straight to y, without
-//                 the second (split-reduce) launch.
-constexpr int kVariant = EVA_VARIANT;
-constexpr int kNoLookup = 1, kNoIndex = 2, kNoO = 3, kOneLaunch = 4;
+using eva::Args;
 
-__device__ __forceinline__ uint32_t hashed_indices(int j, int v, int c) {
-  uint32_t h = (uint32_t)j * 0x9E3779B1u ^ (uint32_t)v * 0x85EBCA77u ^
-               (uint32_t)c * 0xC2B2AE3Du;
-  h ^= h >> 15;
-  return h * 0x2C1B3C6Du;
+template <int C, int MW, int BN>
+__global__ void __launch_bounds__(eva::THREADS, 1)
+oc_lookup_kernel(const Args a) {
+  eva::lookup_body<C, MW, BN, false>(a);
 }
 
-constexpr int THREADS = 256;
-constexpr int KC = 256;                 // 2^n, n = 8
-constexpr int COLS = 4;                 // adjacent output columns per thread
-constexpr int BN = THREADS * COLS;      // output columns per CTA
-constexpr int MT_MAX = 8;               // O rows of M per CTA
-constexpr int IDX_REGS = 32;            // index words prefetched per slab
-constexpr int SMEM_MAX = 232448;        // dynamic shared memory a block may use
-constexpr int MAX_DEVICES = 64;
-
-template <int C>
-__global__ void __launch_bounds__(THREADS, 2)
-oc_lookup_kernel(const float* __restrict__ O,       // (C, M, V, KC)
-                 const uint8_t* __restrict__ idx,   // (C, V, N)
-                 const float* __restrict__ scale,   // (N,)
-                 float* __restrict__ out,           // y (M, N) or ws (splits, M, N)
-                 int M, int V, int N, int bv, int v_per_split,
-                 int final_scale) {
-  constexpr int BV_MAX = IDX_REGS / C;
-  extern __shared__ float4 smem4[];
-  float* Os = reinterpret_cast<float*>(smem4);      // (C, mt, bv, KC)
-  const int t = threadIdx.x;
-  const int m0 = blockIdx.z * MT_MAX;
-  const int mt = min(MT_MAX, M - m0);
-  const int j0 = blockIdx.x * BN + t * COLS;
-  const bool vec_ok = ((N & 3) == 0) &&
-                      ((reinterpret_cast<uintptr_t>(idx) & 3) == 0);
-  const int v_begin = blockIdx.y * v_per_split;
-  const int v_end = min(V, v_begin + v_per_split);
-
-  float acc[MT_MAX][COLS];
-#pragma unroll
-  for (int m = 0; m < MT_MAX; ++m)
-#pragma unroll
-    for (int q = 0; q < COLS; ++q) acc[m][q] = 0.f;
-
-  for (int vs = v_begin; vs < v_end; vs += bv) {
-    const int nv = min(bv, v_end - vs);
-    // issue every index load of this slab first, so they are in flight
-    // together with the copy of the output-codebook slab
-    uint32_t ib[BV_MAX][C];
-#pragma unroll
-    for (int vv = 0; vv < BV_MAX; ++vv) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        ib[vv][c] = 0u;
-        if (kVariant == kNoIndex) {
-          ib[vv][c] = hashed_indices(j0, vs + vv, c);
-        } else if (vv < nv && j0 < N) {
-          const uint8_t* ip = idx + ((size_t)c * V + vs + vv) * N + j0;
-          if (vec_ok) {
-            ib[vv][c] = *reinterpret_cast<const uint32_t*>(ip);
-          } else {
-#pragma unroll
-            for (int q = 0; q < COLS; ++q)
-              if (j0 + q < N) ib[vv][c] |= (uint32_t)ip[q] << (8 * q);
-          }
-        }
-      }
-    }
-    // copy O[c, m0 + m, vs : vs + nv, :] for every (c, m): nv contiguous
-    // rows of 256 floats each, as float4
-    const int row4 = KC / 4;
-    const int n4 = C * mt * nv * row4;
-    for (int e = t; kVariant != kNoO && e < n4; e += THREADS) {
-      const int q = e % row4;
-      const int row = e / row4;                 // (c, m, vv), vv fastest
-      const int vv = row % nv;
-      const int cm = row / nv;
-      const int m = cm % mt;
-      const int c = cm / mt;
-      const float4* src = reinterpret_cast<const float4*>(
-          O + (((size_t)c * M + m0 + m) * V + vs + vv) * KC) + q;
-      smem4[(((size_t)c * mt + m) * bv + vv) * row4 + q] = *src;
-    }
-    __syncthreads();
-    // lookup + add-only reduction over this slab, in (v, c) order
-#pragma unroll
-    for (int vv = 0; vv < BV_MAX; ++vv) {
-      if (vv < nv) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const uint32_t w = ib[vv][c];
-          const float* Oc = Os + ((size_t)c * mt * bv + vv) * KC;
-#pragma unroll
-          for (int m = 0; m < MT_MAX; ++m) {
-            if (m < mt) {
-              const float* Om = Oc + (size_t)m * bv * KC;
-#pragma unroll
-              for (int q = 0; q < COLS; ++q) acc[m][q] += kVariant == kNoLookup
-                                   ? (float)((w >> (8 * q)) & 0xffu)
-                                   : Om[(w >> (8 * q)) & 0xffu];
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (j0 >= N) return;
-#pragma unroll
-  for (int m = 0; m < MT_MAX; ++m) {
-    if (m < mt) {
-#pragma unroll
-      for (int q = 0; q < COLS; ++q) {
-        const int j = j0 + q;
-        if (j < N) {
-          if (final_scale)
-            out[(size_t)(m0 + m) * N + j] = acc[m][q] * scale[j];
-          else
-            out[((size_t)blockIdx.y * M + m0 + m) * N + j] = acc[m][q];
-        }
-      }
-    }
-  }
-}
-
-// y[m, j] = scale[j] * sum_{s < splits} ws[s, m, j], summed in split order
 __global__ void oc_split_reduce_kernel(const float* __restrict__ ws,
                                        const float* __restrict__ scale,
                                        float* __restrict__ y, int M, int N,
-                                       int splits) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t MN = (size_t)M * N;
-  if (i >= MN) return;
-  float s = 0.f;
-  for (int p = 0; p < splits; ++p) s += ws[(size_t)p * MN + i];
-  y[i] = s * scale[i % N];
+                                       int groups) {
+  eva::reduce_groups(ws, scale, y, M, N, groups);
 }
 
-// Raise the kernel's dynamic shared-memory limit once per device, not on
-// every launch: the attribute call is host work on the decode step's
-// critical path.
-template <int C>
-cudaError_t allow_smem() {
-  static std::atomic<bool> done[MAX_DEVICES];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+template <int C, int MW, int BN>
+cudaError_t launch(const Args& a, int* max_clusters, cudaStream_t st) {
+  static std::atomic<bool> done[eva::MAX_DEVICES];
+  auto kernel = oc_lookup_kernel<C, MW, BN>;
+  const size_t smem = eva::Layout<C, MW, BN, false>::smem(a.stages);
+  if (smem > (size_t)eva::SMEM_MAX) return cudaErrorInvalidValue;
+  cudaError_t err = eva::allow_smem(kernel, done);
   if (err != cudaSuccess) return err;
-  if (dev < MAX_DEVICES && done[dev].load()) return cudaSuccess;
-  err = cudaFuncSetAttribute(oc_lookup_kernel<C>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev].store(true);
-  return err;
+  if (max_clusters) return eva::max_clusters(kernel, a.cs, smem, max_clusters);
+  return eva::launch_cluster(kernel, a, BN, smem, st);
+}
+
+template <int C, int MW>
+cudaError_t by_bn(int bn, const Args& a, int* mc, cudaStream_t st) {
+  switch (bn) {
+    case 1024: return launch<C, MW, 1024>(a, mc, st);
+    case 512: return launch<C, MW, 512>(a, mc, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int C>
-cudaError_t launch_c(const void* O, const void* idx, const void* scale,
-                     float* out, int M, int V, int N, int bv, int v_per_split,
-                     int splits, int final_scale, size_t smem,
-                     cudaStream_t st) {
-  if (bv > IDX_REGS / C || smem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem<C>();
-  if (err != cudaSuccess) return err;
-  dim3 grid((N + BN - 1) / BN, splits, (M + MT_MAX - 1) / MT_MAX);
-  oc_lookup_kernel<C><<<grid, THREADS, smem, st>>>(
-      static_cast<const float*>(O), static_cast<const uint8_t*>(idx),
-      static_cast<const float*>(scale), out, M, V, N, bv, v_per_split,
-      final_scale);
-  return cudaGetLastError();
+cudaError_t by_mw(int M, int bn, const Args& a, int* mc, cudaStream_t st) {
+  switch (M == 1 ? 1 : M == 2 ? 2 : 4) {
+    case 1: return by_bn<C, 1>(bn, a, mc, st);
+    case 2: return by_bn<C, 2>(bn, a, mc, st);
+    default: return by_bn<C, 4>(bn, a, mc, st);
+  }
+}
+
+cudaError_t dispatch(int C, int bn, const Args& a, int* mc, cudaStream_t st) {
+  if (a.M < 1 || a.V < 1 || a.N < 1 || a.stages < 1 || a.stages > 4 ||
+      a.cs < 1 || a.cs > eva::CS_MAX || a.groups < 1 || a.slabs_per_split < 1)
+    return cudaErrorInvalidValue;
+  switch (C) {  // timing variants are built for the served C = 2 only
+    case 2: return by_mw<2>(a.M, bn, a, mc, st);
+#if EVA_VARIANT == 0
+    case 1: return by_mw<1>(a.M, bn, a, mc, st);
+    case 3: return by_mw<3>(a.M, bn, a, mc, st);
+    case 4: return by_mw<4>(a.M, bn, a, mc, st);
+#endif
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+Args make_args(const void* O, const void* idx, const void* scale, void* y,
+               void* ws, int M, int V, int N, int stages, int cs, int groups,
+               int slabs_per_split) {
+  Args a;
+  a.x = nullptr;
+  a.cb = nullptr;
+  a.O = static_cast<const float*>(O);
+  a.idx = static_cast<const uint8_t*>(idx);
+  a.scale = static_cast<const float*>(scale);
+  a.y = static_cast<float*>(y);
+  a.ws = static_cast<float*>(ws);
+  a.trace = nullptr;
+  a.M = M; a.V = V; a.N = N;
+  a.stages = stages; a.cs = cs; a.groups = groups;
+  a.slabs_per_split = slabs_per_split;
+  a.idx_aligned = (N % 16 == 0) && (reinterpret_cast<uintptr_t>(idx) % 16 == 0);
+  return a;
 }
 
 }  // namespace
 
-// O (C, M, V, 256) fp32, 16-byte aligned; idx (C, V, N) uint8; scale (N,)
-// fp32; y (M, N) fp32; ws (splits, M, N) fp32 when splits > 1. Every
-// split covers v_per_split rows of V (a multiple of bv) but the last.
+// O (C, M, V, 256) fp32, 16-byte aligned; idx (C, V, N) uint8; scale
+// (N,) fp32; y (M, N) fp32; ws (groups, M, N) fp32 when groups > 1;
+// trace (grid CTAs x 5) u64 for the trace variant, else null. The
+// launch shape (bn, stages, cs, groups, slabs_per_split) is
+// tiles.lookup_tiles'.
 extern "C" int oc_lookup_launch(const void* O, const void* idx,
-                                const void* scale, void* y, void* ws, int M,
-                                int V, int N, int C, int bv, int v_per_split,
-                                int splits, void* stream) {
-  if (M < 1 || V < 1 || N < 1 || bv < 1 || splits < 1)
-    return (int)cudaErrorInvalidValue;
+                                const void* scale, void* y, void* ws,
+                                void* trace, int M,
+                                int V, int N, int C, int bn, int stages,
+                                int cs, int groups, int slabs_per_split,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int mt_alloc = M < MT_MAX ? M : MT_MAX;
-  const size_t smem = (size_t)C * mt_alloc * bv * KC * sizeof(float);
-  const bool direct = splits == 1;
-  float* out = static_cast<float*>(direct ? y : ws);
-  const int fs = direct ? 1 : 0;
-  cudaError_t err;
-  switch (C) {
-    case 1: err = launch_c<1>(O, idx, scale, out, M, V, N, bv, v_per_split, splits, fs, smem, st); break;
-    case 2: err = launch_c<2>(O, idx, scale, out, M, V, N, bv, v_per_split, splits, fs, smem, st); break;
-    case 3: err = launch_c<3>(O, idx, scale, out, M, V, N, bv, v_per_split, splits, fs, smem, st); break;
-    case 4: err = launch_c<4>(O, idx, scale, out, M, V, N, bv, v_per_split, splits, fs, smem, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess || direct || kVariant == kOneLaunch) return (int)err;
+  Args a = make_args(O, idx, scale, y, ws, M, V, N, stages, cs, groups,
+                     slabs_per_split);
+  a.trace = static_cast<unsigned long long*>(trace);
+  cudaError_t err = dispatch(C, bn, a, nullptr, st);
+  if (err != cudaSuccess || groups == 1 || eva::kVariant == eva::kOneLaunch)
+    return (int)err;
   const size_t MN = (size_t)M * N;
   oc_split_reduce_kernel<<<(unsigned)((MN + 255) / 256), 256, 0, st>>>(
       static_cast<const float*>(ws), static_cast<const float*>(scale),
-      static_cast<float*>(y), M, N, splits);
+      static_cast<float*>(y), M, N, groups);
   return (int)cudaGetLastError();
+}
+
+// clusters of cs CTAs of this launch shape the current device holds at
+// once, into *out (for the tile model)
+extern "C" int oc_lookup_max_clusters(void* out, int M, int C, int bn,
+                                      int stages, int cs, void* stream) {
+  (void)stream;
+  const Args a = make_args(nullptr, nullptr, nullptr, nullptr, nullptr, M, 1,
+                           16, stages, cs, 1, 1);
+  return (int)dispatch(C, bn, a, static_cast<int*>(out), nullptr);
 }

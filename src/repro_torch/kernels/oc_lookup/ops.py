@@ -24,7 +24,8 @@ from repro_torch.core import ops as core_ops
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.vq import VQWeight
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_vq_matmul.ops import _sm_count, select_split
+from repro_torch.kernels.fused_vq_matmul import tiles
+from repro_torch.kernels.fused_vq_matmul.ops import _sm_count, cluster_slots
 from repro_torch.kernels.oc_lookup.ref import oc_lookup_ref
 from repro_torch.kernels.vq_gemm.ops import vq_gemm
 
@@ -32,17 +33,17 @@ _NAME = "oc_lookup"
 C_MAX = 4
 
 
-def select_lookup_split(M: int, V: int, N: int, C: int,
-                        sm_count: int) -> Tuple[int, int, int]:
-    """(bv, v_per_split, splits) of the lookup kernel. It keeps the fused
-    kernel's tiles (1024 columns and <= 8 rows of M per CTA, 32 prefetched
-    index words a thread, 96 KB of shared memory for 2 CTAs per SM), and
-    its shared-memory slab is the output codebook alone (no x slab)."""
-    return select_split(M, V, N, C, sm_count, d=0)
+def select_lookup_split(M: int, V: int, N: int, C: int, sm_count: int,
+                        slots: Optional[Tuple[int, ...]] = None
+                        ) -> tiles.LookupTiles:
+    """The lookup kernel's launch shape: the fused kernel's tile model
+    (``tiles.lookup_tiles``) without the recompute, so its shared memory
+    holds no codebooks or x rows and a slab costs no FMAs."""
+    return tiles.lookup_tiles(M, V, N, C, sm_count, False, slots)
 
 
 def _launch(O: torch.Tensor, I: torch.Tensor, scale: torch.Tensor,
-            variant: int = 0) -> torch.Tensor:
+            variant: int = 0, trace: bool = False):
     C, M, V, k = O.shape
     N = I.shape[-1]
     dev = O.device
@@ -61,26 +62,33 @@ def _launch(O: torch.Tensor, I: torch.Tensor, scale: torch.Tensor,
             f"on one device; got O {O.dtype} {tuple(O.shape)} on {dev}, "
             f"indices {I.dtype} {tuple(I.shape)} on {I.device}, scale "
             f"{scale.dtype} {tuple(scale.shape)} on {scale.device}")
-    bv, vps, splits = select_lookup_split(M, V, N, C, _sm_count(dev.index or 0))
+    di = dev.index if dev.index is not None else torch.cuda.current_device()
+    t = select_lookup_split(M, V, N, C, _sm_count(di),
+                            cluster_slots(_NAME, di, M, C, False))
     y = torch.empty((M, N), dtype=torch.float32, device=dev)
-    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
-          if splits > 1 else None)
-    fn = build.bind(_NAME, "oc_lookup_launch", 5, 7, variant)
+    ws = (torch.empty((t.groups, M, N), dtype=torch.float32, device=dev)
+          if t.groups > 1 else None)
+    stamps = (torch.zeros((tiles.grid_ctas(t, M, N), 5), dtype=torch.int64,
+                          device=dev) if trace else None)
+    fn = build.bind(_NAME, "oc_lookup_launch", 6, 9, variant)
     with torch.cuda.device(dev):
         err = fn(O.data_ptr(), I.data_ptr(), scale.data_ptr(), y.data_ptr(),
                  ws.data_ptr() if ws is not None else None,
-                 M, V, N, C, bv, vps, splits, build.stream_of(O))
+                 stamps.data_ptr() if stamps is not None else None,
+                 M, V, N, C, t.bn, t.stages, t.cs, t.groups,
+                 t.slabs_per_split, build.stream_of(O))
     build.check(err, _NAME)
     if not variant:
         oc_lookup.launches += 1
-    return y
+    return (y, stamps) if trace else y
 
 
 def run_variant(O: torch.Tensor, I: torch.Tensor, scale: torch.Tensor,
-                variant: str) -> torch.Tensor:
+                variant: str):
     """Launch a timing-only variant of the kernel (``build.VARIANTS``) on
-    CUDA tensors; its y is wrong by design and it counts no launch."""
-    return _launch(O, I, scale, build.variant_index(_NAME, variant))
+    CUDA tensors, as ``fused_vq_matmul.ops.run_variant`` does."""
+    return _launch(O, I, scale, build.variant_index(_NAME, variant),
+                   trace=variant == "trace")
 
 
 def oc_lookup(O: torch.Tensor, I: torch.Tensor, scale: torch.Tensor, *,

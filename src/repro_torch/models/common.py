@@ -357,15 +357,21 @@ def attention_fwd(p: Params, x: torch.Tensor, rc: RunConfig, cfg: ModelConfig,
         Sc = cache["k"].shape[1]
         cache_len = cache["len"]                                   # (B,)
         # the reference drops the positions past capacity (mode="drop").
-        # With fixed shapes and no host sync, each dropped position here
-        # repeats the write of its row's last position that fits, so the
-        # duplicate (b, slot) pairs all carry one value; a row where no
-        # position fits writes slot Sc - 1's own value back
-        last = (Sc - 1 - cache_len.long()).clamp(max=S - 1)       # (B,)
-        src = torch.minimum(torch.arange(S, device=x.device)[None, :],
-                            last[:, None]).clamp(min=0)            # (B, S)
-        any_fit = (last >= 0)[:, None]                             # (B, 1)
-        slot = (cache_len[:, None].long() + src).clamp(max=Sc - 1)
+        # With fixed shapes and no host sync, each dropped position of a
+        # window repeats the write of its row's last position that fits,
+        # so duplicate (b, slot) pairs all carry one value; a row where no
+        # position fits writes slot Sc - 1's own value back. One token
+        # (the engine's step) has no duplicates and needs no gather.
+        if S == 1:
+            src = None
+            slot = cache_len[:, None].long().clamp(max=Sc - 1)     # (B, 1)
+            any_fit = (cache_len < Sc)[:, None]
+        else:
+            last = (Sc - 1 - cache_len.long()).clamp(max=S - 1)   # (B,)
+            src = torch.minimum(torch.arange(S, device=x.device)[None, :],
+                                last[:, None]).clamp(min=0)        # (B, S)
+            any_fit = (last >= 0)[:, None]                         # (B, 1)
+            slot = (cache_len[:, None].long() + src).clamp(max=Sc - 1)
         b_iota = torch.arange(B, device=x.device)[:, None]
 
         kvq_cache = "k_s" in cache and cache["k"].dtype == torch.uint8
@@ -383,8 +389,8 @@ def attention_fwd(p: Params, x: torch.Tensor, rc: RunConfig, cfg: ModelConfig,
         for name, new in rows.items():
             buf = cache[name]
             keep = any_fit.reshape(any_fit.shape + (1,) * (new.dim() - 2))
-            buf[b_iota, slot] = torch.where(keep, new.to(buf.dtype)[b_iota, src],
-                                            buf[b_iota, slot])
+            new = new.to(buf.dtype) if src is None else new.to(buf.dtype)[b_iota, src]
+            buf[b_iota, slot] = torch.where(keep, new, buf[b_iota, slot])
         cache["len"].copy_(cache_len + S)
         new_len = cache["len"]
         if kvq_cache:

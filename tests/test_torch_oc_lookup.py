@@ -16,6 +16,8 @@ from repro_torch.convert import from_jax_params
 from repro_torch.core.vq import VQWeight, synthetic_vq
 from repro_torch.kernels.fused_vq_matmul import fused_vq_matmul
 from repro_torch.kernels.oc_lookup import eva_split_matmul, oc_lookup
+from repro_torch.kernels.fused_vq_matmul import tiles
+from repro_torch.kernels.fused_vq_matmul.ref import lookup_in_kernel_order
 from repro_torch.kernels.oc_lookup.ops import select_lookup_split
 from repro_torch.kernels.vq_gemm import vq_gemm
 
@@ -92,13 +94,55 @@ def test_leading_dims_and_out_dtype():
     assert y.shape == (2, 3, 64) and y.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("M,V,N", [(1, 512, 12288), (4, 512, 4096),
-                                   (4, 1376, 4096), (9, 37, 100),
-                                   (4, 512, 22016)])
-def test_select_lookup_split_covers_v(M, V, N):
-    bv, vps, splits = select_lookup_split(M, V, N, C=2, sm_count=132)
-    assert 4 * 2 * min(M, 8) * bv * 256 <= 96 * 1024 and 2 * bv <= 32
-    assert vps % bv == 0 and (splits - 1) * vps < V <= splits * vps
+DECODE_LINEARS = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096)]
+
+
+@pytest.mark.parametrize("M", [1, 2, 4, 8])
+@pytest.mark.parametrize("K,N", DECODE_LINEARS)
+def test_select_lookup_split_covers_v(K, N, M):
+    """The lookup kernel's tile model at every decode linear of
+    llama2-7b: covers V and N, fits 227 KB with no codebooks or x rows
+    in shared memory, and fills at most one wave of the card."""
+    V = K // 8
+    t = select_lookup_split(M, V, N, C=2, sm_count=132)
+    slabs = -(-V // t.vl)
+    assert t.mw == tiles.lane_width(M) and t.vl * t.mw == tiles.LINE
+    assert t.splits * t.slabs_per_split >= slabs
+    assert (t.splits - t.cs) * t.slabs_per_split < slabs
+    assert 1 <= t.cs <= tiles.CS_MAX and 1 <= t.stages <= tiles.STAGES_MAX
+    assert t.smem == tiles.smem_bytes(2, t.mw, t.bn, t.stages, False)
+    assert t.smem <= 227 * 1024 and t.cols_per_lane >= t.vl
+    assert -(-N // t.bn) * t.splits * -(-M // 4) <= 132
+
+
+@pytest.mark.parametrize("many", [False, True], ids=["one_split", "splits"])
+@pytest.mark.parametrize("C", [1, 2, 4])
+@pytest.mark.parametrize("M", [1, 2, 4, 5, 8])
+def test_kernel_order_matches_jax_pallas_interpret(M, C, many):
+    """The CUDA kernel's summation order (per-lane partials over v, the
+    xor butterfly across lanes, clusters in rank order, then groups),
+    emulated in plain torch, against the reference's Pallas kernel in
+    interpret mode on the same output codebook: within 1e-4 * max|y|,
+    at ragged V and N, with one split and with several."""
+    import jax.numpy as jnp
+    from repro.kernels.oc_lookup import oc_lookup as jax_oc_lookup
+
+    K, N = {1: (296, 100), 2: (264, 1030), 4: (512, 96)}[C]
+    V = K // 8
+    x, jvq = _inputs(K, N, M, C, seed=M * 10 + C)
+    O = np.random.default_rng(M).standard_normal((C, M, V, 256)).astype(np.float32)
+    t = select_lookup_split(M, V, N, C, sm_count=1)
+    if many:
+        slabs = -(-V // t.vl)
+        t = t._replace(cs=2, groups=2, slabs_per_split=-(-slabs // 4))
+    assert t.splits * t.slabs_per_split * t.vl >= V and (t.splits > 1) == many
+    want = np.asarray(jax_oc_lookup(jnp.asarray(O), jnp.asarray(jvq.idx),
+                                    jnp.asarray(jvq.scale), block_v=4,
+                                    block_n=64, interpret=True))
+    vq = from_jax_params(jvq, device="cpu")
+    got = lookup_in_kernel_order(torch.from_numpy(O), vq.idx, vq.scale, t)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
 
 
 # --------------------------------------------------------------- on the card
@@ -132,11 +176,28 @@ def _check_lookup(x, vq):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 4])
+@pytest.mark.parametrize("M", [1, 2, 4, 8])
 @pytest.mark.parametrize("K,N", [(4096, 12288), (4096, 4096), (4096, 22016),
                                  (11008, 4096)])
 def test_kernel_matches_plain_full_width(cuda, K, N, M):
     _check_lookup(*_card_case(K, N, M))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,M", [(4096, 4096, 1), (11008, 4096, 4),
+                                   (296, 1030, 3), (800, 2048, 17)])
+def test_kernel_bitwise_equal_to_its_order(cuda, K, N, M):
+    """The kernel sums in exactly the order ``lookup_in_kernel_order``
+    emulates, for the launch shape it took."""
+    from repro_torch.kernels.fused_vq_matmul.ops import _sm_count, cluster_slots
+
+    x, vq = _card_case(K, N, M)
+    O = vq_gemm(x, vq.codebooks)
+    got = oc_lookup(O, vq.idx, vq.scale).cpu()
+    t = select_lookup_split(M, K // 8, N, vq.C, _sm_count(0),
+                            cluster_slots("oc_lookup", 0, M, vq.C, False))
+    want = lookup_in_kernel_order(O.cpu(), vq.idx.cpu(), vq.scale.cpu(), t)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
