@@ -28,8 +28,8 @@ Phases (any failure exits non-zero):
      no split reduce; compile-time builds of the same sources) at the
      four decode linears x M in {1, 4} and at the ragged case, each call
      also timed twice back to back, and one run of the trace variant
-     (per-CTA %globaltimer stamps: entry, first slab landed, slab loop
-     done, cluster barrier, exit);
+     (its own entry point; per-CTA %globaltimer stamps: entry, first
+     slab landed, slab loop done, cluster barrier, exit);
   4. serve 8 greedy requests on full-width llama2-7b (32 layers, 2-bit VQ
      weights drawn on the card from a seed, bf16 activations, 4 slots,
      max_len 512) through the Engine, counting kernel launches per phase:
@@ -54,11 +54,6 @@ Phases (any failure exits non-zero):
 
 Without a CUDA device, or outside a checkout of the repository, it fails
 before printing any result.
-
-    python3 chip_smoke.py --only check,breakdown
-
-runs a subset of the phases (check, breakdown, serve) and prints neither
-the summary nor the result line: a partial run for iterating.
 """
 from __future__ import annotations
 
@@ -732,20 +727,8 @@ def profile_decode(torch, model, params, cache, step, rc, name, steps: int = 5):
                                   for k, v in sorted(groups.items())}})
 
 
-def main(argv=None) -> int:
-    import argparse
-
+def main() -> int:
     import torch
-
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", default=None,
-                    help="comma-separated subset of check,breakdown,serve "
-                         "(a partial run for iterating: it prints no "
-                         "summary and no result line)")
-    args = ap.parse_args(argv)
-    only = set(args.only.split(",")) if args.only else None
-    if only and not only <= {"check", "breakdown", "serve"}:
-        ap.error(f"--only takes check, breakdown, serve; got {args.only}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -763,14 +746,6 @@ def main(argv=None) -> int:
                         if "registers" in ln or "spill" in ln][:4]
                     for n, log in build.BUILD_LOG.items()}})
     timer = Timer(torch)
-    if only is not None:
-        if "check" in only:
-            check_kernels(torch, timer)
-        if "breakdown" in only:
-            breakdown(torch, timer)
-        if "serve" in only:
-            serve(torch, timer)
-        return 0
     rows = check_kernels(torch, timer)
     breakdown(torch, timer)
     launches = serve(torch, timer)

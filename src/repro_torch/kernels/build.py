@@ -6,8 +6,9 @@ own name, except for kernels that share a package with another, as
 ``flash_decode_kvq`` shares ``flash_decode``, as in the reference). At first use it is compiled with ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library under
 ``build/repro_torch_kernels/`` at the repository root and loaded with
-``ctypes``; the library name carries a hash of the source and flags, so
-an edited source rebuilds. Nothing here runs at import time.
+``ctypes``; the library name carries a hash of the source, the
+repository headers it includes and the flags, so an edited source or
+header rebuilds what uses it. Nothing here runs at import time.
 
 Every C entry point takes raw device pointers and the CUDA stream as
 ``void*`` (``ctypes.c_void_p``) and sizes as ``int``, launches on that
@@ -24,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,6 +48,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _PKG = Path(__file__).resolve().parent
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch_kernels"
 
 _LIBS: Dict[Tuple[str, int], ctypes.CDLL] = {}
@@ -92,9 +95,25 @@ def _flags(variant: int) -> Tuple[str, ...]:
     return NVCC_FLAGS + ((f"-DEVA_VARIANT={variant}",) if variant else ())
 
 
+def _local_includes(path: Path) -> List[Path]:
+    """The repository headers ``path`` includes (``#include "..."``),
+    directly or through another, each once."""
+    found: List[Path] = []
+    todo = [path]
+    while todo:
+        cur = todo.pop()
+        for m in _INCLUDE.finditer(cur.read_text()):
+            header = (cur.parent / m.group(1)).resolve()
+            if header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
 def _lib_path(name: str, variant: int = 0) -> Path:
-    h = hashlib.sha256(source_path(name).read_bytes())
-    for header in sorted(_PKG.glob("*/csrc/*.cuh")):  # headers sources include
+    src = source_path(name)
+    h = hashlib.sha256(src.read_bytes())
+    for header in _local_includes(src):
         h.update(header.read_bytes())
     h.update(" ".join(_flags(variant)).encode())
     tag = f"-v{variant}" if variant else ""
@@ -126,14 +145,13 @@ def _finish_build(name: str, out: Path, proc: Optional[subprocess.Popen],
     os.replace(tmp, out)  # atomic: concurrent builders agree on the result
 
 
-def build_all(names: Iterable[str] = KERNEL_NAMES,
-              variants: bool = True) -> float:
-    """Compile every kernel not yet built (and, with ``variants``, its
-    timing variants), one ``nvcc`` per library, all started together;
-    load them. Returns the wall seconds spent."""
+def build_all(names: Iterable[str] = KERNEL_NAMES) -> float:
+    """Compile every kernel not yet built and its timing variants, one
+    ``nvcc`` per library, all started together; load them. Returns the
+    wall seconds spent."""
     t0 = time.perf_counter()
     jobs = [(n, v) for n in names
-            for v in range(1 + (len(VARIANTS.get(n, ())) if variants else 0))]
+            for v in range(1 + len(VARIANTS.get(n, ())))]
     with _LOCK:
         started: List = [(n, v, *_start_build(n, v)) for n, v in jobs]
         for n, v, out, proc, tmp in started:

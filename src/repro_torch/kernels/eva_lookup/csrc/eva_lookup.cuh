@@ -1,6 +1,6 @@
-// The EVA lookup, shared by fused_vq_matmul.cu (B1: the output codebook
-// recomputed in the kernel from x and the codebooks) and
-// ../../oc_lookup/csrc/oc_lookup.cu (B5: the output codebook read from
+// The EVA lookup, shared by fused_vq_matmul/csrc/fused_vq_matmul.cu (B1:
+// the output codebook recomputed in the kernel from x and the codebooks)
+// and oc_lookup/csrc/oc_lookup.cu (B5: the output codebook read from
 // device memory, as vq_gemm.cu wrote it):
 //
 //   y[m, j] = scale[j] * sum_c sum_v O[c, m, v, I[c, v, j]]
@@ -49,7 +49,7 @@
 // of cluster barriers and reduction.
 //
 // The tile model (BN, stages, cluster size, clusters per tile) is
-// kernels/fused_vq_matmul/tiles.py, which mirrors this file's layout.
+// kernels/eva_lookup/tiles.py, which mirrors this file's layout.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -89,7 +89,9 @@ constexpr int MAX_DEVICES = 64;
 //   5 trace:      the kernel itself, with thread 0 of each CTA writing
 //                 %globaltimer at entry, once slab 0 has landed, after the
 //                 slab loop, after the first cluster barrier and at exit
-//                 into trace[cta * 5 + k] (a right y).
+//                 into trace[cta * 5 + k] (a right y); launched through an
+//                 entry point of its own, `<kernel>_launch_traced`, so the
+//                 served entry takes no timing arguments.
 constexpr int kVariant = EVA_VARIANT;
 constexpr int kNoLookup = 1, kNoIndex = 2, kNoO = 3, kOneLaunch = 4, kTrace = 5;
 
@@ -112,7 +114,7 @@ struct Args {
   const float* scale;      // (N,)
   float* y;                // (M, N)
   float* ws;               // (groups, M, N) when groups > 1
-  unsigned long long* trace;  // the trace variant's timestamps (else null)
+  unsigned long long* trace;  // the trace variant's timestamps (else unused)
   int M, V, N;
   int stages, cs, groups, slabs_per_split;
   int idx_aligned;         // N % 16 == 0 and idx 16-byte aligned

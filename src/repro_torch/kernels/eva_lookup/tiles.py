@@ -2,6 +2,8 @@
 ``fused_vq_matmul`` (B1, output codebook recomputed in the kernel) and
 ``oc_lookup`` (B5, output codebook read from device memory); both
 kernels include ``csrc/eva_lookup.cuh``, which this module mirrors.
+``cluster_slots`` asks the card how many clusters of each launch shape
+it holds at once, which ``lookup_tiles`` prices.
 
 Layout (the paper's conflict-free lookup order). A CTA of 512 threads
 owns a tile of ``bn`` output columns, up to 4 rows of M and a range of
@@ -27,8 +29,13 @@ repeats that order in plain torch.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build
 
 THREADS = 512                  # threads per CTA, one CTA per SM
 WARPS = THREADS // 32
@@ -41,15 +48,22 @@ SMEM_MAX = 232448              # dynamic shared memory a block may use
 CS_MAX = 8                     # CTAs per cluster (the portable maximum)
 STAGES_MAX = 4                 # index tiles in flight
 # bn. The recompute costs 2*256*8/bn flops a lookup, so 512 wins only
-# where the modelled time, which prices it, is lower: fewer waves or no
-# second launch (at M=1 on the 4096-column linears)
+# where the modelled time, which prices it, is lower
 COLUMN_TILES = (1024, 512)
-# cost model of one slab, in SM clocks of shared-memory traffic (128 B
-# a clock): the lookups read C*bn*128 bytes, the O slab is written
-# once (C*32 KB), and the recompute (C*256*32 outputs of 8 FMAs, 128
-# lanes a clock) is a phase of its own
-PROLOGUE_CLK = 2000            # a CTA's first stages and last reduction
-REDUCE_CLK = 9000              # the second launch: ~5 us a linear (PR 16 breakdown)
+# Cost model of a launch (ns), fitted by ``python3 -m
+# repro_torch.kernels.eva_lookup.sweep`` to the time of every launch
+# shape of each kernel at llama2-7b's decode linears x M 1/2/3/4/8 on an
+# NVIDIA H100 80GB HBM3 (700 W):
+#   waves x (call + slabs a CTA x C/2 x (columns x bn/1024
+#            + index x bn/1024/mw + slab)) + reduce where groups > 1
+# columns: a slab's lookups (C*bn*128 bytes of shared memory); index:
+# its index rows (C*vl*bn bytes, vl = 32/mw); slab: making its output
+# codebook (B1: recomputed, B5: loaded) and its barriers; call, per wave:
+# the launch, the first stage's latency and the cluster sum; reduce: the
+# second launch.
+COST_TERMS = ("call", "reduce", "columns", "index", "slab")
+COST_NS = {True: (4650, 7560, 1260, 2580, 1550),     # fused_vq_matmul
+           False: (3630, 7740, 1380, 3680, 2340)}    # oc_lookup
 
 
 def lane_width(M: int) -> int:
@@ -94,45 +108,64 @@ def stages_for(C: int, mw: int, bn: int, recompute: bool) -> int:
     return stages
 
 
-@functools.lru_cache(maxsize=None)
-def lookup_tiles(M: int, V: int, N: int, C: int, sm_count: int,
-                 recompute: bool,
-                 slots: Optional[Tuple[int, ...]] = None) -> LookupTiles:
-    """The launch shape of a lookup kernel: for each column tile that
-    fits shared memory with at least one index stage, every cluster size
-    and cluster count, the modelled time (waves x slabs per CTA x slab
-    cost, plus the second launch where one is needed); the least wins,
-    ties to wider tiles and fewer splits. ``slots[i * CS_MAX + cs - 1]``
-    is how many clusters of ``cs`` CTAs with column tile
-    ``COLUMN_TILES[i]`` the card holds at once (the kernels'
-    ``*_max_clusters``); by default ``sm_count // cs``."""
+def cost_terms(C: int, mw: int, bn: int, groups: int, sps: int,
+               waves: int) -> Tuple[float, ...]:
+    """The terms of the cost model (``COST_TERMS``) for a launch of
+    ``waves`` waves whose CTAs walk ``sps`` slabs each."""
+    slabs = waves * sps * C / 2
+    return (waves, float(groups > 1), slabs * bn / 1024,
+            slabs * bn / 1024 / mw, slabs)
+
+
+def candidates(M: int, V: int, N: int, C: int, sm_count: int,
+               recompute: bool, slots: Optional[Tuple[int, ...]] = None):
+    """Every launch shape worth pricing, with the waves it takes: each
+    column tile that fits shared memory with at least one index stage,
+    each cluster size the card can hold, and for each count of slabs a
+    CTA walks, the fewest clusters per tile that cover V.
+    ``slots[i * CS_MAX + cs - 1]`` is how many clusters of ``cs`` CTAs
+    with column tile ``COLUMN_TILES[i]`` the card holds at once (the
+    kernels' ``*_max_clusters``); by default ``sm_count // cs``."""
     mw = lane_width(M)
     vl = LINE // mw
     slabs = -(-V // vl)
     m_tiles = -(-M // MT)
-    best = None
     for bi, bn in enumerate(COLUMN_TILES):
         stages = stages_for(C, mw, bn, recompute)
         if not stages:
             continue
         tiles = -(-N // bn) * m_tiles
-        slab_clk = C * (bn + KC + (2 * KC if recompute else 0))
+        smem = smem_bytes(C, mw, bn, stages, recompute)
         for cs in range(1, min(CS_MAX, slabs) + 1):
+            held = (slots[bi * CS_MAX + cs - 1] if slots is not None
+                    else sm_count // cs)
+            if held < 1:
+                continue
+            seen = set()
             for groups in range(1, -(-slabs // cs) + 1):
-                splits = cs * groups
-                sps = -(-slabs // splits)
-                held = (slots[bi * CS_MAX + cs - 1] if slots is not None
-                        else sm_count // cs)
-                if held < 1:
+                sps = -(-slabs // (cs * groups))
+                if sps in seen:
                     continue
-                waves = -(-tiles * groups // held)
-                clk = (waves * (sps * slab_clk + PROLOGUE_CLK)
-                       + (REDUCE_CLK if groups > 1 else 0))
-                key = (clk, -bn, splits)
-                if best is None or key < best[0]:
-                    best = (key, LookupTiles(
-                        bn, mw, vl, stages, cs, groups, sps,
-                        smem_bytes(C, mw, bn, stages, recompute)))
+                seen.add(sps)
+                yield (LookupTiles(bn, mw, vl, stages, cs, groups, sps, smem),
+                       -(-tiles * groups // held))
+
+
+@functools.lru_cache(maxsize=None)
+def lookup_tiles(M: int, V: int, N: int, C: int, sm_count: int,
+                 recompute: bool,
+                 slots: Optional[Tuple[int, ...]] = None) -> LookupTiles:
+    """The launch shape of a lookup kernel: of ``candidates``, the least
+    modelled time (``COST_NS`` x ``cost_terms``), ties to wider tiles and
+    fewer splits."""
+    best = None
+    for t, waves in candidates(M, V, N, C, sm_count, recompute, slots):
+        ns = sum(k * f for k, f in zip(
+            COST_NS[recompute],
+            cost_terms(C, t.mw, t.bn, t.groups, t.slabs_per_split, waves)))
+        key = (ns, -t.bn, t.splits)
+        if best is None or key < best[0]:
+            best = (key, t)
     if best is None:
         raise ValueError(f"no lookup tile fits shared memory at C={C}")
     return best[1]
@@ -141,6 +174,36 @@ def lookup_tiles(M: int, V: int, N: int, C: int, sm_count: int,
 def grid_ctas(t: LookupTiles, M: int, N: int) -> int:
     """CTAs of a launch: column tiles x V splits x tiles of M."""
     return -(-N // t.bn) * t.splits * -(-M // MT)
+
+
+@functools.lru_cache(maxsize=None)
+def device_sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_slots(name: str, device_index: int, M: int, C: int,
+                  recompute: bool) -> Tuple[int, ...]:
+    """How many clusters of each size, at each column tile, the card
+    holds at once for kernel ``name`` (``fused_vq_matmul`` or
+    ``oc_lookup``) at this M and C, from cudaOccupancyMaxActiveClusters;
+    laid out as ``lookup_tiles`` reads them."""
+    fn = build.bind(name, f"{name}_max_clusters", 1, 5)
+    mw = lane_width(M)
+    out = ctypes.c_int(0)
+    held = []
+    with torch.cuda.device(device_index):
+        for bn in COLUMN_TILES:
+            stages = stages_for(C, mw, bn, recompute)
+            for cs in range(1, CS_MAX + 1):
+                if not stages:
+                    held.append(0)
+                    continue
+                out.value = 0
+                build.check(fn(ctypes.addressof(out), M, C, bn, stages, cs,
+                               None), f"{name} occupancy")
+                held.append(out.value)
+    return tuple(held)
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,9 @@
 // is on (C*256 entries x 32 (v, m) slots, 8 FMAs each) from x rows staged
 // with its index rows and the codebooks it transposed into shared memory
 // at start. That costs 2*256*8 / BN flops a lookup: BN stays at 1024
-// columns unless a 512-column tile fills the card better (tiles.py).
-#include "eva_lookup.cuh"
+// columns unless a 512-column tile fills the card better
+// (eva_lookup/tiles.py).
+#include "../../eva_lookup/csrc/eva_lookup.cuh"
 
 namespace {
 
@@ -102,33 +103,47 @@ Args make_args(const void* x, const void* cb, const void* idx,
   return a;
 }
 
+// the lookup, then (groups > 1) the split reduce
+int run(const Args& a, int C, int bn, cudaStream_t st) {
+  cudaError_t err = dispatch(C, bn, a, nullptr, st);
+  if (err != cudaSuccess || a.groups == 1 || eva::kVariant == eva::kOneLaunch)
+    return (int)err;
+  const size_t MN = (size_t)a.M * a.N;
+  split_reduce_kernel<<<(unsigned)((MN + 255) / 256), 256, 0, st>>>(
+      a.ws, a.scale, a.y, a.M, a.N, a.groups);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x (M, V, 8) fp32 and 16-byte aligned; cb (C, 8, 256) fp32; idx (C, V,
 // N) uint8; scale (N,) fp32; y (M, N) fp32; ws (groups, M, N) fp32 when
-// groups > 1; trace (grid CTAs x 5) u64 for the trace variant, else
-// null. The launch shape (bn, stages, cs, groups,
-// slabs_per_split) is tiles.lookup_tiles'.
+// groups > 1. The launch shape (bn, stages, cs, groups, slabs_per_split)
+// is eva_lookup/tiles.lookup_tiles'.
 extern "C" int fused_vq_matmul_launch(const void* x, const void* cb,
                                       const void* idx, const void* scale,
-                                      void* y, void* ws, void* trace,
-                                      int M, int V, int N,
+                                      void* y, void* ws, int M, int V, int N,
                                       int C, int bn, int stages, int cs,
                                       int groups, int slabs_per_split,
                                       void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return run(make_args(x, cb, idx, scale, y, ws, M, V, N, stages, cs, groups,
+                       slabs_per_split),
+             C, bn, static_cast<cudaStream_t>(stream));
+}
+
+#if EVA_VARIANT == 5  // eva::kTrace
+// fused_vq_matmul_launch, with trace (grid CTAs x 5) u64 receiving each
+// CTA's %globaltimer stamps
+extern "C" int fused_vq_matmul_launch_traced(
+    const void* x, const void* cb, const void* idx, const void* scale, void* y,
+    void* ws, void* trace, int M, int V, int N, int C, int bn, int stages,
+    int cs, int groups, int slabs_per_split, void* stream) {
   Args a = make_args(x, cb, idx, scale, y, ws, M, V, N, stages, cs, groups,
                      slabs_per_split);
   a.trace = static_cast<unsigned long long*>(trace);
-  cudaError_t err = dispatch(C, bn, a, nullptr, st);
-  if (err != cudaSuccess || groups == 1 || eva::kVariant == eva::kOneLaunch)
-    return (int)err;
-  const size_t MN = (size_t)M * N;
-  split_reduce_kernel<<<(unsigned)((MN + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(ws), static_cast<const float*>(scale),
-      static_cast<float*>(y), M, N, groups);
-  return (int)cudaGetLastError();
+  return run(a, C, bn, static_cast<cudaStream_t>(stream));
 }
+#endif
 
 // clusters of cs CTAs of this launch shape the current device holds at
 // once, into *out (for the tile model)

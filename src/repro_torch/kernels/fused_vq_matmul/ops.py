@@ -5,14 +5,13 @@ unless a calibration ranks the two-kernel ``eva_split`` below it.
 Accepts activations of any leading shape and a VQWeight. CPU tensors take
 the plain version (``ref.py``); CUDA tensors launch the kernel, which
 reads the uint8 index matrix as stored (never widened), or the wrapper
-raises. ``select_split`` is the kernel's launch shape (``tiles.py``:
-column tile, index stages, the V splits summed in a thread-block
-cluster and, where a cluster cannot fill the card, by a second launch).
+raises. ``select_split`` is the kernel's launch shape
+(``eva_lookup/tiles.py``: column tile, index stages, the V splits summed
+in a thread-block cluster and, where a cluster cannot fill the card, by
+a second launch).
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -21,7 +20,7 @@ from repro_torch.core import ops as core_ops
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.vq import VQWeight
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_vq_matmul import tiles
+from repro_torch.kernels.eva_lookup import tiles
 from repro_torch.kernels.fused_vq_matmul.ref import fused_vq_matmul_ref
 
 _NAME = "fused_vq_matmul"
@@ -35,63 +34,36 @@ def select_split(M: int, V: int, N: int, C: int, sm_count: int,
     return tiles.lookup_tiles(M, V, N, C, sm_count, True, slots)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
-def cluster_slots(name: str, device_index: int, M: int, C: int,
-                  recompute: bool) -> Tuple[int, ...]:
-    """How many clusters of each size, at each column tile, the card
-    holds at once for kernel ``name`` (``fused_vq_matmul`` or
-    ``oc_lookup``) at this M and C, from cudaOccupancyMaxActiveClusters;
-    laid out as ``tiles.lookup_tiles`` reads them."""
-    fn = build.bind(name, f"{name}_max_clusters", 1, 5)
-    mw = tiles.lane_width(M)
-    out = ctypes.c_int(0)
-    held = []
-    with torch.cuda.device(device_index):
-        for bn in tiles.COLUMN_TILES:
-            stages = tiles.stages_for(C, mw, bn, recompute)
-            for cs in range(1, tiles.CS_MAX + 1):
-                if not stages:
-                    held.append(0)
-                    continue
-                out.value = 0
-                build.check(fn(ctypes.addressof(out), M, C, bn, stages, cs,
-                               None), f"{name} occupancy")
-                held.append(out.value)
-    return tuple(held)
-
-
-def _launch(X: torch.Tensor, vq: VQWeight, variant: int = 0,
-            trace: bool = False):
+def _operands(X: torch.Tensor, vq: VQWeight):
+    """Launch shape, y, the tensors the launch reads that the caller does
+    not hold (x realigned, the split workspace), and the pointer and
+    size arguments of the C entry points (the trace entry takes its
+    stamps after the workspace)."""
     build.check_vq_operands(_NAME, X, vq)
     M, V, _ = X.shape
     C, N, dev = vq.C, vq.N, X.device
     if X.data_ptr() % 16:
         X = X.clone()                  # the kernel stages x rows 16 bytes at a time
     di = dev.index if dev.index is not None else torch.cuda.current_device()
-    t = select_split(M, V, N, C, _sm_count(di),
-                     cluster_slots(_NAME, di, M, C, True))
+    t = select_split(M, V, N, C, tiles.device_sm_count(di),
+                     tiles.cluster_slots(_NAME, di, M, C, True))
     y = torch.empty((M, N), dtype=torch.float32, device=dev)
     ws = (torch.empty((t.groups, M, N), dtype=torch.float32, device=dev)
           if t.groups > 1 else None)
-    stamps = (torch.zeros((tiles.grid_ctas(t, M, N), 5), dtype=torch.int64,
-                          device=dev) if trace else None)
-    fn = build.bind(_NAME, "fused_vq_matmul_launch", 7, 9, variant)
-    with torch.cuda.device(dev):
-        err = fn(X.data_ptr(), vq.codebooks.data_ptr(), vq.idx.data_ptr(),
-                 vq.scale.data_ptr(), y.data_ptr(),
-                 ws.data_ptr() if ws is not None else None,
-                 stamps.data_ptr() if stamps is not None else None,
-                 M, V, N, C, t.bn, t.stages, t.cs, t.groups,
-                 t.slabs_per_split, build.stream_of(X))
-    build.check(err, _NAME)
-    if not variant:
-        fused_vq_matmul.launches += 1
-    return (y, stamps) if trace else y
+    ptrs = [X.data_ptr(), vq.codebooks.data_ptr(), vq.idx.data_ptr(),
+            vq.scale.data_ptr(), y.data_ptr(),
+            ws.data_ptr() if ws is not None else None]
+    ints = [M, V, N, C, t.bn, t.stages, t.cs, t.groups, t.slabs_per_split]
+    return t, y, (X, ws), ptrs, ints
+
+
+def _launch(X: torch.Tensor, vq: VQWeight) -> torch.Tensor:
+    _, y, held, ptrs, ints = _operands(X, vq)
+    fn = build.bind(_NAME, "fused_vq_matmul_launch", 6, 9)
+    with torch.cuda.device(y.device):
+        build.check(fn(*ptrs, *ints, build.stream_of(y)), _NAME)
+    fused_vq_matmul.launches += 1
+    return y
 
 
 def run_variant(x: torch.Tensor, vq: VQWeight, variant: str):
@@ -101,8 +73,19 @@ def run_variant(x: torch.Tensor, vq: VQWeight, variant: str):
     stamps (ns) of each CTA: entry, slab 0 landed, slab loop done, first
     cluster barrier, exit."""
     X = x.reshape(-1, vq.V, vq.d).float().contiguous()
-    return _launch(X, vq, build.variant_index(_NAME, variant),
-                   trace=variant == "trace")
+    t, y, held, ptrs, ints = _operands(X, vq)
+    v = build.variant_index(_NAME, variant)
+    stream = build.stream_of(y)
+    with torch.cuda.device(y.device):
+        if variant != "trace":
+            fn = build.bind(_NAME, "fused_vq_matmul_launch", 6, 9, v)
+            build.check(fn(*ptrs, *ints, stream), _NAME)
+            return y
+        stamps = torch.zeros((tiles.grid_ctas(t, *y.shape), 5),
+                             dtype=torch.int64, device=y.device)
+        fn = build.bind(_NAME, "fused_vq_matmul_launch_traced", 7, 9, v)
+        build.check(fn(*ptrs, stamps.data_ptr(), *ints, stream), _NAME)
+    return y, stamps
 
 
 def fused_vq_matmul(x: torch.Tensor, vq: VQWeight, *,

@@ -23,7 +23,7 @@
 // block in VMEM across a sequential V grid axis; here the V splits of a
 // column tile are the CTAs of a cluster, summed through distributed
 // shared memory in rank order.
-#include "../../fused_vq_matmul/csrc/eva_lookup.cuh"
+#include "../../eva_lookup/csrc/eva_lookup.cuh"
 
 namespace {
 
@@ -106,32 +106,48 @@ Args make_args(const void* O, const void* idx, const void* scale, void* y,
   return a;
 }
 
+// the lookup, then (groups > 1) the split reduce
+int run(const Args& a, int C, int bn, cudaStream_t st) {
+  cudaError_t err = dispatch(C, bn, a, nullptr, st);
+  if (err != cudaSuccess || a.groups == 1 || eva::kVariant == eva::kOneLaunch)
+    return (int)err;
+  const size_t MN = (size_t)a.M * a.N;
+  oc_split_reduce_kernel<<<(unsigned)((MN + 255) / 256), 256, 0, st>>>(
+      a.ws, a.scale, a.y, a.M, a.N, a.groups);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // O (C, M, V, 256) fp32, 16-byte aligned; idx (C, V, N) uint8; scale
-// (N,) fp32; y (M, N) fp32; ws (groups, M, N) fp32 when groups > 1;
-// trace (grid CTAs x 5) u64 for the trace variant, else null. The
+// (N,) fp32; y (M, N) fp32; ws (groups, M, N) fp32 when groups > 1. The
 // launch shape (bn, stages, cs, groups, slabs_per_split) is
-// tiles.lookup_tiles'.
+// eva_lookup/tiles.lookup_tiles'.
 extern "C" int oc_lookup_launch(const void* O, const void* idx,
-                                const void* scale, void* y, void* ws,
-                                void* trace, int M,
+                                const void* scale, void* y, void* ws, int M,
                                 int V, int N, int C, int bn, int stages,
                                 int cs, int groups, int slabs_per_split,
                                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return run(make_args(O, idx, scale, y, ws, M, V, N, stages, cs, groups,
+                       slabs_per_split),
+             C, bn, static_cast<cudaStream_t>(stream));
+}
+
+#if EVA_VARIANT == 5  // eva::kTrace
+// oc_lookup_launch, with trace (grid CTAs x 5) u64 receiving each CTA's
+// %globaltimer stamps
+extern "C" int oc_lookup_launch_traced(const void* O, const void* idx,
+                                       const void* scale, void* y, void* ws,
+                                       void* trace, int M, int V, int N,
+                                       int C, int bn, int stages, int cs,
+                                       int groups, int slabs_per_split,
+                                       void* stream) {
   Args a = make_args(O, idx, scale, y, ws, M, V, N, stages, cs, groups,
                      slabs_per_split);
   a.trace = static_cast<unsigned long long*>(trace);
-  cudaError_t err = dispatch(C, bn, a, nullptr, st);
-  if (err != cudaSuccess || groups == 1 || eva::kVariant == eva::kOneLaunch)
-    return (int)err;
-  const size_t MN = (size_t)M * N;
-  oc_split_reduce_kernel<<<(unsigned)((MN + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(ws), static_cast<const float*>(scale),
-      static_cast<float*>(y), M, N, groups);
-  return (int)cudaGetLastError();
+  return run(a, C, bn, static_cast<cudaStream_t>(stream));
 }
+#endif
 
 // clusters of cs CTAs of this launch shape the current device holds at
 // once, into *out (for the tile model)

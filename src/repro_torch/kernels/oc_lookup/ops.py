@@ -24,8 +24,7 @@ from repro_torch.core import ops as core_ops
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.vq import VQWeight
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_vq_matmul import tiles
-from repro_torch.kernels.fused_vq_matmul.ops import _sm_count, cluster_slots
+from repro_torch.kernels.eva_lookup import tiles
 from repro_torch.kernels.oc_lookup.ref import oc_lookup_ref
 from repro_torch.kernels.vq_gemm.ops import vq_gemm
 
@@ -42,8 +41,10 @@ def select_lookup_split(M: int, V: int, N: int, C: int, sm_count: int,
     return tiles.lookup_tiles(M, V, N, C, sm_count, False, slots)
 
 
-def _launch(O: torch.Tensor, I: torch.Tensor, scale: torch.Tensor,
-            variant: int = 0, trace: bool = False):
+def _operands(O: torch.Tensor, I: torch.Tensor, scale: torch.Tensor):
+    """Launch shape, y, the split workspace, and the pointer and size
+    arguments of the C entry points (the trace entry takes its stamps
+    after the workspace)."""
     C, M, V, k = O.shape
     N = I.shape[-1]
     dev = O.device
@@ -63,32 +64,44 @@ def _launch(O: torch.Tensor, I: torch.Tensor, scale: torch.Tensor,
             f"indices {I.dtype} {tuple(I.shape)} on {I.device}, scale "
             f"{scale.dtype} {tuple(scale.shape)} on {scale.device}")
     di = dev.index if dev.index is not None else torch.cuda.current_device()
-    t = select_lookup_split(M, V, N, C, _sm_count(di),
-                            cluster_slots(_NAME, di, M, C, False))
+    t = select_lookup_split(M, V, N, C, tiles.device_sm_count(di),
+                            tiles.cluster_slots(_NAME, di, M, C, False))
     y = torch.empty((M, N), dtype=torch.float32, device=dev)
     ws = (torch.empty((t.groups, M, N), dtype=torch.float32, device=dev)
           if t.groups > 1 else None)
-    stamps = (torch.zeros((tiles.grid_ctas(t, M, N), 5), dtype=torch.int64,
-                          device=dev) if trace else None)
-    fn = build.bind(_NAME, "oc_lookup_launch", 6, 9, variant)
-    with torch.cuda.device(dev):
-        err = fn(O.data_ptr(), I.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                 ws.data_ptr() if ws is not None else None,
-                 stamps.data_ptr() if stamps is not None else None,
-                 M, V, N, C, t.bn, t.stages, t.cs, t.groups,
-                 t.slabs_per_split, build.stream_of(O))
-    build.check(err, _NAME)
-    if not variant:
-        oc_lookup.launches += 1
-    return (y, stamps) if trace else y
+    ptrs = [O.data_ptr(), I.data_ptr(), scale.data_ptr(), y.data_ptr(),
+            ws.data_ptr() if ws is not None else None]
+    ints = [M, V, N, C, t.bn, t.stages, t.cs, t.groups, t.slabs_per_split]
+    return t, y, ws, ptrs, ints
+
+
+def _launch(O: torch.Tensor, I: torch.Tensor,
+            scale: torch.Tensor) -> torch.Tensor:
+    _, y, held, ptrs, ints = _operands(O, I, scale)
+    fn = build.bind(_NAME, "oc_lookup_launch", 5, 9)
+    with torch.cuda.device(y.device):
+        build.check(fn(*ptrs, *ints, build.stream_of(y)), _NAME)
+    oc_lookup.launches += 1
+    return y
 
 
 def run_variant(O: torch.Tensor, I: torch.Tensor, scale: torch.Tensor,
                 variant: str):
     """Launch a timing-only variant of the kernel (``build.VARIANTS``) on
     CUDA tensors, as ``fused_vq_matmul.ops.run_variant`` does."""
-    return _launch(O, I, scale, build.variant_index(_NAME, variant),
-                   trace=variant == "trace")
+    t, y, held, ptrs, ints = _operands(O, I, scale)
+    v = build.variant_index(_NAME, variant)
+    stream = build.stream_of(y)
+    with torch.cuda.device(y.device):
+        if variant != "trace":
+            fn = build.bind(_NAME, "oc_lookup_launch", 5, 9, v)
+            build.check(fn(*ptrs, *ints, stream), _NAME)
+            return y
+        stamps = torch.zeros((tiles.grid_ctas(t, *y.shape), 5),
+                             dtype=torch.int64, device=y.device)
+        fn = build.bind(_NAME, "oc_lookup_launch_traced", 6, 9, v)
+        build.check(fn(*ptrs, stamps.data_ptr(), *ints, stream), _NAME)
+    return y, stamps
 
 
 def oc_lookup(O: torch.Tensor, I: torch.Tensor, scale: torch.Tensor, *,

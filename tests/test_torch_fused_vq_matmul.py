@@ -13,9 +13,9 @@ import torch
 from repro_torch.convert import from_jax_params
 from repro_torch.core.vq import VQWeight, synthetic_vq
 from repro_torch.kernels.fused_vq_matmul import fused_vq_matmul
-from repro_torch.kernels.fused_vq_matmul import tiles
+from repro_torch.kernels.eva_lookup import tiles
 from repro_torch.kernels.fused_vq_matmul.ops import select_split
-from repro_torch.kernels.fused_vq_matmul.ref import lookup_in_kernel_order
+from repro_torch.kernels.eva_lookup.ref import lookup_in_kernel_order
 
 torch.set_num_threads(1)
 
@@ -114,6 +114,27 @@ def test_select_split_follows_cluster_occupancy():
     tight = tiles.lookup_tiles(4, 512, 22016, 2, 132, True, slots * 2)
     assert free.cs > 1 and tight.cs == 1
     assert -(-22016 // tight.bn) * tight.groups <= 132
+
+
+@pytest.mark.parametrize("recompute", [True, False], ids=["fused", "lookup"])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("K,N", DECODE_LINEARS)
+def test_candidates_cover_v_and_hold_the_pick(K, N, M, recompute):
+    """Every launch shape the tile model prices (and the cost-model sweep
+    times on the card) is one the kernels take: it covers V and N and
+    fits shared memory; each (tile, cluster size, slabs a CTA) appears
+    once, with the fewest clusters; the shape picked is among them."""
+    V = K // 8
+    seen = set()
+    cands = list(tiles.candidates(M, V, N, 2, 132, recompute))
+    for t, waves in cands:
+        _assert_tiles_cover(t, M, V, N, 2, recompute)
+        key = (t.bn, t.cs, t.slabs_per_split)
+        assert key not in seen
+        seen.add(key)
+        assert t.groups == 1 or -(-V // t.vl) > (t.groups - 1) * t.cs * t.slabs_per_split
+        assert waves == -(-(-(-N // t.bn) * -(-M // 4) * t.groups) // (132 // t.cs))
+    assert tiles.lookup_tiles(M, V, N, 2, 132, recompute) in [t for t, _ in cands]
 
 
 def _kernel_order_case(M, C, many):

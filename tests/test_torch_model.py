@@ -43,9 +43,9 @@ def models():
             "params": {"dense": (dense, conv(dense)), "vq": (vq, conv(vq))}}
 
 
-def _close(got, want):
+def _close(got, want, rel=1e-4):
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
-    bound = 1e-4 * np.abs(want).max()
+    bound = rel * np.abs(want).max()
     assert np.abs(got - want).max() <= bound, (np.abs(got - want).max(), bound)
 
 
@@ -213,15 +213,28 @@ def _cache_kind(models, kv_bits):
     return jp, tp, jk, tk, jenc, tenc
 
 
-def _assert_cache_as_reference(got, want, int_exact=True):
-    """Integer leaves and bf16 scales bit-equal; fp leaves within
-    1e-5 * max|leaf| (fp32 reassociation upstream of the write)."""
+def _assert_cache_as_reference(got, want):
+    """KV-VQ indices and their bf16 scales bit-equal; fp leaves within
+    1e-5 * max|leaf| (fp32 reassociation upstream of the write). The
+    int8 cache quantizes those fp32 rows itself, so a value that lands
+    on a rounding edge may round one step apart: int8 codes within one
+    step, on at most 2 % of the entries, and bf16 scales within one bf16
+    step (a row written to the wrong slot is off by far more)."""
     assert set(got) == set(want)
+    int8 = got["k"].dtype == torch.int8
     for name, w in want.items():
         w, g = np.asarray(w), got[name]
         g = (g.float() if g.dtype == torch.bfloat16 else g).numpy()
         w = w.astype(np.float32) if w.dtype == jnp.bfloat16 else w
-        if np.issubdtype(w.dtype, np.integer) or name.endswith("_s"):
+        if int8 and name in ("k", "v"):
+            diff = np.abs(g.astype(np.int32) - w.astype(np.int32))
+            assert diff.max() <= 1, (name, diff.max())
+            assert np.count_nonzero(diff) <= 0.02 * diff.size, (
+                name, np.count_nonzero(diff), diff.size)
+        elif int8 and name.endswith("_s"):
+            np.testing.assert_allclose(g, w, rtol=2.0 ** -7, atol=0,
+                                       err_msg=name)
+        elif np.issubdtype(w.dtype, np.integer) or name.endswith("_s"):
             np.testing.assert_array_equal(g, w, err_msg=name)
         else:
             np.testing.assert_allclose(g, w, rtol=0,
@@ -276,15 +289,14 @@ def test_attention_window_past_capacity_drops_as_reference(models, kv_bits):
     assert tc["len"].tolist() == [S_PROMPT + S] * B
 
 
-@pytest.mark.parametrize("kv_bits", [16, 4])
+@pytest.mark.parametrize("kv_bits", [16, 8, 4])
 def test_decode_window_past_capacity_drops_as_reference(models, kv_bits):
     """The whole SMOKE model decodes a 3-token window at len = capacity
-    - 2 over its own prefilled fp or KV-VQ cache: the same cache as the
-    JAX model (KV-VQ indices and scales bit-equal, fp rows within
-    1e-5 * max|k|) and the same logits. (The int8 cache is held one
-    layer down, from identical inputs: through the whole model, fp32
-    reassociation between the two frameworks' prefill moves a few int8
-    roundings by one step, window or no window.)"""
+    - 2 over its own prefilled fp, int8 or KV-VQ cache: the same cache as
+    the JAX model (as ``_assert_cache_as_reference`` holds it) and the
+    same logits: within 1e-4 * max|logit|, and over the int8 cache within
+    max|logit| / 127, the size of one int8 step (an int8 code one step
+    apart moves its K or V entry by up to 1/127 of the row's max)."""
     jm, m, toks = models["jm"], models["m"], models["tokens"]
     jp, tp, jk, tk, jenc, tenc = _cache_kind(models, kv_bits)
     cap, S = S_PROMPT + 2, 3
@@ -304,4 +316,4 @@ def test_decode_window_past_capacity_drops_as_reference(models, kv_bits):
                            tc, RunConfig(kv_vq=tk))
     _assert_cache_as_reference(tc["body"], jc["body"])
     assert tc["body"]["len"].tolist() == [[S_PROMPT + S] * B] * 2
-    _close(got.numpy(), want)
+    _close(got.numpy(), want, rel=1 / 127 if kv_bits == 8 else 1e-4)

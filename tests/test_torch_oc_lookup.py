@@ -16,8 +16,8 @@ from repro_torch.convert import from_jax_params
 from repro_torch.core.vq import VQWeight, synthetic_vq
 from repro_torch.kernels.fused_vq_matmul import fused_vq_matmul
 from repro_torch.kernels.oc_lookup import eva_split_matmul, oc_lookup
-from repro_torch.kernels.fused_vq_matmul import tiles
-from repro_torch.kernels.fused_vq_matmul.ref import lookup_in_kernel_order
+from repro_torch.kernels.eva_lookup import tiles
+from repro_torch.kernels.eva_lookup.ref import lookup_in_kernel_order
 from repro_torch.kernels.oc_lookup.ops import select_lookup_split
 from repro_torch.kernels.vq_gemm import vq_gemm
 
@@ -189,13 +189,11 @@ def test_kernel_matches_plain_full_width(cuda, K, N, M):
 def test_kernel_bitwise_equal_to_its_order(cuda, K, N, M):
     """The kernel sums in exactly the order ``lookup_in_kernel_order``
     emulates, for the launch shape it took."""
-    from repro_torch.kernels.fused_vq_matmul.ops import _sm_count, cluster_slots
-
     x, vq = _card_case(K, N, M)
     O = vq_gemm(x, vq.codebooks)
     got = oc_lookup(O, vq.idx, vq.scale).cpu()
-    t = select_lookup_split(M, K // 8, N, vq.C, _sm_count(0),
-                            cluster_slots("oc_lookup", 0, M, vq.C, False))
+    t = select_lookup_split(M, K // 8, N, vq.C, tiles.device_sm_count(0),
+                            tiles.cluster_slots("oc_lookup", 0, M, vq.C, False))
     want = lookup_in_kernel_order(O.cpu(), vq.idx.cpu(), vq.scale.cpu(), t)
     assert torch.equal(got, want)
 
