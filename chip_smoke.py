@@ -11,7 +11,8 @@ Phases (any failure exits non-zero):
   3. check each kernel against its plain PyTorch version at the serving
      paths' full-width llama2-7b shapes (tolerance, bitwise determinism;
      the lookup kernels and vq_gemm at the four decode linears x M in
-     {1, 2, 4, 8} and at a ragged shape)
+     {1, 2, 4, 8} and at a ragged shape, vq_gemm with fp32 and with the
+     served bf16 x)
      and time it (CUDA events, median, L2 flushed between runs) beside its
      plain version, one PyTorch library call computing the same function
      (where one exists), and its bound on this card; dequant_gemv with
@@ -25,11 +26,13 @@ Phases (any failure exits non-zero):
      against the fused kernel;
   3b. `breakdown`: fused_vq_matmul and oc_lookup against their
      timing-only variants (no lookup, no index loads, no output codebook,
-     no split reduce; compile-time builds of the same sources) at the
-     four decode linears x M in {1, 4} and at the ragged case, each call
-     also timed twice back to back, and one run of the trace variant
-     (its own entry point; per-CTA %globaltimer stamps: entry, first
-     slab landed, slab loop done, cluster barrier, exit);
+     no split reduce; compile-time builds of the same sources), and
+     vq_gemm (bf16 x) against its own (no O writes, no loads, bulk-copy
+     stores, an L2 evict-last hint, an empty grid), at the four decode
+     linears x M in {1, 4} and at the ragged case, each call also timed
+     twice back to back, and for the lookup kernels one run of the trace
+     variant (its own entry point; per-CTA %globaltimer stamps: entry,
+     first slab landed, slab loop done, cluster barrier, exit);
   4. serve 8 greedy requests on full-width llama2-7b (32 layers, 2-bit VQ
      weights drawn on the card from a seed, bf16 activations, 4 slots,
      max_len 512) through the Engine, counting kernel launches per phase:
@@ -47,8 +50,9 @@ Phases (any failure exits non-zero):
   6. `serve_split`, last: the default planner ranks with a pinned
      calibration that prices eva_fused above eva_split, and the fp-cache
      phase is served again through vq_gemm + oc_lookup (fused_vq_matmul
-     must launch 0 times), with its plain decode step and profile; the
-     planner is restored afterwards;
+     must launch 0 times), with its plain decode step and profile, a
+     profile with vq_gemm's L2 evict-last variant and one more of the
+     kernel; the planner is restored afterwards;
   7. a {"kernels": [...]} summary line, the card line, and the result
      line {"ok": true, "device": {...}} last.
 
@@ -57,6 +61,8 @@ before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import re
 import statistics
@@ -253,15 +259,23 @@ def check_kernels(torch, timer):
         x = torch.randn((M, K), generator=gen, device="cuda")
         V, cb = K // 8, vq.codebooks
         case = {"M": M, "linear": name, "K": K, "N": N}
-        xf = x.reshape(M * V, 8)
-        run = lambda: vq_gemm(x, cb)
-        O, want = run(), vq_gemm(x, cb, use_kernel=False)
-        record("vq_gemm", case, O, want,
-               1e-4 * max(1.0, want.abs().max().item()), run,
-               lambda: vq_gemm(x, cb, use_kernel=False),
-               lambda: torch.matmul(xf[None], cb),
-               M * K * 4 + C * 8 * 256 * 4 + C * M * V * 256 * 4,
-               C * M * V * 256 * 8 * 2)
+        # B4 with fp32 x and with bf16 x as served (read as stored, no
+        # cast kernel), the bf16 run bitwise equal to the fp32 run of the
+        # same values; the library call is the batched fp32 matmul of the
+        # same (fp32) values
+        xb = x.to(torch.bfloat16)
+        for xi in (x, xb):
+            xf = xi.float().reshape(M * V, 8)
+            run = lambda: vq_gemm(xi, cb)
+            O, want = run(), vq_gemm(xi, cb, use_kernel=False)
+            record("vq_gemm", {**case, "x": str(xi.dtype).split(".")[-1]}, O,
+                   want, 1e-4 * max(1.0, want.abs().max().item()), run,
+                   lambda: vq_gemm(xi, cb, use_kernel=False),
+                   lambda: torch.matmul(xf[None], cb),
+                   xi.numel() * xi.element_size() + C * 8 * 256 * 4
+                   + C * M * V * 256 * 4, C * M * V * 256 * 8 * 2)
+        assert torch.equal(O, vq_gemm(xb.float(), cb)), f"vq_gemm bf16 x {case}"
+        O = vq_gemm(x, cb)
         run = lambda: oc_lookup(O, vq.idx, vq.scale)
         got = run()
         want = oc_lookup(O, vq.idx, vq.scale, use_kernel=False)
@@ -382,12 +396,15 @@ def check_kernels(torch, timer):
 
 
 def breakdown(torch, timer):
-    """Where the EVA lookup kernels' time goes: B1 (fused_vq_matmul) and
-    B5 (oc_lookup, fed vq_gemm's output codebook) against their
-    timing-only variants (kernels/build.py VARIANTS: no lookup, no index
-    loads, no output codebook, no split reduce) at the four decode
-    linears x M in {1, SLOTS} and at the ragged case, with the same
-    timer as the check phase. Rows, then one total per kernel and M."""
+    """Where the EVA kernels' time goes: B1 (fused_vq_matmul), B4
+    (vq_gemm, bf16 x as served) and B5 (oc_lookup, fed vq_gemm's output
+    codebook) against their timing-only variants (kernels/build.py
+    VARIANTS: B1 and B5 without the lookup, the index loads, the output
+    codebook or the split reduce; B4 without O's writes, without its
+    loads, with bulk-copy stores, with an L2 hint, and empty) at the four
+    decode linears x M in {1, SLOTS} and at the ragged case, with the
+    same timer as the check phase. Rows, then one total per kernel and
+    M."""
     from repro_torch.core.vq import synthetic_vq
     from repro_torch.kernels import build
     from repro_torch.kernels.fused_vq_matmul import fused_vq_matmul
@@ -395,6 +412,7 @@ def breakdown(torch, timer):
     from repro_torch.kernels.oc_lookup import oc_lookup
     from repro_torch.kernels.oc_lookup.ops import run_variant as lookup_variant
     from repro_torch.kernels.vq_gemm import vq_gemm
+    from repro_torch.kernels.vq_gemm.ops import run_variant as vq_variant
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     totals = {}
@@ -402,8 +420,11 @@ def breakdown(torch, timer):
     for M, name, K, N in cases + [(3, "ragged", 296, 1030)]:
         vq = synthetic_vq(gen, K, N, C=2, device="cuda")
         x = torch.randn((M, K), generator=gen, device="cuda")
-        O = vq_gemm(x, vq.codebooks)
+        xb, cb = x.to(torch.bfloat16), vq.codebooks
+        O = vq_gemm(x, cb)
         calls = {
+            "vq_gemm": (lambda: vq_gemm(xb, cb),
+                        lambda v: (lambda: vq_variant(xb, cb, v))),
             "fused_vq_matmul": (
                 lambda: fused_vq_matmul(x, vq, out_dtype=torch.float32),
                 lambda v: (lambda: fused_variant(x, vq, v))),
@@ -417,9 +438,11 @@ def breakdown(torch, timer):
             ms = {"kernel": timer(full), "twice": timer(lambda: (full(), full()))}
             for v in build.VARIANTS[kernel]:
                 ms[v] = timer(variant(v))
-            emit({"phase": "breakdown", "kernel": kernel, "linear": name,
-                  "M": M, "K": K, "N": N, "ms": ms,
-                  "trace_us": trace_stats(torch, timer, variant("trace"))})
+            row = {"phase": "breakdown", "kernel": kernel, "linear": name,
+                   "M": M, "K": K, "N": N, "ms": ms}
+            if "trace" in build.VARIANTS[kernel]:
+                row["trace_us"] = trace_stats(torch, timer, variant("trace"))
+            emit(row)
             if name != "ragged":
                 tot = totals.setdefault((kernel, M), {})
                 for k, t in ms.items():
@@ -600,7 +623,11 @@ def serve_split(torch, model, params, prompts):
             torch, model, params, prompts, "serve_split",
             RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda")),
             EngineConfig(num_slots=SLOTS, max_len=MAX_LEN),
-            ("vq_gemm", "oc_lookup", "flash_decode", "dequant_gemv"))
+            ("vq_gemm", "oc_lookup", "flash_decode", "dequant_gemv"),
+            # the L2 hint's effect, between two profiles of the kernel
+            variant_profiles={"vq_gemm[evict_last]":
+                              lambda: vq_gemm_variant("evict_last"),
+                              "again": contextlib.nullcontext})
     finally:
         planner.reload_calibration(before)
         planner.cache_clear()
@@ -608,12 +635,31 @@ def serve_split(torch, model, params, prompts):
     return out
 
 
-def serve_phase(torch, model, params, prompts, name, rc, ecfg, required):
+@contextlib.contextmanager
+def vq_gemm_variant(variant: str):
+    """For its duration, vq_gemm's served calls launch a timing variant
+    of the kernel (``build.VARIANTS``) instead of the kernel."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.vq_gemm import ops
+
+    launch = ops._launch
+    ops._launch = functools.partial(
+        launch, variant=build.variant_index("vq_gemm", variant))
+    try:
+        yield
+    finally:
+        ops._launch = launch
+
+
+def serve_phase(torch, model, params, prompts, name, rc, ecfg, required,
+                variant_profiles=None):
     """Serve ``prompts`` greedily to MAX_NEW tokens through a fresh Engine
     (after a short warm-up one), with every kernel count set to 0 just
     before and read just after; fail unless each kernel in ``required``
     launched. Then one decode step through the kernels and through the
-    plain versions, and a profile of the decode step."""
+    plain versions, and a profile of the decode step; then one more
+    profile under each of ``variant_profiles`` ({label: context
+    manager factory}, e.g. a kernel's timing variant)."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.core.quantize import kv_codebook_tree
@@ -684,6 +730,10 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required):
           "finite": bool(torch.isfinite(got).all())})
     assert bool(torch.isfinite(got).all()) and rel <= 0.05 and agree >= 0.75
     profile_decode(torch, model, params, cache, step, rc, name)
+    for label, context in (variant_profiles or {}).items():
+        with context():
+            profile_decode(torch, model, params, cache, step, rc,
+                           f"{name}[{label}]")
     return {"launches": launches, "tokens": tokens,
             "kv_bytes": m["kv_bytes_in_use"]}
 
@@ -757,8 +807,9 @@ def main() -> int:
     for name, replaces in REPLACES.items():
         rs = rows[name]
         if name in ("fused_vq_matmul", "vq_gemm", "oc_lookup"):
-            # one decode layer at M = slots
-            rs = [r for r in rs if r["case"]["M"] == SLOTS]
+            # one decode layer at M = slots (B4: the served bf16 x)
+            rs = [r for r in rs if r["case"]["M"] == SLOTS
+                  and r["case"].get("x", "bfloat16") == "bfloat16"]
         elif name in ("flash_decode_kvq", "int8_gemm"):  # the served case
             rs = [r for r in rs if r["case"].get("kv_bits", 4) == 4
                   and r["case"].get("M", 256) == 256]

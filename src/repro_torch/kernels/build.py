@@ -41,8 +41,9 @@ KERNEL_NAMES = ("fused_vq_matmul", "flash_decode", "dequant_gemv",
 _SHARED_DIRS = {"flash_decode_kvq": "flash_decode"}
 # timing-only variants of a kernel, built with -DEVA_VARIANT=<index + 1>
 VARIANTS = {
-    name: ("no_lookup", "no_index", "no_o", "one_launch", "trace")
-    for name in ("fused_vq_matmul", "oc_lookup")
+    **{name: ("no_lookup", "no_index", "no_o", "one_launch", "trace")
+       for name in ("fused_vq_matmul", "oc_lookup")},
+    "vq_gemm": ("no_store", "no_load", "bulk_stores", "evict_last", "empty"),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -7,25 +7,49 @@
 //
 //   O[c, r, e] = sum_{i < 8} x[r, i] * B[c, i, e]     r < M*V, e < 256
 //
-// Bound on this card: bytes. Each output entry is a d=8 contraction, 16
-// flops, against 4 bytes of O written; the (C, M*V, 256) fp32 output
-// dwarfs the inputs (x is M*V*32 bytes, B is C*8 KB). For llama2-7b's
-// grouped `wqkv` at M=4 (V=512, C=2) O is 4.19 MB: 1.28 us at 3.35 TB/s.
+// Bound on this card: bytes, and all but a few of them are O's writes.
+// Each output entry is a d=8 contraction, 16 flops, against 4 bytes of O
+// written; the (C, M*V, 256) fp32 output dwarfs the inputs (x is M*V*16
+// bytes in bf16, B is C*8 KB). For llama2-7b's grouped `wqkv` at M=4
+// (V=512, C=2) O is 4.19 MB: 1.25 us at 3.35 TB/s.
 //
-// Design. The Pallas kernel runs one MXU dot per (codebook, M*V tile); a
-// d=8 contraction is far too shallow for the tensor cores, so here it is
-// fp32 FMAs on the CUDA cores, in the fixed order i = 0..7 (as the
-// reference's fp32 dot_general):
-//   * a CTA owns (codebook c, a slab of ROWS rows of M*V); its 256 threads
-//     split the 256 centroids into 64 groups of 4 adjacent ones, so a
-//     thread writes 16 contiguous bytes of an O row and a warp writes two
-//     whole 512-byte row segments (coalesced stores);
-//   * the 8 x 4 codebook entries a thread needs are loaded once into
-//     registers; the slab's x rows are read as broadcasts (one row serves
-//     the 64 threads of its centroid groups);
+// Design. A d=8 contraction is far too shallow for the tensor cores, so
+// it is fp32 FMAs on the CUDA cores, in the fixed order i = 0..7 (as the
+// reference's fp32 dot_general); what the design is about is keeping a
+// call's fixed cost short and O's writes in flight:
+//   * x is read as stored, bf16 or fp32 (a template), and widened in
+//     registers, as the Pallas kernel casts inside (bf16 -> fp32 is
+//     exact, so O does not depend on x's dtype): one call, one kernel;
+//   * few long-lived CTAs, sized from the SM count (vq_gemm/ops.py
+//     `launch_shape`): a CTA owns a contiguous run of `rows` rows of M*V
+//     for every codebook c, so its rows of one codebook are one
+//     contiguous region of O. Its x rows are staged in shared memory
+//     once for all C; its 256 threads split the 256 centroids into 64
+//     groups of 4 adjacent ones, and each thread loads its 8 x 4
+//     codebook entries of codebook c into registers with 16-byte loads
+//     once per CTA (the next codebook's while this one's rows are
+//     written). The codebook and x loads are issued together, so a CTA
+//     waits for one memory round trip before its first output;
+//   * O's writes: straight from registers, one 16-byte st.global.v4 a
+//     thread and row (a warp writes two whole 512-byte row segments),
+//     every row's store issued back to back with nothing waiting on it,
+//     so a CTA's writes are all in flight at once. The timing variant
+//     `bulk_stores` stages tiles of TILE rows in shared memory instead
+//     and writes each with one 1-D bulk asynchronous copy
+//     (cp.async.bulk.global.shared::cta, TMA's 1-D form, no tensor map),
+//     NBUF tiles in flight; it measured slower on the card (PERF.md), as
+//     each tile costs a block barrier and the stores were never the
+//     bottleneck;
+//   * what a call costs is mostly fixed: the launch, and one round trip
+//     for the codebook and x (chip_smoke.py breakdown: the `empty`,
+//     `no_load` and `no_store` variants);
 //   * the ragged end of M*V is masked in the kernel, nothing is padded.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifndef EVA_VARIANT
+#define EVA_VARIANT 0
+#endif
 
 namespace {
 
@@ -35,52 +59,204 @@ constexpr int D = 8;                      // VQ vector dimension
 constexpr int COLS = 4;                   // adjacent centroids per thread
 constexpr int GROUPS = KC / COLS;         // threads per O row
 constexpr int ROWS_PER_PASS = THREADS / GROUPS;
-constexpr int ROWS = 16;                  // O rows per CTA
+constexpr int ROWS_MAX = 256;             // rows a CTA (x staged once); ops.ROWS_MAX
+constexpr int TILE = 8;                   // bulk_stores: O rows a copy (8 KB)
+constexpr int NBUF = 4;                   // bulk_stores: tiles in shared memory
 
+// Timing-only variants, built with -DEVA_VARIANT=k (kernels/build.py
+// VARIANTS) for chip_smoke.py's breakdown phase; 0 is the kernel.
+//   1 no_store:    loads and FMAs, O not written (wrong O);
+//   2 no_load:     O written from constants, no x or codebook loads
+//                  (wrong O);
+//   3 bulk_stores: O's rows staged in shared memory by tiles and written
+//                  by 1-D bulk asynchronous copies (right O);
+//   4 evict_last:  O's writes marked L2 evict-last, for the lookup kernel
+//                  that reads O next (right O);
+//   5 empty:       the same grid, every CTA returns at entry (no O).
+constexpr int kVariant = EVA_VARIANT;
+constexpr int kNoStore = 1, kNoLoad = 2, kBulkStores = 3, kEvictLast = 4,
+              kEmpty = 5;
+constexpr bool kBulk = kVariant == kBulkStores;
+constexpr bool kHint = kVariant == kEvictLast;
+
+__device__ __forceinline__ uint64_t l2_policy() {
+  uint64_t p = 0;
+  if constexpr (kHint)
+    asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+                 : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ void store_v4(float* dst, float4 v, uint64_t pol) {
+  if constexpr (kHint)
+    asm volatile(
+        "st.global.L2::cache_hint.v4.f32 [%0], {%1, %2, %3, %4}, %5;\n" ::"l"(dst),
+        "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "l"(pol) : "memory");
+  else
+    *reinterpret_cast<float4*>(dst) = v;
+}
+
+__device__ __forceinline__ void bulk_store(float* dst, const float* src,
+                                           int bytes, uint64_t pol) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(src);
+  if constexpr (kHint)
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint"
+        " [%0], [%1], %2, %3;\n" ::"l"(dst), "r"(s), "r"(bytes), "l"(pol)
+        : "memory");
+  else
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+                 ::"l"(dst), "r"(s), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk copies still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void load_codebook(float4 (&b)[D],
+                                              const float* __restrict__ cb,
+                                              int c, int e) {
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    if constexpr (kVariant == kNoLoad)
+      b[i] = make_float4(i + 1.f, e, c, 0.5f);
+    else
+      b[i] = __ldg(reinterpret_cast<const float4*>(cb + ((size_t)c * D + i) * KC + e));
+  }
+}
+
+// the CTA's n rows of x, widened to fp32, into xs (n x 8)
+__device__ __forceinline__ void stage_x(float* xs, const float* __restrict__ x,
+                                        int r0, int n) {
+  const float4* src = reinterpret_cast<const float4*>(x + (size_t)r0 * D);
+  for (int j = threadIdx.x; j < n * 2; j += THREADS)
+    reinterpret_cast<float4*>(xs)[j] =
+        kVariant == kNoLoad ? make_float4(j, 1.f, 2.f, 3.f) : __ldg(src + j);
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+__device__ __forceinline__ void stage_x(float* xs, const uint16_t* __restrict__ x,
+                                        int r0, int n) {
+  const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)r0 * D);
+  for (int j = threadIdx.x; j < n; j += THREADS) {
+    const uint4 w = kVariant == kNoLoad ? make_uint4(j, 1u, 2u, 3u) : __ldg(src + j);
+    float4* dst = reinterpret_cast<float4*>(xs + j * D);
+    dst[0] = make_float4(bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y));
+    dst[1] = make_float4(bf16_lo(w.z), bf16_hi(w.z), bf16_lo(w.w), bf16_hi(w.w));
+  }
+}
+
+// one thread's 4 outputs of row xr: fused multiply-adds in the order 0..7
+__device__ __forceinline__ float4 row_dot(const float* xr, const float4 (&b)[D]) {
+  const float4 xa = reinterpret_cast<const float4*>(xr)[0];
+  const float4 xb = reinterpret_cast<const float4*>(xr)[1];
+  const float xv[D] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    s.x = fmaf(xv[i], b[i].x, s.x);
+    s.y = fmaf(xv[i], b[i].y, s.y);
+    s.z = fmaf(xv[i], b[i].z, s.z);
+    s.w = fmaf(xv[i], b[i].w, s.w);
+  }
+  return s;
+}
+
+template <typename XT>
 __global__ void __launch_bounds__(THREADS)
-vq_gemm_kernel(const float* __restrict__ x,     // (MV, D)
+vq_gemm_kernel(const XT* __restrict__ x,        // (MV, D), bf16 or fp32
                const float* __restrict__ cb,    // (C, D, KC)
-               float* __restrict__ O,           // (C, MV, KC)
-               int MV) {
-  const int c = blockIdx.y;
-  const int g = threadIdx.x % GROUPS;
-  const int e = g * COLS;
-  float b[D][COLS];
-#pragma unroll
-  for (int i = 0; i < D; ++i)
-#pragma unroll
-    for (int q = 0; q < COLS; ++q)
-      b[i][q] = cb[((size_t)c * D + i) * KC + e + q];
+               float* __restrict__ O,           // (C, MV, KC), 16-byte aligned
+               int MV, int C, int rows) {
+  __shared__ __align__(16) float xs[ROWS_MAX * D];
+  __shared__ __align__(128) float tiles[kBulk ? NBUF * TILE * KC : 1];
+  if constexpr (kVariant == kEmpty) return;
+  const int tid = threadIdx.x;
+  const int e = (tid % GROUPS) * COLS;
+  const int rr = tid / GROUPS;
+  const int r0 = (int)blockIdx.x * rows;
+  const int n = min(rows, MV - r0);
 
-  const int r0 = (int)blockIdx.x * ROWS;
-  const int r_end = min(MV, r0 + ROWS);
-  for (int r = r0 + (int)threadIdx.x / GROUPS; r < r_end;
-       r += ROWS_PER_PASS) {
-    float xv[D];
+  float4 b[D];
+  load_codebook(b, cb, 0, e);
+  stage_x(xs, x, r0, n);
+  __syncthreads();
+  const uint64_t pol = l2_policy();
+  float sink = 0.f;                     // keeps no_store's FMAs alive
+  int tile = 0;
+  for (int c = 0; c < C; ++c) {
+    float4 next[D];
+    if (c + 1 < C) load_codebook(next, cb, c + 1, e);
+    float* Oc = O + ((size_t)c * MV + r0) * KC;
+    if constexpr (kBulk) {
+      for (int t0 = 0; t0 < n; t0 += TILE, ++tile) {
+        const int nt = min(TILE, n - t0);
+        float* buf = tiles + (tile % NBUF) * TILE * KC;
 #pragma unroll
-    for (int i = 0; i < D; ++i) xv[i] = x[(size_t)r * D + i];
-    float s[COLS];
-#pragma unroll
-    for (int q = 0; q < COLS; ++q) {
-      s[q] = 0.f;
-#pragma unroll
-      for (int i = 0; i < D; ++i) s[q] = fmaf(xv[i], b[i][q], s[q]);
+        for (int p = 0; p < TILE / ROWS_PER_PASS; ++p) {
+          const int r = rr + p * ROWS_PER_PASS;
+          if (r < nt)
+            *reinterpret_cast<float4*>(buf + r * KC + e) =
+                row_dot(xs + (t0 + r) * D, b);
+        }
+        // this thread's tile writes, seen by the bulk copy's async proxy
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        // the buffer the next tile fills is free once the copy issued
+        // NBUF - 1 tiles ago has read it
+        if (tid == 0) bulk_wait_read<NBUF - 2>();
+        __syncthreads();
+        if (tid == 0) {
+          if constexpr (kVariant != kNoStore)
+            bulk_store(Oc + (size_t)t0 * KC, buf, nt * KC * 4, pol);
+        }
+      }
+    } else {
+#pragma unroll 4
+      for (int r = rr; r < n; r += ROWS_PER_PASS) {
+        const float4 s = row_dot(xs + r * D, b);
+        if constexpr (kVariant == kNoStore)
+          sink += s.x + s.y + s.z + s.w;
+        else
+          store_v4(Oc + (size_t)r * KC + e, s, pol);
+      }
     }
-    *reinterpret_cast<float4*>(O + ((size_t)c * MV + r) * KC + e) =
-        make_float4(s[0], s[1], s[2], s[3]);
+    if (c + 1 < C) {
+#pragma unroll
+      for (int i = 0; i < D; ++i) b[i] = next[i];
+    }
+  }
+  if constexpr (kBulk) {
+    if (tid == 0) bulk_wait_read<0>();  // shared memory outlives the copies
+  }
+  if constexpr (kVariant == kNoStore) {
+    if (sink == 1.5e-45f) O[tid] = sink;  // never taken; not foldable
   }
 }
 
 }  // namespace
 
-// x (MV, 8) fp32, cb (C, 8, 256) fp32, O (C, MV, 256) fp32 (16-byte
-// aligned: the wrapper allocates it). Launches on `stream`.
+// x (MV, 8) bf16 (x_bf16 != 0) or fp32, 16-byte aligned; cb (C, 8, 256)
+// fp32; O (C, MV, 256) fp32, 16-byte aligned (the wrapper allocates it).
+// CTA b covers rows [b * rows, min(MV, (b + 1) * rows)) of every
+// codebook (ops.launch_shape). Launches on `stream`.
 extern "C" int vq_gemm_launch(const void* x, const void* cb, void* O, int MV,
-                              int C, void* stream) {
-  if (MV < 1 || C < 1 || C > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((MV + ROWS - 1) / ROWS, C);
-  vq_gemm_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(cb),
-      static_cast<float*>(O), MV);
+                              int C, int rows, int x_bf16, void* stream) {
+  if (MV < 1 || C < 1 || rows < 1 || rows > ROWS_MAX)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((MV + rows - 1) / rows);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* B = static_cast<const float*>(cb);
+  float* out = static_cast<float*>(O);
+  if (x_bf16)
+    vq_gemm_kernel<<<grid, THREADS, 0, st>>>(static_cast<const uint16_t*>(x),
+                                             B, out, MV, C, rows);
+  else
+    vq_gemm_kernel<<<grid, THREADS, 0, st>>>(static_cast<const float*>(x), B,
+                                             out, MV, C, rows);
   return (int)cudaGetLastError();
 }

@@ -4,39 +4,83 @@ memory for ``oc_lookup`` — the first half of the two-kernel ``eva_split``
 backend (registered from ``kernels/oc_lookup/ops.py``).
 
 CPU tensors take the plain version (``ref.py``); CUDA tensors launch the
-kernel or the wrapper raises.
+kernel or the wrapper raises. The kernel reads bf16 or fp32 x as stored
+(a served bf16 x is one kernel, no cast); x of any other dtype is cast
+to fp32 first. ``launch_shape`` is the kernel's grid.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.eva_lookup.tiles import device_sm_count
 from repro_torch.kernels.vq_gemm.ref import vq_gemm_ref
 
 _NAME = "vq_gemm"
+X_DTYPES = (torch.bfloat16, torch.float32)
+ROWS_MAX = 256          # rows of M*V a CTA stages (vq_gemm.cu ROWS_MAX)
 
 
-def _launch(x_flat: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
-    MV, d = x_flat.shape
+class VqGemmShape(NamedTuple):
+    rows: int           # rows of M*V a CTA owns, for every codebook
+    ctas: int
+
+
+def launch_shape(MV: int, sm_count: int) -> VqGemmShape:
+    """The kernel's grid: CTA b owns rows [b * rows, min(MV, (b + 1) *
+    rows)) of M*V for every codebook, so its rows of one codebook are one
+    contiguous region of O and x is read once for all C. One CTA an SM,
+    more where a CTA would hold over ROWS_MAX rows; the codebook count
+    sets only a CTA's work, not the split."""
+    rows = min(ROWS_MAX, max(1, -(-MV // sm_count)))
+    return VqGemmShape(rows, -(-MV // rows))
+
+
+def _operands(x: torch.Tensor, codebooks: torch.Tensor):
+    """O, and the pointer and size arguments of the C entry point."""
+    if x.dtype not in X_DTYPES:
+        x = x.float()
     C = codebooks.shape[0]
-    dev = x_flat.device
-    ok = (d == 8 and codebooks.dtype == torch.float32
-          and codebooks.is_contiguous() and tuple(codebooks.shape[1:]) == (8, 256)
-          and codebooks.device == dev)
+    dev = x.device
+    ok = (x.shape[-1] % 8 == 0 and x.is_contiguous() and x.data_ptr() % 16 == 0
+          and codebooks.dtype == torch.float32 and codebooks.is_contiguous()
+          and tuple(codebooks.shape[1:]) == (8, 256) and codebooks.device == dev)
     if not ok:
         raise ValueError(
-            f"{_NAME}: the kernel takes x with K a multiple of 8 and "
-            f"contiguous fp32 (C, 8, 256) codebooks on x's device; got "
-            f"vectors of {d}, codebooks {codebooks.dtype} "
-            f"{tuple(codebooks.shape)} on {codebooks.device}")
+            f"{_NAME}: the kernel takes contiguous, 16-byte aligned x with K a "
+            f"multiple of 8 and contiguous fp32 (C, 8, 256) codebooks on x's "
+            f"device; got x {x.dtype} {tuple(x.shape)} (contiguous "
+            f"{x.is_contiguous()}, address mod 16 = {x.data_ptr() % 16}), "
+            f"codebooks {codebooks.dtype} {tuple(codebooks.shape)} on "
+            f"{codebooks.device}")
+    MV = x.numel() // 8
+    di = dev.index if dev.index is not None else torch.cuda.current_device()
+    shape = launch_shape(MV, device_sm_count(di))
     O = torch.empty((C, MV, 256), dtype=torch.float32, device=dev)
-    fn = build.bind(_NAME, "vq_gemm_launch", 3, 2)
-    with torch.cuda.device(dev):
-        err = fn(x_flat.data_ptr(), codebooks.data_ptr(), O.data_ptr(), MV, C,
-                 build.stream_of(x_flat))
-    build.check(err, _NAME)
-    vq_gemm.launches += 1
+    ptrs = [x.data_ptr(), codebooks.data_ptr(), O.data_ptr()]
+    ints = [MV, C, shape.rows, int(x.dtype == torch.bfloat16)]
+    return O, ptrs, ints
+
+
+def _launch(x: torch.Tensor, codebooks: torch.Tensor, variant: int = 0
+            ) -> torch.Tensor:
+    O, ptrs, ints = _operands(x, codebooks)
+    fn = build.bind(_NAME, "vq_gemm_launch", 3, 4, variant)
+    with torch.cuda.device(O.device):
+        build.check(fn(*ptrs, *ints, build.stream_of(O)), _NAME)
+    if not variant:
+        vq_gemm.launches += 1
     return O
+
+
+def run_variant(x: torch.Tensor, codebooks: torch.Tensor, variant: str
+                ) -> torch.Tensor:
+    """Launch a timing-only variant of the kernel (``build.VARIANTS``) on
+    CUDA tensors; it counts no launch. Returns O (C, M*V, 256): wrong by
+    design for ``no_store`` and ``no_load``."""
+    return _launch(x, codebooks, build.variant_index(_NAME, variant))
 
 
 def vq_gemm(x: torch.Tensor, codebooks: torch.Tensor, *,
@@ -49,13 +93,12 @@ def vq_gemm(x: torch.Tensor, codebooks: torch.Tensor, *,
     if K % d:
         raise ValueError(f"{_NAME}: K={K} is not a multiple of d={d}")
     V, M = K // d, x.numel() // K
-    x_flat = x.reshape(M * V, d).float().contiguous()
-    if use_kernel and x_flat.is_cuda:
-        O = _launch(x_flat, codebooks)
-    elif use_kernel and x_flat.device.type != "cpu":
-        raise ValueError(f"{_NAME}: no kernel for device {x_flat.device}")
+    if use_kernel and x.is_cuda:
+        O = _launch(x, codebooks)
+    elif use_kernel and x.device.type != "cpu":
+        raise ValueError(f"{_NAME}: no kernel for device {x.device}")
     else:
-        O = vq_gemm_ref(x_flat, codebooks)
+        O = vq_gemm_ref(x.reshape(M * V, d), codebooks)
     return O.reshape(C, M, V, k)
 
 

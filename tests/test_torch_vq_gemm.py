@@ -4,14 +4,17 @@ interpret mode and through its jnp oracle (CPU), and the CUDA kernel
 against the plain version on the card.
 
 Tolerance: fp32 rtol=1e-6, atol=1e-6 on the CPU — each output is an
-8-term fp32 dot, summed in orders that may differ. On the card the kernel
-(fused multiply-adds in the order d = 0..7) is held to
-1e-4 * max(1, max|O|) against the plain ``einsum``."""
+8-term fp32 dot, summed in orders that may differ (bf16 x is widened to
+fp32 exactly on both sides first). On the card the kernel (fused
+multiply-adds in the order d = 0..7) is held to 1e-4 * max(1, max|O|)
+against the plain ``einsum``, and with bf16 x bitwise to its own run on
+the same values in fp32."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.vq_gemm import vq_gemm
+from repro_torch.kernels.vq_gemm.ops import ROWS_MAX, launch_shape
 
 torch.set_num_threads(1)
 
@@ -43,6 +46,47 @@ def test_plain_matches_jax(K, M, C, use_pallas):
     assert got.shape == (C, M, K // 8, 256) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("K,M,C", [(296, 3, 2), (256, 1, 1), (512, 2, 4),
+                                   (88, 5, 2)])
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_plain_bf16_x_matches_jax(K, M, C, use_pallas):
+    """The served dtype: bf16 x, widened inside the Pallas kernel."""
+    import jax.numpy as jnp
+    from repro.kernels.vq_gemm import vq_gemm as jax_vq_gemm
+
+    x, cb = _inputs(K, M, C, seed=1)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    want = jax_vq_gemm(jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16),
+                       jnp.asarray(cb), block_mv=32, interpret=True,
+                       use_pallas=use_pallas)
+    before = vq_gemm.launches
+    got = vq_gemm(xb, torch.from_numpy(cb))
+    assert vq_gemm.launches == before
+    assert got.shape == (C, M, K // 8, 256) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("sm_count", [1, 132])
+@pytest.mark.parametrize("C", [1, 2, 4])
+@pytest.mark.parametrize("MV", [1, 55, 111, 2048, 5504])
+def test_launch_shape_covers_every_row_once(MV, C, sm_count):
+    """CTA b writes rows [b * rows, min(MV, (b + 1) * rows)) of every
+    codebook (vq_gemm.cu): each (c, row) exactly once, no CTA idle, at
+    most ROWS_MAX rows a CTA, and no more CTAs than SMs unless a CTA
+    would hold more than ROWS_MAX rows."""
+    rows, ctas = launch_shape(MV, sm_count)
+    assert 1 <= rows <= ROWS_MAX
+    assert ctas <= sm_count or rows == ROWS_MAX
+    seen = np.zeros((C, MV), dtype=np.int64)
+    for b in range(ctas):
+        r0, r1 = b * rows, min(MV, (b + 1) * rows)
+        assert r0 < r1
+        for c in range(C):
+            seen[c, r0:r1] += 1
+    assert (seen == 1).all()
 
 
 def test_leading_dims_and_dtype():
@@ -84,10 +128,57 @@ def _check(x, cb):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 4])
+@pytest.mark.parametrize("M", [1, 2, 4, 8])
 @pytest.mark.parametrize("K", [4096, 11008])   # wqkv / wo / gu, down
 def test_kernel_matches_plain_full_width(cuda, K, M):
     _check(*_card_case(K, M))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 2, 4, 8])
+@pytest.mark.parametrize("K", [4096, 11008])
+def test_kernel_bf16_x_matches_plain_full_width(cuda, K, M):
+    """The served dtype, read as stored: bitwise the fp32 run of the same
+    values."""
+    x, cb = _card_case(K, M)
+    xb = x.to(torch.bfloat16)
+    got = _check(xb, cb)
+    assert torch.equal(got, vq_gemm(xb.float(), cb))
+
+
+@pytest.mark.cuda
+def test_kernel_bf16_x_is_one_kernel(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    x, cb = _card_case(4096, 4)
+    xb = x.to(torch.bfloat16)
+    vq_gemm(xb, cb)
+    torch.cuda.synchronize()
+    before = vq_gemm.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        vq_gemm(xb, cb)
+        torch.cuda.synchronize()
+    assert vq_gemm.launches == before + 1
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "vq_gemm_kernel" in kernels[0], kernels
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_misaligned_or_strided_x(cuda):
+    x, cb = _card_case(256, 2)
+    for dt in (torch.float32, torch.bfloat16):
+        flat = x.to(dt).reshape(-1)
+        buf = torch.empty(flat.numel() + 8, dtype=dt, device="cuda")
+        buf[1:1 + flat.numel()] = flat
+        misaligned = buf[1:1 + flat.numel()].reshape(2, 256)
+        wide = torch.empty((2, 512), dtype=dt, device="cuda")
+        wide[:, :256] = x.to(dt)
+        for bad in (misaligned, wide[:, :256]):
+            before = vq_gemm.launches
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                vq_gemm(bad, cb)
+            assert vq_gemm.launches == before
 
 
 @pytest.mark.cuda
@@ -100,6 +191,13 @@ def test_kernel_matches_plain_ragged(cuda, K, M, C):
 @pytest.mark.cuda
 def test_kernel_bitwise_deterministic(cuda):
     x, cb = _card_case(11008, 4)
+    assert torch.equal(vq_gemm(x, cb), vq_gemm(x, cb))
+
+
+@pytest.mark.cuda
+def test_kernel_bf16_x_bitwise_deterministic(cuda):
+    x, cb = _card_case(11008, 4)
+    x = x.to(torch.bfloat16)
     assert torch.equal(vq_gemm(x, cb), vq_gemm(x, cb))
 
 
