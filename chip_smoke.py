@@ -27,12 +27,12 @@ Phases (any failure exits non-zero):
   3b. `breakdown`: fused_vq_matmul and oc_lookup against their
      timing-only variants (no lookup, no index loads, no output codebook,
      no split reduce; compile-time builds of the same sources), and
-     vq_gemm (bf16 x) against its own (no O writes, no loads, bulk-copy
-     stores, an L2 evict-last hint, an empty grid), at the four decode
-     linears x M in {1, 4} and at the ragged case, each call also timed
-     twice back to back, and for the lookup kernels one run of the trace
-     variant (its own entry point; per-CTA %globaltimer stamps: entry,
-     first slab landed, slab loop done, cluster barrier, exit);
+     vq_gemm (bf16 x) against its own (no O writes, no loads, an empty
+     grid), at the four decode linears x M in {1, 4} and at the ragged
+     case, each call also timed twice back to back, and for the lookup
+     kernels one run of the trace variant (its own entry point; per-CTA
+     %globaltimer stamps: entry, first slab landed, slab loop done,
+     cluster barrier, exit);
   4. serve 8 greedy requests on full-width llama2-7b (32 layers, 2-bit VQ
      weights drawn on the card from a seed, bf16 activations, 4 slots,
      max_len 512) through the Engine, counting kernel launches per phase:
@@ -50,9 +50,8 @@ Phases (any failure exits non-zero):
   6. `serve_split`, last: the default planner ranks with a pinned
      calibration that prices eva_fused above eva_split, and the fp-cache
      phase is served again through vq_gemm + oc_lookup (fused_vq_matmul
-     must launch 0 times), with its plain decode step and profile, a
-     profile with vq_gemm's L2 evict-last variant and one more of the
-     kernel; the planner is restored afterwards;
+     must launch 0 times), with its plain decode step and profile; the
+     planner is restored afterwards;
   7. a {"kernels": [...]} summary line, the card line, and the result
      line {"ok": true, "device": {...}} last.
 
@@ -61,8 +60,6 @@ before printing any result.
 """
 from __future__ import annotations
 
-import contextlib
-import functools
 import json
 import re
 import statistics
@@ -401,10 +398,9 @@ def breakdown(torch, timer):
     codebook) against their timing-only variants (kernels/build.py
     VARIANTS: B1 and B5 without the lookup, the index loads, the output
     codebook or the split reduce; B4 without O's writes, without its
-    loads, with bulk-copy stores, with an L2 hint, and empty) at the four
-    decode linears x M in {1, SLOTS} and at the ragged case, with the
-    same timer as the check phase. Rows, then one total per kernel and
-    M."""
+    loads, and empty) at the four decode linears x M in {1, SLOTS} and at
+    the ragged case, with the same timer as the check phase. Rows, then
+    one total per kernel and M."""
     from repro_torch.core.vq import synthetic_vq
     from repro_torch.kernels import build
     from repro_torch.kernels.fused_vq_matmul import fused_vq_matmul
@@ -623,11 +619,7 @@ def serve_split(torch, model, params, prompts):
             torch, model, params, prompts, "serve_split",
             RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda")),
             EngineConfig(num_slots=SLOTS, max_len=MAX_LEN),
-            ("vq_gemm", "oc_lookup", "flash_decode", "dequant_gemv"),
-            # the L2 hint's effect, between two profiles of the kernel
-            variant_profiles={"vq_gemm[evict_last]":
-                              lambda: vq_gemm_variant("evict_last"),
-                              "again": contextlib.nullcontext})
+            ("vq_gemm", "oc_lookup", "flash_decode", "dequant_gemv"))
     finally:
         planner.reload_calibration(before)
         planner.cache_clear()
@@ -635,31 +627,12 @@ def serve_split(torch, model, params, prompts):
     return out
 
 
-@contextlib.contextmanager
-def vq_gemm_variant(variant: str):
-    """For its duration, vq_gemm's served calls launch a timing variant
-    of the kernel (``build.VARIANTS``) instead of the kernel."""
-    from repro_torch.kernels import build
-    from repro_torch.kernels.vq_gemm import ops
-
-    launch = ops._launch
-    ops._launch = functools.partial(
-        launch, variant=build.variant_index("vq_gemm", variant))
-    try:
-        yield
-    finally:
-        ops._launch = launch
-
-
-def serve_phase(torch, model, params, prompts, name, rc, ecfg, required,
-                variant_profiles=None):
+def serve_phase(torch, model, params, prompts, name, rc, ecfg, required):
     """Serve ``prompts`` greedily to MAX_NEW tokens through a fresh Engine
     (after a short warm-up one), with every kernel count set to 0 just
     before and read just after; fail unless each kernel in ``required``
     launched. Then one decode step through the kernels and through the
-    plain versions, and a profile of the decode step; then one more
-    profile under each of ``variant_profiles`` ({label: context
-    manager factory}, e.g. a kernel's timing variant)."""
+    plain versions, and a profile of the decode step."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.core.quantize import kv_codebook_tree
@@ -730,10 +703,6 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required,
           "finite": bool(torch.isfinite(got).all())})
     assert bool(torch.isfinite(got).all()) and rel <= 0.05 and agree >= 0.75
     profile_decode(torch, model, params, cache, step, rc, name)
-    for label, context in (variant_profiles or {}).items():
-        with context():
-            profile_decode(torch, model, params, cache, step, rc,
-                           f"{name}[{label}]")
     return {"launches": launches, "tokens": tokens,
             "kv_bytes": m["kv_bytes_in_use"]}
 

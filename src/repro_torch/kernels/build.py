@@ -23,6 +23,7 @@ served path loads one.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -43,7 +44,7 @@ _SHARED_DIRS = {"flash_decode_kvq": "flash_decode"}
 VARIANTS = {
     **{name: ("no_lookup", "no_index", "no_o", "one_launch", "trace")
        for name in ("fused_vq_matmul", "oc_lookup")},
-    "vq_gemm": ("no_store", "no_load", "bulk_stores", "evict_last", "empty"),
+    "vq_gemm": ("no_store", "no_load", "empty"),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -192,6 +193,11 @@ def bind(name: str, symbol: str, n_ptrs: int, n_ints: int, variant: int = 0):
 def stream_of(t: torch.Tensor) -> int:
     """Handle of PyTorch's current CUDA stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def device_sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def check_vq_operands(kernel: str, X, vq, c_max: int = 4) -> None:

@@ -87,7 +87,7 @@ def main() -> int:
     build.build_all(("fused_vq_matmul", "oc_lookup", "vq_gemm"))
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    sm = tiles.device_sm_count(torch.cuda.current_device())
+    sm = build.device_sm_count(torch.cuda.current_device())
     cases = {True: [], False: []}
     for M in ROWS_M:
         for linear, K, N in LINEARS:

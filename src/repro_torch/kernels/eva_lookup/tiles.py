@@ -177,11 +177,6 @@ def grid_ctas(t: LookupTiles, M: int, N: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def device_sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def cluster_slots(name: str, device_index: int, M: int, C: int,
                   recompute: bool) -> Tuple[int, ...]:
     """How many clusters of each size, at each column tile, the card

@@ -45,7 +45,7 @@ def _operands(X: torch.Tensor, vq: VQWeight):
     if X.data_ptr() % 16:
         X = X.clone()                  # the kernel stages x rows 16 bytes at a time
     di = dev.index if dev.index is not None else torch.cuda.current_device()
-    t = select_split(M, V, N, C, tiles.device_sm_count(di),
+    t = select_split(M, V, N, C, build.device_sm_count(di),
                      tiles.cluster_slots(_NAME, di, M, C, True))
     y = torch.empty((M, N), dtype=torch.float32, device=dev)
     ws = (torch.empty((t.groups, M, N), dtype=torch.float32, device=dev)

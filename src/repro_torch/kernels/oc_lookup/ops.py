@@ -64,7 +64,7 @@ def _operands(O: torch.Tensor, I: torch.Tensor, scale: torch.Tensor):
             f"indices {I.dtype} {tuple(I.shape)} on {I.device}, scale "
             f"{scale.dtype} {tuple(scale.shape)} on {scale.device}")
     di = dev.index if dev.index is not None else torch.cuda.current_device()
-    t = select_lookup_split(M, V, N, C, tiles.device_sm_count(di),
+    t = select_lookup_split(M, V, N, C, build.device_sm_count(di),
                             tiles.cluster_slots(_NAME, di, M, C, False))
     y = torch.empty((M, N), dtype=torch.float32, device=dev)
     ws = (torch.empty((t.groups, M, N), dtype=torch.float32, device=dev)

@@ -33,13 +33,13 @@
 //   * O's writes: straight from registers, one 16-byte st.global.v4 a
 //     thread and row (a warp writes two whole 512-byte row segments),
 //     every row's store issued back to back with nothing waiting on it,
-//     so a CTA's writes are all in flight at once. The timing variant
-//     `bulk_stores` stages tiles of TILE rows in shared memory instead
-//     and writes each with one 1-D bulk asynchronous copy
-//     (cp.async.bulk.global.shared::cta, TMA's 1-D form, no tensor map),
-//     NBUF tiles in flight; it measured slower on the card (PERF.md), as
-//     each tile costs a block barrier and the stores were never the
-//     bottleneck;
+//     so a CTA's writes are all in flight at once. Staging tiles in shared
+//     memory and writing them with 1-D bulk asynchronous copies
+//     (cp.async.bulk, TMA's 1-D form) measured slower on the card, as each
+//     tile costs a block barrier; an L2 evict-last hint on O's writes
+//     moved the lookup kernel that reads O next by at most ~1 %, within
+//     its run-to-run spread, so O's stores keep the default policy
+//     (PERF.md);
 //   * what a call costs is mostly fixed: the launch, and one round trip
 //     for the codebook and x (chip_smoke.py breakdown: the `empty`,
 //     `no_load` and `no_store` variants);
@@ -60,61 +60,14 @@ constexpr int COLS = 4;                   // adjacent centroids per thread
 constexpr int GROUPS = KC / COLS;         // threads per O row
 constexpr int ROWS_PER_PASS = THREADS / GROUPS;
 constexpr int ROWS_MAX = 256;             // rows a CTA (x staged once); ops.ROWS_MAX
-constexpr int TILE = 8;                   // bulk_stores: O rows a copy (8 KB)
-constexpr int NBUF = 4;                   // bulk_stores: tiles in shared memory
 
 // Timing-only variants, built with -DEVA_VARIANT=k (kernels/build.py
 // VARIANTS) for chip_smoke.py's breakdown phase; 0 is the kernel.
-//   1 no_store:    loads and FMAs, O not written (wrong O);
-//   2 no_load:     O written from constants, no x or codebook loads
-//                  (wrong O);
-//   3 bulk_stores: O's rows staged in shared memory by tiles and written
-//                  by 1-D bulk asynchronous copies (right O);
-//   4 evict_last:  O's writes marked L2 evict-last, for the lookup kernel
-//                  that reads O next (right O);
-//   5 empty:       the same grid, every CTA returns at entry (no O).
+//   1 no_store: loads and FMAs, O not written (wrong O);
+//   2 no_load:  O written from constants, no x or codebook loads (wrong O);
+//   3 empty:    the same grid, every CTA returns at entry (no O).
 constexpr int kVariant = EVA_VARIANT;
-constexpr int kNoStore = 1, kNoLoad = 2, kBulkStores = 3, kEvictLast = 4,
-              kEmpty = 5;
-constexpr bool kBulk = kVariant == kBulkStores;
-constexpr bool kHint = kVariant == kEvictLast;
-
-__device__ __forceinline__ uint64_t l2_policy() {
-  uint64_t p = 0;
-  if constexpr (kHint)
-    asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
-                 : "=l"(p));
-  return p;
-}
-
-__device__ __forceinline__ void store_v4(float* dst, float4 v, uint64_t pol) {
-  if constexpr (kHint)
-    asm volatile(
-        "st.global.L2::cache_hint.v4.f32 [%0], {%1, %2, %3, %4}, %5;\n" ::"l"(dst),
-        "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "l"(pol) : "memory");
-  else
-    *reinterpret_cast<float4*>(dst) = v;
-}
-
-__device__ __forceinline__ void bulk_store(float* dst, const float* src,
-                                           int bytes, uint64_t pol) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(src);
-  if constexpr (kHint)
-    asm volatile(
-        "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint"
-        " [%0], [%1], %2, %3;\n" ::"l"(dst), "r"(s), "r"(bytes), "l"(pol)
-        : "memory");
-  else
-    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-                 ::"l"(dst), "r"(s), "r"(bytes) : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's bulk copies still read shared memory
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
+constexpr int kNoStore = 1, kNoLoad = 2, kEmpty = 3;
 
 __device__ __forceinline__ void load_codebook(float4 (&b)[D],
                                               const float* __restrict__ cb,
@@ -174,7 +127,6 @@ vq_gemm_kernel(const XT* __restrict__ x,        // (MV, D), bf16 or fp32
                float* __restrict__ O,           // (C, MV, KC), 16-byte aligned
                int MV, int C, int rows) {
   __shared__ __align__(16) float xs[ROWS_MAX * D];
-  __shared__ __align__(128) float tiles[kBulk ? NBUF * TILE * KC : 1];
   if constexpr (kVariant == kEmpty) return;
   const int tid = threadIdx.x;
   const int e = (tid % GROUPS) * COLS;
@@ -186,52 +138,23 @@ vq_gemm_kernel(const XT* __restrict__ x,        // (MV, D), bf16 or fp32
   load_codebook(b, cb, 0, e);
   stage_x(xs, x, r0, n);
   __syncthreads();
-  const uint64_t pol = l2_policy();
   float sink = 0.f;                     // keeps no_store's FMAs alive
-  int tile = 0;
   for (int c = 0; c < C; ++c) {
     float4 next[D];
     if (c + 1 < C) load_codebook(next, cb, c + 1, e);
     float* Oc = O + ((size_t)c * MV + r0) * KC;
-    if constexpr (kBulk) {
-      for (int t0 = 0; t0 < n; t0 += TILE, ++tile) {
-        const int nt = min(TILE, n - t0);
-        float* buf = tiles + (tile % NBUF) * TILE * KC;
-#pragma unroll
-        for (int p = 0; p < TILE / ROWS_PER_PASS; ++p) {
-          const int r = rr + p * ROWS_PER_PASS;
-          if (r < nt)
-            *reinterpret_cast<float4*>(buf + r * KC + e) =
-                row_dot(xs + (t0 + r) * D, b);
-        }
-        // this thread's tile writes, seen by the bulk copy's async proxy
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        // the buffer the next tile fills is free once the copy issued
-        // NBUF - 1 tiles ago has read it
-        if (tid == 0) bulk_wait_read<NBUF - 2>();
-        __syncthreads();
-        if (tid == 0) {
-          if constexpr (kVariant != kNoStore)
-            bulk_store(Oc + (size_t)t0 * KC, buf, nt * KC * 4, pol);
-        }
-      }
-    } else {
 #pragma unroll 4
-      for (int r = rr; r < n; r += ROWS_PER_PASS) {
-        const float4 s = row_dot(xs + r * D, b);
-        if constexpr (kVariant == kNoStore)
-          sink += s.x + s.y + s.z + s.w;
-        else
-          store_v4(Oc + (size_t)r * KC + e, s, pol);
-      }
+    for (int r = rr; r < n; r += ROWS_PER_PASS) {
+      const float4 s = row_dot(xs + r * D, b);
+      if constexpr (kVariant == kNoStore)
+        sink += s.x + s.y + s.z + s.w;
+      else
+        *reinterpret_cast<float4*>(Oc + (size_t)r * KC + e) = s;
     }
     if (c + 1 < C) {
 #pragma unroll
       for (int i = 0; i < D; ++i) b[i] = next[i];
     }
-  }
-  if constexpr (kBulk) {
-    if (tid == 0) bulk_wait_read<0>();  // shared memory outlives the copies
   }
   if constexpr (kVariant == kNoStore) {
     if (sink == 1.5e-45f) O[tid] = sink;  // never taken; not foldable

@@ -15,7 +15,6 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.eva_lookup.tiles import device_sm_count
 from repro_torch.kernels.vq_gemm.ref import vq_gemm_ref
 
 _NAME = "vq_gemm"
@@ -46,18 +45,21 @@ def _operands(x: torch.Tensor, codebooks: torch.Tensor):
     dev = x.device
     ok = (x.shape[-1] % 8 == 0 and x.is_contiguous() and x.data_ptr() % 16 == 0
           and codebooks.dtype == torch.float32 and codebooks.is_contiguous()
+          and codebooks.data_ptr() % 16 == 0
           and tuple(codebooks.shape[1:]) == (8, 256) and codebooks.device == dev)
     if not ok:
         raise ValueError(
             f"{_NAME}: the kernel takes contiguous, 16-byte aligned x with K a "
-            f"multiple of 8 and contiguous fp32 (C, 8, 256) codebooks on x's "
-            f"device; got x {x.dtype} {tuple(x.shape)} (contiguous "
-            f"{x.is_contiguous()}, address mod 16 = {x.data_ptr() % 16}), "
-            f"codebooks {codebooks.dtype} {tuple(codebooks.shape)} on "
-            f"{codebooks.device}")
+            f"multiple of 8 and contiguous, 16-byte aligned fp32 (C, 8, 256) "
+            f"codebooks on x's device; got x {x.dtype} {tuple(x.shape)} "
+            f"(contiguous {x.is_contiguous()}, address mod 16 = "
+            f"{x.data_ptr() % 16}), codebooks {codebooks.dtype} "
+            f"{tuple(codebooks.shape)} on {codebooks.device} (contiguous "
+            f"{codebooks.is_contiguous()}, address mod 16 = "
+            f"{codebooks.data_ptr() % 16})")
     MV = x.numel() // 8
     di = dev.index if dev.index is not None else torch.cuda.current_device()
-    shape = launch_shape(MV, device_sm_count(di))
+    shape = launch_shape(MV, build.device_sm_count(di))
     O = torch.empty((C, MV, 256), dtype=torch.float32, device=dev)
     ptrs = [x.data_ptr(), codebooks.data_ptr(), O.data_ptr()]
     ints = [MV, C, shape.rows, int(x.dtype == torch.bfloat16)]

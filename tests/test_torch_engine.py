@@ -113,6 +113,34 @@ def test_split_backend_streams_identical_to_jax_engine(setup, split_pinned):
     assert eng.generate(prompts, 6) == want
 
 
+@pytest.mark.parametrize("kv_bits", [16, 8, 4])
+def test_split_backend_hands_vq_gemm_contiguous_aligned_x(
+        setup, split_pinned, monkeypatch, kv_bits):
+    """On the card ``vq_gemm`` raises on an x that is not contiguous or
+    not 16-byte aligned (it copies none): at every decode VQ site the
+    split serves, under every KV cache layout, x arrives as the kernel
+    takes it."""
+    from repro_torch.kernels.oc_lookup import ops as split_ops
+
+    seen = []
+    vq_gemm = split_ops.vq_gemm
+
+    def recording(x, codebooks, **kw):
+        seen.append((tuple(x.shape), x.is_contiguous(), x.data_ptr() % 16))
+        return vq_gemm(x, codebooks, **kw)
+
+    monkeypatch.setattr(split_ops, "vq_gemm", recording)
+    rng = np.random.default_rng(kv_bits)
+    prompts = [_prompt(rng, setup["cfg"], n) for n in (5, 9, 3)]
+    eng = _engine(setup, kv_bits=kv_bits)
+    assert _vq_backends(eng) == {"eva_split"}
+    eng.generate(prompts, 4)
+    layers = setup["cfg"].num_layers
+    assert len(seen) >= 4 * layers * 3  # wqkv, wo, gu, down; 3 steps
+    bad = [s for s in seen if not s[1] or s[2]]
+    assert not bad, bad
+
+
 def test_default_ranking_plans_fused_and_logs_it(setup, caplog):
     """With no calibration file the analytic model ranks the fused kernel
     first at every decode site; the engine pre-plans decode and every

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.convert import from_jax_params
 from repro_torch.core.vq import VQWeight, synthetic_vq
+from repro_torch.kernels import build
 from repro_torch.kernels.fused_vq_matmul import fused_vq_matmul
 from repro_torch.kernels.oc_lookup import eva_split_matmul, oc_lookup
 from repro_torch.kernels.eva_lookup import tiles
@@ -192,7 +193,7 @@ def test_kernel_bitwise_equal_to_its_order(cuda, K, N, M):
     x, vq = _card_case(K, N, M)
     O = vq_gemm(x, vq.codebooks)
     got = oc_lookup(O, vq.idx, vq.scale).cpu()
-    t = select_lookup_split(M, K // 8, N, vq.C, tiles.device_sm_count(0),
+    t = select_lookup_split(M, K // 8, N, vq.C, build.device_sm_count(0),
                             tiles.cluster_slots("oc_lookup", 0, M, vq.C, False))
     want = lookup_in_kernel_order(O.cpu(), vq.idx.cpu(), vq.scale.cpu(), t)
     assert torch.equal(got, want)

@@ -204,6 +204,11 @@ def test_kernel_bf16_x_bitwise_deterministic(cuda):
 @pytest.mark.cuda
 def test_kernel_rejects_wrong_codebooks(cuda):
     x, cb = _card_case(256, 2)
+    buf = torch.empty(cb.numel() + 4, dtype=cb.dtype, device="cuda")
+    buf[1:1 + cb.numel()] = cb.reshape(-1)
+    offset = buf[1:1 + cb.numel()].view(cb.shape)  # contiguous, 4 bytes off
     for bad in (cb.to(torch.bfloat16), cb[:, :, :128], cb.transpose(1, 2)):
         with pytest.raises(ValueError):
             vq_gemm(x, bad)
+    with pytest.raises(ValueError, match="address mod 16 = 4"):
+        vq_gemm(x, offset)
