@@ -35,13 +35,26 @@ Phases (any failure exits non-zero):
      cluster barrier, exit);
   4. serve 8 greedy requests on full-width llama2-7b (32 layers, 2-bit VQ
      weights drawn on the card from a seed, bf16 activations, 4 slots,
-     max_len 512) through the Engine, counting kernel launches per phase:
-     `serve`, the fp KV cache (kv_bits=16: fused_vq_matmul, flash_decode,
-     dequant_gemv); `serve_kvq`, the 4-bit KV-VQ cache and INT8 prefill
-     (kv_bits=4, int8_prefill: fused_vq_matmul, flash_decode_kvq,
-     dequant_gemv, int8_gemm); after each, one decode step through the
-     plain versions, for the logits drift, and a profile of the decode
-     step. Both rank the planner's backends analytically;
+     max_len 512) through the Engine, whose decode step is a CUDA graph
+     captured at construction (the caches must come out of the capture
+     as init_cache made them, and the construction's peak device memory
+     beyond the cache must stay below the cache's size) and whose prefill buckets are graphs
+     captured at first use, counting kernel launches per phase (replays
+     included): `serve`, the fp KV cache (kv_bits=16: fused_vq_matmul,
+     flash_decode, dequant_gemv); `serve_kvq`, the 4-bit KV-VQ cache and
+     INT8 prefill (kv_bits=4, int8_prefill: fused_vq_matmul,
+     flash_decode_kvq, dequant_gemv, int8_gemm); after each, one decode
+     step through the plain versions, for the logits drift; `graph_step`:
+     from a prefilled 4-slot cache, 8 replayed decode steps against 8
+     eager ones on a clone (logits at every step and every cache leaf
+     after the last, bitwise) with launches equal to the capture's times
+     8, and each prefill bucket of 32-256 tokens (and 512, built there)
+     replayed against the eager prefill (logits and cache, bitwise),
+     each graph's build time printed beside the bytes of the decode
+     graph's pool and of the prefill buckets' shared pool; then a profile of the eager and the replayed
+     decode step and of a replayed prefill bucket (each kernel the phase
+     requires must show among the device events of the replay that runs
+     it). Both rank the planner's backends analytically;
   5. `calibration`: time `plan.execute` of the two decode EVA backends
      (eva_fused, eva_split) at the four decode linears x M in {1, 2, 4,
      8}, fit the port's cost model to those rows, print what the fitted
@@ -50,8 +63,8 @@ Phases (any failure exits non-zero):
   6. `serve_split`, last: the default planner ranks with a pinned
      calibration that prices eva_fused above eva_split, and the fp-cache
      phase is served again through vq_gemm + oc_lookup (fused_vq_matmul
-     must launch 0 times), with its plain decode step and profile; the
-     planner is restored afterwards;
+     must launch 0 times), with its plain decode step, graph_step and
+     profiles; the planner is restored afterwards;
   7. a {"kernels": [...]} summary line, the card line, and the result
      line {"ok": true, "device": {...}} last.
 
@@ -76,6 +89,9 @@ FP32_FLOPS = 67e12             # H100 SXM, fp32 outside the tensor cores
 INT8_OPS = 1979e12             # H100 SXM, dense int8 tensor cores
 BF16_FLOPS = 989e12            # H100 SXM, dense bf16 tensor cores
 SLOTS, MAX_LEN, N_REQUESTS, MAX_NEW = 4, 512, 8, 32
+GRAPH_STEPS = 8                # decode replays held to eager steps
+SERVED_BUCKETS = (32, 64, 128, 256)   # held to eager; the prompts use 64-256
+PROFILE_BUCKET = 128           # the prefill replay that is profiled
 HOST_REPS = 50                 # back-to-back calls per host-clock timing
 SEED = 0
 LOOKUP_M = (1, 2, SLOTS, 8)    # rows of M the lookup kernels are checked at
@@ -92,6 +108,9 @@ REPLACES = {
 }
 # the two EVA backends that match every decode VQ site
 DECODE_BACKENDS = ("eva_fused", "eva_split")
+# the kernels of the decode graph (the others run in the prefill graphs)
+DECODE_KERNELS = ("fused_vq_matmul", "flash_decode", "flash_decode_kvq",
+                  "vq_gemm", "oc_lookup")
 # the CUDA functions of each kernel, as the profiler names them
 KERNEL_FUNCTIONS = {
     "fused_vq_kernel": "fused_vq_matmul", "split_reduce_kernel":
@@ -637,12 +656,28 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required):
     from repro_torch import kernels
     from repro_torch.core.quantize import kv_codebook_tree
     from repro_torch.serve import Engine, GenerationRequest
+    from repro_torch.serve.graphs import tensor_leaves
     from repro_torch.serve.kvcache import encode_prefill_cache, pad_prefill_cache
 
     cfg = model.cfg
     Engine(model, params, rc, ecfg, device="cuda").generate([prompts[0][:16]], 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     eng = Engine(model, params, rc, ecfg, device="cuda")
     torch.cuda.synchronize()
+    # what the construction held at its peak beyond what it keeps: the
+    # cache is allocated once, so this stays below one cache's bytes
+    build_peak = torch.cuda.max_memory_allocated() - before
+    kv_bytes = eng.metrics()["kv_bytes_in_use"]
+    emit({"phase": name, "engine_build_peak_bytes": build_peak,
+          "kv_bytes_in_use": kv_bytes,
+          "decode_graph_pool_bytes": pool_bytes(
+              torch, eng.decode_graph.graph.pool())})
+    assert build_peak < 2 * kv_bytes, (name, build_peak, kv_bytes)
+    # the decode capture's warm-up wrote every slot; the engine zeroes them
+    assert not any(bool(t.any()) for t in tensor_leaves(eng.caches)), \
+        f"{name}: the decode graph's build left the caches written"
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     uids = [eng.submit(GenerationRequest(prompt=p, max_new_tokens=MAX_NEW))
@@ -653,6 +688,7 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required):
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     m = eng.metrics()
+    build_s = sum(g.build_s for g in eng.prefill_graphs.values())
     tokens = []
     for uid, p in zip(uids, prompts):
         out = eng.output(uid)
@@ -671,14 +707,25 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required):
           "tok_per_s": m["tokens_generated"] / wall,
           "decode_steps": m["decode_steps"],
           "decode_ms_per_step": m["decode_s"] * 1e3 / m["decode_steps"],
-          "prefill_s": m["prefill_s"], "slot_occupancy": m["slot_occupancy"],
+          "prefill_s": m["prefill_s"],
+          # the buckets' builds (warm-up + capture) at first use, inside
+          # prefill_s
+          "prefill_build_s": build_s,
+          "prefill_s_replays": m["prefill_s"] - build_s,
+          "decode_graph_build_s": eng.decode_graph.build_s,
+          "decode_graph_pool_bytes": pool_bytes(
+              torch, eng.decode_graph.graph.pool()),
+          "prefill_graph_pool_bytes": pool_bytes(torch, eng.prefill_pool),
+          "trace_counts": eng.trace_counts,
+          "slot_occupancy": m["slot_occupancy"],
           "kv_bytes_in_use": m["kv_bytes_in_use"], "launches": launches,
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
     missing = [k for k in required if launches[k] == 0]
     assert not missing, f"{name}: kernels never launched on its path: {missing}"
 
     # one decode step through the kernels and through the plain versions,
-    # on the engine's params and run config (codebooks attached, kv_vq set)
+    # on the engine's params and run config (codebooks attached, kv_vq set),
+    # from 64 prompt tokens in each slot of a cache of the engine's size
     params, rc = eng.params, eng.rc
     toks = torch.tensor(np.stack([p[:64] for p in prompts[:SLOTS]]),
                         dtype=torch.int32, device="cuda")
@@ -687,12 +734,12 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required):
         if eng.kvq is not None:
             cache = encode_prefill_cache(cache, kv_codebook_tree(params),
                                          eng.kvq)
-        cache = pad_prefill_cache(cache, 128)
+        base = pad_prefill_cache(cache, MAX_LEN)
+        clone = lambda: {"body": {n: t.clone() for n, t in base["body"].items()}}
         step = (toks[:, -1:], torch.full((SLOTS, 1), 64, dtype=torch.int32,
                                          device="cuda"))
-        plain_cache = {"body": {n: t.clone() for n, t in cache["body"].items()}}
-        got, _ = model.decode(params, *step, cache, rc)
-        want, _ = model.decode(params, *step, plain_cache,
+        got, _ = model.decode(params, *step, clone(), rc)
+        want, _ = model.decode(params, *step, clone(),
                                rc.replace_policy(impl="torch"))
     got, want = got[:, 0, :cfg.vocab_size], want[:, 0, :cfg.vocab_size]
     drift = (got - want).abs().max().item()
@@ -702,30 +749,128 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required):
           "rel_drift": rel, "argmax_agreement": agree,
           "finite": bool(torch.isfinite(got).all())})
     assert bool(torch.isfinite(got).all()) and rel <= 0.05 and agree >= 0.75
-    profile_decode(torch, model, params, cache, step, rc, name)
+    del got, want
+    graph_step(torch, model, eng, base, clone, name)
+    profile_decode(torch, model, eng, clone(), step, name, required)
     return {"launches": launches, "tokens": tokens,
             "kv_bytes": m["kv_bytes_in_use"]}
 
 
-def profile_decode(torch, model, params, cache, step, rc, name, steps: int = 5):
-    """Where one batched decode step's time goes: host wall per step
-    (synchronized, no profiler) against the device time of its kernels
-    (torch.profiler), grouped by the port's kernels (each CUDA function
-    matched by its whole name) and everything else."""
+def graph_step(torch, model, eng, base, clone, name):
+    """The engine's graphs against the eager steps they capture, bitwise
+    (every kernel is deterministic: fixed summation orders, no atomics).
+    Decode: ``base`` (a prefilled cache of the engine's size) goes into
+    the engine's caches and into a clone; GRAPH_STEPS decode replays on
+    the first and as many eager ``model.decode`` steps on the clone, with
+    the same random tokens, must give equal logits at every step and
+    equal cache leaves (``len`` included) after the last, and the replays
+    must count the capture's launches times GRAPH_STEPS. Prefill: each
+    bucket of SERVED_BUCKETS, then MAX_LEN (the largest bucket the engine
+    allows, which the prompts do not use: built here), replayed against
+    the eager prefill (and the cache's quantization under kv_bits < 16,
+    the graph's own function run eagerly): equal logits and cache leaves.
+    One line per graph with its build time and the bytes of its pool
+    (the prefill buckets share one) after it was built."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.serve.graphs import tensor_leaves
+
+    params, vocab = eng.params, model.cfg.vocab_size
+    rc_decode = eng.rc.replace(mode="decode")
+    rng = np.random.default_rng(SEED + 3)
+    dev = lambda a: torch.from_numpy(a).to("cuda")
+    failed = []
+
+    plain = clone()
+    for n, t in eng.caches["body"].items():
+        t.copy_(base["body"][n])
+    start = int(base["body"]["len"][0, 0])
+    toks = rng.integers(0, vocab, (GRAPH_STEPS, SLOTS, 1)).astype(np.int32)
+    pos = np.broadcast_to(start + np.arange(GRAPH_STEPS, dtype=np.int32)[
+        :, None, None], toks.shape).copy()
+    g = eng.decode_graph
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = [g(tokens=toks[i], positions=pos[i]).clone()
+           for i in range(GRAPH_STEPS)]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want_counts = {k: GRAPH_STEPS * g.launches.get(k, 0) for k in counts}
+    steps_equal = []
+    with torch.no_grad():
+        for i in range(GRAPH_STEPS):
+            want, _ = model.decode(params, dev(toks[i]), dev(pos[i]), plain,
+                                   rc_decode)
+            steps_equal.append(bool(torch.equal(got[i], want[:, 0, :vocab])))
+    cache_equal = {n: bool(torch.equal(t, plain["body"][n]))
+                   for n, t in eng.caches["body"].items()}
+    emit({"phase": "graph_step", "serve": name, "graph": "decode",
+          "steps": GRAPH_STEPS, "logits_bitwise_equal": steps_equal,
+          "cache_bitwise_equal": cache_equal,
+          "launches_per_replay": g.launches, "launches": counts,
+          "build_s": g.build_s,
+          "pool_bytes": pool_bytes(torch, g.graph.pool()),
+          "trace_counts": eng.trace_counts})
+    if not (all(steps_equal) and all(cache_equal.values())):
+        failed.append("decode")
+    if counts != want_counts or not g.launches:
+        failed.append(f"decode launches {counts} != {want_counts}")
+    del got, plain
+
+    for bucket in SERVED_BUCKETS + (MAX_LEN,):
+        t = rng.integers(0, vocab, (1, bucket)).astype(np.int32)
+        built = bucket in eng.prefill_graphs
+        pool_before = pool_bytes(torch, eng.prefill_pool)
+        step = eng.prefill_graph(bucket)
+        logits, cache = step(tokens=t)
+        got = [logits.clone(), *(x.clone() for x in tensor_leaves(cache))]
+        with torch.no_grad():
+            want = list(tensor_leaves(step.fn(tokens=dev(t))))
+        equal = len(got) == len(want) and all(
+            torch.equal(a, b) for a, b in zip(got, want))
+        emit({"phase": "graph_step", "serve": name,
+              "graph": f"prefill@{bucket}", "bitwise_equal": bool(equal),
+              "leaves": len(got), "launches_per_replay": step.launches,
+              "build_s": step.build_s, "built_while_serving": built,
+              "shared_pool_bytes_before": pool_before,
+              "shared_pool_bytes": pool_bytes(torch, eng.prefill_pool)})
+        if not equal:
+            failed.append(f"prefill@{bucket}")
+        del got, want
+    assert eng.trace_counts["decode"] == 1, eng.trace_counts
+    assert sorted(eng.prefill_graphs)[-1] == MAX_LEN, eng.prefill_graphs
+    assert not failed, f"{name} graph_step: replay differs from eager: {failed}"
+
+
+def pool_bytes(torch, pool):
+    """Device bytes the caching allocator holds for the CUDA graph memory
+    pool ``pool`` (a pool handle: ``CUDAGraph.pool()``), summed over its
+    segments in the allocator's snapshot."""
+    pool = tuple(pool)
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s["segment_pool_id"]) == pool)
+
+
+def device_profile(torch, run, steps: int = 5) -> dict:
+    """Host wall per call of ``run`` over ``steps`` back-to-back calls
+    (synchronized at the end, no profiler) against the device time of
+    the kernels the calls ran (torch.profiler), grouped by the port's
+    kernels (each CUDA function matched by its whole name) and
+    everything else."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad():
-        model.decode(params, *step, cache, rc)
+        run()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
-            model.decode(params, *step, cache, rc)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
-                model.decode(params, *step, cache, rc)
+                run()
             torch.cuda.synchronize()
     groups = {}
     n_kernels = 0
@@ -737,13 +882,53 @@ def profile_decode(torch, model, params, cache, step, rc, name, steps: int = 5):
                     if re.search(rf"\b{fn}\b", ev.name)), "other")
         groups[key] = groups.get(key, 0.0) + ev.time_range.elapsed_us()
     busy_ms = sum(groups.values()) / 1e3 / steps
+    return {"wall_ms_per_step": wall_ms,
+            "device_busy_ms_per_step": busy_ms if n_kernels else None,
+            "idle_share": (1 - busy_ms / wall_ms) if n_kernels else None,
+            "device_kernels_per_step": n_kernels / steps,
+            "device_ms_by_kernel": {k: v / 1e3 / steps
+                                    for k, v in sorted(groups.items())}}
+
+
+def profile_decode(torch, model, eng, cache, step, name, required):
+    """Where a batched decode step's time goes, eager (``model.decode`` on
+    ``cache``), replayed (the engine's decode graph on its caches) and as
+    the engine runs it (the replay, then the eager sampling epilogue and
+    one readback, with every slot active), and a replayed prefill bucket
+    beside the eager prefill. Fails unless
+    each kernel in ``required`` shows by its CUDA function among the
+    device events of the replay that runs it: the device's own proof
+    that the graph holds the kernel."""
+    import numpy as np
+
+    params, rc = eng.params, eng.rc
+    tok, pos = (t.cpu().numpy() for t in step)
+    eager = device_profile(
+        torch, lambda: model.decode(params, *step, cache, rc))
+    replay = device_profile(
+        torch, lambda: eng.decode_graph(tokens=tok, positions=pos))
+    # the engine's own step, its slots set active by hand (the engine is
+    # idle after its serve phase) and put back after
+    eng.active[:], eng.greedy[:], eng.stop_ids[:] = True, True, -1
+    eng.remaining[:] = MAX_LEN
+    eng.last_token[:], eng.positions[:] = tok[:, 0], pos[:, 0]
+    engine_step = device_profile(torch, eng._decode)
+    eng.active[:] = False
+    t = np.random.default_rng(SEED + 4).integers(
+        0, model.cfg.vocab_size, (1, PROFILE_BUCKET)).astype(np.int32)
+    dt = torch.from_numpy(t).to("cuda")
+    prefill = eng.prefill_graph(PROFILE_BUCKET)
+    prefill_eager = device_profile(torch, lambda: prefill.fn(tokens=dt))
+    prefill_replay = device_profile(torch, lambda: prefill(tokens=t))
     emit({"phase": f"{name}_decode_profile", "batch": SLOTS,
-          "wall_ms_per_step": wall_ms,
-          "device_busy_ms_per_step": busy_ms if n_kernels else None,
-          "idle_share": (1 - busy_ms / wall_ms) if n_kernels else None,
-          "device_kernels_per_step": n_kernels / steps,
-          "device_ms_by_kernel": {k: v / 1e3 / steps
-                                  for k, v in sorted(groups.items())}})
+          "eager": eager, "replay": replay, "engine_step": engine_step})
+    emit({"phase": f"{name}_prefill_profile", "bucket": PROFILE_BUCKET,
+          "eager": prefill_eager, "replay": prefill_replay})
+    missing = [k for k in required
+               if k not in (replay if k in DECODE_KERNELS else prefill_replay)[
+                   "device_ms_by_kernel"]]
+    assert not missing, (f"{name}: kernels absent from the replays' device "
+                         f"events: {missing}")
 
 
 def main() -> int:

@@ -1,6 +1,7 @@
 """Architecture registry of the port: ``get_config(arch)`` /
 ``get_smoke_config(arch)``. Only the main path's model, llama2-7b, is
-ported so far (the other families are ROADMAP A12)."""
+ported so far (the other dense configs are ROADMAP A3, the other
+families A7)."""
 from __future__ import annotations
 
 import importlib
@@ -15,7 +16,7 @@ def _norm(arch: str) -> str:
     name = arch.replace("-", "_").replace(".", "_")
     if name not in ARCH_IDS:
         raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet (ROADMAP A12); ported: "
+            f"architecture {arch!r} is not ported yet (ROADMAP A3, A7); ported: "
             f"{ARCH_IDS}")
     return name
 

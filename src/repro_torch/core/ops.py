@@ -12,7 +12,7 @@
 
 The EVA formulation itself lives with its kernel
 (``kernels/fused_vq_matmul``); the four jnp epilogues of the reference
-(direct/flat/blocked/recon) are not ported (ROADMAP A3).
+(direct/flat/blocked/recon) are not ported (ROADMAP A8).
 """
 from __future__ import annotations
 

@@ -45,7 +45,7 @@ Two deliberate divergences from the reference:
     degrade-to-plain path (the reference's ``_chain_run`` and
     ``record_backend_failure``): on the card a failing kernel raises, it
     never hands its work to another backend or to the plain version.
-    They belong to the resilience layer (ROADMAP A11).
+    They belong to the resilience layer (ROADMAP A6).
   * The ``kvq_attn`` kind stays split by impl, where the reference lets
     ``kvq_dequant_jnp`` match every impl and ranks it against the kernel:
     a plain version is never a ranking candidate on the card. (The

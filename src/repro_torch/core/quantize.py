@@ -12,14 +12,14 @@ block weights live on the ``meta`` device (``Model.init(...,
 block_device="meta")``): a full-width model is then built straight from
 shapes on the target device, never materializing its dense block
 weights. ``fit`` (k-means), quantizing the LM head and the shard-aware
-grouping options are not ported yet (ROADMAP A2).
+grouping options are not ported yet (ROADMAP A8).
 
 ``attach_kv_codebooks`` gives every attention node the per-head KV-VQ
 codebooks a compressed cache encodes against (``kv_cb``: {"k", "v"} of
 shape (Hk, R, 256, vec_d)), and ``kv_codebook_tree`` collects them
 stacked by layer, the layout ``serve/kvcache.encode_prefill_cache``
 takes. Only the calibration-free grid codebooks are ported; calibrated
-(k-means) ones wait for ROADMAP A9.
+(k-means) ones wait for ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -79,7 +79,7 @@ def quantize_params(params: Any, cfg: ModelConfig, *,
     """
     if method != "synthetic":
         raise NotImplementedError(
-            f"quantize method {method!r} is not ported yet (ROADMAP A2: "
+            f"quantize method {method!r} is not ported yet (ROADMAP A8: "
             "fit_vq/kmeans); use method='synthetic' or convert JAX-quantized "
             "params with repro_torch.convert.from_jax_params")
     dev = resolve_device(device)
@@ -211,4 +211,4 @@ def calibrate_kv_codebooks(*args, **kwargs):
     ``jax.random``."""
     raise NotImplementedError(
         "calibrate_kv_codebooks (k-means KV codebooks) is not ported yet "
-        "(ROADMAP A9); attach_kv_codebooks gives the grid codebooks")
+        "(ROADMAP A8); attach_kv_codebooks gives the grid codebooks")

@@ -20,7 +20,7 @@ widths (``()`` for an ordinary weight).
 The KV half (``KVQuantConfig``, ``kv_scale``, ``kv_grid_codebooks``,
 ``kv_encode``, ``kv_decode``) vector-quantizes K/V cache slices against
 per-head codebooks. ``fit_vq``/``kmeans`` and the k-means KV codebooks
-(``fit_kv_codebooks``) are not ported yet (ROADMAP A2, A9).
+(``fit_kv_codebooks``) are not ported yet (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -193,7 +193,7 @@ def kv_grid_codebooks(num_heads: int, dim: int, kvq: KVQuantConfig, *,
     if levels ** vd != kvq.entries:
         raise ValueError(
             f"no integral grid: entries={kvq.entries} has no {vd}-th root "
-            "(fitted KV codebooks are not ported yet, ROADMAP A9)")
+            "(fitted KV codebooks are not ported yet, ROADMAP A8)")
     kvq.groups(dim)  # validate divisibility here, not at encode
     axis = np.linspace(-1.0, 1.0, levels, dtype=np.float32)
     grid = np.stack(np.meshgrid(*([axis] * vd), indexing="ij"),
@@ -207,7 +207,7 @@ def fit_kv_codebooks(*args, **kwargs):
     """Not ported: the reference seeds its k-means from ``jax.random``."""
     raise NotImplementedError(
         "fit_kv_codebooks (k-means KV codebooks) is not ported yet "
-        "(ROADMAP A9); use kv_grid_codebooks")
+        "(ROADMAP A8); use kv_grid_codebooks")
 
 
 def kv_encode(x: torch.Tensor, cb: torch.Tensor, variant: str = "outlier"

@@ -7,7 +7,11 @@ kernel may share its package with another (``build.kernel_dir``):
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. Only a launch on the card adds to its
-``launches`` count.
+``launches`` count. Under a CUDA graph the wrapper runs once, at
+capture; the serving step's graph (``serve/graphs.StepGraph``) takes
+that count back (``set_launch_counts``) and adds it again at every
+replay (``add_launch_counts``), so the counts are launches that ran on
+the card, replays included.
 """
 from __future__ import annotations
 
@@ -32,3 +36,15 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    for name, fn in wrappers().items():
+        fn.launches = counts[name]
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (name -> launches) to the wrappers' counts."""
+    fns = wrappers()
+    for name, k in counts.items():
+        fns[name].launches += k

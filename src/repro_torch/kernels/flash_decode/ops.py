@@ -12,7 +12,7 @@ plan backends for ``kind="kvq_attn"`` sites:
 
 CPU tensors take the plain versions (``ref.py``); CUDA tensors launch the
 kernel or the wrapper raises. The paged entries wait for a later slice
-(ROADMAP A8).
+(ROADMAP A4).
 """
 from __future__ import annotations
 

@@ -85,5 +85,5 @@ def build_model(cfg: ModelConfig) -> Model:
             or cfg.sliding_window or cfg.local_window):
         raise NotImplementedError(
             f"{cfg.name}: only the dense family with full attention is "
-            "ported (other families and windowed attention: ROADMAP A12)")
+            "ported (other families and windowed attention: ROADMAP A7)")
     return Model(cfg)

@@ -411,7 +411,7 @@ def attention_fwd(p: Params, x: torch.Tensor, rc: RunConfig, cfg: ModelConfig,
     elif cache is not None:
         raise NotImplementedError(
             "chunked prefill over an existing cache is not ported yet "
-            "(ROADMAP A8)")
+            "(ROADMAP A4)")
     else:
         o = blocked_attention(q, k, v, chunk=rc.attn_chunk)
         if rc.mode == "prefill":

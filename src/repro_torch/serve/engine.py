@@ -23,11 +23,22 @@ fp and its cache is quantized explicitly before slot insertion.
     for ev in engine.stream(uid): ...
     engine.generate(prompts, n)
 
-The decode step runs eagerly; ``trace_counts["decode"]`` counts builds of
-the decode step (one per engine) and ``trace_counts["prefill"]`` the
-prefill buckets used so far — the steps a CUDA-graph capture would cover.
-Paged KV (ROADMAP A8), speculative decoding (A10) and the resilience
-layer (A11) are not ported yet.
+Each step is compiled once, as the reference jits it: on a CUDA device
+the decode step is captured as a CUDA graph at construction and each
+prefill bucket at its first use (``serve/graphs.StepGraph``; the buckets
+share one memory pool), and every decode step and every prefill is one
+replay over static input buffers.
+On the CPU the same step functions run uncaptured.
+``trace_counts["decode"]`` counts builds of the decode step (one per
+engine) and ``trace_counts["prefill"]`` the prefill buckets built so
+far. The decode graph covers the model's decode through the logits of
+the real vocabulary; sampling and stopping run eagerly on those logits,
+and tokens, stop flags and logprobs come back in one readback. A
+prefill graph covers the model's prefill at its bucket and, under
+``kv_bits < 16``, the cache's quantization; the first token's sample
+and the slot insertion run eagerly.
+Paged KV (ROADMAP A4), speculative decoding (A5) and the resilience
+layer (A6) are not ported yet.
 """
 from __future__ import annotations
 
@@ -49,6 +60,7 @@ from repro_torch.models.common import RunConfig
 from repro_torch.serve import api
 from repro_torch.serve.api import (GenerationRequest, RequestOutput,
                                    SamplingParams, StreamEvent)
+from repro_torch.serve.graphs import HostInputs, StepGraph, tensor_leaves
 from repro_torch.serve.kvcache import (cache_bytes, encode_prefill_cache,
                                        pad_prefill_cache,
                                        quantize_prefill_cache_int8)
@@ -76,11 +88,11 @@ class EngineConfig:
     max_len: int = 256
     max_queue: int = 256               # submit() rejects past this bound
     max_retained: int = 1024           # finished outputs kept for output()
-    paged: bool = False                # ROADMAP A8
+    paged: bool = False                # ROADMAP A4
     # bits per stored KV channel: 16 = fp, 8 = int8 + k_s/v_s scales,
     # 4/2 = KV-VQ (uint8 codebook indices; codebooks attach to params)
     kv_bits: int = 16
-    speculate_k: int = 0               # ROADMAP A10
+    speculate_k: int = 0               # ROADMAP A5
 
 
 class Engine:
@@ -88,13 +100,13 @@ class Engine:
                  ecfg: EngineConfig, *, device: DeviceLike = None):
         if ecfg.paged:
             raise NotImplementedError(
-                "paged KV caches are not ported yet (ROADMAP A8)")
+                "paged KV caches are not ported yet (ROADMAP A4)")
         if ecfg.kv_bits not in (16, 8, 4, 2):
             raise ValueError(
                 f"kv_bits={ecfg.kv_bits} unsupported; expected 16/8/4/2")
         if ecfg.speculate_k:
             raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP A10)")
+                "speculative decoding is not ported yet (ROADMAP A5)")
         self.device = resolve_device(device)
         p_dev = tensor_device(params)
         if p_dev is not None and p_dev.type != self.device.type:
@@ -144,11 +156,21 @@ class Engine:
 
         self.trace_counts = {"decode": 0, "prefill": 0}
         self._buckets = api.prefill_buckets(ecfg.max_len, MIN_PREFILL_BUCKET)
-        self._built_buckets: set = set()
+        self.prefill_graphs: Dict[int, StepGraph] = {}
+        # the prefill buckets' shared graph memory pool (``prefill_graph``)
+        self.prefill_pool = (torch.cuda.graph_pool_handle()
+                             if self.device.type == "cuda" else None)
         self._rc_decode = rc.replace(mode="decode")
         self._rc_prefill = rc.replace(mode="prefill")
         self.plans = self._preplan()
-        self._decode_fn = self._make_decode_fn()
+        # the sampling epilogue's per-slot knobs, fed like a step's inputs
+        self._knobs = HostInputs({
+            "temperature": ((B,), torch.float32), "top_k": ((B,), torch.int32),
+            "top_p": ((B,), torch.float32),
+            "stop_ids": ((B, api.MAX_STOP_IDS), torch.int32),
+            "remaining": ((B,), torch.int32), "active": ((B,), torch.bool)},
+            self.device)
+        self.decode_graph = self._make_decode_graph()
 
     def _preplan(self) -> Dict[str, List[Tuple[Tuple[Any, ...], Any]]]:
         """Plan every linear at the shapes it runs at — decode at M =
@@ -240,16 +262,41 @@ class Engine:
             [bool(self.greedy[slot])])
         return tok, api.token_logprobs(logits, tok)
 
-    def _encode_cache(self, cache: Any) -> Any:
-        """Quantize an fp prefill cache into the engine's compressed KV
-        layout (kv_bits < 16) before slot insertion, whose ``copy_`` would
-        truncate rather than quantize. No-op at kv_bits=16."""
-        with torch.no_grad():
-            if self.kvq is not None:
-                return encode_prefill_cache(cache, self._kv_cb, self.kvq)
-            if self.kv_int8:
-                return quantize_prefill_cache_int8(cache)
-        return cache
+    def prefill_graph(self, bucket: int) -> StepGraph:
+        """The prefill step of length bucket ``bucket``, built (on CUDA:
+        captured) at its first use, as the reference traces its jitted
+        prefill once per bucket: the model's prefill over static (1,
+        bucket) tokens and, under kv_bits < 16, the quantization of its
+        cache into the engine's layout (slot insertion's ``copy_`` would
+        truncate rather than quantize). Returns (fp32 logits (1, bucket,
+        padded vocab), cache). The step holds no reference to the engine,
+        so a dropped engine frees its graphs at once.
+
+        Every bucket captures into ``prefill_pool``: the buckets are
+        replayed in any order, which is safe because ``_prefill_one``
+        consumes a replay's outputs (sample, pad, insert) before any
+        other prefill replays (``serve/graphs``). So the pool holds the
+        largest bucket's working memory once, beside each built bucket's
+        outputs, where pools of their own would each keep their peak."""
+        step = self.prefill_graphs.get(bucket)
+        if step is None:
+            self.trace_counts["prefill"] += 1
+            model, params, rc = self.model, self.params, self._rc_prefill
+            kvq, kv_int8 = self.kvq, self.kv_int8
+            kv_cb = self._kv_cb if kvq is not None else None
+
+            def prefill(tokens):
+                logits, cache = model.prefill(params, {"tokens": tokens}, rc)
+                if kvq is not None:
+                    cache = encode_prefill_cache(cache, kv_cb, kvq)
+                elif kv_int8:
+                    cache = quantize_prefill_cache_int8(cache)
+                return logits, cache
+
+            step = StepGraph(prefill, {"tokens": ((1, bucket), torch.int32)},
+                             self.device, pool=self.prefill_pool)
+            self.prefill_graphs[bucket] = step
+        return step
 
     def _prefill_one(self, slot: int, tr: TrackedRequest
                      ) -> Tuple[int, bool]:
@@ -257,12 +304,9 @@ class Engine:
         its cache. Returns (token, bad)."""
         req, sp = tr.request, tr.request.sampling
         c = tr.prompt_len
+        bucket = api.bucket_for(c, self._buckets)
         # edge-pad to the bucket: causally masked for the real rows
-        chunk = np.pad(req.prompt, (0, api.bucket_for(c, self._buckets) - c),
-                       mode="edge")
-        if len(chunk) not in self._built_buckets:
-            self._built_buckets.add(len(chunk))
-            self.trace_counts["prefill"] += 1
+        chunk = np.pad(req.prompt, (0, bucket - c), mode="edge")
         self.temperature[slot] = sp.temperature
         self.top_k[slot] = sp.top_k
         self.top_p[slot] = sp.top_p
@@ -272,17 +316,16 @@ class Engine:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(sp.seed)
         self.generators[slot] = gen
-        tokens = torch.tensor(chunk[None], dtype=torch.int32,
-                              device=self.device)
+        # the graph's outputs are copied out (sample, pad, insert) before
+        # any other replay: all of it is ordered on one stream
+        logits, cache = self.prefill_graph(bucket)(tokens=chunk[None])
         with torch.no_grad():
-            logits, cache = self.model.prefill(self.params, {"tokens": tokens},
-                                               self._rc_prefill)
             last = logits[0, c - 1, :self.model.cfg.vocab_size][None]
             tok, lp = self._sample_row(last, slot)
-        if not bool(torch.isfinite(last).all()):
-            return int(tok[0]), True
-        _insert_slot(self.caches, pad_prefill_cache(
-            self._encode_cache(cache), self.ecfg.max_len, true_len=c), slot)
+            if not bool(torch.isfinite(last).all()):
+                return int(tok[0]), True
+            _insert_slot(self.caches, pad_prefill_cache(
+                cache, self.ecfg.max_len, true_len=c), slot)
         tok = int(tok[0])
         stop = sorted(req.stop_set)
         self.positions[slot] = c
@@ -325,32 +368,55 @@ class Engine:
             self._finish_slot(slot, reason)
 
     # -------------------------------------------------------------- decode
-    def _make_decode_fn(self):
-        """Build the batched decode step: model decode + sampling and
-        stopping over every slot. Returns host arrays (tok, done, bad,
-        logprobs)."""
+    def _make_decode_graph(self) -> StepGraph:
+        """The batched decode step, built (on CUDA: captured) once per
+        engine, as the reference jits ``_decode_impl`` once: the model's
+        decode over static (B, 1) tokens and positions and the engine's
+        caches, which it updates in place, through the (B, vocab) fp32
+        logits. The build's warm-up writes a row and ``len`` into every
+        slot of the caches, which are still the zeros of ``init_cache``;
+        they are zeroed again afterwards."""
         self.trace_counts["decode"] += 1
-        model, rc, vocab = self.model, self._rc_decode, self.model.cfg.vocab_size
+        model, params, caches = self.model, self.params, self.caches
+        rc, vocab = self._rc_decode, self.model.cfg.vocab_size
+        B = self.ecfg.num_slots
 
-        def decode(params, caches, tokens, positions, generators,
-                   temperature, top_k, top_p, greedy, stop_ids, remaining,
-                   active):
-            dev = self.device
-            t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-            with torch.no_grad():
-                logits, _ = model.decode(params, t(tokens)[:, None],
-                                         t(positions)[:, None], caches, rc)
-                logits = logits[:, 0, :vocab]
-                act = t(active)
-                tok, done, bad = api.sample_and_stop(
-                    logits, generators=generators, temperature=t(temperature),
-                    top_k=t(top_k), top_p=t(top_p), greedy=greedy,
-                    stop_ids=t(stop_ids), remaining=t(remaining), active=act)
-                lp = api.token_logprobs(logits, tok)
-            return (tok.cpu().numpy(), done.cpu().numpy(), bad.cpu().numpy(),
-                    lp.cpu().numpy())
+        def decode(tokens, positions):
+            logits, _ = model.decode(params, tokens, positions, caches, rc)
+            return logits[:, 0, :vocab]
 
-        return decode
+        step = StepGraph(decode, {"tokens": ((B, 1), torch.int32),
+                                  "positions": ((B, 1), torch.int32)},
+                         self.device)
+        for t in tensor_leaves(caches):
+            t.zero_()
+        return step
+
+    def _decode(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """One decode step over every slot: the decode graph, then
+        sampling and stopping on its logits (eager: per-slot generators),
+        read back in one copy. Returns host arrays (tok, done, bad,
+        logprobs)."""
+        act = self.active
+        logits = self.decode_graph(tokens=np.where(act, self.last_token, 0),
+                                    positions=np.where(act, self.positions, 0))
+        k = self._knobs.load({"temperature": self.temperature,
+                              "top_k": self.top_k, "top_p": self.top_p,
+                              "stop_ids": self.stop_ids,
+                              "remaining": self.remaining, "active": act})
+        with torch.no_grad():
+            tok, done, bad = api.sample_and_stop(
+                logits, generators=self.generators,
+                temperature=k["temperature"], top_k=k["top_k"],
+                top_p=k["top_p"], greedy=list(np.where(act, self.greedy, True)),
+                stop_ids=k["stop_ids"], remaining=k["remaining"],
+                active=k["active"])
+            lp = api.token_logprobs(logits, tok)
+            packed = torch.stack([tok, done.to(torch.int32),
+                                  bad.to(torch.int32),
+                                  lp.view(torch.int32)]).cpu().numpy()
+        return (packed[0], packed[1].astype(bool), packed[2].astype(bool),
+                packed[3].view(np.float32))
 
     def _timeout_sweep(self) -> List[StreamEvent]:
         """Finish requests past their ``deadline_s``: queued ones before
@@ -392,13 +458,7 @@ class Engine:
         active_idx = np.nonzero(self.active)[0]
         if active_idx.size:
             t0 = time.perf_counter()
-            tok, done, bad, lps = self._decode_fn(
-                self.params, self.caches,
-                np.where(self.active, self.last_token, 0),
-                np.where(self.active, self.positions, 0),
-                self.generators, self.temperature, self.top_k, self.top_p,
-                list(np.where(self.active, self.greedy, True)),
-                self.stop_ids, self.remaining, self.active)
+            tok, done, bad, lps = self._decode()
             n_bad = int(np.count_nonzero(bad))
             m.decode_steps += 1
             m.decode_slot_steps += int(active_idx.size)

@@ -5,7 +5,7 @@ for kv_bits=8, ``encode_prefill_cache`` for the KV-VQ kv_bits 4/2), then
 pad it to a fixed-capacity decode cache. Positions between the true
 prompt length and the bucket ride along unread: decode overwrites slot
 ``len`` before attention unmasks it (``pos < len``). Ring (windowed)
-caches are not ported yet (ROADMAP A12)."""
+caches are not ported yet (ROADMAP A7)."""
 from __future__ import annotations
 
 from typing import Any, Optional

@@ -228,7 +228,7 @@ def test_admission_rejects_and_unported_options(setup):
     with pytest.raises(ValueError):
         eng.generate([np.ones(10, np.int32)], 10)  # 10 + 10 - 1 > 16
     assert not eng.sched.queue and eng.metrics()["prefills"] == 0
-    for kw, item in (({"paged": True}, "A8"), ({"speculate_k": 2}, "A10")):
+    for kw, item in (({"paged": True}, "A4"), ({"speculate_k": 2}, "A5")):
         with pytest.raises(NotImplementedError, match=item):
             _engine(setup, **kw)
     assert prefill_buckets(32, 8) == (8, 16, 32)

@@ -133,7 +133,7 @@ def test_quantize_builds_from_meta_block_weights():
     params["final_norm"]["g"] = torch.empty(cfg.d_model, device="meta")
     with pytest.raises(ValueError, match="meta"):
         model.quantize(params, generator=gen, device="cpu")
-    with pytest.raises(NotImplementedError, match="A2"):
+    with pytest.raises(NotImplementedError, match="A8"):
         model.quantize(params, method="fit", device="cpu")
 
 
