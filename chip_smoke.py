@@ -23,7 +23,14 @@ Phases (any failure exits non-zero):
      flash_decode at mixed lengths and with every row at max_len;
      int8_gemm at every prefill bucket of the lm_head (32-256 tokens);
      the two-kernel EVA split (vq_gemm, then oc_lookup) is also held
-     against the fused kernel;
+     against the fused kernel; the paged entries flash_decode_paged and
+     flash_decode_kvq_paged (kv_bits=4) over block arenas (16-position
+     blocks, a parity pool of 128) through a shuffled table with each
+     row's free entries on the sentinel, at the mixed lengths, held
+     against their plain versions and bitwise against the contiguous
+     kernels over the gathered view, and timed beside the contiguous
+     kernel and the reference's route (a gather of the view, then the
+     contiguous kernel);
   3b. `breakdown`: fused_vq_matmul and oc_lookup against their
      timing-only variants (no lookup, no index loads, no output codebook,
      no split reduce; compile-time builds of the same sources), and
@@ -54,7 +61,18 @@ Phases (any failure exits non-zero):
      graph's pool and of the prefill buckets' shared pool; then a profile of the eager and the replayed
      decode step and of a replayed prefill bucket (each kernel the phase
      requires must show among the device events of the replay that runs
-     it). Both rank the planner's backends analytically;
+     it). Both rank the planner's backends analytically. Then the same
+     on the paged cache (serve/paging.py, 16-position blocks):
+     `serve_paged` (fp, a parity pool of 128 blocks: flash_decode_paged;
+     greedy tokens identical to `serve`'s), `serve_kvq_paged` (kv_bits=4
+     and INT8 prefill, parity pool: flash_decode_kvq_paged; tokens
+     identical to `serve_kvq`'s) and `serve_paged_tight` (fp,
+     prefill_chunk 64, a pool of 40 blocks: every request finishes, with
+     at least one preemption and one chunk; its peak KV bytes and its
+     token agreement with `serve` printed); on each, the contiguous
+     attention kernels launch 0 times, and one eager paged decode step
+     runs no index_select (no view gathered); graph_step and the
+     profiles run on the paged cache and the chunk graphs too;
   5. `calibration`: time `plan.execute` of the two decode EVA backends
      (eva_fused, eva_split) at the four decode linears x M in {1, 2, 4,
      8}, fit the port's cost model to those rows, print what the fitted
@@ -89,6 +107,8 @@ FP32_FLOPS = 67e12             # H100 SXM, fp32 outside the tensor cores
 INT8_OPS = 1979e12             # H100 SXM, dense int8 tensor cores
 BF16_FLOPS = 989e12            # H100 SXM, dense bf16 tensor cores
 SLOTS, MAX_LEN, N_REQUESTS, MAX_NEW = 4, 512, 8, 32
+BLOCK = 16                     # paged KV: positions a block
+TIGHT_BLOCKS = 40              # serve_paged_tight's pool (W = 32): it preempts
 GRAPH_STEPS = 8                # decode replays held to eager steps
 SERVED_BUCKETS = (32, 64, 128, 256)   # held to eager; the prompts use 64-256
 PROFILE_BUCKET = 128           # the prefill replay that is profiled
@@ -105,18 +125,23 @@ REPLACES = {
     "flash_decode_kvq": "src/repro/kernels/flash_decode/kernel.py:73",
     "vq_gemm": "src/repro/kernels/vq_gemm/kernel.py:24",
     "oc_lookup": "src/repro/kernels/oc_lookup/kernel.py:33",
+    "flash_decode_paged": "src/repro/kernels/flash_decode/ops.py:61",
+    "flash_decode_kvq_paged": "src/repro/kernels/flash_decode/ops.py:154",
 }
 # the two EVA backends that match every decode VQ site
 DECODE_BACKENDS = ("eva_fused", "eva_split")
 # the kernels of the decode graph (the others run in the prefill graphs)
 DECODE_KERNELS = ("fused_vq_matmul", "flash_decode", "flash_decode_kvq",
-                  "vq_gemm", "oc_lookup")
+                  "vq_gemm", "oc_lookup", "flash_decode_paged",
+                  "flash_decode_kvq_paged")
 # the CUDA functions of each kernel, as the profiler names them
 KERNEL_FUNCTIONS = {
     "fused_vq_kernel": "fused_vq_matmul", "split_reduce_kernel":
     "fused_vq_matmul (split reduce)", "flash_decode_kernel": "flash_decode",
     "flash_decode_merge_kernel": "flash_decode (merge)",
     "flash_decode_kvq_kernel": "flash_decode_kvq",
+    "flash_decode_paged_kernel": "flash_decode_paged",
+    "flash_decode_kvq_paged_kernel": "flash_decode_kvq_paged",
     "kvq_merge_kernel": "flash_decode_kvq (merge)",
     "dequant_gemv_kernel": "dequant_gemv",
     "dequant_reduce_kernel": "dequant_gemv (split reduce)",
@@ -177,8 +202,13 @@ def check_kernels(torch, timer):
     from repro_torch.kernels.dequant_gemv import dequant_gemv
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_kvq,
+                                                  flash_decode_kvq_paged,
+                                                  flash_decode_kvq_paged_ref,
                                                   flash_decode_kvq_ref,
+                                                  flash_decode_paged,
+                                                  flash_decode_paged_ref,
                                                   flash_decode_ref)
+    from repro_torch.models.common import paged_view
     from repro_torch.kernels.fused_vq_matmul import fused_vq_matmul
     from repro_torch.kernels.int8_gemm import int8_gemm, int8_gemm_ref
     from repro_torch.kernels.oc_lookup import eva_split_matmul, oc_lookup
@@ -355,8 +385,45 @@ def check_kernels(torch, timer):
     # encoded as the engine's cache holds it (uint8 indices, bf16 scales,
     # grid codebooks); the library call is SDPA over the cache dequantized
     # to bf16
-    lengths, mask = mixed, mask_of(mixed)
+    # the paged entries read the same K/V as block arenas (4 rows x 32
+    # blocks of 16: a parity pool), through a shuffled table whose entries
+    # past each row's length are the sentinel
+    W, NB = MAX_LEN // BLOCK, SLOTS * MAX_LEN // BLOCK
+    perm = torch.randperm(NB, generator=gen, device="cuda").int()
+    table = torch.full((B, W), NB, dtype=torch.int32, device="cuda")
+    used = 0
+    for b, n in enumerate(mixed.tolist()):
+        nb = -(-n // BLOCK)
+        table[b, :nb] = perm[used:used + nb]
+        used += nb
+    arena = lambda t: t.reshape((NB, BLOCK) + t.shape[2:])
+    view = lambda a: paged_view(a, table)
     tot = int(mixed.clamp(max=MAX_LEN).sum())
+    ka, va = arena(k), arena(v)
+    kv_, vv_ = view(ka), view(va)
+    run = lambda: flash_decode_paged(q, ka, va, table, mixed)
+    got, want = run(), flash_decode_paged_ref(q, ka, va, table, mixed)
+    contiguous = flash_decode(q, kv_, vv_, mixed)
+    emit({"phase": "paged_vs_contiguous_kernel", "kernel": "flash_decode_paged",
+          "bitwise_equal": bool(torch.equal(got, contiguous))})
+    assert torch.equal(got, contiguous), "flash_decode_paged != contiguous"
+    # bound: the rows up to the lengths, q, o, the table and the lengths;
+    # no one PyTorch call takes a block table: the yardsticks are the
+    # contiguous kernel over the gathered view and the reference's route
+    # (the gather, then that kernel)
+    record("flash_decode_paged",
+           {"B": B, "H": H, "Hk": H, "hd": hd, "blocks": NB, "block": BLOCK,
+            "S": MAX_LEN, "lengths": mixed.tolist(), "dtype": "bfloat16"},
+           got, want, 2.0 ** -7 * max(1.0, want.float().abs().max().item()),
+           run, lambda: flash_decode_paged_ref(q, ka, va, table, mixed), None,
+           2 * q.numel() * 2 + tot * 2 * H * hd * 2 + B * 4 + table.numel() * 4,
+           tot * H * hd * 4,
+           extra={"contiguous_ms": lambda: flash_decode(q, kv_, vv_, mixed),
+                  "gather_kernel_ms": lambda: flash_decode(q, view(ka),
+                                                           view(va), mixed)})
+    del kv_, vv_
+
+    lengths, mask = mixed, mask_of(mixed)
     for kv_bits in (4, 2):
         kvq = KVQuantConfig(kv_bits=kv_bits)
         cb = kv_grid_codebooks(H, hd, kvq, device="cuda")
@@ -386,6 +453,33 @@ def check_kernels(torch, timer):
                B * H * RG * 256 * 2 * kvq.vec_d
                + tot * H * (RG + 2 * hd + hd * kvq.residual))
         del kd, vd
+        if kv_bits != 4:
+            continue
+        # the paged entry on the served layout (kv_bits=4), as B2's
+        pops = (q, *(arena(t) for t in (k_idx, v_idx, k_s, v_s)), table,
+                lengths, cb, cb)
+        pview = (q, *(view(t) for t in pops[1:5]), lengths, cb, cb)
+        run = lambda: flash_decode_kvq_paged(*pops)
+        got, want = run(), flash_decode_kvq_paged_ref(*pops)
+        contiguous = flash_decode_kvq(*pview)
+        emit({"phase": "paged_vs_contiguous_kernel",
+              "kernel": "flash_decode_kvq_paged",
+              "bitwise_equal": bool(torch.equal(got, contiguous))})
+        assert torch.equal(got, contiguous), "flash_decode_kvq_paged != contiguous"
+        record("flash_decode_kvq_paged",
+               {"B": B, "H": H, "Hk": H, "hd": hd, "blocks": NB,
+                "block": BLOCK, "S": MAX_LEN, "lengths": lengths.tolist(),
+                "kv_bits": kv_bits, "dtype": "bfloat16"},
+               got, want, 2.0 ** -7 * max(1.0, want.float().abs().max().item()),
+               run, lambda: flash_decode_kvq_paged_ref(*pops), None,
+               q.numel() * 2 + tot * H * (2 * RG + 2 * 2) + 2 * cb.numel() * 4
+               + B * 4 + table.numel() * 4 + q.numel() * 2,
+               B * H * RG * 256 * 2 * kvq.vec_d
+               + tot * H * (RG + 2 * hd + hd * kvq.residual),
+               extra={"contiguous_ms": lambda: flash_decode_kvq(*pview),
+                      "gather_kernel_ms": lambda: flash_decode_kvq(
+                          q, *(view(t) for t in pops[1:5]), lengths, cb, cb)})
+        del pops, pview
 
     # INT8 GEMM at the prefill lm_head shape, at every bucket the served
     # prefill runs (bf16 activations and head, quantized as the wrapper
@@ -532,14 +626,74 @@ def serve(torch, timer):
           sum(same) / (N_REQUESTS * MAX_NEW), "first_divergence": first,
           "kv_bytes_in_use": {"16": fp["kv_bytes"], "4": kvq["kv_bytes"]},
           "kv_bytes_ratio": fp["kv_bytes"] / kvq["kv_bytes"]})
+    paged = serve_paged(torch, model, params, prompts, fp, kvq)
     calibration(torch, timer, cfg, params)
     split = serve_split(torch, model, params, prompts)
-    same = [sum(a == b for a, b in zip(fp["tokens"][i], split["tokens"][i]))
-            for i in range(N_REQUESTS)]
-    emit({"phase": "split_vs_fused", "greedy_token_agreement":
-          sum(same) / (N_REQUESTS * MAX_NEW)})
+    emit({"phase": "split_vs_fused",
+          "greedy_token_agreement": agreement(fp, split)})
     return {"serve": fp["launches"], "serve_kvq": kvq["launches"],
-            "serve_split": split["launches"]}
+            "serve_split": split["launches"], **paged}
+
+
+def agreement(a, b) -> float:
+    """Share of the greedy tokens two serve phases agree on."""
+    same = sum(x == y for i in range(N_REQUESTS)
+               for x, y in zip(a["tokens"][i], b["tokens"][i]))
+    return same / (N_REQUESTS * MAX_NEW)
+
+
+def serve_paged(torch, model, params, prompts, fp, kvq):
+    """The paged phases (16-position blocks): `serve_paged` and
+    `serve_kvq_paged` with a parity pool (the contiguous cache's 128
+    blocks, shared), whose greedy tokens must equal `serve`'s and
+    `serve_kvq`'s; `serve_paged_tight` with chunked prefill (64) and a
+    pool of TIGHT_BLOCKS, which must preempt and chunk and finish every
+    request. On each the contiguous attention kernels must launch 0
+    times. Returns each phase's kernel launches."""
+    from repro_torch.core.plan import PlanPolicy
+    from repro_torch.models import RunConfig
+    from repro_torch.serve import EngineConfig
+
+    rc = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
+    rc_kvq = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda",
+                                              int8_prefill=True))
+    paged = lambda **kw: EngineConfig(num_slots=SLOTS, max_len=MAX_LEN,
+                                      paged=True, block_size=BLOCK, **kw)
+    contiguous = ("flash_decode", "flash_decode_kvq")
+    out = {
+        "serve_paged": serve_phase(
+            torch, model, params, prompts, "serve_paged", rc, paged(),
+            ("fused_vq_matmul", "flash_decode_paged", "dequant_gemv"),
+            absent=contiguous),
+        "serve_kvq_paged": serve_phase(
+            torch, model, params, prompts, "serve_kvq_paged", rc_kvq,
+            paged(kv_bits=4), ("fused_vq_matmul", "flash_decode_kvq_paged",
+                               "dequant_gemv", "int8_gemm"),
+            absent=contiguous),
+        "serve_paged_tight": serve_phase(
+            torch, model, params, prompts, "serve_paged_tight", rc,
+            paged(num_blocks=TIGHT_BLOCKS, prefill_chunk=64),
+            ("fused_vq_matmul", "flash_decode_paged", "dequant_gemv"),
+            absent=contiguous)}
+    tight = out["serve_paged_tight"]["metrics"]
+    emit({"phase": "paged_vs_contiguous",
+          "serve_paged_tokens_equal_serve":
+              out["serve_paged"]["tokens"] == fp["tokens"],
+          "serve_kvq_paged_tokens_equal_serve_kvq":
+              out["serve_kvq_paged"]["tokens"] == kvq["tokens"],
+          "tight_greedy_token_agreement_with_serve":
+              agreement(fp, out["serve_paged_tight"]),
+          "tight_num_blocks": TIGHT_BLOCKS,
+          "tight_preemptions": tight["preemptions"],
+          "tight_prefill_chunks": tight["prefill_chunks"],
+          "tight_peak_blocks_in_use": tight["peak_blocks_in_use"],
+          "tight_peak_kv_bytes_in_use": tight["peak_kv_bytes_in_use"],
+          "serve_kv_bytes_in_use": fp["kv_bytes"]})
+    assert out["serve_paged"]["tokens"] == fp["tokens"], "serve_paged != serve"
+    assert out["serve_kvq_paged"]["tokens"] == kvq["tokens"], \
+        "serve_kvq_paged != serve_kvq"
+    assert tight["preemptions"] >= 1 and tight["prefill_chunks"] >= 1, tight
+    return {k: v["launches"] for k, v in out.items()}
 
 
 def calibration(torch, timer, cfg, params):
@@ -646,17 +800,20 @@ def serve_split(torch, model, params, prompts):
     return out
 
 
-def serve_phase(torch, model, params, prompts, name, rc, ecfg, required):
+def serve_phase(torch, model, params, prompts, name, rc, ecfg, required,
+                absent=()):
     """Serve ``prompts`` greedily to MAX_NEW tokens through a fresh Engine
     (after a short warm-up one), with every kernel count set to 0 just
     before and read just after; fail unless each kernel in ``required``
-    launched. Then one decode step through the kernels and through the
-    plain versions, and a profile of the decode step."""
+    launched and each in ``absent`` did not. Then one decode step through
+    the kernels and through the plain versions (on a paged engine over a
+    paged cache, where the step must run no index_select: no view is
+    gathered), graph_step and the profiles."""
     import numpy as np
+    from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch import kernels
     from repro_torch.core.quantize import kv_codebook_tree
-    from repro_torch.serve import Engine, GenerationRequest
-    from repro_torch.serve.graphs import tensor_leaves
+    from repro_torch.serve import Engine, GenerationRequest, cache_bytes
     from repro_torch.serve.kvcache import encode_prefill_cache, pad_prefill_cache
 
     cfg = model.cfg
@@ -666,18 +823,26 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required):
     before = torch.cuda.memory_allocated()
     eng = Engine(model, params, rc, ecfg, device="cuda")
     torch.cuda.synchronize()
+    paged = eng.paging is not None
     # what the construction held at its peak beyond what it keeps: the
     # cache is allocated once, so this stays below one cache's bytes
     build_peak = torch.cuda.max_memory_allocated() - before
-    kv_bytes = eng.metrics()["kv_bytes_in_use"]
+    alloc = cache_bytes(eng.caches)
     emit({"phase": name, "engine_build_peak_bytes": build_peak,
-          "kv_bytes_in_use": kv_bytes,
+          "cache_bytes_allocated": alloc,
+          "kv_bytes_in_use": eng.metrics()["kv_bytes_in_use"],
+          **({"num_blocks": eng.paging.num_blocks,
+              "bytes_per_block": eng.paging.bytes_per_block} if paged else {}),
           "decode_graph_pool_bytes": pool_bytes(
               torch, eng.decode_graph.graph.pool())})
-    assert build_peak < 2 * kv_bytes, (name, build_peak, kv_bytes)
-    # the decode capture's warm-up wrote every slot; the engine zeroes them
-    assert not any(bool(t.any()) for t in tensor_leaves(eng.caches)), \
+    assert build_peak < 2 * alloc, (name, build_peak, alloc)
+    # the decode capture's warm-up wrote every slot (a paged engine: into
+    # the sink); the engine zeroes the caches and puts back the sentinel
+    body = eng.caches["body"]
+    assert not any(bool(t.any()) for n, t in body.items()
+                   if n != "block_table"), \
         f"{name}: the decode graph's build left the caches written"
+    assert not paged or bool((body["block_table"] == eng.paging.sentinel).all())
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     uids = [eng.submit(GenerationRequest(prompt=p, max_new_tokens=MAX_NEW))
@@ -688,7 +853,8 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required):
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     m = eng.metrics()
-    build_s = sum(g.build_s for g in eng.prefill_graphs.values())
+    build_s = sum(g.build_s for g in (*eng.prefill_graphs.values(),
+                                      *eng.chunk_graphs.values()))
     tokens = []
     for uid, p in zip(uids, prompts):
         out = eng.output(uid)
@@ -701,7 +867,7 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required):
         assert all(0 <= t < cfg.vocab_size for t in out.tokens)
         tokens.append(list(out.tokens))
     emit({"phase": name, "requests": N_REQUESTS, "slots": SLOTS,
-          "max_len": MAX_LEN, "kv_bits": ecfg.kv_bits,
+          "max_len": MAX_LEN, "kv_bits": ecfg.kv_bits, "paged": paged,
           "int8_prefill": rc.policy.int8_prefill, "wall_s": wall,
           "tokens_generated": m["tokens_generated"],
           "tok_per_s": m["tokens_generated"] / wall,
@@ -718,14 +884,22 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required):
           "prefill_graph_pool_bytes": pool_bytes(torch, eng.prefill_pool),
           "trace_counts": eng.trace_counts,
           "slot_occupancy": m["slot_occupancy"],
-          "kv_bytes_in_use": m["kv_bytes_in_use"], "launches": launches,
+          "kv_bytes_in_use": m["kv_bytes_in_use"],
+          "peak_kv_bytes_in_use": m["peak_kv_bytes_in_use"],
+          **{k: m[k] for k in ("preemptions", "prefill_chunks",
+                               "peak_blocks_in_use", "blocks_in_use")},
+          "launches": launches,
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
     missing = [k for k in required if launches[k] == 0]
     assert not missing, f"{name}: kernels never launched on its path: {missing}"
+    ran = [k for k in absent if launches[k]]
+    assert not ran, f"{name}: kernels off its path launched: {ran}"
+    if paged:
+        assert m["blocks_in_use"] == m["kv_bytes_in_use"] == 0, m
 
     # one decode step through the kernels and through the plain versions,
     # on the engine's params and run config (codebooks attached, kv_vq set),
-    # from 64 prompt tokens in each slot of a cache of the engine's size
+    # from 64 prompt tokens in each slot of a cache of the engine's layout
     params, rc = eng.params, eng.rc
     toks = torch.tensor(np.stack([p[:64] for p in prompts[:SLOTS]]),
                         dtype=torch.int32, device="cuda")
@@ -734,7 +908,8 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required):
         if eng.kvq is not None:
             cache = encode_prefill_cache(cache, kv_codebook_tree(params),
                                          eng.kvq)
-        base = pad_prefill_cache(cache, MAX_LEN)
+        base = (paged_base(torch, model, eng, cache, 64) if paged
+                else pad_prefill_cache(cache, MAX_LEN))
         clone = lambda: {"body": {n: t.clone() for n, t in base["body"].items()}}
         step = (toks[:, -1:], torch.full((SLOTS, 1), 64, dtype=torch.int32,
                                          device="cuda"))
@@ -750,30 +925,128 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required):
           "finite": bool(torch.isfinite(got).all())})
     assert bool(torch.isfinite(got).all()) and rel <= 0.05 and agree >= 0.75
     del got, want
+    if paged:  # no view gathered on the card: no index_select in the step
+        class Ops(TorchDispatchMode):
+            seen = []
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                Ops.seen.append(str(func.overloadpacket))
+                return func(*args, **(kwargs or {}))
+
+        with torch.no_grad(), Ops():
+            model.decode(params, *step, clone(), rc)
+        gathers = Ops.seen.count("aten.index_select")
+        emit({"phase": f"{name}_decode_step_ops", "ops": len(Ops.seen),
+              "index_select": gathers})
+        assert gathers == 0, f"{name}: the paged decode step gathers a view"
     graph_step(torch, model, eng, base, clone, name)
     profile_decode(torch, model, eng, clone(), step, name, required)
-    return {"launches": launches, "tokens": tokens,
-            "kv_bytes": m["kv_bytes_in_use"]}
+    return {"launches": launches, "tokens": tokens, "metrics": m,
+            "kv_bytes": m["kv_bytes_in_use"] or alloc}
+
+
+def paged_base(torch, model, eng, cache, n):
+    """A paged cache of the engine's layout holding ``cache`` (a prefill
+    cache of SLOTS rows of ``n`` positions): each slot gets 8 blocks
+    from a shuffled pool (room for the graph steps), the rest of its
+    table row on the sentinel."""
+    import numpy as np
+    from repro_torch.serve import paging
+
+    meta = eng.paging
+    base = model.init_cache(SLOTS, MAX_LEN, device="cuda", paging=meta,
+                            **eng._cache_kw)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    perm = torch.randperm(meta.num_blocks, generator=gen, device="cuda")
+    tables = np.full((SLOTS, meta.blocks_per_slot), meta.sentinel, np.int32)
+    tables[:, :8] = perm[:SLOTS * 8].reshape(SLOTS, 8).cpu().numpy()
+    for b in range(SLOTS):
+        paging.write_prefill_into_blocks(
+            base, {"body": {k: t[:, b:b + 1] for k, t in cache["body"].items()}},
+            torch.tensor([b], device="cuda"),
+            torch.from_numpy(tables[b]).to("cuda"),
+            torch.tensor([n], dtype=torch.int32, device="cuda"), meta)
+    paging.set_block_tables(base, tables)
+    return base
+
+
+def step_inputs(eng, bucket, rng, chunk=False):
+    """Host inputs of a prefill step of ``bucket`` tokens: the tokens; on a
+    paged engine also slot 1, its table row and a true length 3 short of
+    the bucket, and for a chunk continuation 64 committed positions."""
+    import numpy as np
+
+    t = rng.integers(0, eng.model.cfg.vocab_size, (1, bucket)).astype(np.int32)
+    if eng.paging is None:
+        return {"tokens": t}
+    row = eng.caches["body"]["block_table"][0, 1].cpu().numpy()
+    arrays = {"tokens": t, "slot": [1], "bt_row": row,
+              "true_len": [bucket - 3]}
+    if chunk:
+        arrays["hist"] = [64]
+    return arrays
+
+
+def device_inputs(torch, step, arrays):
+    """``arrays`` as device tensors shaped like ``step``'s static inputs."""
+    import numpy as np
+
+    return {n: torch.as_tensor(np.asarray(arrays[n])).reshape(buf.shape).to(buf)
+            for n, buf in step.inputs.dev.items()}
+
+
+def cache_leaves(caches):
+    """name -> leaf of a cache tree's body, a paged arena without its
+    sink (the last block: dropped writes land there in no fixed order,
+    and nothing reads it)."""
+    body = caches["body"]
+    return {n: t[:, :-1] if "block_table" in body and n in ("k", "v", "k_s",
+                                                            "v_s") else t
+            for n, t in body.items()}
+
+
+def replay_vs_eager(torch, eng, step, arrays):
+    """A replay of ``step`` against its function run eagerly on the same
+    inputs, bitwise: the outputs and, on a paged engine (whose prefill
+    steps write into the caches), every cache leaf after the step, from
+    the same caches before it."""
+    from repro_torch.serve.graphs import tensor_leaves
+
+    paged = eng.paging is not None
+    saved = [t.clone() for t in tensor_leaves(eng.caches)] if paged else []
+    got = [x.clone() for x in tensor_leaves(step(**arrays))]
+    if paged:
+        got += [t.clone() for t in cache_leaves(eng.caches).values()]
+        for t, s in zip(tensor_leaves(eng.caches), saved):
+            t.copy_(s)
+    with torch.no_grad():
+        want = list(tensor_leaves(step.fn(**device_inputs(torch, step,
+                                                           arrays))))
+    if paged:
+        want += list(cache_leaves(eng.caches).values())
+    return len(got) == len(want) and all(torch.equal(a, b)
+                                         for a, b in zip(got, want))
 
 
 def graph_step(torch, model, eng, base, clone, name):
     """The engine's graphs against the eager steps they capture, bitwise
     (every kernel is deterministic: fixed summation orders, no atomics).
-    Decode: ``base`` (a prefilled cache of the engine's size) goes into
-    the engine's caches and into a clone; GRAPH_STEPS decode replays on
-    the first and as many eager ``model.decode`` steps on the clone, with
-    the same random tokens, must give equal logits at every step and
-    equal cache leaves (``len`` included) after the last, and the replays
-    must count the capture's launches times GRAPH_STEPS. Prefill: each
-    bucket of SERVED_BUCKETS, then MAX_LEN (the largest bucket the engine
-    allows, which the prompts do not use: built here), replayed against
-    the eager prefill (and the cache's quantization under kv_bits < 16,
-    the graph's own function run eagerly): equal logits and cache leaves.
-    One line per graph with its build time and the bytes of its pool
-    (the prefill buckets share one) after it was built."""
+    Decode: ``base`` (a prefilled cache of the engine's layout, paged or
+    not) goes into the engine's caches and into a clone; GRAPH_STEPS
+    decode replays on the first and as many eager ``model.decode`` steps
+    on the clone, with the same random tokens, must give equal logits at
+    every step and equal cache leaves (``len`` included) after the last,
+    and the replays must count the capture's launches times GRAPH_STEPS.
+    Prefill: each bucket of SERVED_BUCKETS, then MAX_LEN (the largest
+    bucket the engine allows, which the prompts do not use: built here),
+    replayed against the eager prefill (and the cache's quantization
+    under kv_bits < 16, the graph's own function run eagerly): equal
+    logits and cache leaves (on a paged engine the caches the step
+    writes); and every chunk-continuation bucket the engine built. One
+    line per graph with its build time and the bytes of its pool (the
+    prefill buckets share one) after it was built."""
     import numpy as np
     from repro_torch import kernels
-    from repro_torch.serve.graphs import tensor_leaves
 
     params, vocab = eng.params, model.cfg.vocab_size
     rc_decode = eng.rc.replace(mode="decode")
@@ -802,8 +1075,9 @@ def graph_step(torch, model, eng, base, clone, name):
             want, _ = model.decode(params, dev(toks[i]), dev(pos[i]), plain,
                                    rc_decode)
             steps_equal.append(bool(torch.equal(got[i], want[:, 0, :vocab])))
-    cache_equal = {n: bool(torch.equal(t, plain["body"][n]))
-                   for n, t in eng.caches["body"].items()}
+    want_leaves = cache_leaves(plain)
+    cache_equal = {n: bool(torch.equal(t, want_leaves[n]))
+                   for n, t in cache_leaves(eng.caches).items()}
     emit({"phase": "graph_step", "serve": name, "graph": "decode",
           "steps": GRAPH_STEPS, "logits_bitwise_equal": steps_equal,
           "cache_bitwise_equal": cache_equal,
@@ -817,26 +1091,23 @@ def graph_step(torch, model, eng, base, clone, name):
         failed.append(f"decode launches {counts} != {want_counts}")
     del got, plain
 
-    for bucket in SERVED_BUCKETS + (MAX_LEN,):
-        t = rng.integers(0, vocab, (1, bucket)).astype(np.int32)
-        built = bucket in eng.prefill_graphs
+    steps = [(f"prefill@{b}", b, False) for b in SERVED_BUCKETS + (MAX_LEN,)]
+    steps += [(f"chunk@{b}", b, True) for b in sorted(eng.chunk_graphs)]
+    for label, bucket, chunk in steps:
+        graphs = eng.chunk_graphs if chunk else eng.prefill_graphs
+        built = bucket in graphs
         pool_before = pool_bytes(torch, eng.prefill_pool)
-        step = eng.prefill_graph(bucket)
-        logits, cache = step(tokens=t)
-        got = [logits.clone(), *(x.clone() for x in tensor_leaves(cache))]
-        with torch.no_grad():
-            want = list(tensor_leaves(step.fn(tokens=dev(t))))
-        equal = len(got) == len(want) and all(
-            torch.equal(a, b) for a, b in zip(got, want))
-        emit({"phase": "graph_step", "serve": name,
-              "graph": f"prefill@{bucket}", "bitwise_equal": bool(equal),
-              "leaves": len(got), "launches_per_replay": step.launches,
+        step = (eng.chunk_graph if chunk else eng.prefill_graph)(bucket)
+        equal = replay_vs_eager(torch, eng, step,
+                                step_inputs(eng, bucket, rng, chunk))
+        emit({"phase": "graph_step", "serve": name, "graph": label,
+              "bitwise_equal": bool(equal),
+              "launches_per_replay": step.launches,
               "build_s": step.build_s, "built_while_serving": built,
               "shared_pool_bytes_before": pool_before,
               "shared_pool_bytes": pool_bytes(torch, eng.prefill_pool)})
         if not equal:
-            failed.append(f"prefill@{bucket}")
-        del got, want
+            failed.append(label)
     assert eng.trace_counts["decode"] == 1, eng.trace_counts
     assert sorted(eng.prefill_graphs)[-1] == MAX_LEN, eng.prefill_graphs
     assert not failed, f"{name} graph_step: replay differs from eager: {failed}"
@@ -914,12 +1185,11 @@ def profile_decode(torch, model, eng, cache, step, name, required):
     eng.last_token[:], eng.positions[:] = tok[:, 0], pos[:, 0]
     engine_step = device_profile(torch, eng._decode)
     eng.active[:] = False
-    t = np.random.default_rng(SEED + 4).integers(
-        0, model.cfg.vocab_size, (1, PROFILE_BUCKET)).astype(np.int32)
-    dt = torch.from_numpy(t).to("cuda")
+    arrays = step_inputs(eng, PROFILE_BUCKET, np.random.default_rng(SEED + 4))
     prefill = eng.prefill_graph(PROFILE_BUCKET)
-    prefill_eager = device_profile(torch, lambda: prefill.fn(tokens=dt))
-    prefill_replay = device_profile(torch, lambda: prefill(tokens=t))
+    dt = device_inputs(torch, prefill, arrays)
+    prefill_eager = device_profile(torch, lambda: prefill.fn(**dt))
+    prefill_replay = device_profile(torch, lambda: prefill(**arrays))
     emit({"phase": f"{name}_decode_profile", "batch": SLOTS,
           "eager": eager, "replay": replay, "engine_step": engine_step})
     emit({"phase": f"{name}_prefill_profile", "bucket": PROFILE_BUCKET,
@@ -955,7 +1225,9 @@ def main() -> int:
     launches = serve(torch, timer)
     phase_of = {"flash_decode": "serve", "flash_decode_kvq": "serve_kvq",
                 "int8_gemm": "serve_kvq", "vq_gemm": "serve_split",
-                "oc_lookup": "serve_split"}
+                "oc_lookup": "serve_split",
+                "flash_decode_paged": "serve_paged",
+                "flash_decode_kvq_paged": "serve_kvq_paged"}
 
     summary = []
     for name, replaces in REPLACES.items():
@@ -985,9 +1257,10 @@ def main() -> int:
             "library_ms": (None if any(r["library_ms"] is None for r in rs)
                            else tot("library_ms")),
             # B1, B3: bf16 torch.matmul on bf16-rounded weights, lower
-            # precision
-            **({"library_bf16_ms": tot("library_bf16_ms")}
-               if "library_bf16_ms" in rs[0] else {})})
+            # precision; the paged entries: the contiguous kernel over the
+            # gathered view, and the gather with it (the reference's route)
+            **{k: tot(k) for k in ("library_bf16_ms", "contiguous_ms",
+                                   "gather_kernel_ms") if k in rs[0]}})
     emit({"kernels": summary})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

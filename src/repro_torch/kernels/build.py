@@ -1,9 +1,12 @@
 """Build and load the port's CUDA C++ kernels.
 
-Each kernel lives in ``kernels/<dir>/csrc/<name>.cu`` behind a plain C
+Each kernel lives in ``kernels/<dir>/csrc/<lib>.cu`` behind a plain C
 interface, where ``<dir>`` is the kernel's package (``kernel_dir``: its
 own name, except for kernels that share a package with another, as
-``flash_decode_kvq`` shares ``flash_decode``, as in the reference). At first use it is compiled with ``nvcc`` for Hopper
+``flash_decode_kvq`` shares ``flash_decode``, as in the reference) and
+``<lib>`` its library (``library``: its own name, except for an entry
+compiled from another kernel's source, as ``flash_decode_paged`` is from
+``flash_decode.cu``). At first use a library is compiled with ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library under
 ``build/repro_torch_kernels/`` at the repository root and loaded with
 ``ctypes``; the library name carries a hash of the source, the
@@ -37,9 +40,15 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import torch
 
 KERNEL_NAMES = ("fused_vq_matmul", "flash_decode", "dequant_gemv",
-                "int8_gemm", "flash_decode_kvq", "vq_gemm", "oc_lookup")
+                "int8_gemm", "flash_decode_kvq", "vq_gemm", "oc_lookup",
+                "flash_decode_paged", "flash_decode_kvq_paged")
 # kernels whose package is named after another kernel
-_SHARED_DIRS = {"flash_decode_kvq": "flash_decode"}
+_SHARED_DIRS = {"flash_decode_kvq": "flash_decode",
+                "flash_decode_paged": "flash_decode",
+                "flash_decode_kvq_paged": "flash_decode"}
+# entries compiled into another kernel's library (from its source)
+_SHARED_LIBS = {"flash_decode_paged": "flash_decode",
+                "flash_decode_kvq_paged": "flash_decode_kvq"}
 # timing-only variants of a kernel, built with -DEVA_VARIANT=<index + 1>
 VARIANTS = {
     **{name: ("no_lookup", "no_index", "no_o", "one_launch", "trace")
@@ -66,8 +75,13 @@ def kernel_dir(name: str) -> str:
     return _SHARED_DIRS.get(name, name)
 
 
+def library(name: str) -> str:
+    """The library (and source) that holds kernel ``name``."""
+    return _SHARED_LIBS.get(name, name)
+
+
 def source_path(name: str) -> Path:
-    return _PKG / kernel_dir(name) / "csrc" / f"{name}.cu"
+    return _PKG / kernel_dir(name) / "csrc" / f"{library(name)}.cu"
 
 
 def _nvcc() -> str:
@@ -119,7 +133,7 @@ def _lib_path(name: str, variant: int = 0) -> Path:
         h.update(header.read_bytes())
     h.update(" ".join(_flags(variant)).encode())
     tag = f"-v{variant}" if variant else ""
-    return BUILD_DIR / f"lib{name}{tag}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{library(name)}{tag}-{h.hexdigest()[:16]}.so"
 
 
 def _start_build(name: str, variant: int = 0
@@ -152,7 +166,8 @@ def build_all(names: Iterable[str] = KERNEL_NAMES) -> float:
     ``nvcc`` per library, all started together; load them. Returns the
     wall seconds spent."""
     t0 = time.perf_counter()
-    jobs = [(n, v) for n in names
+    libs = dict.fromkeys(library(n) for n in names)
+    jobs = [(n, v) for n in libs
             for v in range(1 + len(VARIANTS.get(n, ())))]
     with _LOCK:
         started: List = [(n, v, *_start_build(n, v)) for n, v in jobs]
@@ -166,6 +181,7 @@ def build_all(names: Iterable[str] = KERNEL_NAMES) -> float:
 def load(name: str, variant: int = 0) -> ctypes.CDLL:
     """The loaded library of kernel ``name`` (or of its timing variant
     ``variant``), building it on first use."""
+    name = library(name)
     with _LOCK:
         lib = _LIBS.get((name, variant))
         if lib is None:

@@ -38,10 +38,24 @@
 //    (m, l, acc[hd]) fp32 partial.
 //  * A second kernel merges a (row, head)'s partials in split order, so
 //    two runs are bitwise equal (no atomics, no counters).
+//
+// Paged entry (`flash_decode_paged_kernel`, for `flash_decode_paged`,
+// which replaces the reference's gather + `flash_decode_pallas`,
+// src/repro/kernels/flash_decode/ops.py:61): k/v are block arenas (NB,
+// bs, Hk, hd) and a (B, W) int32 block table gives each row's blocks; the
+// cache is S = W * bs positions long, and position p of row b is arena row
+// clamp(table[b, p / bs], 0, NB - 1) * bs + p % bs (the reference's clip
+// gather: the sentinel NB reads block NB - 1, which the mask hides). Only
+// the row address differs from the contiguous kernel (one table read per
+// row a thread loads, 4 blocks per 64-position chunk at bs = 16), so a
+// paged launch equals the contiguous kernel over the gathered view bit for
+// bit, and no view is gathered.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "cache_rows.cuh"
 
 namespace {
 
@@ -72,15 +86,17 @@ __device__ __forceinline__ uint4 ld16(const void* p) {
 // the row's walked length: its length, or all S positions when it is <= 0
 __device__ __forceinline__ int walked(int L, int S) { return L > 0 ? min(L, S) : S; }
 
-// T: cache/query dtype; HD: head dim; G >= g query heads per kv head.
+// T: cache/query dtype; HD: head dim; G >= g query heads per kv head;
+// Cache: ContiguousRows or PagedRows (cache_rows.cuh). S: the cache's
+// positions.
 // Partials: part_acc[((b*H + h) * splits + split) * HD + c], part_ml[(b*H
 // + h) * splits + split] = (m, l).
-template <typename T, int HD, int G>
-__global__ void __launch_bounds__(THREADS)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ lengths,
-                    float* __restrict__ part_acc, float2* __restrict__ part_ml, int S,
-                    int H, int Hk, float sm_scale) {
+template <typename T, int HD, int G, typename Cache>
+__device__ __forceinline__ void
+flash_decode_body(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const int* __restrict__ lengths,
+                  float* __restrict__ part_acc, float2* __restrict__ part_ml, Cache cache,
+                  int S, int H, int Hk, float sm_scale) {
   constexpr int EPL = 16 / (int)sizeof(T);  // elements per 16-byte load
   constexpr int LPR = HD / EPL;             // lanes per row
   constexpr int RPP = THREADS / LPR;        // rows per pass
@@ -100,16 +116,18 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int c = tid % LPR, r0 = tid / LPR;
   const size_t row = (size_t)Hk * HD;  // elements between positions
-  const size_t off0 = ((size_t)b * S + lo) * row + (size_t)hk * HD + c * EPL;
+  const size_t col = (size_t)hk * HD + c * EPL;
 
   // 1. all of this thread's K and V loads, then q
-  uint4 kr[PPT], vr[PPT];
+  size_t off[PPT];
 #pragma unroll
   for (int i = 0; i < PPT; ++i)  // rows past np re-read row np - 1
-    kr[i] = ld16(k + off0 + (size_t)min(r0 + i * RPP, np - 1) * row);
+    off[i] = cache.row(b, lo + min(r0 + i * RPP, np - 1)) * row + col;
+  uint4 kr[PPT], vr[PPT];
 #pragma unroll
-  for (int i = 0; i < PPT; ++i)
-    vr[i] = ld16(v + off0 + (size_t)min(r0 + i * RPP, np - 1) * row);
+  for (int i = 0; i < PPT; ++i) kr[i] = ld16(k + off[i]);
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) vr[i] = ld16(v + off[i]);
   const size_t head0 = (size_t)b * H + (size_t)hk * g;  // first query head
   float qf[G][EPL];
 #pragma unroll
@@ -197,6 +215,27 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <typename T, int HD, int G>
+__global__ void __launch_bounds__(THREADS)
+flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ lengths,
+                    float* __restrict__ part_acc, float2* __restrict__ part_ml, int S,
+                    int H, int Hk, float sm_scale) {
+  flash_decode_body<T, HD, G>(q, k, v, lengths, part_acc, part_ml, ContiguousRows{S}, S, H, Hk,
+                              sm_scale);
+}
+
+template <typename T, int HD, int G>
+__global__ void __launch_bounds__(THREADS)
+flash_decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const int* __restrict__ table,
+                          const int* __restrict__ lengths, float* __restrict__ part_acc,
+                          float2* __restrict__ part_ml, int W, int bs, int NB, int H, int Hk,
+                          float sm_scale) {
+  flash_decode_body<T, HD, G>(q, k, v, lengths, part_acc, part_ml, PagedRows{table, W, bs, NB},
+                              W * bs, H, Hk, sm_scale);
+}
+
 // o[b, h, :] = sum_s acc_s f_s / max(sum_s l_s f_s, 1e-30), f_s =
 // exp(m_s - max m), over the row's live splits in order; one CTA per (row,
 // head)
@@ -225,44 +264,65 @@ __global__ void flash_decode_merge_kernel(const float* __restrict__ part_acc,
   }
 }
 
+// One launch's operands; table is null for the contiguous cache.
+struct Args {
+  const void *q, *k, *v;
+  const int *table, *lengths;
+  void* o;
+  float* part_acc;
+  float2* part_ml;
+  int B, S, W, bs, NB, H, Hk;
+};
+
 template <typename T, int HD, int G>
-cudaError_t launch_k(const void* q, const void* k, const void* v, const int* lengths,
-                     void* o, float* part_acc, float2* part_ml, int B, int S, int H,
-                     int Hk, cudaStream_t st) {
-  const int splits = (S + CHUNK - 1) / CHUNK;
-  dim3 grid(Hk, B, splits);
-  flash_decode_kernel<T, HD, G><<<grid, THREADS, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      part_acc, part_ml, S, H, Hk, 1.0f / sqrtf((float)HD));
+cudaError_t launch_k(const Args& a, cudaStream_t st) {
+  const int splits = (a.S + CHUNK - 1) / CHUNK;
+  dim3 grid(a.Hk, a.B, splits);
+  const float scale = 1.0f / sqrtf((float)HD);
+  const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
+          *v = static_cast<const T*>(a.v);
+  if (a.table)
+    flash_decode_paged_kernel<T, HD, G><<<grid, THREADS, 0, st>>>(
+        q, k, v, a.table, a.lengths, a.part_acc, a.part_ml, a.W, a.bs, a.NB, a.H, a.Hk, scale);
+  else
+    flash_decode_kernel<T, HD, G><<<grid, THREADS, 0, st>>>(
+        q, k, v, a.lengths, a.part_acc, a.part_ml, a.S, a.H, a.Hk, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_decode_merge_kernel<T><<<(unsigned)(B * H), HD < 128 ? HD : 128, 0, st>>>(
-      part_acc, part_ml, lengths, static_cast<T*>(o), S, H, HD, splits);
+  flash_decode_merge_kernel<T><<<(unsigned)(a.B * a.H), HD < 128 ? HD : 128, 0, st>>>(
+      a.part_acc, a.part_ml, a.lengths, static_cast<T*>(a.o), a.S, a.H, HD, splits);
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
-cudaError_t launch_g(const void* q, const void* k, const void* v, const int* lengths,
-                     void* o, float* part_acc, float2* part_ml, int B, int S, int H,
-                     int Hk, cudaStream_t st) {
-  const int g = H / Hk;
-  if (g <= 1) return launch_k<T, HD, 1>(q, k, v, lengths, o, part_acc, part_ml, B, S, H, Hk, st);
-  if (g <= 2) return launch_k<T, HD, 2>(q, k, v, lengths, o, part_acc, part_ml, B, S, H, Hk, st);
-  if (g <= 4) return launch_k<T, HD, 4>(q, k, v, lengths, o, part_acc, part_ml, B, S, H, Hk, st);
-  if (g <= 8) return launch_k<T, HD, 8>(q, k, v, lengths, o, part_acc, part_ml, B, S, H, Hk, st);
+cudaError_t launch_g(const Args& a, cudaStream_t st) {
+  const int g = a.H / a.Hk;
+  if (g <= 1) return launch_k<T, HD, 1>(a, st);
+  if (g <= 2) return launch_k<T, HD, 2>(a, st);
+  if (g <= 4) return launch_k<T, HD, 4>(a, st);
+  if (g <= 8) return launch_k<T, HD, 8>(a, st);
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
-cudaError_t launch_t(const void* q, const void* k, const void* v, const int* lengths,
-                     void* o, float* part_acc, float2* part_ml, int B, int S, int H,
-                     int Hk, int hd, cudaStream_t st) {
+cudaError_t launch_t(const Args& a, int hd, cudaStream_t st) {
   switch (hd) {
-    case 32: return launch_g<T, 32>(q, k, v, lengths, o, part_acc, part_ml, B, S, H, Hk, st);
-    case 64: return launch_g<T, 64>(q, k, v, lengths, o, part_acc, part_ml, B, S, H, Hk, st);
-    case 128: return launch_g<T, 128>(q, k, v, lengths, o, part_acc, part_ml, B, S, H, Hk, st);
+    case 32: return launch_g<T, 32>(a, st);
+    case 64: return launch_g<T, 64>(a, st);
+    case 128: return launch_g<T, 128>(a, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+int launch(Args a, int hd, int chunk, int is_bf16, void* ws, void* stream) {
+  if (a.B < 1 || a.S < 1 || a.Hk < 1 || a.H % a.Hk != 0 || a.H / a.Hk > WARPS ||
+      chunk != CHUNK)
+    return (int)cudaErrorInvalidValue;
+  const size_t heads = (size_t)a.B * a.H * ((a.S + CHUNK - 1) / CHUNK);
+  a.part_acc = static_cast<float*>(ws);
+  a.part_ml = reinterpret_cast<float2*>(a.part_acc + heads * hd);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(is_bf16 ? launch_t<__nv_bfloat16>(a, hd, st) : launch_t<float>(a, hd, st));
 }
 
 }  // namespace
@@ -275,15 +335,19 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    const void* lengths, void* o, void* ws, int B, int S,
                                    int H, int Hk, int hd, int chunk, int is_bf16,
                                    void* stream) {
-  if (B < 1 || S < 1 || Hk < 1 || H % Hk != 0 || H / Hk > WARPS || chunk != CHUNK)
-    return (int)cudaErrorInvalidValue;
-  const size_t heads = (size_t)B * H * ((S + CHUNK - 1) / CHUNK);
-  float* part_acc = static_cast<float*>(ws);
-  float2* part_ml = reinterpret_cast<float2*>(part_acc + heads * hd);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* len = static_cast<const int*>(lengths);
-  cudaError_t err =
-      is_bf16 ? launch_t<__nv_bfloat16>(q, k, v, len, o, part_acc, part_ml, B, S, H, Hk, hd, st)
-              : launch_t<float>(q, k, v, len, o, part_acc, part_ml, B, S, H, Hk, hd, st);
-  return (int)err;
+  Args a{q, k, v, nullptr, static_cast<const int*>(lengths), o, nullptr, nullptr,
+         B, S, 0, 0, 0, H, Hk};
+  return launch(a, hd, chunk, is_bf16, ws, stream);
+}
+
+// As flash_decode_launch, k/v being arenas (NB, bs, Hk, hd) read through
+// table (B, W) int32, contiguous; the cache is S = W * bs positions long.
+extern "C" int flash_decode_paged_launch(const void* q, const void* k, const void* v,
+                                         const void* table, const void* lengths, void* o,
+                                         void* ws, int B, int NB, int bs, int W, int H, int Hk,
+                                         int hd, int chunk, int is_bf16, void* stream) {
+  if (NB < 1 || bs < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  Args a{q, k, v, static_cast<const int*>(table), static_cast<const int*>(lengths), o,
+         nullptr, nullptr, B, W * bs, W, bs, NB, H, Hk};
+  return launch(a, hd, chunk, is_bf16, ws, stream);
 }

@@ -49,10 +49,23 @@
 //    fp32 (m, l, acc) per query head, merged in warp order. The chunk is
 //    long (256 positions): each CTA builds a 16K-entry table, and in the
 //    decode step most rows end within one or two chunks.
+//
+// Paged entry (`flash_decode_kvq_paged_kernel`, for
+// `flash_decode_kvq_paged`, which replaces the reference's gather +
+// `flash_decode_kvq`, src/repro/kernels/flash_decode/ops.py:154): the
+// index and scale leaves are block arenas (NB, bs, Hk, ...) and a (B, W)
+// int32 block table gives each row's blocks (cache_rows.cuh); the cache is
+// S = W * bs positions long. Only the addresses of the staged index rows
+// and scales differ from the contiguous kernel (one table read per row,
+// 16 blocks per 256-position chunk at bs = 16), so a paged launch equals
+// the contiguous kernel over the gathered view bit for bit, and no view
+// is gathered.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "cache_rows.cuh"
 
 namespace {
 
@@ -113,16 +126,17 @@ struct Smem {  // float offsets of the CTA's shared-memory regions
 
 // EPL = hd / 32 channels per lane; W = min(vd, EPL) words per V gather;
 // HMAX >= query heads per CTA; R residual stages (a template argument, so
-// the gathers of a group of positions share one basic block)
-template <int EPL, int W, int HMAX, int R>
-__global__ void __launch_bounds__(WARPS * 32)
-flash_decode_kvq_kernel(const void* __restrict__ q, const uint8_t* __restrict__ kidx,
-                        const uint8_t* __restrict__ vidx, const void* __restrict__ ks,
-                        const void* __restrict__ vs, const float* __restrict__ cbk,
-                        const float* __restrict__ cbv, const int* __restrict__ lengths,
-                        float* __restrict__ part_acc, float2* __restrict__ part_ml, int S,
-                        int S_pad, int H, int Hk, int vd, int chunk, int hc_per,
-                        int q_bf16, int s_bf16, int idx_vec) {
+// the gathers of a group of positions share one basic block); Cache:
+// ContiguousRows or PagedRows (cache_rows.cuh), S the cache's positions
+template <int EPL, int W, int HMAX, int R, typename Cache>
+__device__ __forceinline__ void
+flash_decode_kvq_body(const void* __restrict__ q, const uint8_t* __restrict__ kidx,
+                      const uint8_t* __restrict__ vidx, const void* __restrict__ ks,
+                      const void* __restrict__ vs, const float* __restrict__ cbk,
+                      const float* __restrict__ cbv, const int* __restrict__ lengths,
+                      float* __restrict__ part_acc, float2* __restrict__ part_ml, Cache cache,
+                      int S, int S_pad, int H, int Hk, int vd, int chunk, int hc_per,
+                      int q_bf16, int s_bf16, int idx_vec) {
   constexpr int HD = 32 * EPL;
   constexpr int SLOTS = 32 / W;
   extern __shared__ __align__(16) float smem[];
@@ -161,14 +175,14 @@ flash_decode_kvq_kernel(const void* __restrict__ q, const uint8_t* __restrict__ 
   // 1. index rows of the real positions, asynchronously; padding rows are 0
   const size_t row = (size_t)Hk * RG;  // index bytes between positions
   const int n_real = max(0, min(np, S - lo));
-  const size_t src0 = ((size_t)b * S + lo) * row + (size_t)hk * RG;
+  const size_t col = (size_t)hk * RG;
   const int per_row = RG / idx_vec;
   for (int i = threadIdx.x; i < 2 * n_real * per_row; i += WARPS * 32) {
     const int kv = i / (n_real * per_row);
     const int r = i - kv * n_real * per_row;
     const int p = r / per_row, c = (r - p * per_row) * idx_vec;
-    cp_async((kv ? vid_s : kid_s) + p * RG + c, (kv ? vidx : kidx) + src0 + p * row + c,
-             idx_vec);
+    cp_async((kv ? vid_s : kid_s) + p * RG + c,
+             (kv ? vidx : kidx) + cache.row(b, lo + p) * row + col + c, idx_vec);
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
   for (int i = n_real * RG + threadIdx.x; i < np * RG; i += WARPS * 32) {
@@ -177,7 +191,7 @@ flash_decode_kvq_kernel(const void* __restrict__ q, const uint8_t* __restrict__ 
   }
   for (int p = threadIdx.x; p < np; p += WARPS * 32) {
     const bool real = lo + p < S;
-    const size_t si = ((size_t)b * S + lo + p) * Hk + hk;
+    const size_t si = real ? cache.row(b, lo + p) * Hk + hk : 0;
     ks_s[p] = real ? ld_scale(ks, si, s_bf16) : 0.f;
     vs_s[p] = real ? ld_scale(vs, si, s_bf16) : 0.f;
   }
@@ -350,6 +364,36 @@ flash_decode_kvq_kernel(const void* __restrict__ q, const uint8_t* __restrict__ 
   }
 }
 
+template <int EPL, int W, int HMAX, int R>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_decode_kvq_kernel(const void* __restrict__ q, const uint8_t* __restrict__ kidx,
+                        const uint8_t* __restrict__ vidx, const void* __restrict__ ks,
+                        const void* __restrict__ vs, const float* __restrict__ cbk,
+                        const float* __restrict__ cbv, const int* __restrict__ lengths,
+                        float* __restrict__ part_acc, float2* __restrict__ part_ml, int S,
+                        int S_pad, int H, int Hk, int vd, int chunk, int hc_per,
+                        int q_bf16, int s_bf16, int idx_vec) {
+  flash_decode_kvq_body<EPL, W, HMAX, R>(q, kidx, vidx, ks, vs, cbk, cbv, lengths, part_acc,
+                                         part_ml, ContiguousRows{S}, S, S_pad, H, Hk, vd,
+                                         chunk, hc_per, q_bf16, s_bf16, idx_vec);
+}
+
+template <int EPL, int W, int HMAX, int R>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_decode_kvq_paged_kernel(const void* __restrict__ q, const uint8_t* __restrict__ kidx,
+                              const uint8_t* __restrict__ vidx, const void* __restrict__ ks,
+                              const void* __restrict__ vs, const float* __restrict__ cbk,
+                              const float* __restrict__ cbv, const int* __restrict__ table,
+                              const int* __restrict__ lengths, float* __restrict__ part_acc,
+                              float2* __restrict__ part_ml, int Wt, int bs, int NB,
+                              int S_pad, int H, int Hk, int vd, int chunk, int hc_per,
+                              int q_bf16, int s_bf16, int idx_vec) {
+  flash_decode_kvq_body<EPL, W, HMAX, R>(q, kidx, vidx, ks, vs, cbk, cbv, lengths, part_acc,
+                                         part_ml, PagedRows{table, Wt, bs, NB}, Wt * bs,
+                                         S_pad, H, Hk, vd, chunk, hc_per, q_bf16, s_bf16,
+                                         idx_vec);
+}
+
 // o[b, h, :] = sum_s acc_s f_s / max(sum_s l_s f_s, 1e-30), f_s =
 // exp(m_s - max m), over the splits in order; one CTA per (row, head)
 template <typename T>
@@ -379,27 +423,42 @@ struct Args {
   const void *q, *ks, *vs;
   const uint8_t *kidx, *vidx;
   const float *cbk, *cbv;
-  const int* lengths;
+  const int *table, *lengths;  // table: null for the contiguous cache
   float* part_acc;
   float2* part_ml;
-  int B, S, S_pad, H, Hk, R, vd, chunk, splits, hc_per, q_bf16, s_bf16, idx_vec;
+  int B, S, Wt, bs, NB, S_pad, H, Hk, R, vd, chunk, splits, hc_per, q_bf16, s_bf16, idx_vec;
   size_t smem;
 };
 
-template <int EPL, int W, int HMAX, int R>
-cudaError_t launch_k(const Args& a, cudaStream_t st) {
-  auto kern = flash_decode_kvq_kernel<EPL, W, HMAX, R>;
+template <typename K>
+cudaError_t set_smem(K kern, size_t smem) {
   cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)  // all of the SM's L1/shared memory as shared
     err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
-  if (err != cudaSuccess) return err;
+  return err;
+}
+
+template <int EPL, int W, int HMAX, int R>
+cudaError_t launch_k(const Args& a, cudaStream_t st) {
   const int g = a.H / a.Hk;
   dim3 grid(a.Hk * ((g + a.hc_per - 1) / a.hc_per), a.B, a.splits);
-  kern<<<grid, WARPS * 32, a.smem, st>>>(a.q, a.kidx, a.vidx, a.ks, a.vs, a.cbk, a.cbv,
-                                         a.lengths, a.part_acc, a.part_ml, a.S, a.S_pad, a.H,
-                                         a.Hk, a.vd, a.chunk, a.hc_per, a.q_bf16, a.s_bf16,
-                                         a.idx_vec);
+  cudaError_t err;
+  if (a.table) {
+    auto kern = flash_decode_kvq_paged_kernel<EPL, W, HMAX, R>;
+    if ((err = set_smem(kern, a.smem)) != cudaSuccess) return err;
+    kern<<<grid, WARPS * 32, a.smem, st>>>(a.q, a.kidx, a.vidx, a.ks, a.vs, a.cbk, a.cbv,
+                                           a.table, a.lengths, a.part_acc, a.part_ml, a.Wt,
+                                           a.bs, a.NB, a.S_pad, a.H, a.Hk, a.vd, a.chunk,
+                                           a.hc_per, a.q_bf16, a.s_bf16, a.idx_vec);
+  } else {
+    auto kern = flash_decode_kvq_kernel<EPL, W, HMAX, R>;
+    if ((err = set_smem(kern, a.smem)) != cudaSuccess) return err;
+    kern<<<grid, WARPS * 32, a.smem, st>>>(a.q, a.kidx, a.vidx, a.ks, a.vs, a.cbk, a.cbv,
+                                           a.lengths, a.part_acc, a.part_ml, a.S, a.S_pad, a.H,
+                                           a.Hk, a.vd, a.chunk, a.hc_per, a.q_bf16, a.s_bf16,
+                                           a.idx_vec);
+  }
   return cudaGetLastError();
 }
 
@@ -413,36 +472,18 @@ cudaError_t launch_h(const Args& a, cudaStream_t st) {
   return a.hc_per == 1 ? launch_r<EPL, W, 1>(a, st) : launch_r<EPL, W, 2>(a, st);
 }
 
-}  // namespace
-
-// q (B, H, hd) bf16 (io_bf16 = 1) or fp32; k_idx/v_idx (B, S, Hk, R*hd/vd)
-// u8; k_s/v_s (B, S, Hk) bf16 (s_bf16 = 1) or fp32; cb_k/cb_v (Hk, R,
-// 256, vd) fp32; lengths (B,) i32; o (B, H, hd) in q's dtype; ws a fp32
-// workspace of B*H*splits*(hd + 2) floats, splits = ceil(S_pad / chunk).
-// S_pad >= S: see above.
-extern "C" int flash_decode_kvq_launch(const void* q, const void* k_idx, const void* v_idx,
-                                       const void* k_s, const void* v_s, const void* cb_k,
-                                       const void* cb_v, const void* lengths, void* o,
-                                       void* ws, int B, int S, int S_pad, int H, int Hk,
-                                       int hd, int R, int vd, int chunk, int io_bf16,
-                                       int s_bf16, void* stream) {
+int launch(Args a, void* o, void* ws, int hd, int io_bf16, void* stream) {
+  const int B = a.B, S = a.S, S_pad = a.S_pad, H = a.H, Hk = a.Hk, R = a.R, vd = a.vd;
+  const int chunk = a.chunk;
   if (B < 1 || S < 1 || S_pad < S || Hk < 1 || H % Hk != 0 || H / Hk > 8 || R < 1 ||
       R > MAX_R || (vd != 2 && vd != 4 && vd != 8) || hd % vd != 0 ||
       R * (hd / vd) > MAX_RG || chunk < 1 || (hd != 32 && hd != 64 && hd != 128))
     return (int)cudaErrorInvalidValue;
   const int RG = R * (hd / vd);
-  const uintptr_t al = reinterpret_cast<uintptr_t>(k_idx) | reinterpret_cast<uintptr_t>(v_idx);
-  Args a;
+  const uintptr_t al =
+      reinterpret_cast<uintptr_t>(a.kidx) | reinterpret_cast<uintptr_t>(a.vidx);
   a.idx_vec = (RG % 16 == 0 && al % 16 == 0) ? 16 : 4;
   if (RG % 4 != 0 || al % 4 != 0) return (int)cudaErrorInvalidValue;
-  a.q = q; a.ks = k_s; a.vs = v_s;
-  a.kidx = static_cast<const uint8_t*>(k_idx);
-  a.vidx = static_cast<const uint8_t*>(v_idx);
-  a.cbk = static_cast<const float*>(cb_k);
-  a.cbv = static_cast<const float*>(cb_v);
-  a.lengths = static_cast<const int*>(lengths);
-  a.B = B; a.S = S; a.S_pad = S_pad; a.H = H; a.Hk = Hk; a.R = R; a.vd = vd;
-  a.chunk = chunk; a.q_bf16 = io_bf16; a.s_bf16 = s_bf16;
   a.splits = (S_pad + chunk - 1) / chunk;
   const size_t heads = (size_t)B * H * a.splits;
   a.part_acc = static_cast<float*>(ws);
@@ -472,4 +513,54 @@ extern "C" int flash_decode_kvq_launch(const void* q, const void* k_idx, const v
     kvq_merge_kernel<<<(unsigned)(B * H), threads, 0, st>>>(a.part_acc, a.part_ml,
                                                            static_cast<float*>(o), hd, a.splits);
   return (int)cudaGetLastError();
+}
+
+Args make_args(const void* q, const void* k_idx, const void* v_idx, const void* k_s,
+               const void* v_s, const void* cb_k, const void* cb_v, const void* table,
+               const void* lengths, int B, int S, int S_pad, int H, int Hk, int R, int vd,
+               int chunk, int io_bf16, int s_bf16) {
+  Args a{};
+  a.q = q; a.ks = k_s; a.vs = v_s;
+  a.kidx = static_cast<const uint8_t*>(k_idx);
+  a.vidx = static_cast<const uint8_t*>(v_idx);
+  a.cbk = static_cast<const float*>(cb_k);
+  a.cbv = static_cast<const float*>(cb_v);
+  a.table = static_cast<const int*>(table);
+  a.lengths = static_cast<const int*>(lengths);
+  a.B = B; a.S = S; a.S_pad = S_pad; a.H = H; a.Hk = Hk; a.R = R; a.vd = vd;
+  a.chunk = chunk; a.q_bf16 = io_bf16; a.s_bf16 = s_bf16;
+  return a;
+}
+
+}  // namespace
+
+// q (B, H, hd) bf16 (io_bf16 = 1) or fp32; k_idx/v_idx (B, S, Hk, R*hd/vd)
+// u8; k_s/v_s (B, S, Hk) bf16 (s_bf16 = 1) or fp32; cb_k/cb_v (Hk, R,
+// 256, vd) fp32; lengths (B,) i32; o (B, H, hd) in q's dtype; ws a fp32
+// workspace of B*H*splits*(hd + 2) floats, splits = ceil(S_pad / chunk).
+// S_pad >= S: see above.
+extern "C" int flash_decode_kvq_launch(const void* q, const void* k_idx, const void* v_idx,
+                                       const void* k_s, const void* v_s, const void* cb_k,
+                                       const void* cb_v, const void* lengths, void* o,
+                                       void* ws, int B, int S, int S_pad, int H, int Hk,
+                                       int hd, int R, int vd, int chunk, int io_bf16,
+                                       int s_bf16, void* stream) {
+  Args a = make_args(q, k_idx, v_idx, k_s, v_s, cb_k, cb_v, nullptr, lengths, B, S, S_pad, H,
+                     Hk, R, vd, chunk, io_bf16, s_bf16);
+  return launch(a, o, ws, hd, io_bf16, stream);
+}
+
+// As flash_decode_kvq_launch, the index and scale leaves being arenas
+// (NB, bs, Hk, ...) read through table (B, W) int32, contiguous; the cache
+// is S = W * bs positions long.
+extern "C" int flash_decode_kvq_paged_launch(
+    const void* q, const void* k_idx, const void* v_idx, const void* k_s, const void* v_s,
+    const void* cb_k, const void* cb_v, const void* table, const void* lengths, void* o,
+    void* ws, int B, int NB, int bs, int W, int S_pad, int H, int Hk, int hd, int R, int vd,
+    int chunk, int io_bf16, int s_bf16, void* stream) {
+  if (NB < 1 || bs < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  Args a = make_args(q, k_idx, v_idx, k_s, v_s, cb_k, cb_v, table, lengths, B, W * bs, S_pad,
+                     H, Hk, R, vd, chunk, io_bf16, s_bf16);
+  a.Wt = W; a.bs = bs; a.NB = NB;
+  return launch(a, o, ws, hd, io_bf16, stream);
 }

@@ -5,6 +5,7 @@
     qparams = model.quantize(params, generator=generator, device="cuda")
     logits, caches = model.prefill(params, {"tokens": tokens}, rc)
     logits, caches = model.decode(params, tokens, positions, caches, rc)
+    logits, view = model.forward(params, batch, rc, caches=view)  # a chunk
 
 ``init``/``quantize``/``init_cache`` default to ``device="cuda"`` and
 raise without a GPU unless the caller passes ``device="cpu"``.
@@ -60,9 +61,18 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int, dtype=None, *,
                    device: DeviceLike = None, kv_int8: bool = False,
-                   kvq: Optional[KVQuantConfig] = None) -> Any:
+                   kvq: Optional[KVQuantConfig] = None,
+                   paging: Any = None) -> Any:
         """Decode caches: fp, or with ``kv_int8`` / ``kvq`` (a
-        ``core.vq.KVQuantConfig``) the int8 or KV-VQ layout."""
+        ``core.vq.KVQuantConfig``) the int8 or KV-VQ layout; contiguous,
+        or with ``paging`` (a ``serve.paging.PagingConfig``) block arenas
+        and a block table (``serve.paging.init_paged_cache``)."""
+        if paging is not None:
+            from repro_torch.serve import paging as paging_mod
+
+            return paging_mod.init_paged_cache(
+                self, batch, max_len, paging, device=resolve_device(device),
+                kv_int8=kv_int8, kvq=kvq)
         return transformer.init_cache(self.cfg, batch, max_len,
                                       dtype or self.cfg.act_dtype,
                                       resolve_device(device),

@@ -1,10 +1,12 @@
 """Shared model building blocks of the dense family (the subset of
 ``repro/models/common.py`` the serving path reaches): configs, linear
 layers (dense / VQ / INT8 through the planner), rmsnorm, rotary
-embeddings, blocked prefill attention, decode attention over the
-contiguous KV cache — fp, int8 (``k``/``v`` int8 + bf16 ``k_s``/``v_s``)
-or KV-VQ (uint8 codebook indices + bf16 scales, the codebooks under the
-attention params' ``kv_cb``) — the SwiGLU MLP, embedding and LM head.
+embeddings, blocked prefill attention, decode attention over the KV
+cache — fp, int8 (``k``/``v`` int8 + bf16 ``k_s``/``v_s``) or KV-VQ
+(uint8 codebook indices + bf16 scales, the codebooks under the attention
+params' ``kv_cb``), contiguous or paged (block arenas and a block table,
+``serve/paging.py``) — the chunked-prefill continuation over a paged
+slot view, the SwiGLU MLP, embedding and LM head.
 
 Params are plain dicts of tensors (VQWeight nodes after quantization);
 every initializer draws from an explicit ``torch.Generator``.
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -244,10 +246,14 @@ def _attn_chunk_apply(p, v):
 
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      chunk: int = 1024) -> torch.Tensor:
+                      chunk: int = 1024,
+                      q_offset: Union[int, torch.Tensor] = 0) -> torch.Tensor:
     """Memory-bounded causal attention (prefill): q in chunks, kv chunks
     folded with an online softmax, -1e30 masking (the reference's
-    ``blocked_attention`` with ``causal=True``, no window)."""
+    ``blocked_attention`` with ``causal=True``, no window, every kv chunk
+    visited). ``q_offset`` is the absolute position of q[0], an int or a
+    0-dim device tensor (the chunked-prefill continuation: no host
+    sync)."""
     B, Sq, H, hd = q.shape
     hd_v = v.shape[-1]
     Skv = k.shape[1]
@@ -265,7 +271,7 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     outs = []
     for iq in range(nq):
         qi = q[:, iq * cq:(iq + 1) * cq]
-        q_pos = iq * cq + torch.arange(cq, device=dev)
+        q_pos = q_offset + iq * cq + torch.arange(cq, device=dev)
         m = torch.full((B, H, cq), -1e30, device=dev)
         l = torch.zeros((B, H, cq), device=dev)
         acc = torch.zeros((B, cq, H, hd_v), device=dev)
@@ -301,6 +307,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return _attn_chunk_apply(torch.softmax(s, dim=-1), v_cache).to(q.dtype)
 
 
+def paged_view(arena: torch.Tensor, block_table: torch.Tensor
+               ) -> torch.Tensor:
+    """The slot-contiguous view of a paged arena: a (B, W) block table
+    over a (NB, bs, F...) arena -> (B, W * bs, F...). Sentinel ids (NB)
+    clamp to block NB - 1, as the reference's ``mode="clip"`` gather:
+    finite values the attention mask (``pos < len``) hides. ``W * bs`` is
+    the contiguous cache's length (``serve/paging.py``)."""
+    B, W = block_table.shape
+    NB, bs = arena.shape[0], arena.shape[1]
+    idx = block_table.long().clamp(0, NB - 1).reshape(-1)
+    return arena.index_select(0, idx).reshape((B, W * bs) + arena.shape[2:])
+
+
 def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(token, head) symmetric int8 quantization of a K/V slice: x
     (B, S, Hk, hd) -> (int8 values, bf16 (B, S, Hk) scales)."""
@@ -311,20 +330,169 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _kvq_decode_attention(q, k_idx, v_idx, k_s, v_s, lengths, cb_k, cb_v,
-                          rc: RunConfig) -> torch.Tensor:
-    """Attend over a KV-VQ cache. A single query resolves through the
-    planner (``kind="kvq_attn"``: the dequantize oracle under
-    impl="torch", kernel B7 under impl="cuda"); several queries
+                          rc: RunConfig,
+                          block_table: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Attend over a KV-VQ cache: contiguous (B, S, ...) leaves, or with
+    ``block_table`` (B, W) the paged arenas (NB, bs, ...). A single query
+    resolves through the planner (``kind="kvq_attn"``: the dequantize
+    oracle under impl="torch", kernel B7 under impl="cuda"), a paged site
+    planned as a contiguous one of S = W * bs positions, as the reference
+    plans it, its operands the arenas and the table; several queries
     dequantize and attend, as the reference does."""
+    paged = block_table is not None
     if q.shape[1] == 1:
-        B, S, Hk, idx_w = k_idx.shape
+        _, bs, Hk, idx_w = k_idx.shape
+        S = block_table.shape[1] * bs if paged else bs
         spec = plan_mod.kvq_attention_spec(
-            B=B, S=S, H=q.shape[2], Hk=Hk, hd=q.shape[3], idx_width=idx_w,
-            entries=cb_k.shape[-2], x_dtype=q.dtype, out_dtype=q.dtype)
+            B=q.shape[0], S=S, H=q.shape[2], Hk=Hk, hd=q.shape[3],
+            idx_width=idx_w, entries=cb_k.shape[-2], x_dtype=q.dtype,
+            out_dtype=q.dtype)
+        idx = (k_idx, v_idx, k_s, v_s) + ((block_table,) if paged else ())
         return plan_mod.plan(spec, rc.policy).execute(
-            (q, k_idx, v_idx, k_s, v_s, lengths, cb_k, cb_v), None)
+            (q, *idx, lengths, cb_k, cb_v), None)
+    if paged:
+        k_idx, v_idx, k_s, v_s = (paged_view(t, block_table)
+                                  for t in (k_idx, v_idx, k_s, v_s))
     return decode_attention(q, kv_decode(k_idx, k_s, cb_k),
                             kv_decode(v_idx, v_s, cb_v), lengths)
+
+
+def _encoded_rows(p: Params, k: torch.Tensor, v: torch.Tensor,
+                  cache: Dict, rc: RunConfig) -> Dict[str, torch.Tensor]:
+    """The new tokens' cache rows in the cache's layout, by leaf name:
+    fp ``k``/``v``; int8-quantized values and scales; or KV-VQ indices
+    and scales, encoded against the attention params' codebooks."""
+    if "k_s" in cache and cache["k"].dtype == torch.uint8:     # KV-VQ
+        variant = rc.kv_vq.variant if rc.kv_vq is not None else "outlier"
+        (k, k_s), (v, v_s) = (kv_encode(k, p["kv_cb"]["k"], variant),
+                              kv_encode(v, p["kv_cb"]["v"], variant))
+    elif "k_s" in cache:                                         # int8
+        (k, k_s), (v, v_s) = _quantize_kv(k), _quantize_kv(v)
+    else:
+        return {"k": k, "v": v}
+    return {"k": k, "v": v, "k_s": k_s, "v_s": v_s}
+
+
+def _decode_contiguous(p, q, rows, cache, rc: RunConfig) -> torch.Tensor:
+    """Write ``rows`` (B, S, ...) at positions len..len+S-1 of the
+    contiguous cache, in place, then attend."""
+    B, S = q.shape[:2]
+    Sc = cache["k"].shape[1]
+    cache_len = cache["len"]                                       # (B,)
+    # the reference drops the positions past capacity (mode="drop").
+    # With fixed shapes and no host sync, each dropped position of a
+    # window repeats the write of its row's last position that fits,
+    # so duplicate (b, slot) pairs all carry one value; a row where no
+    # position fits writes slot Sc - 1's own value back. One token
+    # (the engine's step) has no duplicates and needs no gather.
+    if S == 1:
+        src = None
+        slot = cache_len[:, None].long().clamp(max=Sc - 1)         # (B, 1)
+        any_fit = (cache_len < Sc)[:, None]
+    else:
+        last = (Sc - 1 - cache_len.long()).clamp(max=S - 1)       # (B,)
+        src = torch.minimum(torch.arange(S, device=q.device)[None, :],
+                            last[:, None]).clamp(min=0)            # (B, S)
+        any_fit = (last >= 0)[:, None]                             # (B, 1)
+        slot = (cache_len[:, None].long() + src).clamp(max=Sc - 1)
+    b_iota = torch.arange(B, device=q.device)[:, None]
+    for name, new in rows.items():
+        buf = cache[name]
+        keep = any_fit.reshape(any_fit.shape + (1,) * (new.dim() - 2))
+        new = new.to(buf.dtype) if src is None else new.to(buf.dtype)[b_iota, src]
+        buf[b_iota, slot] = torch.where(keep, new, buf[b_iota, slot])
+    cache["len"].copy_(cache_len + S)
+    new_len = cache["len"]
+    if "k_s" in cache and cache["k"].dtype == torch.uint8:
+        return _kvq_decode_attention(q, cache["k"], cache["v"], cache["k_s"],
+                                     cache["v_s"], new_len, p["kv_cb"]["k"],
+                                     p["kv_cb"]["v"], rc)
+    if "k_s" in cache:
+        bf = torch.bfloat16
+        return decode_attention(
+            q, cache["k"].to(bf) * cache["k_s"][..., None].to(bf),
+            cache["v"].to(bf) * cache["v_s"][..., None].to(bf), new_len)
+    if rc.policy.impl == "cuda" and S == 1:
+        from repro_torch.kernels.flash_decode import flash_decode
+
+        return flash_decode(q, cache["k"], cache["v"], new_len)
+    return decode_attention(q, cache["k"], cache["v"], new_len)
+
+
+def _decode_paged(p, q, rows, cache, rc: RunConfig) -> torch.Tensor:
+    """Write ``rows`` (B, S, ...) at positions len..len+S-1 through the
+    block table, in place, then attend over the arenas (reference
+    ``models/common.py:529-608``). Arenas hold NB + 1 blocks, the last
+    the sink (``serve/paging.py``): the sentinel id NB is the sink's
+    index, so a row of a free or mid-prefill slot (its table row all
+    sentinel) and a position past capacity write there, and no two
+    writes of a step that anything reads share a target."""
+    B, S = q.shape[:2]
+    bt = cache["block_table"]                                      # (B, W)
+    NB, bs = cache["k"].shape[0] - 1, cache["k"].shape[1]
+    W = bt.shape[1]
+    cache_len = cache["len"]                                       # (B,)
+    pos = cache_len[:, None].long() + torch.arange(S, device=q.device)
+    blk = bt.gather(1, (pos // bs).clamp(max=W - 1)).long()       # (B, S)
+    phys = torch.where(pos < W * bs, blk, NB)
+    off = pos % bs
+    for name, new in rows.items():
+        cache[name][phys, off] = new.to(cache[name].dtype)
+    cache["len"].copy_(cache_len + S)
+    new_len = cache["len"]
+    arena = {n: cache[n][:NB] for n in rows}                       # no sink
+    if "k_s" in cache and cache["k"].dtype == torch.uint8:
+        return _kvq_decode_attention(
+            q, arena["k"], arena["v"], arena["k_s"], arena["v_s"], new_len,
+            p["kv_cb"]["k"], p["kv_cb"]["v"], rc, block_table=bt)
+    if "k_s" in cache:
+        bf = torch.bfloat16
+        view = {n: paged_view(a, bt) for n, a in arena.items()}
+        return decode_attention(
+            q, view["k"].to(bf) * view["k_s"][..., None].to(bf),
+            view["v"].to(bf) * view["v_s"][..., None].to(bf), new_len)
+    if rc.policy.impl == "cuda" and S == 1:
+        from repro_torch.kernels.flash_decode import flash_decode_paged
+
+        return flash_decode_paged(q, arena["k"], arena["v"], bt, new_len)
+    return decode_attention(q, paged_view(arena["k"], bt),
+                            paged_view(arena["v"], bt), new_len)
+
+
+def _prefill_continuation(q, k, v, positions, cache, rc: RunConfig
+                          ) -> torch.Tensor:
+    """A chunked-prefill continuation over a one-slot paged view
+    (``serve/paging.slot_view``; reference ``models/common.py:679-722``):
+    the chunk's K/V go through the table at their absolute positions,
+    its pad rows past ``prefill_len`` and positions past capacity to the
+    sink, then the chunk attends over the view with its query offset at
+    the committed length ``len``; ``len`` becomes ``len + prefill_len``.
+    Everything stays on the device (no host sync), so a CUDA graph holds
+    it. The fp cache only, batch 1, as the reference."""
+    if "k_s" in cache:
+        raise NotImplementedError(
+            "chunked prefill over quantized (int8/KV-VQ) KV caches is not "
+            "supported")
+    B, S = q.shape[:2]
+    if B != 1:
+        raise ValueError(
+            f"chunked-prefill continuation requires B == 1, got {B}")
+    bt = cache["block_table"]                                      # (1, W)
+    NB, bs = cache["k"].shape[0] - 1, cache["k"].shape[1]
+    W = bt.shape[1]
+    hist, true_c = cache["len"], cache["prefill_len"]              # (1,)
+    p0 = positions[0].long()                                       # (S,)
+    valid = (torch.arange(S, device=q.device) < true_c) & (p0 < W * bs)
+    phys = torch.where(valid, bt[0][(p0 // bs).clamp(max=W - 1)].long(), NB)
+    off = p0 % bs
+    for name, new in (("k", k), ("v", v)):
+        cache[name][phys, off] = new[0].to(cache[name].dtype)
+    o = blocked_attention(q, paged_view(cache["k"][:NB], bt),
+                          paged_view(cache["v"][:NB], bt),
+                          chunk=rc.attn_chunk, q_offset=hist[0])
+    cache["len"].copy_(hist + true_c)
+    return o
 
 
 def attention_fwd(p: Params, x: torch.Tensor, rc: RunConfig, cfg: ModelConfig,
@@ -333,10 +501,12 @@ def attention_fwd(p: Params, x: torch.Tensor, rc: RunConfig, cfg: ModelConfig,
     """Causal self-attention. Decode writes the new tokens' K/V rows —
     fp, int8-quantized or KV-VQ-encoded, as the cache's leaves say — and
     ``len`` into ``cache`` in place (positions past capacity are dropped),
-    then attends: the fp cache through ``flash_decode`` under
+    contiguous or through the block table of a paged cache, then attends:
+    the fp cache through ``flash_decode`` / ``flash_decode_paged`` under
     ``impl="cuda"`` (one new token), the KV-VQ cache through its planned
     backend, the int8 cache through plain torch (the reference has no
-    kernel for it)."""
+    kernel for it). Prefill over a paged slot view is a chunked-prefill
+    continuation (``_prefill_continuation``), also in place."""
     B, S, _ = x.shape
     H, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "wqkv" in p:
@@ -354,64 +524,20 @@ def attention_fwd(p: Params, x: torch.Tensor, rc: RunConfig, cfg: ModelConfig,
 
     new_cache = None
     if rc.mode == "decode" and cache is not None:
-        Sc = cache["k"].shape[1]
-        cache_len = cache["len"]                                   # (B,)
-        # the reference drops the positions past capacity (mode="drop").
-        # With fixed shapes and no host sync, each dropped position of a
-        # window repeats the write of its row's last position that fits,
-        # so duplicate (b, slot) pairs all carry one value; a row where no
-        # position fits writes slot Sc - 1's own value back. One token
-        # (the engine's step) has no duplicates and needs no gather.
-        if S == 1:
-            src = None
-            slot = cache_len[:, None].long().clamp(max=Sc - 1)     # (B, 1)
-            any_fit = (cache_len < Sc)[:, None]
-        else:
-            last = (Sc - 1 - cache_len.long()).clamp(max=S - 1)   # (B,)
-            src = torch.minimum(torch.arange(S, device=x.device)[None, :],
-                                last[:, None]).clamp(min=0)        # (B, S)
-            any_fit = (last >= 0)[:, None]                         # (B, 1)
-            slot = (cache_len[:, None].long() + src).clamp(max=Sc - 1)
-        b_iota = torch.arange(B, device=x.device)[:, None]
-
-        kvq_cache = "k_s" in cache and cache["k"].dtype == torch.uint8
-        if kvq_cache:
-            variant = rc.kv_vq.variant if rc.kv_vq is not None else "outlier"
-            cb_k, cb_v = p["kv_cb"]["k"], p["kv_cb"]["v"]
-            (k, k_s), (v, v_s) = (kv_encode(k, cb_k, variant),
-                                  kv_encode(v, cb_v, variant))
-            rows = {"k": k, "v": v, "k_s": k_s, "v_s": v_s}
-        elif "k_s" in cache:  # int8 cache
-            (k, k_s), (v, v_s) = _quantize_kv(k), _quantize_kv(v)
-            rows = {"k": k, "v": v, "k_s": k_s, "v_s": v_s}
-        else:
-            rows = {"k": k, "v": v}
-        for name, new in rows.items():
-            buf = cache[name]
-            keep = any_fit.reshape(any_fit.shape + (1,) * (new.dim() - 2))
-            new = new.to(buf.dtype) if src is None else new.to(buf.dtype)[b_iota, src]
-            buf[b_iota, slot] = torch.where(keep, new, buf[b_iota, slot])
-        cache["len"].copy_(cache_len + S)
-        new_len = cache["len"]
-        if kvq_cache:
-            o = _kvq_decode_attention(q, cache["k"], cache["v"], cache["k_s"],
-                                      cache["v_s"], new_len, cb_k, cb_v, rc)
-        elif "k_s" in cache:
-            bf = torch.bfloat16
-            o = decode_attention(
-                q, cache["k"].to(bf) * cache["k_s"][..., None].to(bf),
-                cache["v"].to(bf) * cache["v_s"][..., None].to(bf), new_len)
-        elif rc.policy.impl == "cuda" and S == 1:
-            from repro_torch.kernels.flash_decode import flash_decode
-
-            o = flash_decode(q, cache["k"], cache["v"], new_len)
-        else:
-            o = decode_attention(q, cache["k"], cache["v"], new_len)
+        rows = _encoded_rows(p, k, v, cache, rc)
+        decode = _decode_paged if "block_table" in cache else _decode_contiguous
+        o = decode(p, q, rows, cache, rc)
+        new_cache = cache
+    elif cache is not None and "block_table" in cache:
+        if rc.mode != "prefill":
+            raise ValueError(
+                "paged cache reached attention_fwd outside decode/prefill")
+        o = _prefill_continuation(q, k, v, positions, cache, rc)
         new_cache = cache
     elif cache is not None:
-        raise NotImplementedError(
-            "chunked prefill over an existing cache is not ported yet "
-            "(ROADMAP A4)")
+        raise ValueError(
+            "a prefill over an existing cache needs a paged slot view "
+            "(serve/paging.slot_view)")
     else:
         o = blocked_attention(q, k, v, chunk=rc.attn_chunk)
         if rc.mode == "prefill":

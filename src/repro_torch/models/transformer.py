@@ -58,8 +58,9 @@ def forward(params: Any, tokens: torch.Tensor, rc: RunConfig,
             cfg: ModelConfig, *, positions: Optional[torch.Tensor] = None,
             caches: Optional[Any] = None) -> Tuple[torch.Tensor, Optional[Any]]:
     """tokens (B, S) -> fp32 logits (B, S, padded_vocab) and the caches:
-    a fresh stacked cache in prefill, ``caches`` updated in place in
-    decode, None otherwise."""
+    a fresh stacked cache in prefill; ``caches`` updated in place in
+    decode, and in prefill over a paged slot view (a chunked-prefill
+    continuation, ``serve/paging.slot_view``); None otherwise."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
@@ -90,7 +91,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device, *,
     ``dtype``; with ``kv_int8``, int8 ``k``/``v`` and bf16 per-(token,
     head) ``k_s``/``v_s`` scales; with ``kvq``, uint8 codebook indices
     (``kvq.idx_width(head_dim)`` per token and head) and the same bf16
-    scale leaves. Ring and paged layouts are not ported yet."""
+    scale leaves. The paged layout is ``serve/paging.init_paged_cache``
+    (``Model.init_cache(paging=...)``); ring layouts wait for ROADMAP A7."""
     if kvq is not None and kv_int8:
         raise ValueError("kvq is mutually exclusive with kv_int8")
     L, Hk = cfg.num_layers, cfg.num_kv_heads

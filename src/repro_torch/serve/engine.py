@@ -1,5 +1,5 @@
 """Continuous-batching serving engine (``repro/serve/engine.py``, the
-contiguous non-speculative subset).
+non-speculative subset).
 
 Prefill runs per request at its power-of-two length bucket (every VQ
 linear through the dequant kernel; dense linears through the INT8 GEMM
@@ -37,8 +37,23 @@ and tokens, stop flags and logprobs come back in one readback. A
 prefill graph covers the model's prefill at its bucket and, under
 ``kv_bits < 16``, the cache's quantization; the first token's sample
 and the slot insertion run eagerly.
-Paged KV (ROADMAP A4), speculative decoding (A5) and the resilience
-layer (A6) are not ported yet.
+
+``EngineConfig.paged`` swaps the per-slot contiguous cache for block
+arenas and block tables (``serve/paging.py``): admission allocates the
+prompt's blocks, decode grows a slot a block at a time, a finished
+request frees its blocks, and a decode step that finds the pool empty
+preempts the youngest request back to the head of the queue (it resumes
+by re-prefilling its prompt and generated tokens, its generator and
+budget restored, so its stream is the one an uninterrupted run gives).
+With ``prefill_chunk`` a longer prompt is prefilled a chunk a tick,
+interleaved with decode (fp caches only, as the reference). Tables
+change in place, so the decode graph is still captured once; the paged
+prefill of each bucket and each chunk-continuation bucket is a graph
+built at first use (``trace_counts["prefill"]``,
+``trace_counts["prefill_chunk"]``), its slot, table row, committed
+length and true length static inputs.
+Speculative decoding (ROADMAP A5) and the resilience layer (A6) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -57,7 +72,7 @@ from repro_torch.core.quantize import attach_kv_codebooks, kv_codebook_tree
 from repro_torch.core.vq import KVQuantConfig
 from repro_torch.models.api import Model
 from repro_torch.models.common import RunConfig
-from repro_torch.serve import api
+from repro_torch.serve import api, paging
 from repro_torch.serve.api import (GenerationRequest, RequestOutput,
                                    SamplingParams, StreamEvent)
 from repro_torch.serve.graphs import HostInputs, StepGraph, tensor_leaves
@@ -88,7 +103,15 @@ class EngineConfig:
     max_len: int = 256
     max_queue: int = 256               # submit() rejects past this bound
     max_retained: int = 1024           # finished outputs kept for output()
-    paged: bool = False                # ROADMAP A4
+    # paged KV memory (serve/paging.py): block arenas + per-slot tables;
+    # memory follows the requests' lengths, and a decode step out of
+    # blocks preempts the youngest request instead of failing
+    paged: bool = False
+    block_size: int = 16               # positions a block (gcd-snapped)
+    num_blocks: Optional[int] = None   # None: num_slots x blocks a slot
+    # chunked prefill (paged, kv_bits=16): prompts longer than this are
+    # prefilled a chunk a tick, interleaved with decode; None disables
+    prefill_chunk: Optional[int] = None
     # bits per stored KV channel: 16 = fp, 8 = int8 + k_s/v_s scales,
     # 4/2 = KV-VQ (uint8 codebook indices; codebooks attach to params)
     kv_bits: int = 16
@@ -98,9 +121,6 @@ class EngineConfig:
 class Engine:
     def __init__(self, model: Model, params: Any, rc: RunConfig,
                  ecfg: EngineConfig, *, device: DeviceLike = None):
-        if ecfg.paged:
-            raise NotImplementedError(
-                "paged KV caches are not ported yet (ROADMAP A4)")
         if ecfg.kv_bits not in (16, 8, 4, 2):
             raise ValueError(
                 f"kv_bits={ecfg.kv_bits} unsupported; expected 16/8/4/2")
@@ -133,11 +153,39 @@ class Engine:
         self.ecfg = ecfg
         self.sched = Scheduler(ecfg.num_slots, max_queue=ecfg.max_queue)
         self.metrics_counters = EngineMetrics(num_slots=ecfg.num_slots)
-        self.caches = model.init_cache(ecfg.num_slots, ecfg.max_len,
-                                       device=self.device, **self._cache_kw)
-        self.metrics_counters.kv_bytes_in_use = cache_bytes(self.caches)
-
         B = ecfg.num_slots
+        if ecfg.paged:
+            self.paging: Optional[paging.PagingConfig] = \
+                paging.make_paging_config(
+                    model, B, ecfg.max_len, block_size=ecfg.block_size,
+                    num_blocks=ecfg.num_blocks, **self._cache_kw)
+            self.caches = model.init_cache(B, ecfg.max_len,
+                                           device=self.device,
+                                           paging=self.paging,
+                                           **self._cache_kw)
+            self.pool: Optional[paging.BlockPool] = paging.BlockPool(
+                self.paging.num_blocks)
+            # the host's tables and owned ids; the device's table lags
+            # until _sync_tables
+            self.tables = np.full((B, self.paging.blocks_per_slot),
+                                  self.paging.sentinel, np.int32)
+            self._owned: List[List[int]] = [[] for _ in range(B)]
+            self._tables_dirty = True
+            self._update_kv_gauges()
+        else:
+            self.paging, self.pool, self.tables = None, None, None
+            self.caches = model.init_cache(B, ecfg.max_len,
+                                           device=self.device,
+                                           **self._cache_kw)
+            # the contiguous cache is allocated once, worst case
+            m = self.metrics_counters
+            m.kv_bytes_in_use = m.peak_kv_bytes_in_use = cache_bytes(
+                self.caches)
+        # chunked prefill: paged fp caches only (the continuation cannot
+        # append quantized rows), as the reference gates it
+        self._chunked = bool(ecfg.paged and ecfg.prefill_chunk
+                             and ecfg.kv_bits == 16)
+
         self.positions = np.zeros((B,), np.int32)
         self.last_token = np.zeros((B,), np.int32)
         self.temperature = np.ones((B,), np.float32)
@@ -155,8 +203,11 @@ class Engine:
         self._retired: Deque[int] = deque()
 
         self.trace_counts = {"decode": 0, "prefill": 0}
+        if self._chunked:
+            self.trace_counts["prefill_chunk"] = 0
         self._buckets = api.prefill_buckets(ecfg.max_len, MIN_PREFILL_BUCKET)
         self.prefill_graphs: Dict[int, StepGraph] = {}
+        self.chunk_graphs: Dict[int, StepGraph] = {}
         # the prefill buckets' shared graph memory pool (``prefill_graph``)
         self.prefill_pool = (torch.cuda.graph_pool_handle()
                              if self.device.type == "cuda" else None)
@@ -201,13 +252,25 @@ class Engine:
 
     # ------------------------------------------------------------ admission
     def _admission_error(self, request: GenerationRequest) -> Optional[str]:
+        """Why ``request`` can never be served here (None if it can). A
+        contiguous cache needs room for every decode write; a paged one
+        admits length-aware: ``max_new_tokens`` is a cap, and the budget
+        clamps to the capacity left at activation."""
         if request.prompt_len > self.ecfg.max_len:
             return (f"prompt length {request.prompt_len} exceeds max_len "
                     f"{self.ecfg.max_len}")
         need = request.prompt_len + request.max_new_tokens - 1
         if need > self.ecfg.max_len:
-            return (f"prompt_len + max_new_tokens - 1 = {need} exceeds the "
-                    f"cache capacity max_len={self.ecfg.max_len}")
+            if self.paging is None:
+                return (f"prompt_len + max_new_tokens - 1 = {need} exceeds "
+                        f"the cache capacity max_len={self.ecfg.max_len}")
+            need = self.ecfg.max_len
+        if self.paging is not None:
+            peak = self.paging.blocks_for(need)
+            if peak > self.paging.num_blocks:
+                return (f"request needs {peak} KV blocks at peak, the pool "
+                        f"only has {self.paging.num_blocks} "
+                        f"(EngineConfig.num_blocks)")
         return None
 
     def submit(self, request: GenerationRequest) -> int:
@@ -262,6 +325,21 @@ class Engine:
             [bool(self.greedy[slot])])
         return tok, api.token_logprobs(logits, tok)
 
+    def _encoder(self):
+        """The quantization of a prefill cache into the engine's layout
+        (identity at kv_bits=16); it holds no reference to the engine."""
+        kvq, kv_int8 = self.kvq, self.kv_int8
+        kv_cb = self._kv_cb if kvq is not None else None
+
+        def encode(cache):
+            if kvq is not None:
+                return encode_prefill_cache(cache, kv_cb, kvq)
+            if kv_int8:
+                return quantize_prefill_cache_int8(cache)
+            return cache
+
+        return encode
+
     def prefill_graph(self, bucket: int) -> StepGraph:
         """The prefill step of length bucket ``bucket``, built (on CUDA:
         captured) at its first use, as the reference traces its jitted
@@ -269,8 +347,12 @@ class Engine:
         bucket) tokens and, under kv_bits < 16, the quantization of its
         cache into the engine's layout (slot insertion's ``copy_`` would
         truncate rather than quantize). Returns (fp32 logits (1, bucket,
-        padded vocab), cache). The step holds no reference to the engine,
-        so a dropped engine frees its graphs at once.
+        padded vocab), cache); on a paged engine the step also takes the
+        static ``slot``, ``bt_row`` and ``true_len`` and commits the
+        cache into the slot's blocks itself
+        (``paging.write_prefill_into_blocks``), returning the logits. The
+        step holds no reference to the engine, so a dropped engine frees
+        its graphs at once.
 
         Every bucket captures into ``prefill_pool``: the buckets are
         replayed in any order, which is safe because ``_prefill_one``
@@ -282,80 +364,209 @@ class Engine:
         if step is None:
             self.trace_counts["prefill"] += 1
             model, params, rc = self.model, self.params, self._rc_prefill
-            kvq, kv_int8 = self.kvq, self.kv_int8
-            kv_cb = self._kv_cb if kvq is not None else None
+            encode = self._encoder()
+            tokens = {"tokens": ((1, bucket), torch.int32)}
+            if self.paging is None:
+                def prefill(tokens):
+                    logits, cache = model.prefill(params, {"tokens": tokens},
+                                                  rc)
+                    return logits, encode(cache)
 
-            def prefill(tokens):
-                logits, cache = model.prefill(params, {"tokens": tokens}, rc)
-                if kvq is not None:
-                    cache = encode_prefill_cache(cache, kv_cb, kvq)
-                elif kv_int8:
-                    cache = quantize_prefill_cache_int8(cache)
-                return logits, cache
+                step = StepGraph(prefill, tokens, self.device,
+                                 pool=self.prefill_pool)
+            else:
+                caches, meta = self.caches, self.paging
 
-            step = StepGraph(prefill, {"tokens": ((1, bucket), torch.int32)},
-                             self.device, pool=self.prefill_pool)
+                def prefill(tokens, slot, bt_row, true_len):
+                    logits, cache = model.prefill(params, {"tokens": tokens},
+                                                  rc)
+                    paging.write_prefill_into_blocks(
+                        caches, encode(cache), slot, bt_row, true_len, meta)
+                    return logits
+
+                step = self._paged_step(prefill, {
+                    **tokens, **self._slot_inputs(),
+                    "true_len": ((1,), torch.int32)})
             self.prefill_graphs[bucket] = step
         return step
 
+    def chunk_graph(self, bucket: int) -> StepGraph:
+        """The chunked-prefill continuation of length bucket ``bucket``,
+        built at its first use (``trace_counts["prefill_chunk"]``): the
+        model's forward over a one-slot view of the paged cache
+        (``paging.slot_view``) at positions ``hist + [0, bucket)``, its
+        K/V written through the slot's table, then the view's ``len``
+        merged back (``paging.merge_slot``). Static inputs: tokens, slot,
+        bt_row, the committed length ``hist`` and the chunk's
+        ``true_len``. Returns the fp32 logits (1, bucket, padded vocab);
+        it shares ``prefill_pool`` with the prefill buckets."""
+        step = self.chunk_graphs.get(bucket)
+        if step is None:
+            self.trace_counts["prefill_chunk"] += 1
+            model, params, rc = self.model, self.params, self._rc_prefill
+            caches = self.caches
+
+            def chunk(tokens, slot, bt_row, hist, true_len):
+                view = paging.slot_view(caches, bt_row, hist, true_len)
+                pos = hist + torch.arange(tokens.shape[1], dtype=torch.int32,
+                                          device=tokens.device)[None]
+                logits, view = model.forward(
+                    params, {"tokens": tokens, "positions": pos}, rc,
+                    caches=view)
+                paging.merge_slot(caches, view, slot)
+                return logits
+
+            step = self._paged_step(chunk, {
+                "tokens": ((1, bucket), torch.int32), **self._slot_inputs(),
+                "hist": ((1,), torch.int32), "true_len": ((1,), torch.int32)})
+            self.chunk_graphs[bucket] = step
+        return step
+
+    def _slot_inputs(self) -> Dict[str, Any]:
+        return {"slot": ((1,), torch.int64),
+                "bt_row": ((self.paging.blocks_per_slot,), torch.int32)}
+
+    def _paged_step(self, fn, inputs) -> StepGraph:
+        """Build a paged prefill step. Its warm-up runs over the zeroed
+        static inputs: slot 0 and a true length of 0, so every arena
+        write goes to the sink, but ``len`` of slot 0 is set; ``len`` is
+        put back after the build."""
+        lens = [t.clone() for t in self._len_leaves()]
+        step = StepGraph(fn, inputs, self.device, pool=self.prefill_pool)
+        for t, saved in zip(self._len_leaves(), lens):
+            t.copy_(saved)
+        return step
+
+    def _len_leaves(self) -> List[torch.Tensor]:
+        return [n["len"] for n in paging.attn_nodes(self.caches)]
+
+    def _prefill_target(self, tr: TrackedRequest) -> int:
+        """Positions to prefill before the request (re)joins decode: the
+        prompt, and for a preempted request its generated tokens but the
+        last (which becomes the resumed decode's input)."""
+        if tr.preempted and tr.generated:
+            return tr.prompt_len + len(tr.generated) - 1
+        return tr.prompt_len
+
+    def _prefill_tokens(self, tr: TrackedRequest) -> np.ndarray:
+        seq = np.asarray(tr.request.prompt, np.int32)
+        if tr.preempted and len(tr.generated) > 1:
+            seq = np.concatenate([seq, np.asarray(tr.generated[:-1],
+                                                  np.int32)])
+        return seq
+
     def _prefill_one(self, slot: int, tr: TrackedRequest
-                     ) -> Tuple[int, bool]:
-        """Prefill the request in ``slot``, sample its first token, insert
-        its cache. Returns (token, bad)."""
+                     ) -> Tuple[Optional[int], bool, bool]:
+        """Advance the request in ``slot`` by one prefill step: the whole
+        target, or under chunked prefill its next ``prefill_chunk``
+        positions. Returns (token, bad, final): ``final`` False after a
+        non-final chunk (the slot stays occupied but inactive); ``bad``
+        when the sampled row holds a NaN/Inf (the slot is not activated);
+        ``token`` the first sampled token on the final step, None for a
+        chunk and for a preempted request's resume, whose decode state is
+        restored from the preemption instead."""
         req, sp = tr.request, tr.request.sampling
-        c = tr.prompt_len
+        target = self._prefill_target(tr)
+        chunked = self._chunked and target > self.ecfg.prefill_chunk
+        pos0 = tr.prefill_pos
+        c = (min(self.ecfg.prefill_chunk, target - pos0) if chunked
+             else target)
+        final = pos0 + c >= target
         bucket = api.bucket_for(c, self._buckets)
         # edge-pad to the bucket: causally masked for the real rows
-        chunk = np.pad(req.prompt, (0, bucket - c), mode="edge")
+        chunk = np.pad(self._prefill_tokens(tr)[pos0:pos0 + c],
+                       (0, bucket - c), mode="edge")[None]
+        cache = None
+        # the graph's outputs are consumed (sample, pad, insert) before
+        # any other replay: all of it is ordered on one stream
+        if self.paging is None:
+            logits, cache = self.prefill_graph(bucket)(tokens=chunk)
+        elif pos0 == 0:
+            logits = self.prefill_graph(bucket)(
+                tokens=chunk, slot=[slot], bt_row=self.tables[slot],
+                true_len=[c])
+        else:
+            logits = self.chunk_graph(bucket)(
+                tokens=chunk, slot=[slot], bt_row=self.tables[slot],
+                hist=[pos0], true_len=[c])
+            self.metrics_counters.prefill_chunks += 1
+        with torch.no_grad():
+            last = logits[0, c - 1, :self.model.cfg.vocab_size][None]
+            if not bool(torch.isfinite(last).all()):
+                return None, True, final
+            if cache is not None:
+                _insert_slot(self.caches, pad_prefill_cache(
+                    cache, self.ecfg.max_len, true_len=c), slot)
+        tr.prefill_pos = pos0 + c
+        if not final:
+            return None, False, False
+
+        stop = sorted(req.stop_set)
+        self.positions[slot] = target
         self.temperature[slot] = sp.temperature
         self.top_k[slot] = sp.top_k
         self.top_p[slot] = sp.top_p
         self.greedy[slot] = sp.greedy
+        self.stop_ids[slot, :] = -1
+        self.stop_ids[slot, :len(stop)] = stop
+        self.active[slot] = True
+        self._tables_dirty = self.paging is not None
         gen = None
         if not sp.greedy:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(sp.seed)
         self.generators[slot] = gen
-        # the graph's outputs are copied out (sample, pad, insert) before
-        # any other replay: all of it is ordered on one stream
-        logits, cache = self.prefill_graph(bucket)(tokens=chunk[None])
+        if tr.preempted and tr.generated:
+            # the resume: the stream goes on from the decode state saved
+            # at preemption, as if never interrupted
+            if gen is not None:
+                gen.set_state(tr.resume_gen_state)
+            self.last_token[slot] = tr.generated[-1]
+            self.remaining[slot] = tr.resume_remaining
+            tr.preempted = False
+            return None, False, True
         with torch.no_grad():
-            last = logits[0, c - 1, :self.model.cfg.vocab_size][None]
             tok, lp = self._sample_row(last, slot)
-            if not bool(torch.isfinite(last).all()):
-                return int(tok[0]), True
-            _insert_slot(self.caches, pad_prefill_cache(
-                cache, self.ecfg.max_len, true_len=c), slot)
         tok = int(tok[0])
-        stop = sorted(req.stop_set)
-        self.positions[slot] = c
-        self.stop_ids[slot, :] = -1
-        self.stop_ids[slot, :len(stop)] = stop
-        self.active[slot] = True
         tr.generated.append(tok)
         if sp.logprobs:
             tr.logprobs.append(float(lp[0]))
         self.last_token[slot] = tok
-        self.remaining[slot] = req.max_new_tokens - 1
-        return tok, False
+        # a paged engine admits length-aware: the budget clamps to the
+        # capacity left past the prompt
+        budget = req.max_new_tokens
+        if self.paging is not None:
+            budget = min(budget, self.ecfg.max_len - target + 1)
+        self.remaining[slot] = budget - 1
+        return tok, False, True
 
     def _prefill_step_events(self, slot: int,
                              events: List[StreamEvent]) -> None:
+        """One prefill step of ``slot`` and its events and counters:
+        ``prefills`` counts a step that emits a first token or poisons; a
+        non-final chunk counts in ``prefill_chunks`` only, and a good
+        resume in neither (its token was counted before the preemption)."""
         m = self.metrics_counters
         tr = self.sched.slots[slot]
         t0 = time.perf_counter()
-        tok, bad = self._prefill_one(slot, tr)
+        pos0 = tr.prefill_pos
+        tok, bad, final = self._prefill_one(slot, tr)
         dt = time.perf_counter() - t0
         tr.prefill_s += dt
         m.prefill_s += dt
-        m.prefill_prompt_tokens += tr.prompt_len
-        m.prefills += 1
+        m.prefill_prompt_tokens += tr.prefill_pos - pos0
         if bad:
+            m.prefills += 1
             m.poisoned_slot_steps += 1
             events.append(StreamEvent(tr.uid, 0, None, "error"))
             self._finish_slot(slot, "error")
             return
+        if not final:
+            return
         tr.decode_t0 = time.perf_counter()
+        if tok is None:  # a resume rejoins decode silently
+            return
+        m.prefills += 1
         m.tokens_generated += 1
         reason = None
         if tok in tr.stop_set:
@@ -367,6 +578,103 @@ class Engine:
         if reason is not None:
             self._finish_slot(slot, reason)
 
+    # ------------------------------------------------------ paged KV blocks
+    def _update_kv_gauges(self) -> None:
+        m = self.metrics_counters
+        used = self.pool.used_count
+        m.blocks_in_use = used
+        m.blocks_free = self.pool.free_count
+        m.kv_bytes_in_use = used * self.paging.bytes_per_block
+        m.peak_blocks_in_use = max(m.peak_blocks_in_use, used)
+        m.peak_kv_bytes_in_use = max(m.peak_kv_bytes_in_use,
+                                     m.kv_bytes_in_use)
+
+    def _alloc_blocks(self, slot: int, n: int) -> bool:
+        """Grow ``slot`` by ``n`` pool blocks, all or nothing."""
+        if n <= 0:
+            return True
+        blks = self.pool.alloc(n)
+        if blks is None:
+            return False
+        start = len(self._owned[slot])
+        self._owned[slot].extend(blks)
+        self.tables[slot, start:start + n] = blks
+        self._tables_dirty = True
+        self._update_kv_gauges()
+        return True
+
+    def _free_blocks(self, slot: int) -> None:
+        """Give back every block ``slot`` owns; its table row goes to the
+        sentinel."""
+        if self._owned[slot]:
+            self.pool.free(self._owned[slot])
+            self._owned[slot] = []
+        self.tables[slot, :] = self.paging.sentinel
+        self._tables_dirty = True
+        self._update_kv_gauges()
+
+    def _sync_tables(self) -> None:
+        """Write the host's tables into the cache before a decode step,
+        the rows of slots that are not active (free, or mid-prefill: they
+        own blocks but take no decode write) on the sentinel. In place:
+        the decode graph reads the new table at its next replay."""
+        if self.paging is None or not self._tables_dirty:
+            return
+        paging.set_block_tables(self.caches, np.where(
+            self.active[:, None], self.tables, self.paging.sentinel))
+        self._tables_dirty = False
+
+    def _preempt_victim(self) -> Optional[int]:
+        """The youngest (highest-uid) active slot whose resume prefill
+        still fits ``max_len``; None when none does."""
+        best = None
+        for b in np.nonzero(self.active)[0]:
+            tr = self.sched.slots[int(b)]
+            if tr.prompt_len + max(0, len(tr.generated) - 1) > self.ecfg.max_len:
+                continue
+            if best is None or tr.uid > self.sched.slots[best].uid:
+                best = int(b)
+        return best
+
+    def _preempt(self, slot: int) -> None:
+        """Evict ``slot`` mid-decode: save its generator's state and its
+        budget on the request, free its blocks and put it back at the
+        head of the queue."""
+        tr = self.sched.slots[slot]
+        gen = self.generators[slot]
+        tr.resume_gen_state = None if gen is None else gen.get_state()
+        tr.resume_remaining = int(self.remaining[slot])
+        tr.preempted = True
+        tr.prefill_pos = 0
+        self.active[slot] = False
+        self.generators[slot] = None
+        self.sched.slots[slot] = None
+        self.sched.queue.appendleft(tr)
+        self._free_blocks(slot)
+        self.metrics_counters.preemptions += 1
+        log.info("request %d preempted out of slot %d (out of KV blocks); "
+                 "re-queued at the head with %d tokens generated",
+                 tr.uid, slot, len(tr.generated))
+
+    def _grow_decode_blocks(self) -> None:
+        """Before a decode step, give every active slot the block its
+        next write needs; while the pool is empty, preempt the youngest
+        request (possibly the one that needs the block)."""
+        for b in np.nonzero(self.active)[0]:
+            b = int(b)
+            while self.active[b]:
+                need = self.paging.blocks_for(
+                    min(int(self.positions[b]) + 1, self.ecfg.max_len))
+                short = need - len(self._owned[b])
+                if short <= 0 or self._alloc_blocks(b, short):
+                    break
+                victim = self._preempt_victim()
+                if victim is None:
+                    raise RuntimeError(
+                        "out of KV blocks with no preemptible request; "
+                        "raise EngineConfig.num_blocks")
+                self._preempt(victim)
+
     # -------------------------------------------------------------- decode
     def _make_decode_graph(self) -> StepGraph:
         """The batched decode step, built (on CUDA: captured) once per
@@ -374,8 +682,10 @@ class Engine:
         decode over static (B, 1) tokens and positions and the engine's
         caches, which it updates in place, through the (B, vocab) fp32
         logits. The build's warm-up writes a row and ``len`` into every
-        slot of the caches, which are still the zeros of ``init_cache``;
-        they are zeroed again afterwards."""
+        slot of the caches, which are still the zeros of ``init_cache``
+        (paged: into the sink, every table row being the sentinel); they
+        are zeroed again afterwards, and a paged table set back to the
+        sentinel."""
         self.trace_counts["decode"] += 1
         model, params, caches = self.model, self.params, self.caches
         rc, vocab = self._rc_decode, self.model.cfg.vocab_size
@@ -390,6 +700,8 @@ class Engine:
                          self.device)
         for t in tensor_leaves(caches):
             t.zero_()
+        if self.paging is not None:  # no blocks: the sentinel everywhere
+            paging.set_block_tables(caches, self.tables)
         return step
 
     def _decode(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
@@ -425,8 +737,10 @@ class Engine:
         now = time.perf_counter()
         for tr in self.sched.prune_queue(lambda r: r.expired(now)):
             self.metrics_counters.count_finish("timeout")
+            # a preempted request waiting to resume holds streamed tokens
             self._outputs[tr.uid] = RequestOutput(
-                uid=tr.uid, tokens=(), finish_reason="timeout",
+                uid=tr.uid, tokens=tuple(tr.generated),
+                logprobs=tuple(tr.logprobs), finish_reason="timeout",
                 queue_wait_s=now - tr.submit_t)
             events.append(StreamEvent(tr.uid, -1, None, "timeout"))
             self._retain(tr.uid)
@@ -439,24 +753,49 @@ class Engine:
         return events
 
     def step(self) -> List[StreamEvent]:
-        """One tick: deadline sweep, admit + prefill queued requests, one
-        batched decode step over the active slots, retire finished
-        requests (in the step their stop condition is met). Returns the
-        tick's StreamEvents."""
+        """One tick: deadline sweep, the next chunk of every mid-prefill
+        slot, admit + prefill queued requests (a paged engine reserving
+        each one's blocks), blocks for every active slot's next write
+        (preempting when the pool is empty), one batched decode step over
+        the active slots, retire finished requests (in the step their
+        stop condition is met). Returns the tick's StreamEvents."""
         m = self.metrics_counters
         events: List[StreamEvent] = list(self._pending)
         self._pending.clear()
         events.extend(self._timeout_sweep())
 
-        for slot in self.sched.admit():
+        # occupied but not active: a chunked prefill in progress
+        for slot in self.sched.active_slots():
+            if not self.active[slot]:
+                self._prefill_step_events(slot, events)
+
+        planned_free = self.pool.free_count if self.paging is not None else 0
+
+        def can_admit(tr: TrackedRequest) -> bool:
+            nonlocal planned_free
+            need = self.paging.blocks_for(self._prefill_target(tr))
+            if need > planned_free:
+                return False
+            planned_free -= need
+            return True
+
+        for slot in self.sched.admit(can_admit if self.paging else None):
             tr = self.sched.slots[slot]
             tr.queue_wait_s = time.perf_counter() - tr.submit_t
             m.admitted += 1
             m.queue_wait_s += tr.queue_wait_s
+            if self.paging is not None:
+                ok = self._alloc_blocks(
+                    slot, self.paging.blocks_for(self._prefill_target(tr)))
+                assert ok, "can_admit reserved blocks the pool cannot supply"
             self._prefill_step_events(slot, events)
+
+        if self.paging is not None and self.active.any():
+            self._grow_decode_blocks()
 
         active_idx = np.nonzero(self.active)[0]
         if active_idx.size:
+            self._sync_tables()
             t0 = time.perf_counter()
             tok, done, bad, lps = self._decode()
             n_bad = int(np.count_nonzero(bad))
@@ -501,6 +840,8 @@ class Engine:
         tr = self.sched.finish(slot)
         self.active[slot] = False
         self.generators[slot] = None
+        if self.paging is not None:
+            self._free_blocks(slot)
         self.metrics_counters.count_finish(reason)
         decode_s = (time.perf_counter() - tr.decode_t0
                     if len(tr.generated) > 1 else 0.0)

@@ -1,5 +1,5 @@
-"""Engine counters (``repro/serve/metrics.py``, the contiguous
-non-speculative subset). Invariants the tests pin:
+"""Engine counters (``repro/serve/metrics.py``, the non-speculative
+subset). Invariants the tests pin:
 
   tokens_generated == prefills + decode_slot_steps - poisoned_slot_steps
                    == number of token-bearing StreamEvents
@@ -25,7 +25,15 @@ class EngineMetrics:
     timeouts: int = 0                # deadline_s expiries
     prefills: int = 0
     prefill_prompt_tokens: int = 0
-    kv_bytes_in_use: int = 0         # the contiguous cache, allocated once
+    prefill_chunks: int = 0          # chunked-prefill continuations (paged)
+    preemptions: int = 0             # out-of-blocks decode evictions (paged)
+    # KV memory gauges: a paged engine updates them at every block alloc
+    # and free; a contiguous one sets kv_bytes_in_use (and its peak) once
+    kv_bytes_in_use: int = 0
+    blocks_in_use: int = 0
+    blocks_free: int = 0
+    peak_blocks_in_use: int = 0
+    peak_kv_bytes_in_use: int = 0
     decode_steps: int = 0
     decode_slot_steps: int = 0       # active lanes summed over decode steps
     poisoned_slot_steps: int = 0

@@ -1,12 +1,14 @@
 """Request scheduler for continuous batching (``repro/serve/scheduler.py``):
 a bounded queue of ``TrackedRequest``s admitted earliest-deadline-first
-into free decode slots."""
+into free decode slots, behind the paged engine's block budget."""
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
-from typing import Deque, List, Optional
+from typing import Callable, Deque, List, Optional
+
+import torch
 
 from repro_torch.serve.api import GenerationRequest
 
@@ -28,6 +30,14 @@ class TrackedRequest:
     queue_wait_s: float = 0.0
     prefill_s: float = 0.0
     decode_t0: float = 0.0
+    # ---- paged engine (serve/paging.py) ----
+    # committed prefill positions; > 0 marks a mid-prefill (chunked) slot
+    prefill_pos: int = 0
+    # evicted by an out-of-blocks decode step; resumes by re-prefilling
+    # prompt ++ generated[:-1] with the decode state saved here
+    preempted: bool = False
+    resume_gen_state: Optional[torch.Tensor] = None   # the slot's generator
+    resume_remaining: int = 0                         # decode budget left
 
     @property
     def prompt_len(self) -> int:
@@ -77,10 +87,14 @@ class Scheduler:
     def free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slots) if r is None]
 
-    def admit(self) -> List[int]:
+    def admit(self, can_admit: Optional[Callable[[TrackedRequest], bool]]
+              = None) -> List[int]:
         """Move queued requests into free slots, earliest deadline first
-        (no-deadline requests behind, FIFO among themselves). Returns the
-        slots to prefill."""
+        (no-deadline requests behind, FIFO among themselves; a preempted
+        request re-enters at the queue's head). ``can_admit`` (the paged
+        engine's block budget) gates each candidate, and admission stops
+        at the first refusal: no smaller request bypasses a large one.
+        Returns the slots to prefill."""
         admitted = []
         for i in self.free_slots():
             if not self.queue:
@@ -88,8 +102,11 @@ class Scheduler:
             best = min(range(len(self.queue)), key=lambda j: (
                 self.queue[j].deadline_t if self.queue[j].deadline_t
                 is not None else float("inf"), j))
-            self.slots[i] = self.queue[best]
+            tr = self.queue[best]
+            if can_admit is not None and not can_admit(tr):
+                break
             del self.queue[best]
+            self.slots[i] = tr
             admitted.append(i)
         return admitted
 

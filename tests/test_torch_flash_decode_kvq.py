@@ -3,7 +3,11 @@
 (CPU); the kernel's own formulation — scores gathered from the query /
 K-codebook table the wrapper builds, V rebuilt from codebook rows after
 the softmax, over the reference's padded cache — against the same; and
-the CUDA kernel against the plain version on the card.
+the CUDA kernel against the plain version on the card. The paged entry
+(``flash_decode_kvq_paged``: index and scale arenas and a block table)
+likewise: its plain version against the JAX paged wrapper on shuffled
+tables with sentinel rows, and on the card the kernel against its plain
+version and bitwise against the contiguous kernel over the gathered view.
 
 Tolerance: fp32 rtol=1e-5, atol=1e-5 — the Pallas kernel folds the cache
 in blocks with an online softmax and sums the gathered table entries in
@@ -16,9 +20,13 @@ import torch
 
 from repro_torch.core.vq import KVQuantConfig, kv_grid_codebooks
 from repro_torch.kernels.flash_decode import (flash_decode_kvq,
+                                              flash_decode_kvq_paged,
+                                              flash_decode_kvq_paged_ref,
                                               flash_decode_kvq_ref)
 from repro_torch.kernels.flash_decode.ops import (KVQ_CHUNK, kvq_operands,
                                                   kvq_padded_len, kvq_splits)
+from repro_torch.models.common import paged_view
+from test_torch_flash_decode import paged_table
 
 torch.set_num_threads(1)
 
@@ -170,6 +178,61 @@ def test_operands_and_no_launch_on_cpu():
     assert flash_decode_kvq.launches == before
 
 
+def _paged_args(B, W, bs, NB, H, Hk, hd, lengths, kv_bits, residual,
+                seed=0):
+    """Arenas of NB blocks (the contiguous inputs' layout with NB rows of
+    bs positions) and a shuffled table with sentinel rows."""
+    q, ki, vi, ks, vs, lens, cbk, cbv = _inputs(NB, bs, H, Hk, hd,
+                                                [0] * NB, kv_bits, residual,
+                                                seed)
+    return (q[:B], ki, vi, ks, vs, paged_table(lengths, W, bs, NB, seed),
+            np.asarray(lengths, np.int32), cbk, cbv)
+
+
+PAGED_CASES = [  # B, W, bs, NB, H, Hk, hd, lengths, kv_bits, residual
+    (2, 6, 4, 12, 4, 4, 32, [24, 7], 4, 1),        # llama2 SMOKE heads
+    (3, 5, 8, 15, 8, 2, 32, [0, 40, 17], 4, 1),    # an empty row, g=4
+    (2, 10, 4, 20, 6, 1, 64, [33, 40], 2, 2),      # MQA, 2-bit, two stages
+]
+
+
+@pytest.mark.parametrize("interpret", [False, True])
+@pytest.mark.parametrize("B,W,bs,NB,H,Hk,hd,lengths,kv_bits,residual",
+                         PAGED_CASES)
+def test_paged_plain_matches_jax_paged_wrapper(B, W, bs, NB, H, Hk, hd,
+                                               lengths, kv_bits, residual,
+                                               interpret):
+    """The plain paged version against the reference's
+    ``flash_decode_kvq_paged`` (its dequantize route and the Pallas kernel
+    in interpret mode, whose default S-block pads none of these caches):
+    both clamp the sentinel to block NB - 1, so the row of length 0
+    matches too."""
+    import jax.numpy as jnp
+    from repro.kernels.flash_decode import flash_decode_kvq_paged as jax_paged
+
+    args = _paged_args(B, W, bs, NB, H, Hk, hd, lengths, kv_bits, residual)
+    kw = {"interpret": True} if interpret else {"use_pallas": False}
+    want = np.asarray(jax_paged(*(jnp.asarray(a) for a in args), **kw))
+    got = flash_decode_kvq_paged(*(torch.from_numpy(a) for a in args))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,W,bs,NB,H,Hk,hd,lengths,kv_bits,residual",
+                         PAGED_CASES)
+def test_paged_plain_is_contiguous_over_the_gathered_view(
+        B, W, bs, NB, H, Hk, hd, lengths, kv_bits, residual):
+    q, ki, vi, ks, vs, table, lens, cbk, cbv = (
+        torch.from_numpy(a) for a in _paged_args(B, W, bs, NB, H, Hk, hd,
+                                                 lengths, kv_bits, residual))
+    view = lambda a: paged_view(a, table)
+    before = flash_decode_kvq_paged.launches
+    assert torch.equal(
+        flash_decode_kvq_paged(q, ki, vi, ks, vs, table, lens, cbk, cbv),
+        flash_decode_kvq(q, view(ki), view(vi), view(ks), view(vs), lens,
+                         cbk, cbv))
+    assert flash_decode_kvq_paged.launches == before
+
+
 # --------------------------------------------------------------- on the card
 
 
@@ -249,3 +312,76 @@ def test_kernel_bitwise_deterministic(cuda, kv_bits):
     args = _card(4, 512, 32, 32, 128, [1, 512, 77, 300], kv_bits, 1,
                  torch.bfloat16)
     assert torch.equal(flash_decode_kvq(*args), flash_decode_kvq(*args))
+
+
+def _card_paged(B, W, bs, NB, H, Hk, hd, lengths, kv_bits, dtype, seed=0):
+    """Arenas as the engine holds them: uint8 indices, bf16 scales, grid
+    codebooks."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kvq = KVQuantConfig(kv_bits=kv_bits)
+    RG = kvq.idx_width(hd)
+    q = torch.randn((B, H, hd), generator=g, device="cuda").to(dtype)
+    idx = lambda: torch.randint(0, 256, (NB, bs, Hk, RG), generator=g,
+                                device="cuda", dtype=torch.uint8)
+    scale = lambda: (torch.rand((NB, bs, Hk), generator=g, device="cuda")
+                     + 0.5).bfloat16()
+    cb = kv_grid_codebooks(Hk, hd, kvq, device="cuda")
+    table = torch.from_numpy(paged_table(lengths, W, bs, NB, seed)).cuda()
+    return (q, idx(), idx(), scale(), scale(), table,
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"), cb, cb)
+
+
+CARD_PAGED = [  # B, W, bs, NB, H, Hk, hd, lengths, kv_bits
+    (4, 32, 16, 128, 32, 32, 128, [1, 512, 200, 64], 4),   # llama2-7b
+    (4, 32, 16, 128, 32, 32, 128, [1, 512, 200, 64], 2),
+    (4, 32, 16, 90, 32, 32, 128, [0, 512, 257, 300], 4),   # an empty row
+    (3, 40, 8, 120, 32, 8, 128, [300, 5, 150], 4),         # g=4, bs 8
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,W,bs,NB,H,Hk,hd,lengths,kv_bits", CARD_PAGED)
+def test_paged_kernel_matches_plain_and_contiguous_kernel(
+        cuda, B, W, bs, NB, H, Hk, hd, lengths, kv_bits, dtype):
+    """Against its plain version (the row of length 0 included: no
+    padding at these S), and bitwise against the contiguous kernel over
+    the gathered view."""
+    args = _card_paged(B, W, bs, NB, H, Hk, hd, lengths, kv_bits, dtype)
+    before = flash_decode_kvq_paged.launches
+    got = flash_decode_kvq_paged(*args)
+    torch.cuda.synchronize()
+    assert flash_decode_kvq_paged.launches == before + 1
+    want = flash_decode_kvq_paged_ref(*args)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _tol(want), err
+    q, ki, vi, ks, vs, table, lens, cbk, cbv = args
+    view = lambda a: paged_view(a, table)
+    assert torch.equal(got, flash_decode_kvq(q, view(ki), view(vi), view(ks),
+                                             view(vs), lens, cbk, cbv))
+
+
+@pytest.mark.cuda
+def test_paged_kernel_bitwise_deterministic(cuda):
+    args = _card_paged(*CARD_PAGED[0], torch.bfloat16)
+    assert torch.equal(flash_decode_kvq_paged(*args),
+                       flash_decode_kvq_paged(*args))
+
+
+@pytest.mark.cuda
+def test_paged_kernel_rejects_malformed_operands(cuda):
+    q, ki, vi, ks, vs, table, lens, cbk, cbv = _card_paged(*CARD_PAGED[3],
+                                                           torch.bfloat16)
+    bad = {
+        "int64 table": (ki, vi, ks, vs, table.long()),
+        "table rows != B": (ki, vi, ks, vs, table[:2]),
+        "strided table": (ki, vi, ks, vs, table[:, ::2]),
+        "scale arena shape": (ki, vi, ks[:-1], vs[:-1], table),
+        "index arena dtype": (ki.to(torch.int8), vi.to(torch.int8), ks, vs,
+                              table),
+        "3-d index arena": (ki[:, 0], vi[:, 0], ks, vs, table),
+    }
+    for what, (a, b, c, d, t) in bad.items():
+        with pytest.raises(ValueError):
+            flash_decode_kvq_paged(q, a, b, c, d, t, lens, cbk, cbv)
+        assert what

@@ -15,6 +15,12 @@ the warm-up at construction leaves the caches as ``init_cache`` made
 them; ``trace_counts`` counts one decode build and one build per
 prefill bucket used.
 
+The paged engine's steps are held the same way (kv_bits 16 with
+chunked prefill, 8 and 4, a pool small enough to preempt): the decode
+step over the block arenas and tables, the paged prefill buckets (which
+commit into the slot's blocks) and the chunk continuations, whose slot,
+table row, committed length and true length are static inputs too.
+
 On the card (marked ``cuda``, skipped here) a replayed decode step and a
 replayed prefill bucket equal the eager ones bitwise, and the launch
 counts of the replays are the capture's counts times the replays.
@@ -43,6 +49,7 @@ from repro_torch.models import RunConfig, build_model
 from repro_torch.serve import Engine, EngineConfig
 from repro_torch.serve import engine as engine_mod
 from repro_torch.serve import graphs
+from repro_torch.serve import paging
 from repro_torch.serve.kvcache import pad_prefill_cache
 
 # ops that read a device value back to the host, or make a tensor from
@@ -221,6 +228,78 @@ def test_construction_leaves_the_caches_as_init_cache_made_them(served):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+PAGED_CASES = [(16, 4), (8, None), (4, None)]   # kv_bits, prefill_chunk
+PAGED_PROMPT_LENS = (12, 9, 6, 11, 5)
+
+
+@pytest.fixture(scope="module", params=PAGED_CASES,
+                ids=[f"kv{k}-chunk{c}" for k, c in PAGED_CASES])
+def paged_served(request, model_params):
+    """A paged engine (8 blocks of 4 for 2 slots of 32: it preempts)
+    built and driven with every step recorded."""
+    kv_bits, chunk = request.param
+    model, params = model_params
+    calls = []
+    rc = RunConfig(attn_chunk=16, plan_policy=PlanPolicy(
+        impl="cuda", int8_prefill=kv_bits == 4))
+    with mock.patch.object(engine_mod, "StepGraph", _recording(calls)):
+        eng = Engine(model, params, rc, EngineConfig(
+            num_slots=2, max_len=32, kv_bits=kv_bits, paged=True,
+            block_size=4, num_blocks=8, prefill_chunk=chunk), device="cpu")
+        fresh = [t.clone() for t in _leaves(eng.caches)]
+        rng = np.random.default_rng(kv_bits)
+        prompts = [rng.integers(0, model.cfg.vocab_size, n).astype(np.int32)
+                   for n in PAGED_PROMPT_LENS]
+        out = eng.generate(prompts, 2 * MAX_NEW)
+    return {"eng": eng, "calls": calls, "fresh": fresh, "out": out,
+            "kv_bits": kv_bits, "chunk": chunk, "model": model}
+
+
+def test_paged_engine_hands_each_step_to_a_step_graph(paged_served):
+    eng, calls = paged_served["eng"], paged_served["calls"]
+    names = [n for n, _ in calls]
+    assert names[0] == ("tokens", "positions")
+    prefill = ("tokens", "slot", "bt_row", "true_len")
+    chunk = ("tokens", "slot", "bt_row", "hist", "true_len")
+    assert set(names[1:]) == ({prefill, chunk} if paged_served["chunk"]
+                              else {prefill})
+    assert eng.trace_counts["decode"] == 1
+    assert eng.trace_counts["prefill"] == names.count(prefill)
+    m = eng.metrics()
+    assert m["preemptions"] >= 1
+    if paged_served["chunk"]:
+        assert eng.trace_counts["prefill_chunk"] == names.count(chunk) >= 1
+        assert m["prefill_chunks"] >= 1
+    assert m["blocks_in_use"] == 0
+    assert len(calls[0][1]) == 1 + m["decode_steps"]
+    assert all(len(o) == 2 * MAX_NEW for o in paged_served["out"].values())
+
+
+def test_paged_steps_read_nothing_from_the_host(paged_served):
+    test_steps_read_nothing_from_the_host(paged_served)
+
+
+def test_paged_steps_get_the_same_static_inputs(paged_served):
+    test_steps_get_the_same_static_inputs(paged_served)
+
+
+def test_paged_construction_leaves_the_cache_as_init_cache_made_it(
+        paged_served):
+    """Arenas zero (the decode build's warm-up wrote only the sink, then
+    everything was zeroed) and every table entry the sentinel."""
+    eng, model = paged_served["eng"], paged_served["model"]
+    kw = ({"kv_int8": True} if paged_served["kv_bits"] == 8 else
+          {"kvq": eng.kvq} if eng.kvq is not None else {})
+    want = list(_leaves(model.init_cache(2, 32, device="cpu",
+                                         paging=eng.paging, **kw)))
+    got = paged_served["fresh"]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert paging.is_paged(eng.caches)
+    assert (eng.tables == eng.paging.sentinel).all()  # drained: all freed
 
 
 @pytest.mark.parametrize("kv_bits", [16, 8, 4])

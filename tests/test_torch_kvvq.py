@@ -18,6 +18,8 @@ CPU with the same numpy inputs:
     without ``int8_prefill``; kv_bits=3 raises.
 """
 import dataclasses
+import zlib
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -48,6 +50,11 @@ from repro_torch.serve import kvcache as tkv
 torch.set_num_threads(1)
 KEY = jax.random.PRNGKey(0)
 GEOMETRIES = [(4, 1), (4, 2), (2, 1)]
+
+
+def _stable_hash(s: str) -> int:
+    """A process-independent stand-in for ``hash`` of a string."""
+    return zlib.crc32(s.encode())
 
 
 def _np(a):
@@ -120,7 +127,11 @@ def test_kv_encode_bit_equal_and_decode(kv_bits, residual, variant):
 def setup():
     jcfg = dataclasses.replace(jax_smoke_config("llama2_7b"), dtype="float32")
     jm = jax_build_model(jcfg)
-    vq = jm.quantize(jm.init(KEY), method="synthetic", key=KEY)
+    # the reference salts its synthetic quantization key with
+    # hash(str(shape)), which changes with the process's hash seed: pin
+    # it, so every process (every xdist worker) holds the same params
+    with mock.patch.object(jq, "hash", _stable_hash, create=True):
+        vq = jm.quantize(jm.init(KEY), method="synthetic", key=KEY)
     cfg = dataclasses.replace(get_smoke_config("llama2_7b"), dtype="float32")
     conv = lambda t: from_jax_params(jax.tree_util.tree_map(np.asarray, t),
                                      device="cpu")
