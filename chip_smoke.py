@@ -83,7 +83,23 @@ Phases (any failure exits non-zero):
      phase is served again through vq_gemm + oc_lookup (fused_vq_matmul
      must launch 0 times), with its plain decode step, graph_step and
      profiles; the planner is restored afterwards;
-  7. a {"kernels": [...]} summary line, the card line, and the result
+  7. the other dense configs at full width and depth, GQA in the engine's
+     stream (the check phase also holds flash_decode, flash_decode_kvq
+     and both paged entries at their grouped heads, g = 4/2/3/8, and
+     fused_vq_matmul and dequant_gemv at their linears, with the lookup
+     kernel's picked launch shape): `serve_llama3_8b` and
+     `serve_llama3_8b_kvq` (as `serve` and `serve_kvq`; the int8 head
+     quantization of its 128256 rows timed); `serve_qwen3_0_6b`, then
+     `serve_qwen3_0_6b_ckpt` (the params saved with the port's
+     CheckpointManager, restored bit for bit, served again: the same
+     greedy tokens) and `serve_cli` (python -m repro_torch.launch.serve
+     --arch qwen3-0.6b --full in a subprocess: exit 0, the reference
+     CLI's two lines); `serve_qwen2_72b` (80 layers through
+     launch.serve.serve on the card: weight bytes against bf16 dense,
+     peak device memory; its plain decode step held at fp32
+     activations); `serve_minitron_4b` (g = 3); each with graph_step
+     and replayed profiles; each phase prints its wall seconds;
+  8. a {"kernels": [...]} summary line, the card line, and the result
      line {"ok": true, "device": {...}} last.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
@@ -110,13 +126,18 @@ SLOTS, MAX_LEN, N_REQUESTS, MAX_NEW = 4, 512, 8, 32
 BLOCK = 16                     # paged KV: positions a block
 TIGHT_BLOCKS = 40              # serve_paged_tight's pool (W = 32): it preempts
 GRAPH_STEPS = 8                # decode replays held to eager steps
-SERVED_BUCKETS = (32, 64, 128, 256)   # held to eager; the prompts use 64-256
 PROFILE_BUCKET = 128           # the prefill replay that is profiled
 HOST_REPS = 50                 # back-to-back calls per host-clock timing
+PLAIN_REL = 0.05               # a bf16 decode step against its plain version
+QWEN2_PLAIN_REL = 0.15         # the same through 80 random layers
 SEED = 0
 LOOKUP_M = (1, 2, SLOTS, 8)    # rows of M the lookup kernels are checked at
 LINEARS = (("wqkv", 4096, 12288), ("wo", 4096, 4096), ("gu", 4096, 22016),
            ("down", 11008, 4096))
+# the dense configs served after llama2-7b, and the (H, Hk) of their
+# grouped-query attention (g = H / Hk = 4, 2, 3, 8)
+OTHER_ARCHS = ("llama3_8b", "qwen3_0_6b", "minitron_4b", "qwen2_72b")
+GROUPS = ((32, 8), (16, 8), (24, 8), (64, 8))
 REPLACES = {
     "fused_vq_matmul": "src/repro/kernels/fused_vq_matmul/kernel.py:49",
     "flash_decode": "src/repro/kernels/flash_decode/kernel.py:33",
@@ -481,6 +502,9 @@ def check_kernels(torch, timer):
                           q, *(view(t) for t in pops[1:5]), lengths, cb, cb)})
         del pops, pview
 
+    check_grouped_attention(torch, gen, record)
+    check_other_linears(torch, gen, record)
+
     # INT8 GEMM at the prefill lm_head shape, at every bucket the served
     # prefill runs (bf16 activations and head, quantized as the wrapper
     # quantizes them); the library call is
@@ -503,6 +527,176 @@ def check_kernels(torch, timer):
                M * K + K * N + 4 * M + 4 * N + 4 * M * N, 2 * M * N * K,
                peak=INT8_OPS)
     return rows
+
+
+def arch_linears(cfg):
+    """(name, K, N) of the four decode linears of a dense config."""
+    return (("wqkv", cfg.d_model, cfg.q_dim + 2 * cfg.kv_dim),
+            ("wo", cfg.q_dim, cfg.d_model), ("gu", cfg.d_model, 2 * cfg.d_ff),
+            ("down", cfg.d_ff, cfg.d_model))
+
+
+def check_grouped_attention(torch, gen, record):
+    """B2, B7 (kv_bits=4) and their paged entries at the other configs'
+    grouped-query heads (GROUPS: g = 4, 2, 3, 8; hd 128), at the mixed
+    lengths of the llama2 rows, against their plain versions (bitwise
+    twice), the paged entries also bitwise against the contiguous kernel
+    over the gathered view; yardsticks as the llama2 rows (SDPA with
+    enable_gqa; the contiguous kernel on the view, and the gather with
+    it). Bounds count the K/V bytes of the Hk kv heads."""
+    import torch.nn.functional as F
+    from repro_torch.core.vq import KVQuantConfig, kv_decode, kv_encode, kv_grid_codebooks
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_kvq,
+                                                  flash_decode_kvq_paged,
+                                                  flash_decode_kvq_paged_ref,
+                                                  flash_decode_kvq_ref,
+                                                  flash_decode_paged,
+                                                  flash_decode_paged_ref,
+                                                  flash_decode_ref)
+    from repro_torch.models.common import paged_view
+
+    B, hd = SLOTS, 128
+    lengths = torch.tensor([1, MAX_LEN, 200, 64], dtype=torch.int32, device="cuda")
+    tot = int(lengths.sum())
+    mask = (torch.arange(MAX_LEN, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    W, NB = MAX_LEN // BLOCK, SLOTS * MAX_LEN // BLOCK
+    perm = torch.randperm(NB, generator=gen, device="cuda").int()
+    table = torch.full((B, W), NB, dtype=torch.int32, device="cuda")
+    used = 0
+    for b, n in enumerate(lengths.tolist()):
+        nb = -(-n // BLOCK)
+        table[b, :nb] = perm[used:used + nb]
+        used += nb
+    arena = lambda t: t.reshape((NB, BLOCK) + t.shape[2:])
+    view = lambda a: paged_view(a, table)
+    kvq = KVQuantConfig(kv_bits=4)
+    RG = kvq.idx_width(hd)
+    for H, Hk in GROUPS:
+        case = {"B": B, "H": H, "Hk": Hk, "group": H // Hk, "hd": hd,
+                "S": MAX_LEN, "lengths": lengths.tolist(), "dtype": "bfloat16"}
+        q = torch.randn((B, H, hd), generator=gen, device="cuda").bfloat16()
+        k = torch.randn((B, MAX_LEN, Hk, hd), generator=gen, device="cuda").bfloat16()
+        v = torch.randn((B, MAX_LEN, Hk, hd), generator=gen, device="cuda").bfloat16()
+        q4, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+        fp_bytes = 2 * q.numel() * 2 + tot * 2 * Hk * hd * 2 + B * 4
+        fp_ops = tot * H * hd * 4
+        tol = lambda want: 2.0 ** -7 * max(1.0, want.float().abs().max().item())
+        run = lambda: flash_decode(q, k, v, lengths)
+        got, want = run(), flash_decode_ref(q, k, v, lengths)
+        record("flash_decode", case, got, want, tol(want), run,
+               lambda: flash_decode_ref(q, k, v, lengths),
+               lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask,
+                                                      enable_gqa=True),
+               fp_bytes, fp_ops)
+        ka, va = arena(k), arena(v)
+        run = lambda: flash_decode_paged(q, ka, va, table, lengths)
+        got, want = run(), flash_decode_paged_ref(q, ka, va, table, lengths)
+        assert torch.equal(got, flash_decode(q, view(ka), view(va), lengths)), \
+            f"flash_decode_paged != contiguous at {H}/{Hk}"
+        kv_, vv_ = view(ka), view(va)
+        record("flash_decode_paged", {**case, "blocks": NB, "block": BLOCK}, got,
+               want, tol(want), run,
+               lambda: flash_decode_paged_ref(q, ka, va, table, lengths), None,
+               fp_bytes + table.numel() * 4, fp_ops,
+               extra={"contiguous_ms": lambda: flash_decode(q, kv_, vv_, lengths),
+                      "gather_kernel_ms": lambda: flash_decode(
+                          q, view(ka), view(va), lengths)})
+        del kv_, vv_
+        cb = kv_grid_codebooks(Hk, hd, kvq, device="cuda")
+        (k_idx, k_s), (v_idx, v_s) = kv_encode(k, cb), kv_encode(v, cb)
+        k_s, v_s = k_s.bfloat16(), v_s.bfloat16()
+        ops = (q, k_idx, v_idx, k_s, v_s, lengths, cb, cb)
+        kd = kv_decode(k_idx, k_s, cb).bfloat16().transpose(1, 2)
+        vd = kv_decode(v_idx, v_s, cb).bfloat16().transpose(1, 2)
+        # the table (RG x 256 entries per query head), per position the
+        # query heads' score gathers and weighted sums and the kv heads'
+        # V rebuild; bytes: q, the Hk heads' index rows and scales, both
+        # codebooks, the lengths, o
+        kvq_bytes = q.numel() * 4 + tot * Hk * (2 * RG + 2 * 2) \
+            + 2 * cb.numel() * 4 + B * 4
+        kvq_ops = B * H * RG * 256 * 2 * kvq.vec_d \
+            + tot * (H * (RG + 2 * hd) + Hk * hd * kvq.residual)
+        run = lambda: flash_decode_kvq(*ops)
+        got, want = run(), flash_decode_kvq_ref(*ops)
+        record("flash_decode_kvq", {**case, "kv_bits": 4}, got, want, tol(want),
+               run, lambda: flash_decode_kvq_ref(*ops),
+               lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
+                                                      enable_gqa=True),
+               kvq_bytes, kvq_ops)
+        pops = (q, *(arena(t) for t in (k_idx, v_idx, k_s, v_s)), table,
+                lengths, cb, cb)
+        pview = (q, *(view(t) for t in pops[1:5]), lengths, cb, cb)
+        run = lambda: flash_decode_kvq_paged(*pops)
+        got, want = run(), flash_decode_kvq_paged_ref(*pops)
+        assert torch.equal(got, flash_decode_kvq(*pview)), \
+            f"flash_decode_kvq_paged != contiguous at {H}/{Hk}"
+        record("flash_decode_kvq_paged",
+               {**case, "kv_bits": 4, "blocks": NB, "block": BLOCK}, got, want,
+               tol(want), run, lambda: flash_decode_kvq_paged_ref(*pops), None,
+               kvq_bytes + table.numel() * 4, kvq_ops,
+               extra={"contiguous_ms": lambda: flash_decode_kvq(*pview),
+                      "gather_kernel_ms": lambda: flash_decode_kvq(
+                          q, *(view(t) for t in pops[1:5]), lengths, cb, cb)})
+        del k, v, kd, vd, pops, pview
+
+
+def check_other_linears(torch, gen, record):
+    """B1 at M = SLOTS (decode) and B3 at M = MAX_LEN with bf16 x
+    (prefill) at the four linears of each of OTHER_ARCHS, against their
+    plain versions, with the llama2 rows' yardsticks and bounds."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.vq import dequantize, synthetic_vq
+    from repro_torch.kernels import build
+    from repro_torch.kernels.dequant_gemv import dequant_gemv
+    from repro_torch.kernels.eva_lookup import tiles
+    from repro_torch.kernels.fused_vq_matmul import fused_vq_matmul
+    from repro_torch.kernels.fused_vq_matmul.ops import select_split
+
+    C = 2
+    di = torch.cuda.current_device()
+    for arch in OTHER_ARCHS:
+        for name, K, N in arch_linears(get_config(arch)):
+            vq = synthetic_vq(gen, K, N, C=C, device="cuda")
+            w = dequantize(vq)
+            wb = w.to(torch.bfloat16)
+            V = K // 8
+            w_bytes = C * V * N + C * 8 * 256 * 4 + N * 4
+            M = SLOTS
+            x = torch.randn((M, K), generator=gen, device="cuda")
+            xb = x.to(torch.bfloat16)
+            run = lambda: fused_vq_matmul(x, vq, out_dtype=torch.float32)
+            plain = lambda: fused_vq_matmul(x, vq, out_dtype=torch.float32,
+                                            use_kernel=False)
+            got, want = run(), plain()
+            # the launch shape the tile model picks (fitted at llama2's
+            # linears only)
+            shape = select_split(M, V, N, C, build.device_sm_count(di),
+                                 tiles.cluster_slots("fused_vq_matmul", di, M,
+                                                     C, True))._asdict()
+            record("fused_vq_matmul", {"model": arch, "M": M, "linear": name,
+                                       "K": K, "N": N, "launch_shape": shape},
+                   got, want, 1e-4 * max(1.0, want.abs().max().item()), run,
+                   plain, lambda: torch.matmul(x, w),
+                   M * K * 4 + w_bytes + M * N * 4,
+                   C * M * V * 256 * 8 * 2 + C * M * V * N + M * N,
+                   extra={"library_bf16_ms": lambda: torch.matmul(xb, wb)})
+            M = MAX_LEN
+            xb = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+            x32 = xb.float()
+            run = lambda: dequant_gemv(xb, vq, out_dtype=torch.float32)
+            plain = lambda: dequant_gemv(xb, vq, out_dtype=torch.float32,
+                                         use_kernel=False)
+            got, want = run(), plain()
+            record("dequant_gemv", {"model": arch, "M": M, "linear": name,
+                                    "K": K, "N": N, "x": "bfloat16"},
+                   got, want, 1e-4 * max(1.0, want.abs().max().item()), run,
+                   plain, lambda: torch.matmul(x32, w),
+                   M * K * 2 + w_bytes + M * N * 4, 2 * 2 * M * K * N,
+                   peak=BF16_FLOPS,
+                   extra={"library_bf16_ms": lambda: torch.matmul(xb, wb)})
+            del vq, w, wb, got, want
 
 
 def breakdown(torch, timer):
@@ -633,6 +827,253 @@ def serve(torch, timer):
           "greedy_token_agreement": agreement(fp, split)})
     return {"serve": fp["launches"], "serve_kvq": kvq["launches"],
             "serve_split": split["launches"], **paged}
+
+
+def phase_seconds(name, t0) -> None:
+    emit({"phase_seconds": name, "seconds": time.perf_counter() - t0})
+
+
+def build_weights(torch, arch):
+    """``arch`` at full width and depth with random 2-bit VQ block weights
+    drawn on the card from SEED (block linears built from their shapes);
+    one line with the weights' bytes on the card against the same model
+    dense in bf16. Returns the model, its params and the phase's prompts
+    (the llama2 phases' lengths)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = model.quantize(model.init(gen, device="cuda", block_device="meta"),
+                            generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "weights", "model": arch, **weight_bytes(torch, params),
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "heads": [cfg.num_heads, cfg.num_kv_heads], "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab_size, "seconds": time.perf_counter() - t0})
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(32, 201, N_REQUESTS)]
+    return model, params, prompts
+
+
+def weight_bytes(torch, params) -> dict:
+    """The params' bytes on the card, their VQ'd part, the same model dense
+    in bf16, and counts."""
+    from repro_torch.core.quantize import compressed_model_bytes, vq_nodes
+    from repro_torch.models.api import param_count, param_tensors
+
+    vq_b, vq_dense_b = compressed_model_bytes(params)
+    vq = [node["vq"] for node in vq_nodes(params)]
+    return {"weight_bytes_on_card": sum(t.numel() * t.element_size()
+                                        for t in param_tensors(params)),
+            "vq_bytes": vq_b,
+            # the VQ'd linears dense in bf16, and every other tensor in bf16
+            "bf16_dense_bytes": vq_dense_b + 2 * (param_count(params)
+                                                  - param_count(vq)),
+            "vq_linears": len(vq),
+            "param_count": param_count(params),
+            "device_bytes": torch.cuda.memory_allocated()}
+
+
+def serve_other_configs(torch, timer):
+    """Phase 7: the other dense configs at full width, GQA in the
+    engine's stream. Returns each phase's kernel launches."""
+    import gc
+
+    from repro_torch.core.plan import PlanPolicy
+    from repro_torch.core.ops import quantize_int8
+    from repro_torch.models import RunConfig
+    from repro_torch.serve import EngineConfig
+
+    rc = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
+    rc_kvq = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda",
+                                              int8_prefill=True))
+    fp_kernels = ("fused_vq_matmul", "flash_decode", "dequant_gemv")
+    out = {}
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # llama3-8b: g = 4, vocab 128256; fp cache, then KV-VQ + INT8 prefill
+    t0 = time.perf_counter()
+    fresh()
+    model, params, prompts = build_weights(torch, "llama3_8b")
+    head = params["lm_head"]["w"]
+    emit({"phase": "int8_weight_quantization", "model": "llama3_8b",
+          "K": head.shape[0], "N": head.shape[1],
+          "ms_per_call": timer(lambda: quantize_int8(head, axis=0))})
+    fp = serve_phase(torch, model, params, prompts, "serve_llama3_8b", rc,
+                     EngineConfig(num_slots=SLOTS, max_len=MAX_LEN), fp_kernels,
+                     eager_profiles=False)
+    kvq = serve_phase(torch, model, params, prompts, "serve_llama3_8b_kvq",
+                      rc_kvq, EngineConfig(num_slots=SLOTS, max_len=MAX_LEN,
+                                           kv_bits=4),
+                      ("fused_vq_matmul", "flash_decode_kvq", "dequant_gemv",
+                       "int8_gemm"), eager_profiles=False)
+    emit({"phase": "llama3_8b_kv_bits_4_vs_16",
+          "greedy_token_agreement": agreement(fp, kvq)})
+    out["serve_llama3_8b"], out["serve_llama3_8b_kvq"] = (fp["launches"],
+                                                          kvq["launches"])
+    del model, params, head, fp, kvq
+    phase_seconds("serve_llama3_8b (+ weights, _kvq)", t0)
+
+    t0 = time.perf_counter()
+    fresh()
+    out["serve_qwen3_0_6b"] = serve_qwen3_ckpt(torch, rc, fp_kernels)
+    phase_seconds("serve_qwen3_0_6b (+ weights, _ckpt, cli)", t0)
+
+    t0 = time.perf_counter()
+    fresh()
+    out["serve_qwen2_72b"] = serve_qwen2(torch, fp_kernels)
+    phase_seconds("serve_qwen2_72b", t0)
+
+    t0 = time.perf_counter()
+    fresh()
+    model, params, prompts = build_weights(torch, "minitron_4b")
+    out["serve_minitron_4b"] = serve_phase(
+        torch, model, params, prompts, "serve_minitron_4b", rc,
+        EngineConfig(num_slots=SLOTS, max_len=MAX_LEN), fp_kernels,
+        eager_profiles=False)["launches"]
+    del model, params
+    phase_seconds("serve_minitron_4b (+ weights)", t0)
+    fresh()
+    return out
+
+
+def serve_qwen3_ckpt(torch, rc, required):
+    """qwen3-0.6b at full width and depth (qk_norm, q_dim 2048 != d_model
+    1024, vocab 151936): served, saved with the port's CheckpointManager,
+    restored (bit for bit), and served again from the restored params:
+    the greedy tokens must be equal. Then the port's CLI serves it once
+    in a subprocess, which must exit 0 and print the reference CLI's two
+    lines."""
+    import os
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import CheckpointManager, flatten_with_paths
+    from repro_torch.serve import Engine, EngineConfig
+
+    model, params, prompts = build_weights(torch, "qwen3_0_6b")
+    ecfg = EngineConfig(num_slots=SLOTS, max_len=MAX_LEN)
+    before = serve_phase(torch, model, params, prompts, "serve_qwen3_0_6b", rc,
+                         ecfg, required, eager_profiles=False)
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        t0 = time.perf_counter()
+        mgr.save(0, {"params": params})
+        save_s = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(root, f))
+                   for root, _, files in os.walk(d) for f in files)
+        t0 = time.perf_counter()
+        step, state = mgr.restore(device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    restored = state["params"]
+    a, b = dict(flatten_with_paths(params)), dict(flatten_with_paths(restored))
+    same = a.keys() == b.keys() and all(
+        (x.dtype == y.dtype and x.shape == y.shape and bool(torch.equal(x, y)))
+        if isinstance(x, torch.Tensor) else bool((x == y).all())
+        for x, y in ((a[k], b[k]) for k in a))
+    kernels.reset_launch_counts()
+    eng = Engine(model, restored, rc, ecfg, device="cuda")
+    tokens = list(eng.generate(prompts, MAX_NEW).values())
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    emit({"phase": "serve_qwen3_0_6b_ckpt", "step": step, "disk_bytes": disk,
+          "weight_bytes_on_card": weight_bytes(torch, params)[
+              "weight_bytes_on_card"],
+          "save_s": save_s, "restore_s": restore_s,
+          "restored_bitwise_equal": same,
+          "tokens_equal_before_save": tokens == before["tokens"],
+          "launches": launches})
+    assert same, "qwen3-0.6b: the restored params differ from the saved ones"
+    assert tokens == before["tokens"], "qwen3-0.6b: restored params serve other tokens"
+    missing = [k for k in required if launches[k] == 0]
+    assert not missing, f"serve_qwen3_0_6b_ckpt: never launched: {missing}"
+    del eng, restored, state, params, a, b
+    serve_cli(torch, ["--arch", "qwen3-0.6b", "--full"])
+    return before["launches"]
+
+
+def serve_cli(torch, argv):
+    """``python -m repro_torch.launch.serve`` in a subprocess (the kernels
+    built above are loaded from build/): exit 0 and the reference CLI's
+    two lines."""
+    import gc
+    import os
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *argv]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env={**os.environ,
+                                           "PYTHONPATH": str(ROOT / "src")})
+    lines = res.stdout.strip().splitlines()
+    ok = (res.returncode == 0 and len(lines) >= 2
+          and re.fullmatch(r"served \d+ requests, \d+ tokens, [\d.]+ tok/s",
+                           lines[-2]) is not None
+          and re.fullmatch(r"engine: admitted=\d+ rejected=0 finished=\d+ "
+                           r"\(stop=\d+ length=\d+\) decode_steps=\d+ "
+                           r"occupancy=\d\.\d\d", lines[-1]) is not None)
+    emit({"phase": "serve_cli", "argv": argv, "returncode": res.returncode,
+          "stdout": lines[-2:], "seconds": time.perf_counter() - t0})
+    assert ok, f"the CLI failed: {res.returncode}\n{res.stderr[-3000:]}"
+
+
+def serve_qwen2(torch, required):
+    """qwen2-72b at full width (80 layers, d_model 8192, 64/8 heads, d_ff
+    29568, vocab 152064, qkv biases) through the port's launch entry
+    point, ``launch.serve.serve(..., smoke=False, device="cuda")``: its
+    synthetic trace (8 requests, 32 new tokens, 4 slots) with prompts of
+    up to MAX_LEN - MAX_NEW - 8 tokens, so that max_len is MAX_LEN as in
+    the other serve phases; EVA decode and dequant_gemv prefill (vq_mode
+    "none", as the other serve phases); the weights' bytes on the card
+    against the model dense in bf16, the peak device memory, decode ms a
+    step and tok/s; then the engine's checks (plain decode step within
+    QWEN2_PLAIN_REL, graph_step, profiles)."""
+    from repro_torch import kernels
+    from repro_torch.launch.serve import serve as launch_serve
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = launch_serve("qwen2-72b", smoke=False, requests=N_REQUESTS,
+                       max_new=MAX_NEW, prompt_len=MAX_LEN - MAX_NEW - 8,
+                       vq_mode="none", device="cuda")
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    eng = out["engine"]
+    m = out["metrics"]
+    assert eng.ecfg.max_len == MAX_LEN, eng.ecfg.max_len
+    emit({"phase": "serve_qwen2_72b", **weight_bytes(torch, eng.params),
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "requests": N_REQUESTS, "slots": eng.ecfg.num_slots,
+          "max_len": eng.ecfg.max_len,
+          "prompt_tokens": m["prefill_prompt_tokens"],
+          "build_and_serve_s": total_s,
+          "wall_s": out["wall_s"], "tokens_generated": out["tokens"],
+          "tok_per_s": out["tok_per_s"], "decode_steps": m["decode_steps"],
+          "decode_ms_per_step": m["decode_s"] * 1e3 / m["decode_steps"],
+          "prefill_s": m["prefill_s"], "slot_occupancy": m["slot_occupancy"],
+          "kv_bytes_in_use": m["kv_bytes_in_use"], "launches": launches})
+    assert all(o.finish_reason == "length" and o.num_tokens == MAX_NEW
+               for o in out["outputs"].values()), "qwen2-72b: a request fell short"
+    missing = [k for k in required if launches[k] == 0]
+    assert not missing, f"serve_qwen2_72b: never launched: {missing}"
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    toks = torch.randint(0, eng.model.cfg.vocab_size, (SLOTS, 16), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    engine_checks(torch, eng.model, eng, toks, "serve_qwen2_72b", required,
+                  rel=QWEN2_PLAIN_REL, fp32_plain=True, eager_profiles=False)
+    return launches
 
 
 def agreement(a, b) -> float:
@@ -801,21 +1242,20 @@ def serve_split(torch, model, params, prompts):
 
 
 def serve_phase(torch, model, params, prompts, name, rc, ecfg, required,
-                absent=()):
+                absent=(), eager_profiles=True):
     """Serve ``prompts`` greedily to MAX_NEW tokens through a fresh Engine
     (after a short warm-up one), with every kernel count set to 0 just
     before and read just after; fail unless each kernel in ``required``
     launched and each in ``absent`` did not. Then one decode step through
     the kernels and through the plain versions (on a paged engine over a
     paged cache, where the step must run no index_select: no view is
-    gathered), graph_step and the profiles."""
+    gathered), graph_step and the profiles (``eager_profiles``: also
+    of the eager steps)."""
     import numpy as np
-    from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch import kernels
-    from repro_torch.core.quantize import kv_codebook_tree
     from repro_torch.serve import Engine, GenerationRequest, cache_bytes
-    from repro_torch.serve.kvcache import encode_prefill_cache, pad_prefill_cache
 
+    t_phase = time.perf_counter()
     cfg = model.cfg
     Engine(model, params, rc, ecfg, device="cuda").generate([prompts[0][:16]], 2)
     torch.cuda.synchronize()
@@ -867,7 +1307,7 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required,
         assert all(0 <= t < cfg.vocab_size for t in out.tokens)
         tokens.append(list(out.tokens))
     emit({"phase": name, "requests": N_REQUESTS, "slots": SLOTS,
-          "max_len": MAX_LEN, "kv_bits": ecfg.kv_bits, "paged": paged,
+          "max_len": ecfg.max_len, "kv_bits": ecfg.kv_bits, "paged": paged,
           "int8_prefill": rc.policy.int8_prefill, "wall_s": wall,
           "tokens_generated": m["tokens_generated"],
           "tok_per_s": m["tokens_generated"] / wall,
@@ -897,34 +1337,89 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required,
     if paged:
         assert m["blocks_in_use"] == m["kv_bytes_in_use"] == 0, m
 
-    # one decode step through the kernels and through the plain versions,
-    # on the engine's params and run config (codebooks attached, kv_vq set),
-    # from 64 prompt tokens in each slot of a cache of the engine's layout
-    params, rc = eng.params, eng.rc
     toks = torch.tensor(np.stack([p[:64] for p in prompts[:SLOTS]]),
                         dtype=torch.int32, device="cuda")
+    engine_checks(torch, model, eng, toks, name, required,
+                  eager_profiles=eager_profiles)
+    phase_seconds(name, t_phase)
+    return {"launches": launches, "tokens": tokens, "metrics": m,
+            "kv_bytes": m["kv_bytes_in_use"] or alloc}
+
+
+def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
+                  fp32_plain=False, eager_profiles=True):
+    """One decode step through the kernels and through the plain versions,
+    on the engine's params and run config (codebooks attached, kv_vq
+    set), from ``toks`` (SLOTS rows of n prompt tokens) in each slot of
+    a cache of the engine's layout (on a paged engine over a paged
+    cache, where the step must run no index_select: no view is
+    gathered), held within ``rel`` of max|logit| with the argmax agreeing
+    on 3 of 4 rows; then graph_step and the profiles. ``fp32_plain``
+    (a deep model, whose bf16 rounding flips alone move the logits past
+    PLAIN_REL): ``rel`` is wider, and two controls show that it still
+    tells a fault apart (the plain step one position early, and with the
+    next token id, must both drift past ``rel``); the two steps are also
+    held to each other with fp32 activations (the same params) within
+    1e-3. ``eager_profiles=False``: only the replays are profiled."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.core.quantize import kv_codebook_tree
+    from repro_torch.serve.kvcache import encode_prefill_cache, pad_prefill_cache
+
+    cfg = model.cfg
+    paged = eng.paging is not None
+    params, rc = eng.params, eng.rc
+    plain_rc = rc.replace_policy(impl="torch")
+    n = toks.shape[1]
+    controls = {}
     with torch.no_grad():
         _, cache = model.prefill(params, {"tokens": toks}, rc)
         if eng.kvq is not None:
             cache = encode_prefill_cache(cache, kv_codebook_tree(params),
                                          eng.kvq)
-        base = (paged_base(torch, model, eng, cache, 64) if paged
-                else pad_prefill_cache(cache, MAX_LEN))
+        base = (paged_base(torch, model, eng, cache, n) if paged
+                else pad_prefill_cache(cache, eng.ecfg.max_len))
         clone = lambda: {"body": {n: t.clone() for n, t in base["body"].items()}}
-        step = (toks[:, -1:], torch.full((SLOTS, 1), 64, dtype=torch.int32,
+        step = (toks[:, -1:], torch.full((SLOTS, 1), n, dtype=torch.int32,
                                          device="cuda"))
         got, _ = model.decode(params, *step, clone(), rc)
-        want, _ = model.decode(params, *step, clone(),
-                               rc.replace_policy(impl="torch"))
-    got, want = got[:, 0, :cfg.vocab_size], want[:, 0, :cfg.vocab_size]
-    drift = (got - want).abs().max().item()
-    rel = drift / want.abs().max().item()
-    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    emit({"phase": f"{name}_plain_decode_step", "max_abs_logit_drift": drift,
-          "rel_drift": rel, "argmax_agreement": agree,
-          "finite": bool(torch.isfinite(got).all())})
-    assert bool(torch.isfinite(got).all()) and rel <= 0.05 and agree >= 0.75
+        want, _ = model.decode(params, *step, clone(), plain_rc)
+        if fp32_plain:
+            for key, faulty in (("position_minus_1", (step[0], step[1] - 1)),
+                                ("next_token_id",
+                                 ((step[0] + 1) % cfg.vocab_size, step[1]))):
+                ctl, _ = model.decode(params, *faulty, clone(), plain_rc)
+                controls[key] = logit_drift(torch, got, ctl, cfg.vocab_size)[1]
+                del ctl
+    drift, rel_drift, agree, finite = logit_drift(torch, got, want,
+                                                  cfg.vocab_size)
+    row = {"phase": f"{name}_plain_decode_step", "max_abs_logit_drift": drift,
+           "rel_drift": rel_drift, "rel_bound": rel,
+           "argmax_agreement": agree, "finite": finite}
     del got, want
+    if fp32_plain:
+        import dataclasses
+
+        from repro_torch.models import build_model
+
+        row["control_rel_drift"] = controls
+        m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+        with torch.no_grad():
+            _, c32 = m32.prefill(params, {"tokens": toks}, rc)
+            c32 = pad_prefill_cache(c32, eng.ecfg.max_len)
+            got, _ = m32.decode(params, *step, c32, rc)
+            _, c32 = m32.prefill(params, {"tokens": toks}, rc)
+            c32 = pad_prefill_cache(c32, eng.ecfg.max_len)
+            want, _ = m32.decode(params, *step, c32, plain_rc)
+        drift32, rel32, agree32, finite32 = logit_drift(torch, got, want,
+                                                        cfg.vocab_size)
+        row["fp32"] = {"max_abs_logit_drift": drift32, "rel_drift": rel32,
+                       "argmax_agreement": agree32, "finite": finite32}
+        del got, want, c32
+    emit(row)
+    assert finite and rel_drift <= rel and agree >= 0.75, row
+    assert all(c > rel for c in controls.values()), row
+    if fp32_plain:
+        assert finite32 and rel32 <= 1e-3 and agree32 >= 0.75, row
     if paged:  # no view gathered on the card: no index_select in the step
         class Ops(TorchDispatchMode):
             seen = []
@@ -940,9 +1435,18 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required,
               "index_select": gathers})
         assert gathers == 0, f"{name}: the paged decode step gathers a view"
     graph_step(torch, model, eng, base, clone, name)
-    profile_decode(torch, model, eng, clone(), step, name, required)
-    return {"launches": launches, "tokens": tokens, "metrics": m,
-            "kv_bytes": m["kv_bytes_in_use"] or alloc}
+    profile_decode(torch, model, eng, clone(), step, name, required,
+                   eager_profiles=eager_profiles)
+
+
+def logit_drift(torch, got, want, vocab):
+    """Max |got - want| over the vocab of a (B, 1, V) step, relative to
+    max |want|, the argmax agreement, and whether got is finite."""
+    got, want = got[:, 0, :vocab], want[:, 0, :vocab]
+    drift = (got - want).abs().max().item()
+    return (drift, drift / want.abs().max().item(),
+            (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+            bool(torch.isfinite(got).all()))
 
 
 def paged_base(torch, model, eng, cache, n):
@@ -954,7 +1458,7 @@ def paged_base(torch, model, eng, cache, n):
     from repro_torch.serve import paging
 
     meta = eng.paging
-    base = model.init_cache(SLOTS, MAX_LEN, device="cuda", paging=meta,
+    base = model.init_cache(SLOTS, eng.ecfg.max_len, device="cuda", paging=meta,
                             **eng._cache_kw)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     perm = torch.randperm(meta.num_blocks, generator=gen, device="cuda")
@@ -1037,8 +1541,8 @@ def graph_step(torch, model, eng, base, clone, name):
     on the clone, with the same random tokens, must give equal logits at
     every step and equal cache leaves (``len`` included) after the last,
     and the replays must count the capture's launches times GRAPH_STEPS.
-    Prefill: each bucket of SERVED_BUCKETS, then MAX_LEN (the largest
-    bucket the engine allows, which the prompts do not use: built here),
+    Prefill: each bucket of 32 tokens and more up to the engine's max_len
+    (the largest bucket, which the prompts do not use: built here),
     replayed against the eager prefill (and the cache's quantization
     under kv_bits < 16, the graph's own function run eagerly): equal
     logits and cache leaves (on a paged engine the caches the step
@@ -1091,7 +1595,7 @@ def graph_step(torch, model, eng, base, clone, name):
         failed.append(f"decode launches {counts} != {want_counts}")
     del got, plain
 
-    steps = [(f"prefill@{b}", b, False) for b in SERVED_BUCKETS + (MAX_LEN,)]
+    steps = [(f"prefill@{b}", b, False) for b in eng._buckets if b >= 32]
     steps += [(f"chunk@{b}", b, True) for b in sorted(eng.chunk_graphs)]
     for label, bucket, chunk in steps:
         graphs = eng.chunk_graphs if chunk else eng.prefill_graphs
@@ -1109,7 +1613,7 @@ def graph_step(torch, model, eng, base, clone, name):
         if not equal:
             failed.append(label)
     assert eng.trace_counts["decode"] == 1, eng.trace_counts
-    assert sorted(eng.prefill_graphs)[-1] == MAX_LEN, eng.prefill_graphs
+    assert sorted(eng.prefill_graphs)[-1] == eng.ecfg.max_len, eng.prefill_graphs
     assert not failed, f"{name} graph_step: replay differs from eager: {failed}"
 
 
@@ -1125,9 +1629,11 @@ def pool_bytes(torch, pool):
 def device_profile(torch, run, steps: int = 5) -> dict:
     """Host wall per call of ``run`` over ``steps`` back-to-back calls
     (synchronized at the end, no profiler) against the device time of
-    the kernels the calls ran (torch.profiler), grouped by the port's
-    kernels (each CUDA function matched by its whole name) and
-    everything else."""
+    the kernels the calls ran (torch.profiler, device activity only: the
+    host's op events are not read, and recording them costs seconds a
+    call), grouped by the port's kernels (each CUDA function matched by
+    its whole name) and everything else; ``profile_s``: the host seconds
+    the profiled calls and the reading of their events took."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad():
@@ -1138,22 +1644,24 @@ def device_profile(torch, run, steps: int = 5) -> dict:
             run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
                 run()
             torch.cuda.synchronize()
-    groups = {}
+    groups, label = {}, {}
     n_kernels = 0
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         n_kernels += 1
-        key = next((label for fn, label in KERNEL_FUNCTIONS.items()
-                    if re.search(rf"\b{fn}\b", ev.name)), "other")
+        if ev.name not in label:
+            label[ev.name] = next((lab for fn, lab in KERNEL_FUNCTIONS.items()
+                                   if re.search(rf"\b{fn}\b", ev.name)), "other")
+        key = label[ev.name]
         groups[key] = groups.get(key, 0.0) + ev.time_range.elapsed_us()
     busy_ms = sum(groups.values()) / 1e3 / steps
-    return {"wall_ms_per_step": wall_ms,
+    return {"profile_s": time.perf_counter() - t0, "wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": busy_ms if n_kernels else None,
             "idle_share": (1 - busy_ms / wall_ms) if n_kernels else None,
             "device_kernels_per_step": n_kernels / steps,
@@ -1161,7 +1669,8 @@ def device_profile(torch, run, steps: int = 5) -> dict:
                                     for k, v in sorted(groups.items())}}
 
 
-def profile_decode(torch, model, eng, cache, step, name, required):
+def profile_decode(torch, model, eng, cache, step, name, required,
+                   eager_profiles=True):
     """Where a batched decode step's time goes, eager (``model.decode`` on
     ``cache``), replayed (the engine's decode graph on its caches) and as
     the engine runs it (the replay, then the eager sampling epilogue and
@@ -1169,13 +1678,15 @@ def profile_decode(torch, model, eng, cache, step, name, required):
     beside the eager prefill. Fails unless
     each kernel in ``required`` shows by its CUDA function among the
     device events of the replay that runs it: the device's own proof
-    that the graph holds the kernel."""
+    that the graph holds the kernel. ``eager_profiles=False`` skips the
+    two eager profiles (the other configs' phases: the replays are what
+    they serve)."""
     import numpy as np
 
     params, rc = eng.params, eng.rc
     tok, pos = (t.cpu().numpy() for t in step)
-    eager = device_profile(
-        torch, lambda: model.decode(params, *step, cache, rc))
+    eager = (device_profile(torch, lambda: model.decode(params, *step, cache, rc))
+             if eager_profiles else None)
     replay = device_profile(
         torch, lambda: eng.decode_graph(tokens=tok, positions=pos))
     # the engine's own step, its slots set active by hand (the engine is
@@ -1185,14 +1696,16 @@ def profile_decode(torch, model, eng, cache, step, name, required):
     eng.last_token[:], eng.positions[:] = tok[:, 0], pos[:, 0]
     engine_step = device_profile(torch, eng._decode)
     eng.active[:] = False
-    arrays = step_inputs(eng, PROFILE_BUCKET, np.random.default_rng(SEED + 4))
-    prefill = eng.prefill_graph(PROFILE_BUCKET)
+    bucket = max(b for b in eng._buckets if b <= PROFILE_BUCKET)
+    arrays = step_inputs(eng, bucket, np.random.default_rng(SEED + 4))
+    prefill = eng.prefill_graph(bucket)
     dt = device_inputs(torch, prefill, arrays)
-    prefill_eager = device_profile(torch, lambda: prefill.fn(**dt))
+    prefill_eager = (device_profile(torch, lambda: prefill.fn(**dt))
+                     if eager_profiles else None)
     prefill_replay = device_profile(torch, lambda: prefill(**arrays))
     emit({"phase": f"{name}_decode_profile", "batch": SLOTS,
           "eager": eager, "replay": replay, "engine_step": engine_step})
-    emit({"phase": f"{name}_prefill_profile", "bucket": PROFILE_BUCKET,
+    emit({"phase": f"{name}_prefill_profile", "bucket": bucket,
           "eager": prefill_eager, "replay": prefill_replay})
     missing = [k for k in required
                if k not in (replay if k in DECODE_KERNELS else prefill_replay)[
@@ -1220,9 +1733,14 @@ def main() -> int:
                         if "registers" in ln or "spill" in ln][:4]
                     for n, log in build.BUILD_LOG.items()}})
     timer = Timer(torch)
+    t0 = time.perf_counter()
     rows = check_kernels(torch, timer)
+    phase_seconds("check_kernels", t0)
+    t0 = time.perf_counter()
     breakdown(torch, timer)
+    phase_seconds("breakdown", t0)
     launches = serve(torch, timer)
+    launches.update(serve_other_configs(torch, timer))
     phase_of = {"flash_decode": "serve", "flash_decode_kvq": "serve_kvq",
                 "int8_gemm": "serve_kvq", "vq_gemm": "serve_split",
                 "oc_lookup": "serve_split",
@@ -1231,7 +1749,19 @@ def main() -> int:
 
     summary = []
     for name, replaces in REPLACES.items():
-        rs = rows[name]
+        # llama2-7b's rows: the other configs' linears and the grouped
+        # heads are reported beside them
+        rs = [r for r in rows[name] if "model" not in r["case"]
+              and r["case"].get("Hk") == r["case"].get("H")]
+        others = {}
+        for r in rows[name]:
+            if "model" in r["case"]:
+                key = r["case"]["model"]
+            elif "group" in r["case"]:
+                key = f"g{r['case']['group']}"
+            else:
+                continue
+            others[key] = others.get(key, 0.0) + r["kernel_ms"]
         if name in ("fused_vq_matmul", "vq_gemm", "oc_lookup"):
             # one decode layer at M = slots (B4: the served bf16 x)
             rs = [r for r in rs if r["case"]["M"] == SLOTS
@@ -1260,7 +1790,12 @@ def main() -> int:
             # precision; the paged entries: the contiguous kernel over the
             # gathered view, and the gather with it (the reference's route)
             **{k: tot(k) for k in ("library_bf16_ms", "contiguous_ms",
-                                   "gather_kernel_ms") if k in rs[0]}})
+                                   "gather_kernel_ms") if k in rs[0]},
+            # ms of the same case at the other configs (B1: a decode layer
+            # at M = slots; B3: the prefill layer) and grouped heads
+            **({"other_ms": others} if others else {}),
+            "launches_by_phase": {ph: c[name] for ph, c in launches.items()
+                                  if c.get(name)}})
     emit({"kernels": summary})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

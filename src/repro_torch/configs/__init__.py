@@ -1,23 +1,32 @@
 """Architecture registry of the port: ``get_config(arch)`` /
-``get_smoke_config(arch)``. Only the main path's model, llama2-7b, is
-ported so far (the other dense configs are ROADMAP A3, the other
-families A7)."""
+``get_smoke_config(arch)`` / ``all_configs()``. The dense family is
+ported: the paper's own model (llama2-7b) and the four dense assigned
+architectures, in the reference's ``ARCH_IDS`` order. The other families
+(whisper, xlstm, deepseek, mixtral, recurrentgemma, vision) wait for
+ROADMAP A7."""
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
 from repro_torch.models.common import ModelConfig
 
-ARCH_IDS: List[str] = ["llama2_7b"]
+ARCH_IDS: List[str] = [
+    "minitron_4b",
+    "qwen3_0_6b",
+    "llama3_8b",
+    "qwen2_72b",
+    # the paper's own model
+    "llama2_7b",
+]
 
 
 def _norm(arch: str) -> str:
     name = arch.replace("-", "_").replace(".", "_")
     if name not in ARCH_IDS:
         raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet (ROADMAP A3, A7); ported: "
-            f"{ARCH_IDS}")
+            f"architecture {arch!r} is not ported yet (ROADMAP A7: the "
+            f"other families); ported: {ARCH_IDS}")
     return name
 
 
@@ -27,3 +36,7 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return importlib.import_module(f"repro_torch.configs.{_norm(arch)}").SMOKE
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

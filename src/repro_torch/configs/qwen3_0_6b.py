@@ -1,0 +1,35 @@
+"""Qwen3-0.6B — qk_norm, GQA [hf:Qwen/Qwen3-8B family; hf].
+
+28L d_model=1024 16H (GQA kv=8) d_ff=3072 vocab=151936.
+"""
+from repro_torch.models.common import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-0.6b",
+    family="dense",
+    num_layers=28,
+    d_model=1024,
+    num_heads=16,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=3072,
+    vocab_size=151936,
+    qk_norm=True,
+    rope_theta=1000000.0,
+    vq_C=2,
+)
+
+SMOKE = ModelConfig(
+    name="qwen3-0.6b-smoke",
+    family="dense",
+    num_layers=2,
+    d_model=128,
+    num_heads=4,
+    num_kv_heads=2,
+    head_dim=32,
+    d_ff=256,
+    vocab_size=512,
+    qk_norm=True,
+    rope_theta=1000000.0,
+    vq_C=2,
+)

@@ -17,6 +17,16 @@ params on ``device``:
     {"k", "v"} of shape (L, Hk, R, 256, vd) becomes one (Hk, R, 256, vd)
     pair per layer.
 
+The leaves may also be tensors (on any device; they are moved to
+``device``), tuples and None, as ``checkpoint.manager`` restores them.
+
+``to_reference_layout(tree)`` is the inverse of the unstacking: every
+``"layers"`` list of per-layer dicts becomes one node whose leaves (and
+VQWeight tensors) are stacked on a leading L axis, numpy arrays with
+``np.stack`` and tensors with ``torch.stack``. A tensor several layers
+share (the KV-VQ codebooks ``attach_kv_codebooks`` attaches) is stacked
+like any other, as the reference holds it.
+
 The port imports nothing of the reference: the VQWeight is recognized by
 its attributes.
 """
@@ -35,13 +45,16 @@ _VQ_FIELDS = ("idx", "codebooks", "scale", "K", "N", "d", "n", "splits")
 _STACKED = ("layers",)
 
 
-def _is_vq(node: Any) -> bool:
+def is_vq(node: Any) -> bool:
+    """Whether ``node`` is a VQWeight of either package (by attributes)."""
     return all(hasattr(node, f) for f in _VQ_FIELDS)
 
 
 def to_tensor(a: Any, device: torch.device) -> torch.Tensor:
     """numpy (or array-like) -> tensor of the same dtype on ``device``
-    (a copy: arrays handed out by JAX are read-only)."""
+    (a copy: arrays handed out by JAX are read-only); a tensor moves."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.array(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes bf16: reinterpret the bits
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
@@ -49,7 +62,7 @@ def to_tensor(a: Any, device: torch.device) -> torch.Tensor:
 
 
 def _convert(node: Any, device: torch.device) -> Any:
-    if _is_vq(node):
+    if is_vq(node):
         return VQWeight(idx=to_tensor(node.idx, device),
                         codebooks=to_tensor(node.codebooks, device),
                         scale=to_tensor(node.scale, device), K=int(node.K),
@@ -58,23 +71,29 @@ def _convert(node: Any, device: torch.device) -> Any:
     if isinstance(node, dict):
         return {k: (_unstack(v, device) if k in _STACKED
                     else _convert(v, device)) for k, v in node.items()}
+    if isinstance(node, tuple):
+        return tuple(_convert(v, device) for v in node)
+    if node is None:
+        return None
     return to_tensor(node, device)
 
 
 def _index(node: Any, i: int) -> Any:
     """Layer ``i`` of a stacked subtree."""
-    if _is_vq(node):
+    if is_vq(node):
         return types.SimpleNamespace(
             idx=node.idx[i], codebooks=node.codebooks[i],
             scale=node.scale[i], K=node.K, N=node.N, d=node.d, n=node.n,
             splits=node.splits)
     if isinstance(node, dict):
         return {k: _index(v, i) for k, v in node.items()}
+    if isinstance(node, torch.Tensor):
+        return node[i]
     return np.asarray(node)[i]
 
 
 def _leading(node: Any) -> int:
-    if _is_vq(node):
+    if is_vq(node):
         return int(np.shape(node.idx)[0])
     if isinstance(node, dict):
         return _leading(next(iter(node.values())))
@@ -89,3 +108,31 @@ def from_jax_params(tree: Any, *, device: DeviceLike = None) -> Any:
     """The port's params for a numpy-leaved JAX param tree (see module
     docstring). ``device`` defaults to "cuda"."""
     return _convert(tree, resolve_device(device))
+
+
+def _stack(layers: list) -> Any:
+    first = layers[0]
+    if is_vq(first):
+        return VQWeight(idx=_stack([v.idx for v in layers]),
+                        codebooks=_stack([v.codebooks for v in layers]),
+                        scale=_stack([v.scale for v in layers]), K=first.K,
+                        N=first.N, d=first.d, n=first.n,
+                        splits=tuple(first.splits))
+    if isinstance(first, dict):
+        return {k: _stack([layer[k] for layer in layers]) for k in first}
+    if isinstance(first, torch.Tensor):
+        return torch.stack(layers)
+    return np.stack(layers)
+
+
+def to_reference_layout(tree: Any) -> Any:
+    """The reference's layout of a port tree (see module docstring):
+    ``"layers"`` lists stacked on L; everything else as it is."""
+    if is_vq(tree):
+        return tree
+    if isinstance(tree, dict):
+        return {k: (_stack(v) if k in _STACKED and isinstance(v, list)
+                    else to_reference_layout(v)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_reference_layout(v) for v in tree)
+    return tree

@@ -14,6 +14,10 @@ shapes on the target device, never materializing its dense block
 weights. ``fit`` (k-means), quantizing the LM head and the shard-aware
 grouping options are not ported yet (ROADMAP A8).
 
+``count_vq_layers`` and ``compressed_model_bytes`` count the quantized
+sites and their bytes (the port holds one VQWeight a layer, so a site
+counts once per layer where the reference's stacked node counts once).
+
 ``attach_kv_codebooks`` gives every attention node the per-head KV-VQ
 codebooks a compressed cache encodes against (``kv_cb``: {"k", "v"} of
 shape (Hk, R, 256, vec_d)), and ``kv_codebook_tree`` collects them
@@ -144,6 +148,33 @@ def quantize_params(params: Any, cfg: ModelConfig, *,
         return _to_serving_dtype(node.to(dev))
 
     return walk(params, ())
+
+
+def vq_nodes(params: Any):
+    """Every ``{"vq": VQWeight}`` node of a param tree (dicts and lists)."""
+    if isinstance(params, list):
+        for v in params:
+            yield from vq_nodes(v)
+    elif isinstance(params, dict):
+        if "vq" in params:
+            yield params
+        for v in params.values():
+            yield from vq_nodes(v)
+
+
+def count_vq_layers(params: Any) -> int:
+    """Number of quantized linears (one per layer and site)."""
+    return sum(1 for _ in vq_nodes(params))
+
+
+def compressed_model_bytes(params: Any) -> Tuple[int, int]:
+    """(bytes of the VQ'd leaves, bytes of the same weights dense in bf16)."""
+    vq_b = dense_b = 0
+    for node in vq_nodes(params):
+        v = node["vq"]
+        vq_b += v.compressed_bytes()
+        dense_b += v.K * v.N * 2
+    return vq_b, dense_b
 
 
 def _is_gqa_attn_node(node: Any, path: Tuple[str, ...]) -> bool:

@@ -53,6 +53,12 @@ class VQWeight:
     def V(self) -> int:
         return self.K // self.d
 
+    def compressed_bytes(self) -> int:
+        """Bytes of the indices, the fp32 codebooks and the fp32 scales."""
+        idx_bytes = self.C * self.V * self.N * (1 if self.n <= 8 else 4)
+        cb_bytes = self.C * self.d * (2 ** self.n) * 4
+        return idx_bytes + cb_bytes + self.N * 4
+
 
 def dequantize(vq: VQWeight) -> torch.Tensor:
     """Reconstruct W_hat (K, N) fp32 — the conventional-VQ baseline."""

@@ -13,13 +13,13 @@ raise without a GPU unless the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.core.quantize import quantize_params
-from repro_torch.core.vq import KVQuantConfig
+from repro_torch.core.vq import KVQuantConfig, VQWeight
 from repro_torch.models import transformer
 from repro_torch.models.common import ModelConfig, RunConfig
 
@@ -87,6 +87,27 @@ class Model:
         batch = {"tokens": tokens, "positions": positions}
         return self.forward(params, batch, rc.replace(mode="decode"),
                             caches=caches)
+
+
+def param_tensors(params: Any) -> Iterator[torch.Tensor]:
+    """Every tensor of a param tree, a VQWeight's indices, codebooks and
+    scales included (a tensor shared by several layers once a layer)."""
+    if isinstance(params, torch.Tensor):
+        yield params
+    elif isinstance(params, dict):
+        for v in params.values():
+            yield from param_tensors(v)
+    elif isinstance(params, (list, tuple)):
+        for v in params:
+            yield from param_tensors(v)
+    elif isinstance(params, VQWeight):
+        yield from (params.idx, params.codebooks, params.scale)
+
+
+def param_count(params: Any) -> int:
+    """Elements of every tensor in a param tree (as the reference's
+    stacked leaves count them)."""
+    return sum(t.numel() for t in param_tensors(params))
 
 
 def build_model(cfg: ModelConfig) -> Model:

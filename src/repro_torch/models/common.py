@@ -21,6 +21,7 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -134,11 +135,8 @@ def _dense_init(gen: torch.Generator, K: int, N: int, device) -> torch.Tensor:
     return torch.randn((K, N), generator=gen, device=device) / math.sqrt(K)
 
 
-def make_linear(gen, K: int, N: int, *, device, bias: bool = False) -> Params:
-    p = {"w": _dense_init(gen, K, N, device)}
-    if bias:
-        p["b"] = torch.zeros((N,), device=device)
-    return p
+def make_linear(gen, K: int, N: int, *, device) -> Params:
+    return {"w": _dense_init(gen, K, N, device)}
 
 
 def make_rmsnorm(d: int, device) -> Params:
@@ -146,13 +144,13 @@ def make_rmsnorm(d: int, device) -> Params:
 
 
 def make_attention(gen, cfg: ModelConfig, *, device, block_device) -> Params:
-    bias = cfg.qkv_bias
-    p = {
-        "wq": make_linear(gen, cfg.d_model, cfg.q_dim, device=block_device, bias=bias),
-        "wk": make_linear(gen, cfg.d_model, cfg.kv_dim, device=block_device, bias=bias),
-        "wv": make_linear(gen, cfg.d_model, cfg.kv_dim, device=block_device, bias=bias),
-        "wo": make_linear(gen, cfg.q_dim, cfg.d_model, device=block_device),
-    }
+    p = {"wq": make_linear(gen, cfg.d_model, cfg.q_dim, device=block_device),
+         "wk": make_linear(gen, cfg.d_model, cfg.kv_dim, device=block_device),
+         "wv": make_linear(gen, cfg.d_model, cfg.kv_dim, device=block_device),
+         "wo": make_linear(gen, cfg.q_dim, cfg.d_model, device=block_device)}
+    if cfg.qkv_bias:  # real zeros even over meta weights: quantization keeps them
+        for name in ("wq", "wk", "wv"):
+            p[name]["b"] = torch.zeros((p[name]["w"].shape[1],), device=device)
     if cfg.qk_norm:
         p["qnorm"] = make_rmsnorm(cfg.head_dim, device)
         p["knorm"] = make_rmsnorm(cfg.head_dim, device)
@@ -206,8 +204,12 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
+    """1 / theta^(2i / head_dim) as the reference computes it: the fp32
+    exponent, the power rounded once to fp32 (taken in fp64: fp32
+    ``pow`` is off by an ulp at theta 1e6 for some i, and a large theta
+    magnifies that in the angle), then the fp32 reciprocal."""
+    e = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / torch.pow(float(np.float32(theta)), e.double()).float()
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
