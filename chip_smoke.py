@@ -30,7 +30,9 @@ Phases (any failure exits non-zero):
      against their plain versions and bitwise against the contiguous
      kernels over the gathered view, and timed beside the contiguous
      kernel and the reference's route (a gather of the view, then the
-     contiguous kernel);
+     contiguous kernel); last, fused_vq_matmul at the four decode
+     linears with the rows of a speculative verify window, M = 12 and 16
+     (K = 2, 3 at 4 slots), with the tile model's launch shape;
   3b. `breakdown`: fused_vq_matmul and oc_lookup against their
      timing-only variants (no lookup, no index loads, no output codebook,
      no split reduce; compile-time builds of the same sources), and
@@ -82,7 +84,19 @@ Phases (any failure exits non-zero):
      calibration that prices eva_fused above eva_split, and the fp-cache
      phase is served again through vq_gemm + oc_lookup (fused_vq_matmul
      must launch 0 times), with its plain decode step, graph_step and
-     profiles; the planner is restored afterwards;
+     profiles; the planner is restored afterwards; then `serve_spec`
+     (`serve` with speculate_k = 3: the decode graph built once at 4
+     tokens a slot, flash_decode 0 launches, each replay running every
+     VQ linear through the EVA kernel the planner ranks at M = 16,
+     drafted = accepted + rejected; graph_step replays the verify window
+     against the eager one with the eager part applied to both; row 0 of
+     a window within PLAIN_REL of `serve`'s step on the same cache; the
+     plain window attention's device time; decode ms a step, tokens a
+     step, acceptance rate and tok/s beside `serve`'s) and `serve_vql`
+     (`serve`'s traffic with a synthetic VQ-Logits head of 2048
+     codewords, against the same model with the head's expansion:
+     greedy token agreement, prefill logits within VQL_REL, the head's
+     device time beside the dense bf16 head's);
   7. the other dense configs at full width and depth, GQA in the engine's
      stream (the check phase also holds flash_decode, flash_decode_kvq
      and both paged entries at their grouped heads, g = 4/2/3/8, and
@@ -99,8 +113,9 @@ Phases (any failure exits non-zero):
      peak device memory; its plain decode step held at fp32
      activations); `serve_minitron_4b` (g = 3); each with graph_step
      and replayed profiles; each phase prints its wall seconds;
-  8. a {"kernels": [...]} summary line, the card line, and the result
-     line {"ok": true, "device": {...}} last.
+  8. a {"kernels": [...]} summary line (fused_vq_matmul's row also
+     sums its verify-window rows, `verify_window`), the card line, and
+     the result line {"ok": true, "device": {...}} last.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
 before printing any result.
@@ -132,6 +147,13 @@ PLAIN_REL = 0.05               # a bf16 decode step against its plain version
 QWEN2_PLAIN_REL = 0.15         # the same through 80 random layers
 SEED = 0
 LOOKUP_M = (1, 2, SLOTS, 8)    # rows of M the lookup kernels are checked at
+SPEC_K = 3                     # serve_spec's drafts a step
+# B1's rows in a speculative verify window, M = slots x (K + 1), K = 2, 3
+SPEC_M = tuple(SLOTS * (k + 1) for k in (2, SPEC_K))
+VQL_KC = 2048                  # serve_vql's codewords (a 32000-row vocab)
+# the VQ-Logits head against its expansion, both bf16 GEMMs rounded to
+# bf16: one bf16 ulp of the largest logit
+VQL_REL = 2.0 ** -7
 LINEARS = (("wqkv", 4096, 12288), ("wo", 4096, 4096), ("gu", 4096, 22016),
            ("down", 11008, 4096))
 # the dense configs served after llama2-7b, and the (H, Hk) of their
@@ -258,31 +280,15 @@ def check_kernels(torch, timer):
                                  f"or not deterministic ({det})")
         rows[kernel].append(row)
 
-    # B1 at the decode linears. The library call computing the same
-    # function is fp32 torch.matmul on the dequantized fp32 weights (TF32
-    # off); bf16 torch.matmul on bf16-rounded weights is timed beside it,
-    # at lower precision (it misses the tolerance)
+    # B1 at the decode linears (check_b1)
     C = 2
     lookup_cases = [(M, name, K, N) for M in LOOKUP_M for name, K, N in LINEARS]
     lookup_cases.append((3, "ragged", 296, 1030))
     for M, name, K, N in lookup_cases:
         vq = synthetic_vq(gen, K, N, C=C, device="cuda")
         x = torch.randn((M, K), generator=gen, device="cuda")
-        xb = x.to(torch.bfloat16)
-        w = dequantize(vq)
-        wb = w.to(torch.bfloat16)
-        run = lambda: fused_vq_matmul(x, vq, out_dtype=torch.float32)
-        plain = lambda: fused_vq_matmul(x, vq, out_dtype=torch.float32,
-                                        use_kernel=False)
-        got, want = run(), plain()
-        tol = 1e-4 * max(1.0, want.abs().max().item())
-        V = K // 8
-        record("fused_vq_matmul", {"M": M, "linear": name, "K": K, "N": N},
-               got, want, tol, run, plain, lambda: torch.matmul(x, w),
-               M * K * 4 + C * V * N + C * 8 * 256 * 4 + N * 4 + M * N * 4,
-               C * M * V * 256 * 8 * 2 + C * M * V * N + M * N,
-               extra={"library_bf16_ms": lambda: torch.matmul(xb, wb)})
-        del vq, w, wb
+        check_b1(torch, record, vq, x, {"linear": name})
+        del vq
 
     # B3 at the prefill layer (M = MAX_LEN) with fp32 x (the reference's
     # precision: three bf16 products) and with bf16 x (the served dtype:
@@ -526,7 +532,65 @@ def check_kernels(torch, timer):
                lambda: torch._int_mm(xq, wq_cm).float() * xs * ws,
                M * K + K * N + 4 * M + 4 * N + 4 * M * N, 2 * M * N * K,
                peak=INT8_OPS)
+    check_verify_window_linears(torch, gen, record)
     return rows
+
+
+def check_verify_window_linears(torch, gen, record):
+    """B1 at llama2-7b's four decode linears with the rows of a
+    speculative verify window, M = slots x (K + 1) (SPEC_M), as
+    serve_spec runs it: against its plain version, bitwise equal from
+    run to run, beside fp32 and bf16 torch.matmul on the dequantized
+    weights; the bound from the bytes and from the products' and
+    lookups' fp32 operations at that M; the launch shape the tile model
+    picks (fitted at M <= 8, in tiles of 4 rows)."""
+    from repro_torch.core.vq import synthetic_vq
+
+    for M in SPEC_M:
+        for name, K, N in LINEARS:
+            vq = synthetic_vq(gen, K, N, C=2, device="cuda")
+            x = torch.randn((M, K), generator=gen, device="cuda")
+            check_b1(torch, record, vq, x,
+                     {"speculate_k": M // SLOTS - 1, "linear": name},
+                     launch_shape=True)
+            del vq
+
+
+def check_b1(torch, record, vq, x, case, launch_shape=False):
+    """B1 on fp32 ``x`` (M, K) against its plain version. The library call
+    computing the same function is fp32 torch.matmul on the dequantized
+    fp32 weights (TF32 off); bf16 torch.matmul on bf16-rounded weights is
+    timed beside it, at lower precision (it misses the tolerance). The
+    bound: x, the indices, codebooks and scales, y; the products and
+    lookups at the fp32 rate. ``launch_shape``: the case also records
+    the launch shape the tile model picks."""
+    from repro_torch.core.vq import dequantize
+    from repro_torch.kernels import build
+    from repro_torch.kernels.eva_lookup import tiles
+    from repro_torch.kernels.fused_vq_matmul import fused_vq_matmul
+    from repro_torch.kernels.fused_vq_matmul.ops import select_split
+
+    (M, K), N, C = x.shape, vq.N, vq.C
+    V = K // 8
+    xb = x.to(torch.bfloat16)
+    w = dequantize(vq)
+    wb = w.to(torch.bfloat16)
+    run = lambda: fused_vq_matmul(x, vq, out_dtype=torch.float32)
+    plain = lambda: fused_vq_matmul(x, vq, out_dtype=torch.float32,
+                                    use_kernel=False)
+    got, want = run(), plain()
+    case = {"M": M, **case, "K": K, "N": N}
+    if launch_shape:
+        di = torch.cuda.current_device()
+        case["launch_shape"] = select_split(
+            M, V, N, C, build.device_sm_count(di),
+            tiles.cluster_slots("fused_vq_matmul", di, M, C, True))._asdict()
+    record("fused_vq_matmul", case, got, want,
+           1e-4 * max(1.0, want.abs().max().item()), run, plain,
+           lambda: torch.matmul(x, w),
+           M * K * 4 + C * V * N + C * 8 * 256 * 4 + N * 4 + M * N * 4,
+           C * M * V * 256 * 8 * 2 + C * M * V * N + M * N,
+           extra={"library_bf16_ms": lambda: torch.matmul(xb, wb)})
 
 
 def arch_linears(cfg):
@@ -648,14 +712,9 @@ def check_other_linears(torch, gen, record):
     plain versions, with the llama2 rows' yardsticks and bounds."""
     from repro_torch.configs import get_config
     from repro_torch.core.vq import dequantize, synthetic_vq
-    from repro_torch.kernels import build
     from repro_torch.kernels.dequant_gemv import dequant_gemv
-    from repro_torch.kernels.eva_lookup import tiles
-    from repro_torch.kernels.fused_vq_matmul import fused_vq_matmul
-    from repro_torch.kernels.fused_vq_matmul.ops import select_split
 
     C = 2
-    di = torch.cuda.current_device()
     for arch in OTHER_ARCHS:
         for name, K, N in arch_linears(get_config(arch)):
             vq = synthetic_vq(gen, K, N, C=C, device="cuda")
@@ -663,25 +722,11 @@ def check_other_linears(torch, gen, record):
             wb = w.to(torch.bfloat16)
             V = K // 8
             w_bytes = C * V * N + C * 8 * 256 * 4 + N * 4
-            M = SLOTS
-            x = torch.randn((M, K), generator=gen, device="cuda")
-            xb = x.to(torch.bfloat16)
-            run = lambda: fused_vq_matmul(x, vq, out_dtype=torch.float32)
-            plain = lambda: fused_vq_matmul(x, vq, out_dtype=torch.float32,
-                                            use_kernel=False)
-            got, want = run(), plain()
             # the launch shape the tile model picks (fitted at llama2's
             # linears only)
-            shape = select_split(M, V, N, C, build.device_sm_count(di),
-                                 tiles.cluster_slots("fused_vq_matmul", di, M,
-                                                     C, True))._asdict()
-            record("fused_vq_matmul", {"model": arch, "M": M, "linear": name,
-                                       "K": K, "N": N, "launch_shape": shape},
-                   got, want, 1e-4 * max(1.0, want.abs().max().item()), run,
-                   plain, lambda: torch.matmul(x, w),
-                   M * K * 4 + w_bytes + M * N * 4,
-                   C * M * V * 256 * 8 * 2 + C * M * V * N + M * N,
-                   extra={"library_bf16_ms": lambda: torch.matmul(xb, wb)})
+            x = torch.randn((SLOTS, K), generator=gen, device="cuda")
+            check_b1(torch, record, vq, x, {"model": arch, "linear": name},
+                     launch_shape=True)
             M = MAX_LEN
             xb = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
             x32 = xb.float()
@@ -825,8 +870,174 @@ def serve(torch, timer):
     split = serve_split(torch, model, params, prompts)
     emit({"phase": "split_vs_fused",
           "greedy_token_agreement": agreement(fp, split)})
+    spec = serve_spec(torch, model, params, prompts, fp)
+    vql = serve_vql(torch, model, params, prompts)
     return {"serve": fp["launches"], "serve_kvq": kvq["launches"],
-            "serve_split": split["launches"], **paged}
+            "serve_split": split["launches"], **paged,
+            "serve_spec": spec["launches"], "serve_vql": vql["launches"]}
+
+
+def serve_spec(torch, model, params, prompts, fp):
+    """`serve_spec`: `serve`'s configuration and traffic with speculate_k
+    = SPEC_K. The decode graph is built once, at K + 1 tokens a slot;
+    each replay runs every VQ linear through the EVA backend the planner
+    ranks first at M = slots x (K + 1) (printed) and flash_decode never
+    (the window attends through plain torch, as the reference's does);
+    drafted = accepted + rejected; every request gets its tokens. The
+    serve phase's checks run on it with the speculative step (graph_step
+    replays the verify window against ``verify_logits`` run eagerly,
+    with the eager part applied to both; row 0 of a window held within
+    PLAIN_REL of `serve`'s step on the same cache). Then the plain
+    window attention's device time, and the phase beside `serve`."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.plan import PlanPolicy
+    from repro_torch.models import RunConfig
+    from repro_torch.models.common import decode_attention
+    from repro_torch.serve import EngineConfig
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    rc = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
+    M = SLOTS * (SPEC_K + 1)
+    ranked = sorted({pl.backend for _, pl in plan_mod.preplan_params(
+        params, rc.policy, mode="decode", m=M, act_dtype=cfg.act_dtype)
+        if pl.spec.kind == "vq"})
+    eva = {"eva_fused": ("fused_vq_matmul",),
+           "eva_split": ("vq_gemm", "oc_lookup")}
+    eva_kernels = tuple(k for b in ranked for k in eva[b])
+    emit({"phase": "serve_spec_plan", "M": M, "vq_backends": ranked})
+    out = serve_phase(torch, model, params, prompts, "serve_spec", rc,
+                      EngineConfig(num_slots=SLOTS, max_len=MAX_LEN,
+                                   speculate_k=SPEC_K),
+                      eva_kernels + ("dequant_gemv",), absent=("flash_decode",))
+    m, per_replay = out["metrics"], out["decode_launches"]
+    linears = 4 * cfg.num_layers
+    row = {"phase": "serve_spec_checks", "speculate_k": SPEC_K,
+           "decode_launches_per_replay": per_replay,
+           "vq_linears_per_step": linears, "trace_counts": out["trace_counts"],
+           **{k: m[k] for k in ("drafted_tokens", "accepted_draft_tokens",
+                                "rejected_draft_tokens", "extra_decode_tokens",
+                                "tokens_generated")}}
+    emit(row)
+    assert out["trace_counts"]["decode"] == 1, row
+    assert "flash_decode" not in per_replay, row
+    assert all(per_replay.get(k) == linears for k in eva_kernels), row
+    assert m["drafted_tokens"] == (m["accepted_draft_tokens"]
+                                   + m["rejected_draft_tokens"]) > 0, row
+    assert m["tokens_generated"] == N_REQUESTS * MAX_NEW, row
+
+    # the window's attention runs through plain torch: its device time at
+    # the served shapes (4 slots x K + 1 queries over the 512-position
+    # cache, 32 heads), a layer and a step
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    H, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = torch.randn((SLOTS, SPEC_K + 1, H, hd), generator=gen,
+                    device="cuda").bfloat16()
+    kv = torch.randn((2, SLOTS, MAX_LEN, Hk, hd), generator=gen,
+                     device="cuda").bfloat16()
+    lens = torch.tensor([1, MAX_LEN, 200, 64], dtype=torch.int32,
+                        device="cuda") + SPEC_K + 1
+    attn = device_profile(torch, lambda: decode_attention(
+        q, kv[0], kv[1], lens.clamp(max=MAX_LEN)))
+    emit({"phase": "serve_spec_window_attention", "queries": SPEC_K + 1,
+          "device_ms_per_layer": attn["device_busy_ms_per_step"],
+          "device_ms_per_step": attn["device_busy_ms_per_step"] * cfg.num_layers,
+          "kernels_per_layer": attn["device_kernels_per_step"]})
+    del q, kv
+
+    fm = fp["metrics"]
+    emit({"phase": "spec_vs_serve", "speculate_k": SPEC_K,
+          "greedy_token_agreement": agreement(fp, out),
+          "decode_ms_per_step": {
+              "serve": fm["decode_s"] * 1e3 / fm["decode_steps"],
+              "serve_spec": m["decode_s"] * 1e3 / m["decode_steps"]},
+          "decode_steps": {"serve": fm["decode_steps"],
+                           "serve_spec": m["decode_steps"]},
+          "decode_tokens_per_step": {
+              "serve": fm["decode_tokens_per_step"],
+              "serve_spec": m["decode_tokens_per_step"]},
+          "draft_acceptance_rate": m["draft_acceptance_rate"],
+          "tok_per_s": {"serve": fm["tokens_generated"] / fp["wall_s"],
+                        "serve_spec": m["tokens_generated"] / out["wall_s"]}})
+    phase_seconds("serve_spec (+ checks)", t0)
+    return out
+
+
+def serve_vql(torch, model, params, prompts):
+    """`serve_vql`: `serve`'s traffic with a synthetic VQ-Logits head
+    (VQL_KC bf16 codewords for the 32000-row vocab, drawn from SEED + 7)
+    in place of the dense head, through the serve phase's checks; then
+    the same model with the head's expansion ``{"w": expand(head)}``
+    (bf16, dense): greedy tokens (agreement printed), prefill logits of
+    the same prompts within VQL_REL of the largest, and the head's
+    device time (profiled alone at M = slots,
+    as decode runs it) beside the dense bf16 head's, with their
+    bytes."""
+    import numpy as np
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.logits_vq import expand, synthetic_logits_vq
+    from repro_torch.core.plan import PlanPolicy
+    from repro_torch.models import RunConfig
+    from repro_torch.models.common import linear
+    from repro_torch.serve import Engine, EngineConfig
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    rc = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    head = synthetic_logits_vq(gen, cfg.d_model, cfg.padded_vocab, VQL_KC,
+                               dtype=torch.bfloat16, device="cuda")
+    p_vql = {**params, "lm_head": {"vql": head}}
+    ecfg = EngineConfig(num_slots=SLOTS, max_len=MAX_LEN)
+    plans = {pl.backend: pl.describe_ranking()
+             for path, pl in plan_mod.preplan_params(
+                 p_vql, rc.policy, mode="decode", m=SLOTS,
+                 act_dtype=cfg.act_dtype) if path == ("lm_head",)}
+    vql = serve_phase(torch, model, p_vql, prompts, "serve_vql", rc, ecfg,
+                      ("fused_vq_matmul", "flash_decode", "dequant_gemv"),
+                      eager_profiles=False)
+    w = expand(head)
+    p_dense = {**params, "lm_head": {"w": w}}
+    eng = Engine(model, p_dense, rc, ecfg, device="cuda")
+    dense = {"tokens": list(eng.generate(prompts, MAX_NEW).values())}
+    del eng
+    toks = torch.tensor(np.stack([p[:64] for p in prompts[:SLOTS]]),
+                        dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        lv, _ = model.prefill(p_vql, {"tokens": toks}, rc)
+        ld, _ = model.prefill(p_dense, {"tokens": toks}, rc)
+    lv, ld = lv[..., :cfg.vocab_size], ld[..., :cfg.vocab_size]
+    drift = (lv - ld).abs().max().item()
+    rel = drift / ld.abs().max().item()
+    agree = (lv.argmax(-1) == ld.argmax(-1)).float().mean().item()
+    finite = bool(torch.isfinite(lv).all())
+    del lv, ld
+    x = torch.randn((SLOTS, cfg.d_model), generator=gen,
+                    device="cuda").bfloat16()
+    rc_dec = rc.replace(mode="decode")
+    head_prof = device_profile(torch, lambda: linear(
+        {"vql": head}, x, rc_dec, out_dtype=torch.float32))
+    dense_prof = device_profile(torch, lambda: linear(
+        {"w": w}, x, rc_dec, out_dtype=torch.float32))
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    row = {"phase": "serve_vql_vs_dense_head", "kc": VQL_KC,
+           "vocab": cfg.padded_vocab, "head_plan": plans,
+           "greedy_token_agreement": agreement(vql, dense),
+           "prefill_max_abs_logit_drift": drift, "rel_drift": rel,
+           "rel_bound": VQL_REL, "prefill_argmax_agreement": agree,
+           "finite": finite,
+           "head_device_ms": head_prof["device_busy_ms_per_step"],
+           "head_kernels": head_prof["device_kernels_per_step"],
+           "dense_head_device_ms": dense_prof["device_busy_ms_per_step"],
+           "dense_head_kernels": dense_prof["device_kernels_per_step"],
+           "head_bytes": nbytes(head.codebook, head.assign, head.scale),
+           "dense_head_bytes": nbytes(w)}
+    emit(row)
+    assert list(plans) == ["vql_gather_torch"], row
+    assert finite and rel <= VQL_REL, row
+    del w, p_dense, x
+    phase_seconds("serve_vql (+ dense head)", t0)
+    return vql
 
 
 def phase_seconds(name, t0) -> None:
@@ -1327,7 +1538,11 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required,
           "kv_bytes_in_use": m["kv_bytes_in_use"],
           "peak_kv_bytes_in_use": m["peak_kv_bytes_in_use"],
           **{k: m[k] for k in ("preemptions", "prefill_chunks",
-                               "peak_blocks_in_use", "blocks_in_use")},
+                               "peak_blocks_in_use", "blocks_in_use",
+                               "decode_tokens_per_step",
+                               "draft_acceptance_rate", "drafted_tokens",
+                               "accepted_draft_tokens",
+                               "rejected_draft_tokens")},
           "launches": launches,
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
     missing = [k for k in required if launches[k] == 0]
@@ -1343,7 +1558,9 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required,
                   eager_profiles=eager_profiles)
     phase_seconds(name, t_phase)
     return {"launches": launches, "tokens": tokens, "metrics": m,
-            "kv_bytes": m["kv_bytes_in_use"] or alloc}
+            "kv_bytes": m["kv_bytes_in_use"] or alloc, "wall_s": wall,
+            "decode_launches": eng.decode_graph.launches,
+            "trace_counts": dict(eng.trace_counts)}
 
 
 def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
@@ -1395,6 +1612,23 @@ def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
     row = {"phase": f"{name}_plain_decode_step", "max_abs_logit_drift": drift,
            "rel_drift": rel_drift, "rel_bound": rel,
            "argmax_agreement": agree, "finite": finite}
+    if eng.spec_k:
+        # row 0 of a verify window (no drafts: its rows past 0 read token
+        # 0) against the one-token step above, on the same cache: plain
+        # attention and B1 at M = slots x (K + 1) against flash_decode and
+        # B1 at M = slots
+        from repro_torch.serve import speculative
+
+        with torch.no_grad():
+            win, _ = speculative.verify_logits(
+                model, params, clone(), torch.full_like(eng.succ, -1), *step,
+                rc, eng.spec_k)
+        w_drift, w_rel, w_agree, w_finite = logit_drift(torch, win[:, :1],
+                                                        got, cfg.vocab_size)
+        row["window_row0"] = {"max_abs_logit_drift": w_drift,
+                              "rel_drift": w_rel, "argmax_agreement": w_agree,
+                              "finite": w_finite}
+        del win
     del got, want
     if fp32_plain:
         import dataclasses
@@ -1418,6 +1652,9 @@ def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
     emit(row)
     assert finite and rel_drift <= rel and agree >= 0.75, row
     assert all(c > rel for c in controls.values()), row
+    w = row.get("window_row0")
+    assert w is None or (w["finite"] and w["rel_drift"] <= rel
+                         and w["argmax_agreement"] >= 0.75), row
     if fp32_plain:
         assert finite32 and rel32 <= 1e-3 and agree32 >= 0.75, row
     if paged:  # no view gathered on the card: no index_select in the step
@@ -1548,7 +1785,8 @@ def graph_step(torch, model, eng, base, clone, name):
     logits and cache leaves (on a paged engine the caches the step
     writes); and every chunk-continuation bucket the engine built. One
     line per graph with its build time and the bytes of its pool (the
-    prefill buckets share one) after it was built."""
+    prefill buckets share one) after it was built. A speculative
+    engine's decode graph is held by ``spec_replays``."""
     import numpy as np
     from repro_torch import kernels
 
@@ -1568,17 +1806,25 @@ def graph_step(torch, model, eng, base, clone, name):
     g = eng.decode_graph
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    got = [g(tokens=toks[i], positions=pos[i]).clone()
-           for i in range(GRAPH_STEPS)]
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
+    spec = {}
+    if eng.spec_k:
+        steps_equal, spec = spec_replays(torch, model, eng, plain, toks[:, :, 0],
+                                         start)
+        counts = kernels.launch_counts()
+    else:
+        got = [g(tokens=toks[i], positions=pos[i]).clone()
+               for i in range(GRAPH_STEPS)]
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        steps_equal = []
+        with torch.no_grad():
+            for i in range(GRAPH_STEPS):
+                want, _ = model.decode(params, dev(toks[i]), dev(pos[i]),
+                                       plain, rc_decode)
+                steps_equal.append(bool(torch.equal(got[i],
+                                                    want[:, 0, :vocab])))
+        del got
     want_counts = {k: GRAPH_STEPS * g.launches.get(k, 0) for k in counts}
-    steps_equal = []
-    with torch.no_grad():
-        for i in range(GRAPH_STEPS):
-            want, _ = model.decode(params, dev(toks[i]), dev(pos[i]), plain,
-                                   rc_decode)
-            steps_equal.append(bool(torch.equal(got[i], want[:, 0, :vocab])))
     want_leaves = cache_leaves(plain)
     cache_equal = {n: bool(torch.equal(t, want_leaves[n]))
                    for n, t in cache_leaves(eng.caches).items()}
@@ -1588,12 +1834,13 @@ def graph_step(torch, model, eng, base, clone, name):
           "launches_per_replay": g.launches, "launches": counts,
           "build_s": g.build_s,
           "pool_bytes": pool_bytes(torch, g.graph.pool()),
-          "trace_counts": eng.trace_counts})
-    if not (all(steps_equal) and all(cache_equal.values())):
+          "trace_counts": eng.trace_counts, **spec})
+    if not (all(steps_equal) and all(cache_equal.values())
+            and spec.get("succ_bitwise_equal", True)):
         failed.append("decode")
     if counts != want_counts or not g.launches:
         failed.append(f"decode launches {counts} != {want_counts}")
-    del got, plain
+    del plain
 
     steps = [(f"prefill@{b}", b, False) for b in eng._buckets if b >= 32]
     steps += [(f"chunk@{b}", b, True) for b in sorted(eng.chunk_graphs)]
@@ -1615,6 +1862,58 @@ def graph_step(torch, model, eng, base, clone, name):
     assert eng.trace_counts["decode"] == 1, eng.trace_counts
     assert sorted(eng.prefill_graphs)[-1] == eng.ecfg.max_len, eng.prefill_graphs
     assert not failed, f"{name} graph_step: replay differs from eager: {failed}"
+
+
+def spec_replays(torch, model, eng, plain, toks, start):
+    """graph_step's decode part on a speculative engine: GRAPH_STEPS
+    replays of the verify graph on the engine's caches and successor
+    table, each against ``speculative.verify_logits`` run eagerly on
+    ``plain`` and a copy of the table (the logits and the window,
+    bitwise), each followed on both sides by the eager part
+    (``settle_window``, greedy slots, every slot active and speculating:
+    the same acceptance, ``len`` rollback and successor update). ``toks``
+    (GRAPH_STEPS, SLOTS) are the steps' last tokens; positions start at
+    ``start`` and advance by the tokens each step emitted. The eager
+    steps' kernel launches are taken back out of the counts. Returns
+    (per-step equality, a dict of what the steps emitted and whether
+    the tables ended equal)."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.serve import speculative
+
+    B = SLOTS
+    on = lambda a, dt: torch.as_tensor(a, dtype=dt, device="cuda")
+    knobs = {"generators": [None] * B, "greedy": [True] * B,
+             "temperature": on([1.0] * B, torch.float32),
+             "top_k": on([0] * B, torch.int32),
+             "top_p": on([1.0] * B, torch.float32),
+             "stop_ids": on([[-1]] * B, torch.int32),
+             "remaining": on([MAX_LEN] * B, torch.int32),
+             "active": on([True] * B, torch.bool),
+             "spec_on": on([True] * B, torch.bool)}
+    succ = eng.succ.clone()
+    pos = np.full((B, 1), start, np.int32)
+    equal, emitted = [], []
+    for i in range(GRAPH_STEPS):
+        replay = [t.clone() for t in eng.decode_graph(tokens=toks[i][:, None],
+                                                      positions=pos)]
+        counts = kernels.launch_counts()
+        with torch.no_grad():
+            eager = speculative.verify_logits(
+                model, eng.params, plain, succ, on(toks[i][:, None], torch.int32),
+                on(pos, torch.int32), eng._rc_decode, eng.spec_k)
+            e = [speculative.settle_window(*out, caches, table, **knobs)[2]
+                 for out, caches, table in ((replay, eng.caches, eng.succ),
+                                            (eager, plain, succ))]
+        kernels.set_launch_counts(counts)
+        equal.append(all(bool(torch.equal(a, b)) for a, b in zip(replay, eager))
+                     and bool(torch.equal(e[0], e[1])))
+        step = e[0].cpu().numpy()
+        emitted.append(step.tolist())
+        pos = pos + step[:, None]
+    torch.cuda.synchronize()
+    return equal, {"emitted": emitted,
+                   "succ_bitwise_equal": bool(torch.equal(eng.succ, succ))}
 
 
 def pool_bytes(torch, pool):
@@ -1685,8 +1984,15 @@ def profile_decode(torch, model, eng, cache, step, name, required,
 
     params, rc = eng.params, eng.rc
     tok, pos = (t.cpu().numpy() for t in step)
-    eager = (device_profile(torch, lambda: model.decode(params, *step, cache, rc))
-             if eager_profiles else None)
+    if eng.spec_k:
+        from repro_torch.serve import speculative
+
+        succ = eng.succ.clone()
+        eager_step = lambda: speculative.verify_logits(
+            model, params, cache, succ, *step, rc, eng.spec_k)
+    else:
+        eager_step = lambda: model.decode(params, *step, cache, rc)
+    eager = device_profile(torch, eager_step) if eager_profiles else None
     replay = device_profile(
         torch, lambda: eng.decode_graph(tokens=tok, positions=pos))
     # the engine's own step, its slots set active by hand (the engine is
@@ -1712,6 +2018,22 @@ def profile_decode(torch, model, eng, cache, step, name, required,
                    "device_ms_by_kernel"]]
     assert not missing, (f"{name}: kernels absent from the replays' device "
                          f"events: {missing}")
+
+
+def verify_window(rows) -> dict:
+    """B1's check rows at SPEC_M summed over the four llama2-7b decode
+    linears, one entry per M: kernel, plain, bound and library ms."""
+    out = {}
+    for M in SPEC_M:
+        rs = [r for r in rows if r["case"].get("speculate_k") is not None
+              and r["case"]["M"] == M]
+        out[f"M{M}"] = {
+            "speculate_k": M // SLOTS - 1,
+            **{k: sum(r[k] for r in rs) for k in (
+                "kernel_ms", "plain_ms", "bound_ms", "library_ms",
+                "library_bf16_ms")},
+            "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"]}
+    return out
 
 
 def main() -> int:
@@ -1794,6 +2116,10 @@ def main() -> int:
             # ms of the same case at the other configs (B1: a decode layer
             # at M = slots; B3: the prefill layer) and grouped heads
             **({"other_ms": others} if others else {}),
+            # B1: a llama2-7b decode layer at the rows of a speculative
+            # verify window, M = slots x (K + 1)
+            **({"verify_window": verify_window(rows[name])}
+               if name == "fused_vq_matmul" else {}),
             "launches_by_phase": {ph: c[name] for ph, c in launches.items()
                                   if c.get(name)}})
     emit({"kernels": summary})

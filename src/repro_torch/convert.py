@@ -10,7 +10,8 @@ params on ``device``:
     (bf16 included);
   * a VQWeight-like node (anything with ``idx``, ``codebooks``,
     ``scale``, ``K``, ``N``, ``d``, ``n``, ``splits``) becomes the port's
-    ``VQWeight``;
+    ``VQWeight``, and a VQLogitsHead-like node (``codebook``, ``assign``,
+    ``scale``) the port's ``VQLogitsHead``;
   * the stacked layer axis the reference scans over (``"layers"``,
     leading dim L on every leaf) becomes a list of L per-layer dicts —
     attached KV-VQ codebooks included: an attention node's ``kv_cb``
@@ -25,10 +26,11 @@ The leaves may also be tensors (on any device; they are moved to
 VQWeight tensors) are stacked on a leading L axis, numpy arrays with
 ``np.stack`` and tensors with ``torch.stack``. A tensor several layers
 share (the KV-VQ codebooks ``attach_kv_codebooks`` attaches) is stacked
-like any other, as the reference holds it.
+like any other, as the reference holds it. A VQLogitsHead (the LM head,
+outside the layers) stays as it is.
 
-The port imports nothing of the reference: the VQWeight is recognized by
-its attributes.
+The port imports nothing of the reference: the VQWeight and the
+VQLogitsHead are recognized by their attributes.
 """
 from __future__ import annotations
 
@@ -39,15 +41,22 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.core.logits_vq import VQLogitsHead
 from repro_torch.core.vq import VQWeight
 
 _VQ_FIELDS = ("idx", "codebooks", "scale", "K", "N", "d", "n", "splits")
+_VQL_FIELDS = ("codebook", "assign", "scale")
 _STACKED = ("layers",)
 
 
 def is_vq(node: Any) -> bool:
     """Whether ``node`` is a VQWeight of either package (by attributes)."""
     return all(hasattr(node, f) for f in _VQ_FIELDS)
+
+
+def is_vql(node: Any) -> bool:
+    """Whether ``node`` is a VQLogitsHead of either package."""
+    return all(hasattr(node, f) for f in _VQL_FIELDS)
 
 
 def to_tensor(a: Any, device: torch.device) -> torch.Tensor:
@@ -68,6 +77,9 @@ def _convert(node: Any, device: torch.device) -> Any:
                         scale=to_tensor(node.scale, device), K=int(node.K),
                         N=int(node.N), d=int(node.d), n=int(node.n),
                         splits=tuple(int(s) for s in node.splits))
+    if is_vql(node):
+        return VQLogitsHead(*(to_tensor(getattr(node, f), device)
+                              for f in _VQL_FIELDS))
     if isinstance(node, dict):
         return {k: (_unstack(v, device) if k in _STACKED
                     else _convert(v, device)) for k, v in node.items()}
@@ -128,7 +140,7 @@ def _stack(layers: list) -> Any:
 def to_reference_layout(tree: Any) -> Any:
     """The reference's layout of a port tree (see module docstring):
     ``"layers"`` lists stacked on L; everything else as it is."""
-    if is_vq(tree):
+    if is_vq(tree) or is_vql(tree):
         return tree
     if isinstance(tree, dict):
         return {k: (_stack(v) if k in _STACKED and isinstance(v, list)

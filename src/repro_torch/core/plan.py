@@ -14,8 +14,8 @@ subset of ``repro/core/plan.py`` the serving path needs).
                pair returns the SAME plan object.
 
 Backends by weight kind (``fp`` and ``int8_torch`` register here, the
-others from the kernel wrappers in ``_KERNEL_BACKEND_MODULES``, imported
-lazily on the first plan):
+others from the kernel wrappers and ``core/logits_vq.py``, the modules of
+``_BACKEND_MODULES``, imported lazily on the first plan):
 
   dense    : ``fp`` (``torch.matmul``) on any impl;
   int8     : ``int8_torch`` | ``int8_cuda`` (kernel B6) — dense prefill
@@ -23,7 +23,9 @@ lazily on the first plan):
   vq       : ``eva_fused`` (B1) or ``eva_split`` (B4 ``vq_gemm`` then B5
              ``oc_lookup``) in decode, ``dequant`` (B3) elsewhere;
   kvq_attn : ``kvq_dequant_torch`` | ``kvq_flash_cuda`` (B7) — decode
-             attention over a vector-quantized KV cache.
+             attention over a vector-quantized KV cache;
+  vq_logits: ``vql_gather_torch`` | ``vql_dequant_torch`` on any impl —
+             the VQ-Logits LM head (plain torch, as the reference's jnp).
 
 ``impl="cuda"`` runs the hand-written kernels (their wrappers take the
 plain version only for tensors on the CPU); ``impl="torch"`` runs the
@@ -66,12 +68,12 @@ from repro_torch.core import calibrate as calibrate_mod
 from repro_torch.core import ops
 from repro_torch.core.vq import VQWeight
 
-WEIGHT_KINDS = ("dense", "int8", "vq", "kvq_attn")
+WEIGHT_KINDS = ("dense", "int8", "vq", "kvq_attn", "vq_logits")
 VQ_MODES = ("none", "eva", "dequant")
 IMPLS = ("cuda", "torch")
 
 
-def _dtype_name(dt: torch.dtype) -> str:
+def dtype_name(dt: torch.dtype) -> str:
     return str(dt).replace("torch.", "")
 
 
@@ -79,8 +81,10 @@ def _dtype_name(dt: torch.dtype) -> str:
 class LinearSpec:
     """Shape + weight-kind signature of one matmul site. ``kind`` is the
     resolved weight kind: "dense", "int8" (a dense weight run through the
-    INT8 prefill GEMM), "vq" or "kvq_attn" (see ``kvq_attention_spec``).
-    The VQ geometry fields are zero for dense and int8 sites."""
+    INT8 prefill GEMM), "vq", "kvq_attn" (see ``kvq_attention_spec``) or
+    "vq_logits" (``core.logits_vq.vq_logits_spec``: k is the head's
+    codebook size). The VQ geometry fields are zero for dense and int8
+    sites."""
 
     M: int
     K: int
@@ -103,8 +107,8 @@ class LinearSpec:
     def for_vq(cls, vq: VQWeight, *, M: int, x_dtype: torch.dtype,
                out_dtype: torch.dtype) -> "LinearSpec":
         return cls(M=int(M), K=vq.K, N=vq.N, kind="vq",
-                   x_dtype=_dtype_name(x_dtype),
-                   out_dtype=_dtype_name(out_dtype), C=vq.C, V=vq.V,
+                   x_dtype=dtype_name(x_dtype),
+                   out_dtype=dtype_name(out_dtype), C=vq.C, V=vq.V,
                    k=int(vq.codebooks.shape[-1]), d=vq.d,
                    splits=tuple(vq.splits))
 
@@ -115,8 +119,8 @@ class LinearSpec:
         """Spec for a dense (.., K, N) weight; ``kind`` may be "int8" for
         the INT8 prefill GEMM path (ValueError on an unknown kind)."""
         return cls(M=int(M), K=int(w.shape[-2]), N=int(w.shape[-1]),
-                   kind=kind, x_dtype=_dtype_name(x_dtype),
-                   out_dtype=_dtype_name(out_dtype))
+                   kind=kind, x_dtype=dtype_name(x_dtype),
+                   out_dtype=dtype_name(out_dtype))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,8 +222,8 @@ def kvq_attention_spec(*, B: int, S: int, H: int, Hk: int, hd: int,
     S, N=H*hd, C=Hk, V=idx_width (uint8 indices per token and head),
     k=entries (codebook rows), d=hd."""
     return LinearSpec(M=int(B), K=int(S), N=int(H * hd), kind="kvq_attn",
-                      x_dtype=_dtype_name(x_dtype),
-                      out_dtype=_dtype_name(out_dtype), C=int(Hk),
+                      x_dtype=dtype_name(x_dtype),
+                      out_dtype=dtype_name(out_dtype), C=int(Hk),
                       V=int(idx_width), k=int(entries), d=int(hd))
 
 
@@ -244,13 +248,15 @@ class _Backend:
 _REGISTRY: "collections.OrderedDict[str, _Backend]" = collections.OrderedDict()
 _REGISTRY_LOCK = threading.Lock()
 # registration order breaks ranking ties, as in the reference: the fused
-# kernel's module comes before the split pair's
-_KERNEL_BACKEND_MODULES = (
+# kernel's module comes before the split pair's. They import this module,
+# so it imports them only when a plan is first made
+_BACKEND_MODULES = (
     "repro_torch.kernels.fused_vq_matmul.ops",
     "repro_torch.kernels.oc_lookup.ops",
     "repro_torch.kernels.dequant_gemv.ops",
     "repro_torch.kernels.int8_gemm.ops",
     "repro_torch.kernels.flash_decode.ops",
+    "repro_torch.core.logits_vq",
 )
 
 
@@ -266,7 +272,7 @@ def register_backend(name: str,
 
 
 def registered_backends() -> Tuple[str, ...]:
-    for mod in _KERNEL_BACKEND_MODULES:
+    for mod in _BACKEND_MODULES:
         importlib.import_module(mod)
     return tuple(_REGISTRY)
 
@@ -419,15 +425,22 @@ def first_match_backend(spec: LinearSpec, policy: PlanPolicy
 
 def plan_node(p: Dict[str, Any], x: torch.Tensor, *, mode: str,
               policy: PlanPolicy, out_dtype=None) -> MatmulPlan:
-    """Plan one linear param node ({"w": ...} or {"vq": ...}) for input
-    ``x`` under run ``mode`` — the single dispatch point of
-    ``models.common.linear``."""
+    """Plan one linear param node ({"w": ...}, {"vq": ...} or {"vql":
+    ...}) for input ``x`` under run ``mode`` — the single dispatch point
+    of ``models.common.linear``."""
     out_dtype = out_dtype or x.dtype
     if "vq" in p:
         vq: VQWeight = p["vq"]
         spec = LinearSpec.for_vq(vq, M=x.numel() // vq.K, x_dtype=x.dtype,
                                  out_dtype=out_dtype)
         return _PLANNER.plan(spec, policy.resolve_vq_mode(mode))
+    if "vql" in p:
+        from repro_torch.core import logits_vq as lvq  # it imports this module
+
+        head = p["vql"]
+        spec = lvq.vq_logits_spec(head, M=x.numel() // head.D,
+                                  x_dtype=x.dtype, out_dtype=out_dtype)
+        return _PLANNER.plan(spec, policy)
     w = p["w"]
     kind = "int8" if (mode == "prefill" and policy.int8_prefill) else "dense"
     spec = LinearSpec.for_dense(w, M=x.numel() // int(w.shape[-2]),
@@ -457,6 +470,13 @@ def preplan_params(params: Any, policy: PlanPolicy, *, mode: str, m: int,
             spec = LinearSpec.for_vq(node["vq"], M=m, x_dtype=act_dtype,
                                      out_dtype=act_dtype)
             out.append((path, planner.plan(spec, policy.resolve_vq_mode(mode))))
+            return
+        if "vql" in node:  # the LM head: fp32 logits, as lm_head asks
+            from repro_torch.core import logits_vq as lvq
+
+            spec = lvq.vq_logits_spec(node["vql"], M=m, x_dtype=act_dtype,
+                                      out_dtype=torch.float32)
+            out.append((path, planner.plan(spec, policy)))
             return
         w = node.get("w")
         if isinstance(w, torch.Tensor) and w.dim() >= 2:

@@ -24,17 +24,23 @@ shape (Hk, R, 256, vec_d)), and ``kv_codebook_tree`` collects them
 stacked by layer, the layout ``serve/kvcache.encode_prefill_cache``
 takes. Only the calibration-free grid codebooks are ported; calibrated
 (k-means) ones wait for ROADMAP A8.
+
+``attach_vq_logits_head`` replaces the dense LM head with a VQ-Logits
+head (``core/logits_vq.py``) fitted by k-means.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import DeviceLike, resolve_device, tensor_device
+from repro_torch.core import logits_vq as lvq
 from repro_torch.core.vq import (KVQuantConfig, VQWeight, kv_grid_codebooks,
                                  synthetic_vq)
-from repro_torch.models.common import ModelConfig
+
+if TYPE_CHECKING:  # models.api imports this module
+    from repro_torch.models.common import ModelConfig
 
 _BLOCK_SEGMENTS = (
     "layers", "pre_layers", "groups", "trail", "encoder", "decoder", "experts",
@@ -84,7 +90,7 @@ def quantize_params(params: Any, cfg: ModelConfig, *,
     if method != "synthetic":
         raise NotImplementedError(
             f"quantize method {method!r} is not ported yet (ROADMAP A8: "
-            "fit_vq/kmeans); use method='synthetic' or convert JAX-quantized "
+            "fit_vq); use method='synthetic' or convert JAX-quantized "
             "params with repro_torch.convert.from_jax_params")
     dev = resolve_device(device)
     if generator is None:
@@ -132,7 +138,7 @@ def quantize_params(params: Any, cfg: ModelConfig, *,
         if isinstance(node, list):
             return [walk(v, path + (str(i),)) for i, v in enumerate(node)]
         if isinstance(node, dict):
-            if "vq" in node:
+            if "vq" in node or "vql" in node:  # already compressed
                 return node
             if "w" in node and _eligible(path, node["w"]):
                 w = node["w"]
@@ -243,3 +249,39 @@ def calibrate_kv_codebooks(*args, **kwargs):
     raise NotImplementedError(
         "calibrate_kv_codebooks (k-means KV codebooks) is not ported yet "
         "(ROADMAP A8); attach_kv_codebooks gives the grid codebooks")
+
+
+def attach_vq_logits_head(params: Any, kc: int, *,
+                          generator: Optional[torch.Generator] = None,
+                          iters: int = 20) -> Any:
+    """Replace the dense LM head with a VQ-Logits head
+    (``core.logits_vq``): the ``{"w": (D, V)}`` node under ``lm_head``
+    becomes ``{"vql": VQLogitsHead}``, fitted by k-means over the head's
+    scale-normalized columns, its draws from ``generator`` (default: seed
+    0 on the head's device). Idempotent: an attached head is re-fitted
+    from its implied dense weight.
+
+    Raises:
+      ValueError: the params have no separate ``lm_head`` node (tied
+        embeddings score through the embedding table), or the head is
+        weight-VQ quantized (compress one family at a time).
+    """
+    if not (isinstance(params, dict)
+            and isinstance(params.get("lm_head"), dict)):
+        raise ValueError(
+            "attach_vq_logits_head: params have no lm_head node "
+            "(tie_embeddings models have no separate head to compress)")
+    node = params["lm_head"]
+    if "vql" in node:
+        w = lvq.expand(node["vql"])
+    elif "vq" in node:
+        raise ValueError(
+            "attach_vq_logits_head: lm_head is weight-VQ quantized; "
+            "compress one family at a time")
+    else:
+        w = node["w"]
+    if generator is None:
+        generator = torch.Generator(device=w.device).manual_seed(0)
+    out = dict(params)
+    out["lm_head"] = {"vql": lvq.fit_logits_vq(generator, w, kc, iters=iters)}
+    return out

@@ -17,9 +17,15 @@ A grouped projection family (Wq|Wk|Wv, W_gate|W_up) is ONE wide VQWeight
 of shape (K, sum N_i) with one codebook set; ``splits`` records the member
 widths (``()`` for an ordinary weight).
 
+``kmeans`` (Lloyd's, k-means++ seeded) draws from an explicit
+``torch.Generator`` where the reference splits ``jax.random`` keys, so
+its centroids are not the reference's bit for bit; its assignment step
+is (``_assign``). The VQ-Logits head (``core/logits_vq.py``) fits with
+it.
+
 The KV half (``KVQuantConfig``, ``kv_scale``, ``kv_grid_codebooks``,
 ``kv_encode``, ``kv_decode``) vector-quantizes K/V cache slices against
-per-head codebooks. ``fit_vq``/``kmeans`` and the k-means KV codebooks
+per-head codebooks. ``fit_vq`` and the k-means KV codebooks
 (``fit_kv_codebooks``) are not ported yet (ROADMAP A8).
 """
 from __future__ import annotations
@@ -108,6 +114,69 @@ def split_grouped(vq: VQWeight) -> Tuple[VQWeight, ...]:
                             d=vq.d, n=vq.n))
         lo = hi
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# k-means (Lloyd) with k-means++ seeding
+# ---------------------------------------------------------------------------
+
+
+def _kmeans_pp_init(generator: torch.Generator, points: torch.Tensor,
+                    k: int) -> torch.Tensor:
+    """k-means++ seeding: points (P, d) -> (k, d) initial centroids, each
+    next one drawn with probability proportional to its squared distance
+    from the nearest centroid so far (uniformly where every distance is
+    0: more centroids than distinct points)."""
+    P = points.shape[0]
+    dev = points.device
+    first = points[torch.randint(0, P, (1,), generator=generator,
+                                 device=dev)[0]]
+    cents = torch.zeros((k, points.shape[1]), dtype=points.dtype, device=dev)
+    cents[0] = first
+    dists = ((points - first) ** 2).sum(dim=-1)
+    for i in range(1, k):
+        total = dists.sum()
+        probs = torch.where(total > 0, dists / total.clamp(min=1e-30),
+                            torch.full_like(dists, 1.0 / P))
+        nxt = points[torch.multinomial(probs, 1, generator=generator)[0]]
+        cents[i] = nxt
+        dists = torch.minimum(dists, ((points - nxt) ** 2).sum(dim=-1))
+    return cents
+
+
+def _assign(points: torch.Tensor, cents: torch.Tensor) -> torch.Tensor:
+    """Nearest-centroid assignment, points (P, d), cents (k, d) -> (P,)
+    int32, by the reference's expansion ||c||^2 - 2 p.c (||p||^2 is the
+    same for every centroid); ties to the lowest centroid id."""
+    d2 = -2.0 * points @ cents.T + (cents ** 2).sum(dim=-1)[None, :]
+    return torch.argmin(d2, dim=-1).to(torch.int32)
+
+
+def _update(points: torch.Tensor, assign: torch.Tensor, k: int,
+            generator: torch.Generator) -> torch.Tensor:
+    """The means of each centroid's points; an empty centroid is re-seeded
+    from a random point (so none collapses)."""
+    P, d = points.shape
+    idx = assign.long()
+    sums = torch.zeros((k, d), dtype=points.dtype,
+                       device=points.device).index_add_(0, idx, points)
+    counts = torch.bincount(idx, minlength=k).to(points.dtype)
+    cents = sums / counts.clamp(min=1.0)[:, None]
+    rnd = points[torch.randint(0, P, (k,), generator=generator,
+                               device=points.device)]
+    return torch.where((counts > 0)[:, None], cents, rnd)
+
+
+def kmeans(generator: torch.Generator, points: torch.Tensor, k: int,
+           iters: int = 20) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lloyd's k-means over fp32 ``points`` (P, d): k-means++ seeding,
+    ``iters`` assign/update rounds, every draw from ``generator`` (on the
+    points' device). Returns (centroids (k, d), assignment (P,) int32)."""
+    points = points.float()
+    cents = _kmeans_pp_init(generator, points, k)
+    for _ in range(iters):
+        cents = _update(points, _assign(points, cents), k, generator)
+    return cents, _assign(points, cents)
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.core.logits_vq import VQLogitsHead
 from repro_torch.core.quantize import quantize_params
 from repro_torch.core.vq import KVQuantConfig, VQWeight
 from repro_torch.models import transformer
@@ -91,7 +92,8 @@ class Model:
 
 def param_tensors(params: Any) -> Iterator[torch.Tensor]:
     """Every tensor of a param tree, a VQWeight's indices, codebooks and
-    scales included (a tensor shared by several layers once a layer)."""
+    scales and a VQLogitsHead's codebook, assignment and scales included
+    (a tensor shared by several layers once a layer)."""
     if isinstance(params, torch.Tensor):
         yield params
     elif isinstance(params, dict):
@@ -102,6 +104,8 @@ def param_tensors(params: Any) -> Iterator[torch.Tensor]:
             yield from param_tensors(v)
     elif isinstance(params, VQWeight):
         yield from (params.idx, params.codebooks, params.scale)
+    elif isinstance(params, VQLogitsHead):
+        yield from (params.codebook, params.assign, params.scale)
 
 
 def param_count(params: Any) -> int:

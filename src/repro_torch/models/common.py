@@ -176,11 +176,13 @@ def linear(p: Params, x: torch.Tensor, rc: RunConfig, *,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Apply a (possibly VQ-quantized) linear layer: the (spec, policy)
     pair resolves through the planner to one backend (dense ``fp``, EVA
-    ``eva_fused`` in decode, ``dequant`` elsewhere)."""
+    ``eva_fused`` in decode, ``dequant`` elsewhere; a VQ-Logits head
+    ``{"vql": ...}`` through ``vql_gather_torch``)."""
     out_dtype = out_dtype or x.dtype
     pl = plan_mod.plan_node(p, x, mode=rc.mode, policy=rc.policy,
                             out_dtype=out_dtype)
-    y = pl.execute(x, p["vq"] if "vq" in p else p["w"])
+    leaf = next(p[k] for k in ("vq", "vql", "w") if k in p)
+    y = pl.execute(x, leaf)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y

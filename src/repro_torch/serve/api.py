@@ -62,7 +62,10 @@ class GenerationRequest:
     """One generation request. ``eos_ids``/``stop_token_ids`` finish it
     with "stop" the step the token is emitted (it is included);
     ``max_new_tokens`` finishes it with "length"; ``deadline_s`` (from
-    submit) with "timeout"."""
+    submit) with "timeout". ``speculate=False`` opts it out of
+    speculative decoding on an engine with ``speculate_k > 0``: its slot
+    emits at most one token a step (data: the batch still runs the one
+    multi-token step), and its stream is the same either way."""
 
     prompt: np.ndarray
     max_new_tokens: int = 16
@@ -70,6 +73,7 @@ class GenerationRequest:
     eos_ids: Tuple[int, ...] = ()
     stop_token_ids: Tuple[int, ...] = ()
     deadline_s: Optional[float] = None
+    speculate: bool = True
 
     def __post_init__(self):
         prompt = np.asarray(self.prompt, np.int32).reshape(-1)

@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine (``repro/serve/engine.py``, the
-non-speculative subset).
+"""Continuous-batching serving engine (``repro/serve/engine.py``,
+without the resilience layer).
 
 Prefill runs per request at its power-of-two length bucket (every VQ
 linear through the dequant kernel; dense linears through the INT8 GEMM
@@ -52,8 +52,17 @@ prefill of each bucket and each chunk-continuation bucket is a graph
 built at first use (``trace_counts["prefill"]``,
 ``trace_counts["prefill_chunk"]``), its slot, table row, committed
 length and true length static inputs.
-Speculative decoding (ROADMAP A5) and the resilience layer (A6) are not
-ported yet.
+
+``EngineConfig.speculate_k = K > 0`` makes every decode step a K-draft
+verify window (``serve/speculative.py``): the decode graph, still built
+once, drafts from the per-slot successor table ``succ`` (a device buffer
+the eager part updates in place: a replay reads fixed addresses) and
+runs the model over K + 1 tokens a slot, through (B, K + 1, vocab)
+logits; the eager part samples each row with the slots' generators,
+keeps the accepted prefix, rolls the caches' ``len`` and the generators
+back to it and records the emitted transitions, and up to K + 1 tokens a
+slot come back in the one readback. Streams are the ones ``speculate_k=0``
+gives. The resilience layer (ROADMAP A6) is not ported yet.
 """
 from __future__ import annotations
 
@@ -72,7 +81,7 @@ from repro_torch.core.quantize import attach_kv_codebooks, kv_codebook_tree
 from repro_torch.core.vq import KVQuantConfig
 from repro_torch.models.api import Model
 from repro_torch.models.common import RunConfig
-from repro_torch.serve import api, paging
+from repro_torch.serve import api, paging, speculative
 from repro_torch.serve.api import (GenerationRequest, RequestOutput,
                                    SamplingParams, StreamEvent)
 from repro_torch.serve.graphs import HostInputs, StepGraph, tensor_leaves
@@ -115,7 +124,11 @@ class EngineConfig:
     # bits per stored KV channel: 16 = fp, 8 = int8 + k_s/v_s scales,
     # 4/2 = KV-VQ (uint8 codebook indices; codebooks attach to params)
     kv_bits: int = 16
-    speculate_k: int = 0               # ROADMAP A5
+    # K > 0: every decode step verifies K drafts a slot in one K + 1 token
+    # window (serve/speculative.py); the streams are those of K = 0. The
+    # dense family with full attention only, as the reference; a request
+    # opts out with GenerationRequest.speculate=False
+    speculate_k: int = 0
 
 
 class Engine:
@@ -124,9 +137,23 @@ class Engine:
         if ecfg.kv_bits not in (16, 8, 4, 2):
             raise ValueError(
                 f"kv_bits={ecfg.kv_bits} unsupported; expected 16/8/4/2")
-        if ecfg.speculate_k:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP A5)")
+        self.spec_k = int(ecfg.speculate_k)
+        if self.spec_k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got {self.spec_k}")
+        if self.spec_k:
+            cfg = model.cfg
+            if cfg.sliding_window or cfg.local_window:
+                raise ValueError(
+                    "speculate_k > 0 requires a full (non-windowed) cache: "
+                    "ring caches decode one token at a time")
+            if cfg.family != "dense":
+                raise ValueError(
+                    f"speculate_k > 0 requires family='dense' (MoE capacity "
+                    f"routing depends on the token count, breaking "
+                    f"token-identity), got {cfg.family!r}")
+            if cfg.use_mla:
+                raise ValueError(
+                    "speculate_k > 0 is not supported with MLA decode")
         self.device = resolve_device(device)
         p_dev = tensor_device(params)
         if p_dev is not None and p_dev.type != self.device.type:
@@ -196,6 +223,13 @@ class Engine:
         self.remaining = np.zeros((B,), np.int32)
         self.active = np.zeros((B,), bool)
         self.generators: List[Optional[torch.Generator]] = [None] * B
+        # speculative decoding: the per-slot successor table (the drafter)
+        # on the device, and whether each slot's request speculates
+        self.succ: Optional[torch.Tensor] = None
+        self.spec_on = np.ones((B,), bool)
+        if self.spec_k:
+            self.succ = torch.full((B, model.cfg.vocab_size), -1,
+                                   dtype=torch.int32, device=self.device)
 
         self._outputs: Dict[int, RequestOutput] = {}
         self._buffers: Dict[int, Deque[StreamEvent]] = {}
@@ -215,12 +249,14 @@ class Engine:
         self._rc_prefill = rc.replace(mode="prefill")
         self.plans = self._preplan()
         # the sampling epilogue's per-slot knobs, fed like a step's inputs
-        self._knobs = HostInputs({
+        knobs = {
             "temperature": ((B,), torch.float32), "top_k": ((B,), torch.int32),
             "top_p": ((B,), torch.float32),
             "stop_ids": ((B, api.MAX_STOP_IDS), torch.int32),
-            "remaining": ((B,), torch.int32), "active": ((B,), torch.bool)},
-            self.device)
+            "remaining": ((B,), torch.int32), "active": ((B,), torch.bool)}
+        if self.spec_k:
+            knobs["spec_on"] = ((B,), torch.bool)
+        self._knobs = HostInputs(knobs, self.device)
         self.decode_graph = self._make_decode_graph()
 
     def _preplan(self) -> Dict[str, List[Tuple[Tuple[Any, ...], Any]]]:
@@ -524,6 +560,7 @@ class Engine:
             self.last_token[slot] = tr.generated[-1]
             self.remaining[slot] = tr.resume_remaining
             tr.preempted = False
+            self._prime_spec(slot, tr)
             return None, False, True
         with torch.no_grad():
             tok, lp = self._sample_row(last, slot)
@@ -538,7 +575,22 @@ class Engine:
         if self.paging is not None:
             budget = min(budget, self.ecfg.max_len - target + 1)
         self.remaining[slot] = budget - 1
+        self._prime_spec(slot, tr)
         return tok, False, True
+
+    def _prime_spec(self, slot: int, tr: TrackedRequest) -> None:
+        """(Re)prime the slot's speculative state at activation: its
+        opt-in flag and its successor row, from the whole token history
+        (prompt and generated tokens, the one prefill just sampled
+        included). The row is primed on the host, where repeated sources
+        resolve in order, then copied to the device."""
+        if not self.spec_k:
+            return
+        self.spec_on[slot] = bool(tr.request.speculate)
+        row = np.empty((1, self.succ.shape[1]), np.int32)
+        speculative.prime_successors(row, 0, np.concatenate(
+            [tr.request.prompt, np.asarray(tr.generated, np.int32)]))
+        self.succ[slot].copy_(torch.from_numpy(row[0]))
 
     def _prefill_step_events(self, slot: int,
                              events: List[StreamEvent]) -> None:
@@ -657,14 +709,18 @@ class Engine:
                  tr.uid, slot, len(tr.generated))
 
     def _grow_decode_blocks(self) -> None:
-        """Before a decode step, give every active slot the block its
-        next write needs; while the pool is empty, preempt the youngest
-        request (possibly the one that needs the block)."""
+        """Before a decode step, give every active slot the blocks its
+        next write needs — and a speculating slot's K draft positions,
+        up to max_len (draft rows past its blocks go to the sink); while
+        the pool is empty, preempt the youngest request (possibly the
+        one that needs the block)."""
         for b in np.nonzero(self.active)[0]:
             b = int(b)
+            k_ahead = self.spec_k if self.spec_on[b] else 0
             while self.active[b]:
                 need = self.paging.blocks_for(
-                    min(int(self.positions[b]) + 1, self.ecfg.max_len))
+                    min(int(self.positions[b]) + 1 + k_ahead,
+                        self.ecfg.max_len))
                 short = need - len(self._owned[b])
                 if short <= 0 or self._alloc_blocks(b, short):
                     break
@@ -681,17 +737,23 @@ class Engine:
         engine, as the reference jits ``_decode_impl`` once: the model's
         decode over static (B, 1) tokens and positions and the engine's
         caches, which it updates in place, through the (B, vocab) fp32
-        logits. The build's warm-up writes a row and ``len`` into every
-        slot of the caches, which are still the zeros of ``init_cache``
-        (paged: into the sink, every table row being the sentinel); they
-        are zeroed again afterwards, and a paged table set back to the
-        sentinel."""
+        logits. Under ``speculate_k`` it is ``speculative.verify_logits``
+        instead, over the same inputs and ``succ``: (B, K + 1, vocab)
+        logits and the (B, K + 1) window. The build's warm-up writes rows
+        and ``len`` into every slot of the caches, which are still the
+        zeros of ``init_cache`` (paged: into the sink, every table row
+        being the sentinel); they are zeroed again afterwards, and a
+        paged table set back to the sentinel."""
         self.trace_counts["decode"] += 1
         model, params, caches = self.model, self.params, self.caches
         rc, vocab = self._rc_decode, self.model.cfg.vocab_size
         B = self.ecfg.num_slots
+        succ, k = self.succ, self.spec_k
 
         def decode(tokens, positions):
+            if k:
+                return speculative.verify_logits(model, params, caches, succ,
+                                                 tokens, positions, rc, k)
             logits, _ = model.decode(params, tokens, positions, caches, rc)
             return logits[:, 0, :vocab]
 
@@ -704,31 +766,55 @@ class Engine:
             paging.set_block_tables(caches, self.tables)
         return step
 
-    def _decode(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    def _decode(self) -> Tuple[np.ndarray, ...]:
         """One decode step over every slot: the decode graph, then
-        sampling and stopping on its logits (eager: per-slot generators),
-        read back in one copy. Returns host arrays (tok, done, bad,
-        logprobs)."""
+        sampling and stopping on its logits (eager: per-slot generators;
+        under ``speculate_k`` ``speculative.settle_window``), read back in
+        one copy. Returns host arrays (tokens (B, S), logprobs (B, S),
+        emitted counts e (B,), drafts accepted (B,), done, bad), S = K +
+        1; a token is emitted where its column is below e."""
         act = self.active
-        logits = self.decode_graph(tokens=np.where(act, self.last_token, 0),
-                                    positions=np.where(act, self.positions, 0))
-        k = self._knobs.load({"temperature": self.temperature,
-                              "top_k": self.top_k, "top_p": self.top_p,
-                              "stop_ids": self.stop_ids,
-                              "remaining": self.remaining, "active": act})
+        out = self.decode_graph(tokens=np.where(act, self.last_token, 0),
+                                positions=np.where(act, self.positions, 0))
+        host = {"temperature": self.temperature, "top_k": self.top_k,
+                "top_p": self.top_p, "stop_ids": self.stop_ids,
+                "remaining": self.remaining, "active": act}
+        if self.spec_k:
+            host["spec_on"] = self.spec_on
+        k = self._knobs.load(host)
+        greedy = list(np.where(act, self.greedy, True))
         with torch.no_grad():
-            tok, done, bad = api.sample_and_stop(
-                logits, generators=self.generators,
-                temperature=k["temperature"], top_k=k["top_k"],
-                top_p=k["top_p"], greedy=list(np.where(act, self.greedy, True)),
-                stop_ids=k["stop_ids"], remaining=k["remaining"],
-                active=k["active"])
-            lp = api.token_logprobs(logits, tok)
-            packed = torch.stack([tok, done.to(torch.int32),
-                                  bad.to(torch.int32),
-                                  lp.view(torch.int32)]).cpu().numpy()
-        return (packed[0], packed[1].astype(bool), packed[2].astype(bool),
-                packed[3].view(np.float32))
+            if not self.spec_k:
+                tok, done, bad = api.sample_and_stop(
+                    out, generators=self.generators,
+                    temperature=k["temperature"], top_k=k["top_k"],
+                    top_p=k["top_p"], greedy=greedy, stop_ids=k["stop_ids"],
+                    remaining=k["remaining"], active=k["active"])
+                lp = api.token_logprobs(out, tok)
+                e = (k["active"] & ~bad).to(torch.int32)
+                cols = [tok[:, None], lp.view(torch.int32)[:, None]]
+                accepted, states = torch.zeros_like(e), None
+            else:
+                logits, window = out
+                toks, lps, e, accepted, done, bad, states = \
+                    speculative.settle_window(
+                        logits, window, self.caches, self.succ,
+                        generators=self.generators,
+                        temperature=k["temperature"], top_k=k["top_k"],
+                        top_p=k["top_p"], greedy=greedy,
+                        stop_ids=k["stop_ids"], remaining=k["remaining"],
+                        active=k["active"], spec_on=k["spec_on"])
+                cols = [toks, lps.view(torch.int32)]
+            packed = torch.cat(cols + [torch.stack(
+                [e, accepted, done.to(torch.int32), bad.to(torch.int32)],
+                dim=1)], dim=1).cpu().numpy()
+        S = self.spec_k + 1
+        e = packed[:, 2 * S]
+        if states is not None:
+            speculative.rollback_generators(self.generators, states, e)
+        return (packed[:, :S], packed[:, S:2 * S].view(np.float32), e,
+                packed[:, 2 * S + 1], packed[:, 2 * S + 2].astype(bool),
+                packed[:, 2 * S + 3].astype(bool))
 
     def _timeout_sweep(self) -> List[StreamEvent]:
         """Finish requests past their ``deadline_s``: queued ones before
@@ -797,17 +883,28 @@ class Engine:
         if active_idx.size:
             self._sync_tables()
             t0 = time.perf_counter()
-            tok, done, bad, lps = self._decode()
+            toks, lps, e_cnt, acc, done, bad = self._decode()
             n_bad = int(np.count_nonzero(bad))
+            n_emit = int(e_cnt.sum())
             m.decode_steps += 1
             m.decode_slot_steps += int(active_idx.size)
             m.decode_s += time.perf_counter() - t0
-            m.tokens_generated += int(active_idx.size) - n_bad
+            m.tokens_generated += n_emit
+            m.extra_decode_tokens += n_emit - (int(active_idx.size) - n_bad)
             m.poisoned_slot_steps += n_bad
-            emit = self.active & ~bad
-            self.positions += emit
-            self.remaining -= emit
-            self.last_token = np.where(emit, tok, self.last_token)
+            if self.spec_k:
+                lanes = self.active & ~bad & self.spec_on
+                n_spec = int(np.count_nonzero(lanes))
+                n_acc = int(acc[lanes].sum())
+                m.drafted_tokens += self.spec_k * n_spec
+                m.accepted_draft_tokens += n_acc
+                m.rejected_draft_tokens += self.spec_k * n_spec - n_acc
+            # e_cnt: the tokens each lane emitted (0 for free and bad
+            # lanes, 1 without speculation)
+            self.positions += e_cnt
+            self.remaining -= e_cnt
+            last = toks[np.arange(toks.shape[0]), np.maximum(e_cnt - 1, 0)]
+            self.last_token = np.where(e_cnt > 0, last, self.last_token)
             for b in active_idx:
                 b = int(b)
                 tr = self.sched.slots[b]
@@ -816,17 +913,22 @@ class Engine:
                                               None, "error"))
                     self._finish_slot(b, "error")
                     continue
-                t = int(tok[b])
+                n = int(e_cnt[b])
                 reason = None
                 if done[b]:
-                    reason = "stop" if t in tr.stop_set else "length"
-                lpb = None
-                if tr.request.sampling.logprobs:
-                    lpb = float(lps[b])
-                    tr.logprobs.append(lpb)
-                events.append(StreamEvent(tr.uid, len(tr.generated), t,
-                                          reason, logprob=lpb))
-                tr.generated.append(t)
+                    reason = ("stop" if int(toks[b, n - 1]) in tr.stop_set
+                              else "length")
+                want_lp = tr.request.sampling.logprobs
+                for j in range(n):
+                    t = int(toks[b, j])
+                    lpj = None
+                    if want_lp:
+                        lpj = float(lps[b, j])
+                        tr.logprobs.append(lpj)
+                    events.append(StreamEvent(
+                        tr.uid, len(tr.generated), t,
+                        reason if j == n - 1 else None, logprob=lpj))
+                    tr.generated.append(t)
                 if reason is not None:
                     self._finish_slot(b, reason)
 

@@ -1,9 +1,11 @@
-"""Engine counters (``repro/serve/metrics.py``, the non-speculative
-subset). Invariants the tests pin:
+"""Engine counters (``repro/serve/metrics.py``, without the resilience
+layer's). Invariants the tests pin:
 
   tokens_generated == prefills + decode_slot_steps - poisoned_slot_steps
+                      + extra_decode_tokens
                    == number of token-bearing StreamEvents
   finished         == finished_stop + finished_length + errors + timeouts
+  drafted_tokens   == accepted_draft_tokens + rejected_draft_tokens
 """
 from __future__ import annotations
 
@@ -38,6 +40,11 @@ class EngineMetrics:
     decode_slot_steps: int = 0       # active lanes summed over decode steps
     poisoned_slot_steps: int = 0
     tokens_generated: int = 0
+    # speculative decoding (all zero when speculate_k == 0)
+    drafted_tokens: int = 0          # K per speculating lane per decode step
+    accepted_draft_tokens: int = 0   # drafts that matched the verify sample
+    rejected_draft_tokens: int = 0   # drafted - accepted
+    extra_decode_tokens: int = 0     # emissions beyond 1 per lane per step
     queue_wait_s: float = 0.0
     prefill_s: float = 0.0
     decode_s: float = 0.0
@@ -65,6 +72,22 @@ class EngineMetrics:
         return self.decode_slot_steps / (self.decode_steps * self.num_slots)
 
     @property
+    def draft_acceptance_rate(self) -> float:
+        """Share of the drafted tokens the verify pass accepted."""
+        if self.drafted_tokens == 0:
+            return 0.0
+        return self.accepted_draft_tokens / self.drafted_tokens
+
+    @property
+    def decode_tokens_per_step(self) -> float:
+        """Tokens emitted per active lane per decode step: 1.0 without
+        speculation, up to K + 1 with it."""
+        useful = self.decode_slot_steps - self.poisoned_slot_steps
+        if useful <= 0:
+            return 0.0
+        return (useful + self.extra_decode_tokens) / useful
+
+    @property
     def decode_tokens_per_s(self) -> float:
         if self.decode_s <= 0.0:
             return 0.0
@@ -80,6 +103,8 @@ class EngineMetrics:
                if f.name != "started_at"}
         out["uptime_s"] = time.perf_counter() - self.started_at
         out["slot_occupancy"] = self.slot_occupancy
+        out["draft_acceptance_rate"] = self.draft_acceptance_rate
+        out["decode_tokens_per_step"] = self.decode_tokens_per_step
         out["decode_tokens_per_s"] = self.decode_tokens_per_s
         out["tokens_per_s"] = self.tokens_per_s
         return out

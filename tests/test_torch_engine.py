@@ -228,8 +228,11 @@ def test_admission_rejects_and_unported_options(setup):
     with pytest.raises(ValueError):
         eng.generate([np.ones(10, np.int32)], 10)  # 10 + 10 - 1 > 16
     assert not eng.sched.queue and eng.metrics()["prefills"] == 0
-    with pytest.raises(NotImplementedError, match="A5"):
-        _engine(setup, speculate_k=2)
+    with pytest.raises(ValueError, match="speculate_k"):
+        _engine(setup, speculate_k=-1)
+    spec = _engine(setup, speculate_k=2)  # ported: A5
+    assert spec.spec_k == 2 and tuple(spec.succ.shape) == (
+        2, setup["cfg"].vocab_size)
     assert _engine(setup, paged=True).paging is not None  # ported: A4
     assert prefill_buckets(32, 8) == (8, 16, 32)
 

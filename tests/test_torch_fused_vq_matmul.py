@@ -117,7 +117,7 @@ def test_select_split_follows_cluster_occupancy():
 
 
 @pytest.mark.parametrize("recompute", [True, False], ids=["fused", "lookup"])
-@pytest.mark.parametrize("M", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 8, 12, 16])
 @pytest.mark.parametrize("K,N", DECODE_LINEARS)
 def test_candidates_cover_v_and_hold_the_pick(K, N, M, recompute):
     """Every launch shape the tile model prices (and the cost-model sweep
@@ -153,7 +153,7 @@ def _kernel_order_case(M, C, many):
 
 @pytest.mark.parametrize("many", [False, True], ids=["one_split", "splits"])
 @pytest.mark.parametrize("C", [1, 2, 4])
-@pytest.mark.parametrize("M", [1, 2, 4, 5, 8])
+@pytest.mark.parametrize("M", [1, 2, 4, 5, 8, 12, 16])
 def test_kernel_order_matches_jax_pallas_interpret(M, C, many):
     """The CUDA kernel's summation order (per-lane partials over v, the
     xor butterfly across lanes, clusters in rank order, then groups),
@@ -248,7 +248,7 @@ def _card_case(K, N, M, C=2, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 2, 4, 8])
+@pytest.mark.parametrize("M", [1, 2, 4, 8, 12, 16])
 @pytest.mark.parametrize("K,N", [(4096, 12288), (4096, 4096), (4096, 22016),
                                  (11008, 4096)])
 def test_kernel_matches_plain_full_width(cuda, K, N, M):

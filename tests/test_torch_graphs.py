@@ -6,17 +6,22 @@ On the CPU the exact functions the engine hands to ``StepGraph`` run
 under a dispatch mode that records every aten op, on llama2 SMOKE with
 2-bit VQ weights at kv_bits 16, 8 and 4 (INT8 prefill at 4), with the
 planner's default ranking (the fused EVA kernel) and pinned to the
-two-kernel split. Inside a step no op reads a value back to the host
+two-kernel split; and with speculative decoding (K = 2: the verify
+window's decode step) at kv_bits 16 and 4, and with a VQ-Logits head.
+Inside a step no op reads a value back to the host
 (``.item()``, ``bool(t)``, ``nonzero``), no tensor is made from host
 data, and every tensor a step reads that it did not make is a param,
-a cache leaf, the engine's stacked KV codebooks or one of its static
-inputs; consecutive calls hand the step the same static input tensors;
+a cache leaf, the engine's stacked KV codebooks, its successor table
+``succ`` (a static device buffer the eager part updates in place) or
+one of its static inputs; consecutive calls hand the step the same
+static input tensors;
 the warm-up at construction leaves the caches as ``init_cache`` made
 them; ``trace_counts`` counts one decode build and one build per
 prefill bucket used.
 
 The paged engine's steps are held the same way (kv_bits 16 with
-chunked prefill, 8 and 4, a pool small enough to preempt): the decode
+chunked prefill, also speculating, 8 and 4, a pool small enough to
+preempt): the decode
 step over the block arenas and tables, the paged prefill buckets (which
 commit into the slot's blocks) and the chunk continuations, whose slot,
 table row, committed length and true length are static inputs too.
@@ -44,6 +49,7 @@ from repro_torch import kernels
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import calibrate
 from repro_torch.core import plan as plan_mod
+from repro_torch.core.logits_vq import synthetic_logits_vq
 from repro_torch.core.plan import PlanPolicy
 from repro_torch.models import RunConfig, build_model
 from repro_torch.serve import Engine, EngineConfig
@@ -58,8 +64,11 @@ HOST_OPS = ("aten._local_scalar_dense", "aten.nonzero", "aten.item",
             "aten.lift_fresh", "aten.lift_fresh_copy", "aten.masked_select")
 PROMPT_LENS = (5, 9, 7)            # buckets 8 and 16
 MAX_NEW = 4
-CASES = [(kv_bits, backend) for kv_bits in (16, 8, 4)
+# kv_bits, EVA backend, speculate_k, LM head
+CASES = [(kv_bits, backend, 0, "w") for kv_bits in (16, 8, 4)
          for backend in ("eva_fused", "eva_split")]
+CASES += [(16, "eva_fused", 2, "w"), (4, "eva_fused", 2, "w"),
+          (16, "eva_fused", 0, "vql")]
 
 
 def _leaves(tree):
@@ -139,12 +148,17 @@ def _model_and_params(device):
     return model, params
 
 
-def _engine(model, params, kv_bits, device):
+def _engine(model, params, kv_bits, device, speculate_k=0):
     rc = RunConfig(attn_chunk=16, plan_policy=PlanPolicy(
         impl="cuda", int8_prefill=kv_bits == 4))
     return Engine(model, params, rc,
-                  EngineConfig(num_slots=2, max_len=32, kv_bits=kv_bits),
-                  device=device)
+                  EngineConfig(num_slots=2, max_len=32, kv_bits=kv_bits,
+                               speculate_k=speculate_k), device=device)
+
+
+def _case_id(kv_bits, backend, spec_k, head):
+    return (f"kv{kv_bits}-{backend}" + (f"-spec{spec_k}" if spec_k else "")
+            + ("-vql" if head == "vql" else ""))
 
 
 @pytest.fixture(scope="module")
@@ -153,12 +167,16 @@ def model_params():
 
 
 @pytest.fixture(scope="module", params=CASES,
-                ids=[f"kv{k}-{b}" for k, b in CASES])
+                ids=[_case_id(*c) for c in CASES])
 def served(request, model_params):
     """An engine built and driven with every step recorded: three
     requests over two prefill buckets, two slots."""
-    kv_bits, backend = request.param
+    kv_bits, backend, spec_k, head = request.param
     model, params = model_params
+    if head == "vql":
+        gen = torch.Generator().manual_seed(1)
+        params = dict(params, lm_head={"vql": synthetic_logits_vq(
+            gen, model.cfg.d_model, model.cfg.padded_vocab, 24)})
     planner = plan_mod.default_planner()
     before = planner.calibration
     calls = []
@@ -166,7 +184,7 @@ def served(request, model_params):
         if backend == "eva_split":
             _pin_split(planner)
         with mock.patch.object(engine_mod, "StepGraph", _recording(calls)):
-            eng = _engine(model, params, kv_bits, "cpu")
+            eng = _engine(model, params, kv_bits, "cpu", spec_k)
             fresh = [t.clone() for t in _leaves(eng.caches)]
             rng = np.random.default_rng(kv_bits)
             prompts = [rng.integers(0, model.cfg.vocab_size, n).astype(np.int32)
@@ -196,9 +214,11 @@ def test_engine_hands_each_step_to_a_step_graph(served):
 
 def test_steps_read_nothing_from_the_host(served):
     eng = served["eng"]
-    # made once at construction: params, caches, the stacked KV codebooks
+    # made once at construction: params, caches, the stacked KV codebooks,
+    # the successor table
     resident = {id(t) for t in _leaves((eng.params, eng.caches,
-                                        getattr(eng, "_kv_cb", None)))}
+                                        getattr(eng, "_kv_cb", None),
+                                        eng.succ))}
     for names, log in served["calls"]:
         assert log, names
         for call in log:
@@ -230,16 +250,18 @@ def test_construction_leaves_the_caches_as_init_cache_made_them(served):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
-PAGED_CASES = [(16, 4), (8, None), (4, None)]   # kv_bits, prefill_chunk
+# kv_bits, prefill_chunk, speculate_k
+PAGED_CASES = [(16, 4, 0), (8, None, 0), (4, None, 0), (16, 4, 2)]
 PAGED_PROMPT_LENS = (12, 9, 6, 11, 5)
 
 
 @pytest.fixture(scope="module", params=PAGED_CASES,
-                ids=[f"kv{k}-chunk{c}" for k, c in PAGED_CASES])
+                ids=[f"kv{k}-chunk{c}" + (f"-spec{s}" if s else "")
+                     for k, c, s in PAGED_CASES])
 def paged_served(request, model_params):
     """A paged engine (8 blocks of 4 for 2 slots of 32: it preempts)
     built and driven with every step recorded."""
-    kv_bits, chunk = request.param
+    kv_bits, chunk, spec_k = request.param
     model, params = model_params
     calls = []
     rc = RunConfig(attn_chunk=16, plan_policy=PlanPolicy(
@@ -247,7 +269,8 @@ def paged_served(request, model_params):
     with mock.patch.object(engine_mod, "StepGraph", _recording(calls)):
         eng = Engine(model, params, rc, EngineConfig(
             num_slots=2, max_len=32, kv_bits=kv_bits, paged=True,
-            block_size=4, num_blocks=8, prefill_chunk=chunk), device="cpu")
+            block_size=4, num_blocks=8, prefill_chunk=chunk,
+            speculate_k=spec_k), device="cpu")
         fresh = [t.clone() for t in _leaves(eng.caches)]
         rng = np.random.default_rng(kv_bits)
         prompts = [rng.integers(0, model.cfg.vocab_size, n).astype(np.int32)
@@ -426,5 +449,57 @@ def test_replay_equals_eager_bitwise_on_card(cuda, kv_bits):
                                    torch.from_numpy(pos[i]).to(cuda), plain,
                                    rc.replace(mode="decode"))
         assert torch.equal(got[i], want[:, 0, :vocab]), i
+    for n, t in eng.caches["body"].items():
+        assert torch.equal(t, plain["body"][n]), n
+
+
+@pytest.mark.cuda
+def test_speculative_replay_equals_eager_bitwise_on_card(cuda):
+    """A speculative engine's decode graph (the verify window, K = 2)
+    replayed on a prefilled cache against ``verify_logits`` run eagerly
+    on a clone, each step followed on both sides by the eager part: the
+    logits and windows of every step, and the caches and successor
+    tables after the last, bitwise equal."""
+    from repro_torch.serve import speculative
+
+    model, params = _model_and_params("cuda")
+    eng = _engine(model, params, 16, "cuda", speculate_k=2)
+    vocab = model.cfg.vocab_size
+    gen = np.random.default_rng(5)
+    toks = torch.from_numpy(gen.integers(0, vocab, (1, 16)).astype(np.int32))
+    _, cache = model.prefill(eng.params, {"tokens": toks.to(cuda)},
+                             eng.rc.replace(mode="prefill"))
+    padded = pad_prefill_cache(cache, 32, true_len=16)
+    for b in range(2):
+        engine_mod._insert_slot(eng.caches, padded, b)
+    plain = {"body": {n: t.clone() for n, t in eng.caches["body"].items()}}
+    eng.succ.copy_(torch.from_numpy(
+        gen.integers(-1, vocab, tuple(eng.succ.shape)).astype(np.int32)))
+    succ = eng.succ.clone()
+    on = lambda a, dt: torch.as_tensor(a, dtype=dt, device=cuda)
+    knobs = {"generators": [None, None], "greedy": [True, True],
+             "temperature": on([1.0, 1.0], torch.float32),
+             "top_k": on([0, 0], torch.int32),
+             "top_p": on([1.0, 1.0], torch.float32),
+             "stop_ids": on([[-1], [-1]], torch.int32),
+             "remaining": on([32, 32], torch.int32),
+             "active": on([True, True], torch.bool),
+             "spec_on": on([True, True], torch.bool)}
+    pos = np.full((2, 1), 16, np.int32)
+    for i in range(4):
+        last = gen.integers(0, vocab, (2, 1)).astype(np.int32)
+        got = [t.clone() for t in eng.decode_graph(tokens=last, positions=pos)]
+        with torch.no_grad():
+            want = speculative.verify_logits(
+                model, eng.params, plain, succ, on(last, torch.int32),
+                on(pos, torch.int32), eng._rc_decode, 2)
+            e = [speculative.settle_window(*out, caches, table, **knobs)[2]
+                 for out, caches, table in ((got, eng.caches, eng.succ),
+                                            (want, plain, succ))]
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), i
+        assert torch.equal(e[0], e[1]), i
+        pos = pos + e[0].cpu().numpy()[:, None]
+    assert eng.trace_counts["decode"] == 1
+    assert torch.equal(eng.succ, succ)
     for n, t in eng.caches["body"].items():
         assert torch.equal(t, plain["body"][n]), n

@@ -1,6 +1,7 @@
 """The port stands alone: nothing under src/repro_torch/ (nor
 chip_smoke.py) imports JAX or the reference package, and importing the
-port on a CPU-only PyTorch without nvcc or triton pulls in neither."""
+port on a CPU-only PyTorch without nvcc or triton pulls in neither;
+each module imports as the first of its package."""
 import ast
 import os
 import subprocess
@@ -44,6 +45,28 @@ def test_import_leaves_jax_out():
         "('jax', 'jaxlib', 'repro', 'triton')]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.startswith("ok"), res.stderr
+
+
+def test_each_module_imports_first():
+    """Every port module (packages included) imports as the first port
+    module of a process: no import cycle hides behind the order other
+    imports happen in (``import repro_torch.serve`` alone once failed,
+    ROADMAP C6)."""
+    mods = sorted(
+        ".".join(("repro_torch",) + p.relative_to(PORT).with_suffix("").parts)
+        .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+    code = (
+        "import importlib, sys\n"
+        "import torch\n"
+        f"for m in {mods!r}:\n"
+        "    for k in [k for k in sys.modules if k.startswith('repro_torch')]:\n"
+        "        del sys.modules[k]\n"
+        "    importlib.import_module(m)\n"
+        "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
