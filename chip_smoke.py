@@ -96,7 +96,23 @@ Phases (any failure exits non-zero):
      (`serve`'s traffic with a synthetic VQ-Logits head of 2048
      codewords, against the same model with the head's expansion:
      greedy token agreement, prefill logits within VQL_REL, the head's
-     device time beside the dense bf16 head's);
+     device time beside the dense bf16 head's); then `serve_resilience`
+     (`serve`'s weights and traffic through the resilience layer, every
+     count set to 0 at its start): serve_with_restarts with a prefill, a
+     decode and a sample fault (3 restarts, all scripted, each fresh
+     engine's decode graph built once, peak device memory within
+     `serve`'s plus a snapshot, tokens `serve`'s exactly), the snapshot's
+     bytes and device-to-host ms, an engine's rebuild s and the
+     restore's host-to-device ms; a nan poison on one request (it
+     errors, the others' tokens are `serve`'s) and three poisoned ticks
+     that trip the breaker; two backend faults quarantining eva_fused,
+     then eva_split (the decode graph rebuilt over the live caches; the
+     split's kernels, then dequant_gemv at M = 4, among the replay's
+     device events; the step across each switch within PLAIN_REL; decode
+     ms a step per backend; the quarantine reset after); the tight paged
+     engine and the speculative engine snapshotted mid-run and restored
+     into fresh engines, tokens equal to the uninterrupted runs; the
+     check phase holds dequant_gemv at M = 4 first;
   7. the other dense configs at full width and depth, GQA in the engine's
      stream (the check phase also holds flash_decode, flash_decode_kvq
      and both paged entries at their grouped heads, g = 4/2/3/8, and
@@ -243,6 +259,8 @@ def check_kernels(torch, timer):
     from repro_torch.core.vq import (KVQuantConfig, dequantize, kv_decode,
                                      kv_encode, kv_grid_codebooks, synthetic_vq)
     from repro_torch.kernels.dequant_gemv import dequant_gemv
+    from repro_torch.kernels.dequant_gemv.ops import (
+        launch_shape as dequant_launch_shape)
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_kvq,
                                                   flash_decode_kvq_paged,
@@ -298,9 +316,12 @@ def check_kernels(torch, timer):
     # the dequantized fp32 weights (TF32 off); bf16 torch.matmul on
     # bf16-rounded weights is timed beside it, at lower precision (it
     # misses the tolerance). Bound: the products' flops at the bf16
-    # tensor-core rate.
+    # tensor-core rate. Last, bf16 x at M = SLOTS, the decode rows B3 serves
+    # once both EVA backends are quarantined (serve_resilience), with the
+    # launch shape its wrapper picks.
     for M, x_dtype in ((MAX_LEN, torch.float32), (MAX_LEN, torch.bfloat16),
-                       *((m, torch.bfloat16) for m in (256, 128, 64, 32))):
+                       *((m, torch.bfloat16) for m in (256, 128, 64, 32)),
+                       (SLOTS, torch.bfloat16)):
         for name, K, N in LINEARS:
             vq = synthetic_vq(gen, K, N, C=C, device="cuda")
             x = torch.randn((M, K), generator=gen, device="cuda").to(x_dtype)
@@ -314,8 +335,13 @@ def check_kernels(torch, timer):
             tol = 1e-4 * max(1.0, want.abs().max().item())
             V = K // 8
             products = 3 if x_dtype == torch.float32 else 2
-            record("dequant_gemv", {"M": M, "linear": name, "K": K, "N": N,
-                                    "x": str(x_dtype).split(".")[-1]},
+            case = {"M": M, "linear": name, "K": K, "N": N,
+                    "x": str(x_dtype).split(".")[-1]}
+            if M == SLOTS:
+                case["launch_shape"] = dequant_launch_shape(
+                    M, V, N, torch.cuda.get_device_properties(
+                        0).multi_processor_count)
+            record("dequant_gemv", case,
                    got, want, tol, run, plain, lambda: torch.matmul(x32, w),
                    x.numel() * x.element_size() + C * V * N + C * 8 * 256 * 4
                    + N * 4 + M * N * 4, products * 2 * M * K * N,
@@ -872,9 +898,12 @@ def serve(torch, timer):
           "greedy_token_agreement": agreement(fp, split)})
     spec = serve_spec(torch, model, params, prompts, fp)
     vql = serve_vql(torch, model, params, prompts)
+    resilience = serve_resilience(torch, model, params, prompts, fp, spec)
     return {"serve": fp["launches"], "serve_kvq": kvq["launches"],
-            "serve_split": split["launches"], **paged,
-            "serve_spec": spec["launches"], "serve_vql": vql["launches"]}
+            "serve_split": split["launches"],
+            **{k: v["launches"] for k, v in paged.items()},
+            "serve_spec": spec["launches"], "serve_vql": vql["launches"],
+            "serve_resilience": resilience}
 
 
 def serve_spec(torch, model, params, prompts, fp):
@@ -1038,6 +1067,392 @@ def serve_vql(torch, model, params, prompts):
     del w, p_dense, x
     phase_seconds("serve_vql (+ dense head)", t0)
     return vql
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+class Uncounted:
+    """Kernel launches inside the block are taken back out of the counts
+    (the checks beside a served path, not the path)."""
+
+    def __enter__(self):
+        from repro_torch import kernels
+
+        self.counts = kernels.launch_counts()
+
+    def __exit__(self, *exc):
+        from repro_torch import kernels
+
+        kernels.set_launch_counts(self.counts)
+
+
+def kept_caches(torch, eng, fn):
+    """Run ``fn`` (which may write the engine's caches: graph replays)
+    with every cache leaf and ``succ`` put back afterwards."""
+    from repro_torch.serve.graphs import tensor_leaves
+
+    leaves = list(tensor_leaves(eng.caches))
+    if eng.succ is not None:
+        leaves.append(eng.succ)
+    saved = [t.clone() for t in leaves]
+    try:
+        return fn()
+    finally:
+        for t, s in zip(leaves, saved):
+            t.copy_(s)
+        del saved
+        torch.cuda.synchronize()
+
+
+def serve_resilience(torch, model, params, prompts, fp, spec):
+    """`serve_resilience`: the resilience layer on `serve`'s weights and
+    traffic (4 slots, max_len 512, 8 greedy requests of 32-200 prompt
+    tokens, MAX_NEW new tokens each), every kernel count set to 0 at its
+    start and read at its end (the checks beside the path uncounted):
+      (a) serve_with_restarts, a snapshot every tick, one scripted fault
+          at each raise boundary (a prefill fault on one uid, a decode
+          and a sample fault): 3 restarts, every failure an
+          InjectedFault, each fresh engine's decode graph built once, the
+          peak device memory within `serve`'s plus one snapshot, and the
+          tokens `serve`'s exactly; then the snapshot's bytes and its
+          device-to-host ms, an engine's rebuild seconds and the
+          restore's host-to-device ms;
+      (b) a nan poison on one uid: it finishes "error", the others'
+          tokens are `serve`'s; then breaker_k poisoned ticks in a row
+          trip the breaker: the queue is rejected and submit refuses;
+      (c) a backend fault mid-decode quarantines eva_fused (the decode
+          graph rebuilt over the live caches: vq_gemm and oc_lookup
+          launch, fused_vq_matmul does not), a second quarantines
+          eva_split (decode through dequant_gemv at M = 4); at each
+          switch the decode step before and after it, eager on the same
+          cache, within PLAIN_REL, the tokens before the first switch
+          `serve`'s, the new backend's kernels among the replay's device
+          events, decode ms a step per backend; the quarantine is reset
+          after;
+      (d) `serve_paged_tight` snapshotted after its preemption while a
+          chunk is in flight, restored into a fresh engine: the tokens of
+          the uninterrupted run exactly;
+      (e) `serve_spec` snapshotted mid-run and restored: the same.
+    Returns the phase's kernel launches."""
+    import gc
+
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.plan import PlanPolicy
+    from repro_torch.models import RunConfig
+    from repro_torch.serve import (Engine, EngineConfig, FaultPlan, FaultSpec,
+                                   GenerationRequest, serve_with_restarts)
+    from repro_torch.serve.graphs import tensor_leaves
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    rc = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
+    ecfg = lambda **kw: EngineConfig(num_slots=SLOTS, max_len=MAX_LEN, **kw)
+    mk = lambda **kw: Engine(model, params, rc, ecfg(**kw), device="cuda")
+    reqs = lambda: [GenerationRequest(prompt=p, max_new_tokens=MAX_NEW)
+                    for p in prompts]
+    want = {i + 1: tuple(t) for i, t in enumerate(fp["tokens"])}
+
+    def drain(eng):
+        while not eng.idle:
+            eng.step()
+        torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+
+    # (a) restarts at each raise boundary
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    plan = FaultPlan.scripted(FaultSpec("prefill", tick=0, uid=6),
+                              FaultSpec("decode", tick=10),
+                              FaultSpec("sample", tick=20))
+    builds = []
+
+    def factory():
+        eng = mk(fault_plan=plan)
+        builds.append(eng.trace_counts)
+        return eng
+
+    t0 = time.perf_counter()
+    eng, outs, stats = serve_with_restarts(factory, reqs(), snapshot_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    snap = eng.snapshot()
+    row = {"phase": "serve_resilience_restarts", "card": card,
+           "restarts": stats.restarts, "snapshots": stats.snapshots,
+           "failures": stats.failures,
+           "decode_builds": [b["decode"] for b in builds],
+           "tokens_equal_serve": all(outs[u].tokens == want[u] for u in want),
+           "finish": sorted({o.finish_reason for o in outs.values()}),
+           "wall_s": wall, "peak_device_bytes_over_params": peak,
+           "serve_peak_device_bytes_over_params": fp["peak_over_base"],
+           "snapshot_bytes": snap.nbytes}
+    emit(row)
+    assert stats.restarts == 3 and plan.exhausted, row
+    assert all(f.startswith("InjectedFault:") for f in stats.failures), row
+    assert row["decode_builds"] == [1] * 4 and row["tokens_equal_serve"], row
+    assert peak <= row["serve_peak_device_bytes_over_params"] + snap.nbytes, row
+    del eng, outs, snap
+    gc.collect()
+
+    # the snapshot's and the restore's cost on a mid-run engine
+    eng = mk()
+    for r in reqs():
+        eng.submit(r)
+    for _ in range(6):
+        eng.step()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = eng.snapshot()
+        times.append(time.perf_counter() - t0)
+    del eng
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = mk()
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    ptrs = [t.data_ptr() for t in tensor_leaves(eng.caches)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.restore(snap)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    row = {"phase": "serve_resilience_snapshot_cost", "card": card,
+           "snapshot_bytes": snap.nbytes,
+           "snapshot_ms": statistics.median(times) * 1e3,
+           "snapshot_ms_runs": [t * 1e3 for t in times],
+           "restore_ms": restore_s * 1e3, "engine_rebuild_s": rebuild_s,
+           "decode_ms_per_step_serve":
+               fp["metrics"]["decode_s"] * 1e3 / fp["metrics"]["decode_steps"],
+           "restore_in_place": [t.data_ptr() for t in
+                                tensor_leaves(eng.caches)] == ptrs}
+    emit(row)
+    assert row["restore_in_place"], row
+    drain(eng)
+    assert all(eng.output(u).tokens == want[u] for u in want), "restored"
+    del eng, snap
+    gc.collect()
+
+    # (b) poison, then the breaker
+    eng = mk(fault_plan=FaultPlan.scripted(FaultSpec("poison", tick=5, uid=3)))
+    uids = [eng.submit(r) for r in reqs()]
+    drain(eng)
+    reasons = {u: eng.output(u).finish_reason for u in uids}
+    row = {"phase": "serve_resilience_poison", "card": card,
+           "finish": reasons,
+           "poisoned_slot_steps": eng.metrics()["poisoned_slot_steps"],
+           "others_equal_serve": all(eng.output(u).tokens == want[u]
+                                     for u in uids if u != 3)}
+    del eng
+    eng = mk(breaker_k=3, fault_plan=FaultPlan.scripted(
+        *(FaultSpec("poison", tick=2 + i, uid=1 + i) for i in range(3))))
+    uids = [eng.submit(r) for r in reqs()]
+    drain(eng)
+    refused = eng.submit(reqs()[0])
+    row.update({"breaker_finish": {u: eng.output(u).finish_reason
+                                   for u in uids},
+                "healthy": eng.healthy,
+                "submit_after_trip": eng.output(refused).finish_reason,
+                "uid4_equal_serve": eng.output(4).tokens == want[4]})
+    emit(row)
+    assert reasons[3] == "error" and row["others_equal_serve"], row
+    # uids 1-3 poisoned on ticks 2, 3 and 4; 5 and 6 took the freed slots
+    # before the trip, 7 and 8 were queued at it
+    assert [row["breaker_finish"][u] for u in uids] == (
+        ["error"] * 3 + ["length"] * 3 + ["rejected"] * 2), row
+    assert not row["healthy"] and row["submit_after_trip"] == "rejected", row
+    assert row["uid4_equal_serve"], row
+    del eng
+    gc.collect()
+
+    # (c) backend faults: eva_fused, then eva_split, quarantined
+    t1, t2 = 8, 16
+    eng = mk(fault_plan=FaultPlan.scripted(
+        FaultSpec("backend", tick=t1, backend="eva_fused"),
+        FaultSpec("backend", tick=t2, backend="eva_split")))
+    uids = [eng.submit(r) for r in reqs()]
+    segments, switch = [], []
+
+    def run_to(tick):
+        m0 = eng.metrics()
+        c0 = kernels.launch_counts()
+        while eng._tick < tick and not eng.idle:
+            eng.step()
+        torch.cuda.synchronize()
+        m1, c1 = eng.metrics(), kernels.launch_counts()
+        steps = m1["decode_steps"] - m0["decode_steps"]
+        return {"decode_steps": steps,
+                "decode_ms_per_step": (m1["decode_s"] - m0["decode_s"])
+                * 1e3 / max(1, steps),
+                "launches": {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}}
+
+    def eager_decode(caches, tok, pos):
+        """A decode step on ``caches`` through the kernels the planner
+        ranks now, eager and uncounted."""
+        with torch.no_grad(), Uncounted():
+            out, _ = model.decode(eng.params, torch.as_tensor(tok, device="cuda"),
+                                  torch.as_tensor(pos, device="cuda"), caches,
+                                  eng.rc)
+        return out
+
+    segments.append(("eva_fused", run_to(t1)))
+    pre = {tr.uid: list(tr.generated) for tr in eng.sched.slots if tr}
+    for tick, backend, expect in ((t1, "eva_split", ("vq_gemm", "oc_lookup")),
+                                  (t2, "dequant", ("dequant_gemv",))):
+        if tick == t2:
+            segments.append(("eva_split", run_to(t2)))
+        # the step the engine takes next, eager on clones of its caches,
+        # through the backend serving now and, after the tick's fault, the
+        # next one
+        act = eng.active.copy()
+        tok = np.where(act, eng.last_token, 0)[:, None]
+        pos = np.where(act, eng.positions, 0)[:, None]
+        clone = lambda: {"body": {n: t.clone()
+                                  for n, t in eng.caches["body"].items()}}
+        before = eager_decode(clone(), tok, pos)
+        kept = clone()
+        eng.step()                   # the fault fires first: rebuild, step
+        torch.cuda.synchronize()
+        after = eager_decode(kept, tok, pos)
+        del kept
+        drift, rel, agree, finite = logit_drift(torch, after, before,
+                                                model.cfg.vocab_size)
+        stats = plan_mod.default_planner().backend_stats()
+        backends = sorted({pl.backend for _, pl in eng.plans["decode"]
+                           if pl.spec.kind == "vq"})
+        with Uncounted():
+            prof = kept_caches(torch, eng, lambda: device_profile(
+                torch, lambda: eng.decode_graph(tokens=tok, positions=pos)))
+        row = {"phase": "serve_resilience_backend_switch", "card": card,
+               "tick": tick, "decode_vq_backends": backends,
+               "backend_fallbacks": eng.metrics()["backend_fallbacks"],
+               "quarantined": stats["quarantined"],
+               "failures": stats["failures"],
+               "trace_counts": dict(eng.trace_counts),
+               "switch_step_rel_drift": rel, "max_abs_logit_drift": drift,
+               "argmax_agreement": agree, "finite": finite,
+               "rel_bound": PLAIN_REL, "replay": prof}
+        emit(row)
+        assert backends == [backend], row
+        assert finite and rel <= PLAIN_REL, row
+        assert all(k in prof["device_ms_by_kernel"] for k in expect), row
+        switch.append(row)
+    segments.append(("dequant", run_to(10 ** 9)))
+    m = eng.metrics()
+    fused_seg, split_seg, deq_seg = (s for _, s in segments)
+    agreement_after = sum(a == b for u in uids for a, b in zip(
+        eng.output(u).tokens, want[u])) / (N_REQUESTS * MAX_NEW)
+    row = {"phase": "serve_resilience_backends", "card": card,
+           "segments": {n: s for n, s in segments},
+           "backend_fallbacks": m["backend_fallbacks"],
+           "trace_counts": dict(eng.trace_counts),
+           "tokens_before_first_switch_equal_serve": all(
+               list(want[u][:len(g)]) == g for u, g in pre.items()),
+           "greedy_token_agreement_with_serve": agreement_after,
+           "finish": sorted({eng.output(u).finish_reason for u in uids})}
+    emit(row)
+    assert m["backend_fallbacks"] == 2, row
+    assert switch[0]["trace_counts"]["decode"] == 2, row
+    assert eng.trace_counts["decode"] == 3, row
+    assert row["tokens_before_first_switch_equal_serve"], row
+    assert fused_seg["launches"].get("fused_vq_matmul", 0) > 0, row
+    for seg in (split_seg, deq_seg):
+        assert seg["launches"].get("fused_vq_matmul", 0) == 0, row
+    assert all(split_seg["launches"].get(k, 0) > 0
+               for k in ("vq_gemm", "oc_lookup")), row
+    assert all(deq_seg["launches"].get(k, 0) == 0
+               for k in ("vq_gemm", "oc_lookup")), row
+    assert deq_seg["launches"].get("dequant_gemv", 0) > 0, row
+    assert all(eng.output(u).num_tokens == MAX_NEW for u in uids), row
+    del eng
+    plan_mod.reset_quarantine()
+    stats = plan_mod.default_planner().backend_stats()
+    emit({"phase": "serve_resilience_quarantine_reset", "stats": stats})
+    assert stats["quarantined"] == () and stats["failures"] == {}, stats
+    gc.collect()
+
+    # (d) the tight paged engine, snapshotted after a preemption while a
+    # chunk is in flight
+    tight = dict(paged=True, block_size=BLOCK, num_blocks=TIGHT_BLOCKS,
+                 prefill_chunk=64)
+    eng = mk(**tight)
+    uids = [eng.submit(r) for r in reqs()]
+    snap, at = None, None
+    while not eng.idle:
+        eng.step()
+        mid_chunk = any(tr is not None and not eng.active[b]
+                        and tr.prefill_pos > 0
+                        for b, tr in enumerate(eng.sched.slots))
+        if (snap is None and mid_chunk
+                and eng.metrics()["preemptions"] >= 1):
+            snap, at = eng.snapshot(), eng._tick
+    torch.cuda.synchronize()
+    ref = {u: eng.output(u).tokens for u in uids}
+    del eng
+    gc.collect()
+    assert snap is not None, "serve_resilience: no chunk after a preemption"
+    eng = mk(**tight)
+    eng.restore(snap)
+    drain(eng)
+    row = {"phase": "serve_resilience_paged", "card": card,
+           "snapshot_tick": at, "snapshot_bytes": snap.nbytes,
+           "preemptions_at_snapshot": snap.metrics["preemptions"],
+           "tokens_equal_uninterrupted": all(
+               eng.output(u).tokens == ref[u] for u in uids),
+           "greedy_token_agreement_with_serve": sum(
+               a == b for u in uids for a, b in zip(ref[u], want[u]))
+           / (N_REQUESTS * MAX_NEW),
+           "trace_counts": dict(eng.trace_counts)}
+    emit(row)
+    assert row["tokens_equal_uninterrupted"], row
+    del eng, snap
+    gc.collect()
+
+    # (e) the speculative engine
+    eng = mk(speculate_k=SPEC_K)
+    uids = [eng.submit(r) for r in reqs()]
+    for _ in range(5):
+        eng.step()
+    snap = eng.snapshot()
+    drain(eng)
+    ref = {u: eng.output(u).tokens for u in uids}
+    del eng
+    gc.collect()
+    eng = mk(speculate_k=SPEC_K)
+    eng.restore(snap)
+    drain(eng)
+    row = {"phase": "serve_resilience_spec", "card": card,
+           "snapshot_bytes": snap.nbytes,
+           "tokens_equal_uninterrupted": all(
+               eng.output(u).tokens == ref[u] for u in uids),
+           "tokens_equal_serve_spec": all(
+               list(ref[u]) == spec["tokens"][u - 1] for u in uids),
+           "trace_counts": dict(eng.trace_counts)}
+    emit(row)
+    assert row["tokens_equal_uninterrupted"], row
+    del eng, snap
+    gc.collect()
+    launches = kernels.launch_counts()
+    emit({"phase": "serve_resilience", "card": card, "launches": launches,
+          "wall_s": time.perf_counter() - t_phase})
+    missing = [k for k in ("fused_vq_matmul", "flash_decode", "flash_decode_paged",
+                           "dequant_gemv", "vq_gemm", "oc_lookup")
+               if launches[k] == 0]
+    assert not missing, f"serve_resilience: never launched: {missing}"
+    phase_seconds("serve_resilience", t_phase)
+    return launches
 
 
 def phase_seconds(name, t0) -> None:
@@ -1345,7 +1760,7 @@ def serve_paged(torch, model, params, prompts, fp, kvq):
     assert out["serve_kvq_paged"]["tokens"] == kvq["tokens"], \
         "serve_kvq_paged != serve_kvq"
     assert tight["preemptions"] >= 1 and tight["prefill_chunks"] >= 1, tight
-    return {k: v["launches"] for k, v in out.items()}
+    return out
 
 
 def calibration(torch, timer, cfg, params):
@@ -1552,6 +1967,9 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required,
     if paged:
         assert m["blocks_in_use"] == m["kv_bytes_in_use"] == 0, m
 
+    # the construction's and the serving's peak beyond what was held
+    # before (the weights)
+    peak_over_base = torch.cuda.max_memory_allocated() - before
     toks = torch.tensor(np.stack([p[:64] for p in prompts[:SLOTS]]),
                         dtype=torch.int32, device="cuda")
     engine_checks(torch, model, eng, toks, name, required,
@@ -1559,6 +1977,7 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required,
     phase_seconds(name, t_phase)
     return {"launches": launches, "tokens": tokens, "metrics": m,
             "kv_bytes": m["kv_bytes_in_use"] or alloc, "wall_s": wall,
+            "peak_over_base": peak_over_base,
             "decode_launches": eng.decode_graph.launches,
             "trace_counts": dict(eng.trace_counts)}
 
@@ -2046,9 +2465,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card, flush=True)
     emit({"phase": "build", "seconds": build.build_all(),
           "ptxas": {n: [ln.strip() for ln in log.splitlines()

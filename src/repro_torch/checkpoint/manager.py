@@ -119,7 +119,7 @@ def unflatten_from_paths(flat: Dict[str, Any]) -> Any:
     return rebuild(root)
 
 
-def _to_host(x: Any) -> Any:
+def to_host(x: Any) -> Any:
     """A leaf as the numpy array the reference writes: a tensor's values
     on the host, bf16 as its bits in a 2-byte void array."""
     if isinstance(x, torch.Tensor):
@@ -132,23 +132,23 @@ def _to_host(x: Any) -> Any:
 
 def _host_snapshot(tree: Any) -> Any:
     if is_vq(tree):
-        return VQWeight(idx=_to_host(tree.idx),
-                        codebooks=_to_host(tree.codebooks),
-                        scale=_to_host(tree.scale), K=tree.K, N=tree.N,
+        return VQWeight(idx=to_host(tree.idx),
+                        codebooks=to_host(tree.codebooks),
+                        scale=to_host(tree.scale), K=tree.K, N=tree.N,
                         d=tree.d, n=tree.n, splits=tuple(tree.splits))
     if isinstance(tree, dict):
         return {k: _host_snapshot(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_host_snapshot(v) for v in tree)
-    return _to_host(tree)
+    return to_host(tree)
 
 
-def _from_host(a: np.ndarray) -> torch.Tensor:
-    """An array read from a checkpoint as a CPU tensor (2-byte void:
-    bfloat16 bits)."""
+def from_host(a: np.ndarray) -> torch.Tensor:
+    """A host array (read from a checkpoint, or an engine snapshot's) as a
+    CPU tensor over the same memory (2-byte void: bfloat16 bits)."""
     if a.dtype.kind == "V" and a.dtype.itemsize == 2:
-        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.array(a))
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _write_npz(path: str, arrays: Dict[str, np.ndarray]) -> None:
@@ -291,7 +291,7 @@ class CheckpointManager:
         for group, paths in manifest["groups"].items():
             with np.load(os.path.join(d, f"{group}.npz")) as data:
                 flat = {path: (None if path.endswith("/__none__")
-                               else _from_host(data[f"a{i}"]))
+                               else from_host(data[f"a{i}"]))
                         for i, path in enumerate(paths)}
             state[group] = from_jax_params(unflatten_from_paths(flat),
                                            device=dev)

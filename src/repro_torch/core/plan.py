@@ -41,13 +41,28 @@ breaks exact ties. Today the genuine choice is a decode VQ site, where
 ``eva_fused`` and ``eva_split`` both match; analytically the fused kernel
 wins.
 
-Two deliberate divergences from the reference:
+Backend quarantine, as in the reference: ``record_backend_failure``
+takes a backend out of the ranking for ``cooloff_s`` (30 s by default)
+and clears the plan cache, so every site re-ranks on the backends left;
+the cool-off's expiry releases it. The engine's scripted ``backend``
+fault calls it (``serve/engine.py``); ``reset_quarantine`` clears the
+default planner's.
 
-  * No execute-time fallback chain, no backend quarantine and no
-    degrade-to-plain path (the reference's ``_chain_run`` and
-    ``record_backend_failure``): on the card a failing kernel raises, it
-    never hands its work to another backend or to the plain version.
-    They belong to the resilience layer (ROADMAP A6).
+Three deliberate divergences from the reference:
+
+  * No degrade to the plain formulation. When every matched backend is
+    quarantined, the reference first degrades to ``impl="jnp"``; on the
+    card that would be the plain PyTorch version, a hidden fallback. Here
+    an ``eva`` policy degrades straight to ``vq_mode="dequant"`` under
+    the SAME impl (under ``impl="cuda"`` the dequant-GEMV kernel, B3),
+    and when that is quarantined too the quarantine is ignored and the
+    kernels re-ranked, the reference's last resort. A plan under
+    ``impl="cuda"`` never runs a plain version.
+  * No execute-time fallback chain (the reference's ``_chain_run``): a
+    backend's exception is never caught, and a kernel that fails on the
+    card raises through the engine's step. Only an explicit
+    ``record_backend_failure`` quarantines a backend;
+    ``backend_stats`` therefore has no ``exec_fallbacks``.
   * The ``kvq_attn`` kind stays split by impl, where the reference lets
     ``kvq_dequant_jnp`` match every impl and ranks it against the kernel:
     a plain version is never a ranking candidate on the card. (The
@@ -59,7 +74,9 @@ from __future__ import annotations
 import collections
 import dataclasses
 import importlib
+import logging
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -68,9 +85,15 @@ from repro_torch.core import calibrate as calibrate_mod
 from repro_torch.core import ops
 from repro_torch.core.vq import VQWeight
 
+log = logging.getLogger(__name__)
+
 WEIGHT_KINDS = ("dense", "int8", "vq", "kvq_attn", "vq_logits")
 VQ_MODES = ("none", "eva", "dequant")
 IMPLS = ("cuda", "torch")
+
+# a quarantined backend is ranked again after this cool-off: a transient
+# failure recovers, a lasting one is quarantined again at its next fault
+DEFAULT_BACKEND_COOLOFF_S = 30.0
 
 
 def dtype_name(dt: torch.dtype) -> str:
@@ -289,9 +312,12 @@ class Planner:
     ./CALIBRATION_TORCH.json; analytic when absent); None ranks
     analytically; a ``Calibration`` is used as given.
     ``reload_calibration`` swaps the model for FUTURE planning without
-    touching cached plans; ``cache_clear`` re-ranks every site."""
+    touching cached plans; ``cache_clear`` re-ranks every site. A
+    backend given to ``record_backend_failure`` is skipped by ranking for
+    ``cooloff_s`` seconds (module docstring)."""
 
-    def __init__(self, maxsize: int = 1024, calibration: Any = "default"):
+    def __init__(self, maxsize: int = 1024, calibration: Any = "default",
+                 cooloff_s: float = DEFAULT_BACKEND_COOLOFF_S):
         self._cache: "collections.OrderedDict[Tuple[LinearSpec, PlanPolicy], MatmulPlan]" = (
             collections.OrderedDict())
         self._maxsize = maxsize
@@ -300,6 +326,53 @@ class Planner:
         self._misses = 0
         self._calibration: Optional[calibrate_mod.Calibration] = None
         self.reload_calibration(calibration)
+        # backend name -> monotonic expiry of its quarantine
+        self.cooloff_s = cooloff_s
+        self._quarantine: Dict[str, float] = {}
+        self._backend_failures: Dict[str, int] = collections.Counter()
+
+    # ---- backend quarantine
+    def record_backend_failure(self, backend: str,
+                               cooloff_s: Optional[float] = None) -> None:
+        """Quarantine ``backend`` for ``cooloff_s`` (the planner's when
+        None) and clear the plan cache, so planned sites re-rank too."""
+        cool = self.cooloff_s if cooloff_s is None else cooloff_s
+        with self._lock:
+            self._backend_failures[backend] += 1
+            self._quarantine[backend] = time.monotonic() + cool
+            self._cache.clear()
+        log.warning("backend %r quarantined for %.1fs (%d failures so far)",
+                    backend, cool, self._backend_failures[backend])
+
+    def _active_quarantine(self) -> Tuple[str, ...]:
+        """The quarantined backends; expired ones are released here, and
+        the cache cleared so a released backend is ranked again."""
+        now = time.monotonic()
+        with self._lock:
+            expired = [b for b, t in self._quarantine.items() if now >= t]
+            for b in expired:
+                del self._quarantine[b]
+            if expired:
+                self._cache.clear()
+            active = tuple(self._quarantine)
+        for b in expired:
+            log.info("backend %r released from quarantine", b)
+        return active
+
+    def reset_quarantine(self) -> None:
+        """Forget every quarantine and failure count and clear the plan
+        cache (the default planner is process-global: a test that
+        quarantines must reset it)."""
+        with self._lock:
+            self._quarantine.clear()
+            self._backend_failures.clear()
+            self._cache.clear()
+
+    def backend_stats(self) -> Dict[str, Any]:
+        """Failures per backend and the quarantined set."""
+        with self._lock:
+            failures = dict(self._backend_failures)
+        return {"failures": failures, "quarantined": self._active_quarantine()}
 
     @property
     def calibration(self) -> Optional[calibrate_mod.Calibration]:
@@ -314,10 +387,12 @@ class Planner:
                              if calibration == "default" else calibration)
 
     def plan(self, spec: LinearSpec, policy: PlanPolicy) -> MatmulPlan:
-        """Resolve (spec, policy) to the cheapest eligible backend.
+        """Resolve (spec, policy) to the cheapest eligible backend that is
+        not quarantined (module docstring: when every match is).
 
         Raises:
           ValueError: no registered backend matches the pair."""
+        quarantined = self._active_quarantine()  # may clear the cache
         key = (spec, policy)
         with self._lock:
             hit = self._cache.get(key)
@@ -330,6 +405,22 @@ class Planner:
             raise ValueError(
                 f"no registered backend matches spec={spec} policy={policy}; "
                 f"registered: {tuple(_REGISTRY)}")
+        if quarantined:
+            healthy = tuple(be for be in matched if be.name not in quarantined)
+            if healthy:
+                matched = healthy
+            elif policy.vq_mode == "eva":
+                degraded = dataclasses.replace(policy, vq_mode="dequant")
+                log.warning("all matched backends %s quarantined for spec=%s; "
+                            "degrading policy to %s",
+                            tuple(be.name for be in matched), spec, degraded)
+                built = self.plan(spec, degraded)
+                with self._lock:  # the quarantine's changes clear it
+                    self._cache[key] = built
+                return built
+            else:
+                log.error("all backends matching spec=%s policy=%s are "
+                          "quarantined; ignoring the quarantine", spec, policy)
         built = self._rank(matched, spec, policy)
         with self._lock:
             self._misses += 1
@@ -400,6 +491,11 @@ _PLANNER = Planner()  # the process-global planner of every model layer
 def default_planner() -> Planner:
     """The process-global Planner every model-layer entry point uses."""
     return _PLANNER
+
+
+def reset_quarantine() -> None:
+    """Clear the default planner's quarantine and failure counts."""
+    _PLANNER.reset_quarantine()
 
 
 def plan(spec: LinearSpec, policy: PlanPolicy) -> MatmulPlan:

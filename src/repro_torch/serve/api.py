@@ -21,7 +21,20 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-FINISH_REASONS = ("stop", "length", "rejected", "error", "timeout")
+# "error": the request's own logits went non-finite (the numerics
+# quarantine); "*-after-restore": the request was in flight when the
+# engine was restored from a snapshot (serve/resilience.py), its stream
+# the uninterrupted one
+FINISH_REASONS = ("stop", "length", "rejected", "error", "timeout",
+                  "stop-after-restore", "length-after-restore")
+
+
+
+class RequestEvicted(KeyError):
+    """Raised by ``Engine.stream()`` for a uid that was served but whose
+    output and events were evicted past ``EngineConfig.max_retained``;
+    a uid never handed out raises a plain KeyError."""
+
 
 # width of the per-slot stop-token set (eos_ids + stop_token_ids, padded
 # with -1); a request needing more raises at submit

@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine (``repro/serve/engine.py``,
-without the resilience layer).
+"""Continuous-batching serving engine (``repro/serve/engine.py``), with
+its resilience layer (``serve/resilience.py``).
 
 Prefill runs per request at its power-of-two length bucket (every VQ
 linear through the dequant kernel; dense linears through the INT8 GEMM
@@ -62,7 +62,26 @@ logits; the eager part samples each row with the slots' generators,
 keeps the accepted prefix, rolls the caches' ``len`` and the generators
 back to it and records the emitted transitions, and up to K + 1 tokens a
 slot come back in the one readback. Streams are the ones ``speculate_k=0``
-gives. The resilience layer (ROADMAP A6) is not ported yet.
+gives.
+
+The resilience layer, as the reference's: ``EngineConfig.fault_plan``
+fires scripted faults at five boundaries (``resilience.BOUNDARIES``); a
+lane whose logits go non-finite finishes "error" while the batch streams
+on, and ``breaker_k`` poisoned steps in a row trip the circuit breaker
+(the queue is rejected, submits refused); ``queue_ttl_s`` and the
+requests' deadlines time work out; a decode step slower than
+``straggler_threshold`` x the median counts in ``straggler_steps``;
+``snapshot()`` / ``restore()`` carry the whole engine through the host,
+so a fresh engine resumes a crashed one's streams exactly
+(``resilience.serve_with_restarts``). The graphs read the caches, the
+successor table and the block tables at fixed addresses, so a restore
+copies into them and never rebinds them. A poison is added to the
+logits the graphs return, in the eager epilogue, and only when a plan
+is set. A ``backend`` fault quarantines the decode plan's backend in the
+default planner (``core/plan.py``), re-plans, rebuilds the decode graph
+over the live caches (kept bit for bit) and drops the prefill graphs,
+which rebuild at first use. A kernel's own exception is never caught:
+it raises out of ``step()``.
 """
 from __future__ import annotations
 
@@ -76,19 +95,23 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device, tensor_device
+from repro_torch.checkpoint import manager as ckpt_manager
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.quantize import attach_kv_codebooks, kv_codebook_tree
 from repro_torch.core.vq import KVQuantConfig
 from repro_torch.models.api import Model
 from repro_torch.models.common import RunConfig
+from repro_torch.runtime.fault_tolerance import StepWatchdog
 from repro_torch.serve import api, paging, speculative
-from repro_torch.serve.api import (GenerationRequest, RequestOutput,
-                                   SamplingParams, StreamEvent)
+from repro_torch.serve.api import (GenerationRequest, RequestEvicted,
+                                   RequestOutput, SamplingParams, StreamEvent)
 from repro_torch.serve.graphs import HostInputs, StepGraph, tensor_leaves
 from repro_torch.serve.kvcache import (cache_bytes, encode_prefill_cache,
                                        pad_prefill_cache,
                                        quantize_prefill_cache_int8)
 from repro_torch.serve.metrics import EngineMetrics
+from repro_torch.serve.resilience import (CircuitBreaker, EngineSnapshot,
+                                          FaultPlan, InjectedFault)
 from repro_torch.serve.scheduler import QueueFull, Scheduler, TrackedRequest
 
 log = logging.getLogger(__name__)
@@ -112,6 +135,17 @@ class EngineConfig:
     max_len: int = 256
     max_queue: int = 256               # submit() rejects past this bound
     max_retained: int = 1024           # finished outputs kept for output()
+    # ---- resilience (serve/resilience.py) ----
+    # queued requests older than this time out at the tick's sweep
+    queue_ttl_s: Optional[float] = None
+    # stream() raises after this long without an event for its uid
+    stream_stall_s: float = 60.0
+    # this many consecutive poisoned steps trip the circuit breaker
+    breaker_k: int = 3
+    # decode steps slower than this x the rolling median are stragglers
+    straggler_threshold: float = 3.0
+    # scripted faults (tests and drills); None in production
+    fault_plan: Optional[FaultPlan] = None
     # paged KV memory (serve/paging.py): block arenas + per-slot tables;
     # memory follows the requests' lengths, and a decode step out of
     # blocks preempts the youngest request instead of failing
@@ -236,6 +270,14 @@ class Engine:
         self._pending: List[StreamEvent] = []
         self._retired: Deque[int] = deque()
 
+        # the resilience state: the tick (the fault plan's clock and the
+        # snapshot's resume point), the breaker and the decode watchdog
+        self._tick = 0
+        self.fault_plan = ecfg.fault_plan
+        self.breaker = CircuitBreaker(ecfg.breaker_k)
+        self.watchdog = StepWatchdog(window=50,
+                                     threshold=ecfg.straggler_threshold)
+
         self.trace_counts = {"decode": 0, "prefill": 0}
         if self._chunked:
             self.trace_counts["prefill_chunk"] = 0
@@ -256,8 +298,16 @@ class Engine:
             "remaining": ((B,), torch.int32), "active": ((B,), torch.bool)}
         if self.spec_k:
             knobs["spec_on"] = ((B,), torch.bool)
+        if self.fault_plan is not None:  # the poison lanes, as data
+            knobs["poison"] = ((B,), torch.float32)
         self._knobs = HostInputs(knobs, self.device)
         self.decode_graph = self._make_decode_graph()
+        # the build's warm-up wrote rows and len into every slot: back to
+        # init_cache's zeros (paged: the sentinel in every table)
+        for t in tensor_leaves(self.caches):
+            t.zero_()
+        if self.paging is not None:
+            paging.set_block_tables(self.caches, self.tables)
 
     def _preplan(self) -> Dict[str, List[Tuple[Tuple[Any, ...], Any]]]:
         """Plan every linear at the shapes it runs at — decode at M =
@@ -319,6 +369,10 @@ class Engine:
             raise ValueError(f"request has {len(request.stop_set)} stop ids; "
                              f"the engine supports at most {api.MAX_STOP_IDS}")
         self.metrics_counters.submitted += 1
+        if not self.healthy:
+            return self._reject(
+                f"engine unhealthy: circuit breaker tripped after "
+                f"{self.breaker.consecutive} consecutive poisoned steps")
         why = self._admission_error(request)
         if why is not None:
             return self._reject(why)
@@ -501,6 +555,14 @@ class Engine:
         ``token`` the first sampled token on the final step, None for a
         chunk and for a preempted request's resume, whose decode state is
         restored from the preemption instead."""
+        fp = self.fault_plan
+        poison = 0.0
+        if fp is not None:
+            if fp.poll("prefill", self._tick, tr.uid) is not None:
+                raise InjectedFault("prefill", self._tick, tr.uid)
+            spec = fp.poll("poison", self._tick, tr.uid)
+            if spec is not None:
+                poison = float("nan") if spec.mode == "nan" else float("inf")
         req, sp = tr.request, tr.request.sampling
         target = self._prefill_target(tr)
         chunked = self._chunked and target > self.ecfg.prefill_chunk
@@ -528,6 +590,8 @@ class Engine:
             self.metrics_counters.prefill_chunks += 1
         with torch.no_grad():
             last = logits[0, c - 1, :self.model.cfg.vocab_size][None]
+            if fp is not None:
+                last = last + poison
             if not bool(torch.isfinite(last).all()):
                 return None, True, final
             if cache is not None:
@@ -593,11 +657,12 @@ class Engine:
         self.succ[slot].copy_(torch.from_numpy(row[0]))
 
     def _prefill_step_events(self, slot: int,
-                             events: List[StreamEvent]) -> None:
+                             events: List[StreamEvent]) -> bool:
         """One prefill step of ``slot`` and its events and counters:
         ``prefills`` counts a step that emits a first token or poisons; a
         non-final chunk counts in ``prefill_chunks`` only, and a good
-        resume in neither (its token was counted before the preemption)."""
+        resume in neither (its token was counted before the preemption).
+        Returns whether the step poisoned."""
         m = self.metrics_counters
         tr = self.sched.slots[slot]
         t0 = time.perf_counter()
@@ -612,12 +677,12 @@ class Engine:
             m.poisoned_slot_steps += 1
             events.append(StreamEvent(tr.uid, 0, None, "error"))
             self._finish_slot(slot, "error")
-            return
+            return True
         if not final:
-            return
+            return False
         tr.decode_t0 = time.perf_counter()
         if tok is None:  # a resume rejoins decode silently
-            return
+            return False
         m.prefills += 1
         m.tokens_generated += 1
         reason = None
@@ -629,6 +694,7 @@ class Engine:
         events.append(StreamEvent(tr.uid, 0, tok, reason, logprob=lp))
         if reason is not None:
             self._finish_slot(slot, reason)
+        return False
 
     # ------------------------------------------------------ paged KV blocks
     def _update_kv_gauges(self) -> None:
@@ -734,16 +800,15 @@ class Engine:
     # -------------------------------------------------------------- decode
     def _make_decode_graph(self) -> StepGraph:
         """The batched decode step, built (on CUDA: captured) once per
-        engine, as the reference jits ``_decode_impl`` once: the model's
-        decode over static (B, 1) tokens and positions and the engine's
-        caches, which it updates in place, through the (B, vocab) fp32
-        logits. Under ``speculate_k`` it is ``speculative.verify_logits``
-        instead, over the same inputs and ``succ``: (B, K + 1, vocab)
-        logits and the (B, K + 1) window. The build's warm-up writes rows
-        and ``len`` into every slot of the caches, which are still the
-        zeros of ``init_cache`` (paged: into the sink, every table row
-        being the sentinel); they are zeroed again afterwards, and a
-        paged table set back to the sentinel."""
+        engine, as the reference jits ``_decode_impl`` once, and again
+        only after a ``backend`` fault: the model's decode over static
+        (B, 1) tokens and positions and the engine's caches, which it
+        updates in place, through the (B, vocab) fp32 logits. Under
+        ``speculate_k`` it is ``speculative.verify_logits`` instead, over
+        the same inputs and ``succ``: (B, K + 1, vocab) logits and the (B,
+        K + 1) window. The build's warm-up writes rows and ``len`` into
+        every slot of the caches (a paged cache: through its tables); the
+        caller undoes that."""
         self.trace_counts["decode"] += 1
         model, params, caches = self.model, self.params, self.caches
         rc, vocab = self._rc_decode, self.model.cfg.vocab_size
@@ -757,22 +822,51 @@ class Engine:
             logits, _ = model.decode(params, tokens, positions, caches, rc)
             return logits[:, 0, :vocab]
 
-        step = StepGraph(decode, {"tokens": ((B, 1), torch.int32),
+        return StepGraph(decode, {"tokens": ((B, 1), torch.int32),
                                   "positions": ((B, 1), torch.int32)},
                          self.device)
-        for t in tensor_leaves(caches):
-            t.zero_()
-        if self.paging is not None:  # no blocks: the sentinel everywhere
-            paging.set_block_tables(caches, self.tables)
-        return step
 
-    def _decode(self) -> Tuple[np.ndarray, ...]:
+    def _fail_backend(self, name: Optional[str]) -> None:
+        """A ``backend`` fault: quarantine ``name`` (None: the decode
+        plan's backend) in the default planner, re-plan, and rebuild the
+        decode graph over the live caches, whose every leaf (tables and
+        ``len`` included) and the successor table come out of the build
+        as they went in; the prefill and chunk graphs are dropped and
+        rebuild at first use. The old graphs' memory is released before
+        the new capture."""
+        if name is None:
+            name = self.plans["decode"][0][1].backend
+        plan_mod.default_planner().record_backend_failure(name)
+        self.metrics_counters.backend_fallbacks += 1
+        log.warning("backend %r quarantined; re-planning and rebuilding the "
+                    "decode graph", name)
+        live = [t.clone() for t in tensor_leaves(self.caches)]
+        succ = self.succ.clone() if self.succ is not None else None
+        for g in (self.decode_graph, *self.prefill_graphs.values(),
+                  *self.chunk_graphs.values()):
+            g.release()
+        self.decode_graph = None
+        self.prefill_graphs.clear()
+        self.chunk_graphs.clear()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+            self.prefill_pool = torch.cuda.graph_pool_handle()
+        self.plans = self._preplan()
+        self.decode_graph = self._make_decode_graph()
+        for t, saved in zip(tensor_leaves(self.caches), live):
+            t.copy_(saved)
+        if succ is not None:
+            self.succ.copy_(succ)
+
+    def _decode(self, poison: Optional[np.ndarray] = None
+                ) -> Tuple[np.ndarray, ...]:
         """One decode step over every slot: the decode graph, then
         sampling and stopping on its logits (eager: per-slot generators;
         under ``speculate_k`` ``speculative.settle_window``), read back in
-        one copy. Returns host arrays (tokens (B, S), logprobs (B, S),
-        emitted counts e (B,), drafts accepted (B,), done, bad), S = K +
-        1; a token is emitted where its column is below e."""
+        one copy. ``poison`` (B,), when given, is added to each lane's
+        logits first. Returns host arrays (tokens (B, S), logprobs (B,
+        S), emitted counts e (B,), drafts accepted (B,), done, bad), S =
+        K + 1; a token is emitted where its column is below e."""
         act = self.active
         out = self.decode_graph(tokens=np.where(act, self.last_token, 0),
                                 positions=np.where(act, self.positions, 0))
@@ -781,7 +875,13 @@ class Engine:
                 "remaining": self.remaining, "active": act}
         if self.spec_k:
             host["spec_on"] = self.spec_on
+        if poison is not None:
+            host["poison"] = poison
         k = self._knobs.load(host)
+        if poison is not None:
+            p = k["poison"]
+            out = (out + p[:, None] if not self.spec_k
+                   else (out[0] + p[:, None, None], out[1]))
         greedy = list(np.where(act, self.greedy, True))
         with torch.no_grad():
             if not self.spec_k:
@@ -817,11 +917,18 @@ class Engine:
                 packed[:, 2 * S + 3].astype(bool))
 
     def _timeout_sweep(self) -> List[StreamEvent]:
-        """Finish requests past their ``deadline_s``: queued ones before
-        they waste a prefill, active ones before another decode step."""
+        """Finish requests past their ``deadline_s`` (queued ones also past
+        ``queue_ttl_s``): queued ones before they waste a prefill, active
+        ones before another decode step."""
         events: List[StreamEvent] = []
         now = time.perf_counter()
-        for tr in self.sched.prune_queue(lambda r: r.expired(now)):
+        ttl = self.ecfg.queue_ttl_s
+
+        def dead_in_queue(tr: TrackedRequest) -> bool:
+            return tr.expired(now) or (ttl is not None
+                                       and now - tr.submit_t > ttl)
+
+        for tr in self.sched.prune_queue(dead_in_queue):
             self.metrics_counters.count_finish("timeout")
             # a preempted request waiting to resume holds streamed tokens
             self._outputs[tr.uid] = RequestOutput(
@@ -844,16 +951,32 @@ class Engine:
         each one's blocks), blocks for every active slot's next write
         (preempting when the pool is empty), one batched decode step over
         the active slots, retire finished requests (in the step their
-        stop condition is met). Returns the tick's StreamEvents."""
+        stop condition is met). Returns the tick's StreamEvents.
+
+        Faults, as the reference's: a poisoned lane finishes "error" and
+        the rest of the batch streams on; ``breaker_k`` poisoned ticks in
+        a row trip the breaker, which rejects the queue; a ``backend``
+        fault re-plans (``_fail_backend``). An exception out of ``step()``
+        (a scripted prefill, decode or sample fault, or a real one) leaves
+        the tick's events undelivered: a snapshot restore is the
+        recovery."""
         m = self.metrics_counters
+        tick, fp = self._tick, self.fault_plan
         events: List[StreamEvent] = list(self._pending)
         self._pending.clear()
         events.extend(self._timeout_sweep())
 
+        if fp is not None:
+            spec = fp.poll("backend", tick)
+            if spec is not None:
+                self._fail_backend(spec.backend)
+
+        poisoned = did_work = False
         # occupied but not active: a chunked prefill in progress
         for slot in self.sched.active_slots():
             if not self.active[slot]:
-                self._prefill_step_events(slot, events)
+                did_work = True
+                poisoned |= self._prefill_step_events(slot, events)
 
         planned_free = self.pool.free_count if self.paging is not None else 0
 
@@ -874,16 +997,33 @@ class Engine:
                 ok = self._alloc_blocks(
                     slot, self.paging.blocks_for(self._prefill_target(tr)))
                 assert ok, "can_admit reserved blocks the pool cannot supply"
-            self._prefill_step_events(slot, events)
+            did_work = True
+            poisoned |= self._prefill_step_events(slot, events)
 
         if self.paging is not None and self.active.any():
             self._grow_decode_blocks()
 
         active_idx = np.nonzero(self.active)[0]
         if active_idx.size:
+            did_work = True
             self._sync_tables()
+            poison = None
+            if fp is not None:
+                if fp.poll("decode", tick) is not None:
+                    raise InjectedFault("decode", tick)
+                poison = np.zeros((self.ecfg.num_slots,), np.float32)
+                for b in active_idx:
+                    spec = fp.poll("poison", tick, self.sched.slots[b].uid)
+                    if spec is not None:
+                        poison[b] = np.nan if spec.mode == "nan" else np.inf
             t0 = time.perf_counter()
-            toks, lps, e_cnt, acc, done, bad = self._decode()
+            self.watchdog.start_step()
+            toks, lps, e_cnt, acc, done, bad = self._decode(poison)
+            if self.watchdog.end_step().is_straggler:
+                m.straggler_steps += 1
+            if fp is not None and fp.poll("sample", tick) is not None:
+                # the device stepped, the host did not: a torn state
+                raise InjectedFault("sample", tick)
             n_bad = int(np.count_nonzero(bad))
             n_emit = int(e_cnt.sum())
             m.decode_steps += 1
@@ -892,6 +1032,7 @@ class Engine:
             m.tokens_generated += n_emit
             m.extra_decode_tokens += n_emit - (int(active_idx.size) - n_bad)
             m.poisoned_slot_steps += n_bad
+            poisoned |= n_bad > 0
             if self.spec_k:
                 lanes = self.active & ~bad & self.spec_on
                 n_spec = int(np.count_nonzero(lanes))
@@ -932,10 +1073,30 @@ class Engine:
                 if reason is not None:
                     self._finish_slot(b, reason)
 
+        if did_work:
+            was_tripped = self.breaker.tripped
+            if self.breaker.record(poisoned) and not was_tripped:
+                events.extend(self._reject_pending_unhealthy())
+
         for ev in events:
             buf = self._buffers.get(ev.uid)
             if buf is not None:
                 buf.append(ev)
+        self._tick += 1
+        return events
+
+    def _reject_pending_unhealthy(self) -> List[StreamEvent]:
+        """The breaker just tripped: reject every queued request (the
+        slots in flight drain)."""
+        events: List[StreamEvent] = []
+        for tr in self.sched.drain_queue():
+            self.metrics_counters.rejected += 1
+            log.error("request %d rejected: engine unhealthy (circuit "
+                      "breaker tripped)", tr.uid)
+            self._outputs[tr.uid] = RequestOutput(
+                uid=tr.uid, tokens=(), finish_reason="rejected")
+            events.append(StreamEvent(tr.uid, -1, None, "rejected"))
+            self._retain(tr.uid)
         return events
 
     def _finish_slot(self, slot: int, reason: str) -> TrackedRequest:
@@ -944,6 +1105,10 @@ class Engine:
         self.generators[slot] = None
         if self.paging is not None:
             self._free_blocks(slot)
+        # in flight across a restore: the reason says so (the tokens are
+        # the uninterrupted stream's)
+        if tr.restored and reason in ("stop", "length"):
+            reason = f"{reason}-after-restore"
         self.metrics_counters.count_finish(reason)
         decode_s = (time.perf_counter() - tr.decode_t0
                     if len(tr.generated) > 1 else 0.0)
@@ -960,20 +1125,46 @@ class Engine:
     def idle(self) -> bool:
         return self.sched.idle and not self._pending
 
+    @property
+    def healthy(self) -> bool:
+        """False once the circuit breaker tripped."""
+        return not self.breaker.tripped
+
     def output(self, uid: int) -> Optional[RequestOutput]:
         """The terminal RequestOutput once ``uid`` finished (else None)."""
         return self._outputs.get(uid)
 
+    def evicted(self, uid: int) -> bool:
+        """True when ``uid`` was handed out and its output and events were
+        evicted past ``max_retained`` (not when it never was)."""
+        if not 1 <= uid <= self.sched.last_uid:
+            return False
+        if uid in self._outputs or uid in self._buffers:
+            return False
+        return not any(tr is not None and tr.uid == uid
+                       for tr in (*self.sched.queue, *self.sched.slots))
+
     def stream(self, uid: int) -> Iterator[StreamEvent]:
         """Yield ``uid``'s events, stepping the engine as needed; ends
-        after the terminal event. KeyError for an unknown or already
-        drained uid."""
+        after the terminal event. RequestEvicted (a KeyError) when its
+        events were evicted past ``max_retained``, KeyError when it was
+        never handed out or is drained; RuntimeError when ``stream_stall_s``
+        passes without an event for it."""
         buf = self._buffers.get(uid)
         if buf is None:
-            raise KeyError(f"request {uid} is unknown or already streamed")
+            if self.evicted(uid):
+                raise RequestEvicted(
+                    f"request {uid} was served but its events were evicted "
+                    f"past max_retained={self.ecfg.max_retained}; stream "
+                    "promptly or raise EngineConfig.max_retained")
+            if 1 <= uid <= self.sched.last_uid:
+                raise KeyError(f"request {uid} already streamed to completion")
+            raise KeyError(f"unknown request uid {uid}")
+        t_last = time.perf_counter()
         while True:
             while buf:
                 ev = buf.popleft()
+                t_last = time.perf_counter()
                 yield ev
                 if ev.done:
                     self._buffers.pop(uid, None)
@@ -982,6 +1173,127 @@ class Engine:
                 raise RuntimeError(
                     f"engine idle but request {uid} never finished")
             self.step()
+            if not buf and (time.perf_counter() - t_last
+                            > self.ecfg.stream_stall_s):
+                raise RuntimeError(
+                    f"stream({uid}) stalled: no event for "
+                    f"{self.ecfg.stream_stall_s:.1f}s "
+                    f"(EngineConfig.stream_stall_s)")
+
+    # ----------------------------------------------------- snapshot/restore
+    _SLOT_STATE = ("positions", "last_token", "temperature", "top_k",
+                   "top_p", "greedy", "stop_ids", "remaining", "active")
+
+    def snapshot(self) -> EngineSnapshot:
+        """The whole engine state, copied to the host: every cache leaf,
+        the slot state, each slot's generator state, under ``speculate_k``
+        the successor table and opt-in flags (path-flattened in the
+        checkpoint format), the paging state, the scheduler, the outputs,
+        the undrained events, the metrics, the breaker and the tick.
+        Nothing in it aliases the engine."""
+        m = self.metrics_counters
+        m.snapshots += 1
+        slots: Dict[str, Any] = {n: getattr(self, n) for n in self._SLOT_STATE}
+        slots["generator"] = [None if g is None else g.get_state()
+                              for g in self.generators]
+        if self.spec_k:
+            slots["succ"], slots["spec_on"] = self.succ, self.spec_on
+        flat = ckpt_manager.flatten_with_paths({"caches": self.caches,
+                                                "slots": slots})
+        arrays = {path: (ckpt_manager.to_host(leaf)   # a copy on the host
+                         if isinstance(leaf, torch.Tensor)
+                         else None if leaf is None else np.array(leaf))
+                  for path, leaf in flat}
+        return EngineSnapshot(
+            tick=self._tick, arrays=arrays, uid_counter=self.sched.last_uid,
+            queue=[tr.clone() for tr in self.sched.queue],
+            slots=[tr.clone() if tr is not None else None
+                   for tr in self.sched.slots],
+            outputs=dict(self._outputs),        # RequestOutput is frozen
+            buffers={uid: list(b) for uid, b in self._buffers.items()},
+            pending=list(self._pending),        # StreamEvent is frozen
+            retired=list(self._retired), metrics=m.state(),
+            breaker=self.breaker.state(), num_slots=self.ecfg.num_slots,
+            max_len=self.ecfg.max_len, paged=self.paging is not None,
+            block_size=self.paging.block_size if self.paging else 0,
+            num_blocks=self.paging.num_blocks if self.paging else 0,
+            **(paging.paged_state(self.tables, self.pool, self._owned)
+               if self.paging is not None else {}))
+
+    def restore(self, snap: EngineSnapshot) -> None:
+        """Adopt a snapshot: the engine resumes at its tick, and the
+        requests in flight go on with the streams the snapshotted engine
+        would have given (they finish "...-after-restore"). The graphs
+        read the caches, ``succ`` and the block tables at fixed
+        addresses, so every one of them is written in place: no tensor
+        the engine holds is replaced. ValueError when the snapshot's
+        geometry is not the engine's."""
+        if (snap.num_slots != self.ecfg.num_slots
+                or snap.max_len != self.ecfg.max_len):
+            raise ValueError(
+                f"snapshot geometry (slots={snap.num_slots}, "
+                f"max_len={snap.max_len}) does not match engine "
+                f"(slots={self.ecfg.num_slots}, max_len={self.ecfg.max_len})")
+        if snap.paged != (self.paging is not None):
+            raise ValueError(
+                f"snapshot paged={snap.paged} does not match engine "
+                f"paged={self.paging is not None}")
+        if self.paging is not None and (
+                snap.block_size != self.paging.block_size
+                or snap.num_blocks != self.paging.num_blocks):
+            raise ValueError(
+                f"snapshot paging geometry (block_size={snap.block_size}, "
+                f"num_blocks={snap.num_blocks}) does not match engine "
+                f"(block_size={self.paging.block_size}, "
+                f"num_blocks={self.paging.num_blocks})")
+        live = dict(ckpt_manager.flatten_with_paths({"caches": self.caches}))
+        saved = {p: a for p, a in snap.arrays.items()
+                 if p.startswith("/caches/")}
+        if set(saved) != set(live):
+            raise ValueError(
+                f"snapshot cache has {len(saved)} leaves, engine cache has "
+                f"{len(live)}: incompatible model or cache geometry")
+        for path, leaf in live.items():
+            src = ckpt_manager.from_host(saved[path])
+            if tuple(src.shape) != tuple(leaf.shape) or src.dtype != leaf.dtype:
+                raise ValueError(
+                    f"snapshot cache leaf {path} is {src.dtype} "
+                    f"{tuple(src.shape)}, the engine's {leaf.dtype} "
+                    f"{tuple(leaf.shape)}: incompatible cache geometry")
+            leaf.copy_(src)
+        slots = ckpt_manager.unflatten_from_paths(
+            {p[len("/slots"):]: a for p, a in snap.arrays.items()
+             if p.startswith("/slots/")})
+        for name in self._SLOT_STATE:
+            setattr(self, name, np.array(slots[name],
+                                         dtype=getattr(self, name).dtype))
+        for b, st in enumerate(slots["generator"]):
+            gen = None
+            if st is not None:
+                gen = torch.Generator(device=self.device)
+                gen.set_state(torch.from_numpy(np.array(st, np.uint8)))
+            self.generators[b] = gen
+        if self.spec_k:
+            self.succ.copy_(torch.from_numpy(np.asarray(slots["succ"])))
+            self.spec_on = np.array(slots["spec_on"], bool)
+        if self.paging is not None:
+            self.tables[...] = snap.block_tables
+            self.pool.restore(snap.pool_free)
+            self._owned = [list(o) for o in snap.owned]
+            self._tables_dirty = True
+            self._update_kv_gauges()
+        self.sched.restore_state(snap.uid_counter, snap.queue, snap.slots)
+        for tr in self.sched.slots:
+            if tr is not None:
+                tr.restored = True
+        self._outputs = dict(snap.outputs)
+        self._buffers = {uid: deque(b) for uid, b in snap.buffers.items()}
+        self._pending = list(snap.pending)
+        self._retired = deque(snap.retired)
+        self.metrics_counters.restore(dict(snap.metrics))
+        self.metrics_counters.restores += 1
+        self.breaker.restore(snap.breaker)
+        self._tick = snap.tick
 
     def metrics(self) -> Dict[str, float]:
         return self.metrics_counters.snapshot()

@@ -148,7 +148,16 @@ class StepGraph:
         self.launches = {n: after[n] - before[n] for n in after
                          if after[n] != before[n]}
 
+    def release(self) -> None:
+        """Free the graph and its outputs (its memory pool, once no other
+        graph shares it); the step cannot be called after."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.outputs = self.fn = None
+
     def __call__(self, **arrays: Any) -> Any:
+        if self.fn is None:
+            raise RuntimeError("this step was released")
         static = self.inputs.load(arrays)
         if self.graph is None:
             with torch.no_grad():

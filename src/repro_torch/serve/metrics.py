@@ -1,11 +1,13 @@
-"""Engine counters (``repro/serve/metrics.py``, without the resilience
-layer's). Invariants the tests pin:
+"""Engine counters (``repro/serve/metrics.py``). Invariants the tests pin:
 
   tokens_generated == prefills + decode_slot_steps - poisoned_slot_steps
                       + extra_decode_tokens
                    == number of token-bearing StreamEvents
   finished         == finished_stop + finished_length + errors + timeouts
   drafted_tokens   == accepted_draft_tokens + rejected_draft_tokens
+
+Every "error" or "timeout" terminal event counts once in ``errors`` or
+``timeouts``, and every poisoned lane suppresses one token event.
 """
 from __future__ import annotations
 
@@ -45,6 +47,11 @@ class EngineMetrics:
     accepted_draft_tokens: int = 0   # drafts that matched the verify sample
     rejected_draft_tokens: int = 0   # drafted - accepted
     extra_decode_tokens: int = 0     # emissions beyond 1 per lane per step
+    # the resilience layer (serve/resilience.py)
+    backend_fallbacks: int = 0       # backends quarantined by a fault
+    snapshots: int = 0
+    restores: int = 0
+    straggler_steps: int = 0         # decode steps the watchdog flagged
     queue_wait_s: float = 0.0
     prefill_s: float = 0.0
     decode_s: float = 0.0
@@ -52,6 +59,8 @@ class EngineMetrics:
 
     def count_finish(self, reason: str) -> None:
         self.finished += 1
+        # a request in flight across a restore counts as its base reason
+        reason = reason.replace("-after-restore", "")
         if reason == "stop":
             self.finished_stop += 1
         elif reason == "length":
@@ -98,9 +107,17 @@ class EngineMetrics:
         dt = time.perf_counter() - self.started_at
         return self.tokens_generated / dt if dt > 0.0 else 0.0
 
+    def state(self) -> Dict[str, float]:
+        """Every counter but the wall clock (``Engine.snapshot``)."""
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self) if f.name != "started_at"}
+
+    def restore(self, state: Dict[str, float]) -> None:
+        for name, value in state.items():
+            setattr(self, name, value)
+
     def snapshot(self) -> Dict[str, float]:
-        out = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
-               if f.name != "started_at"}
+        out = self.state()
         out["uptime_s"] = time.perf_counter() - self.started_at
         out["slot_occupancy"] = self.slot_occupancy
         out["draft_acceptance_rate"] = self.draft_acceptance_rate

@@ -30,7 +30,7 @@ max_len`` positions up front whatever the requests use. Here:
 Only attention nodes ({"k", "v", "len"} and the int8 / KV-VQ scale
 leaves ``k_s``/``v_s``) are pageable: the dense family's only node. MLA
 latent caches, sliding-window rings and pass-through state wait for
-ROADMAP A7; ``paged_state`` (the snapshot's host state) for A6.
+ROADMAP A7. ``paged_state`` is the host half of an engine snapshot.
 
 ``block_size`` divides ``page_len`` (falling back to the gcd), so the
 gathered view is exactly the contiguous cache's ``(B, max_len, ...)``:
@@ -46,7 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -159,6 +159,16 @@ class BlockPool:
                 raise ValueError(f"pool snapshot block id {b} out of range")
         self._free = free
         self._free_set = set(free)
+
+
+def paged_state(tables: np.ndarray, pool: BlockPool,
+                owned: Sequence[Sequence[int]]) -> Dict[str, Any]:
+    """The paging state a snapshot keeps on the host: the host's tables,
+    the pool's free list and each slot's owned blocks in order (the
+    arenas and the device tables are cache leaves)."""
+    return {"block_tables": np.array(tables, dtype=np.int32, copy=True),
+            "pool_free": pool.state(),
+            "owned": tuple(tuple(int(b) for b in o) for o in owned)}
 
 
 def _walk_attn(node: Any, fn) -> Any:

@@ -30,6 +30,7 @@ class TrackedRequest:
     queue_wait_s: float = 0.0
     prefill_s: float = 0.0
     decode_t0: float = 0.0
+    restored: bool = False           # in flight across a snapshot restore
     # ---- paged engine (serve/paging.py) ----
     # committed prefill positions; > 0 marks a mid-prefill (chunked) slot
     prefill_pos: int = 0
@@ -58,6 +59,15 @@ class TrackedRequest:
         if dl is None:
             return False
         return (time.perf_counter() if now is None else now) > dl
+
+    def clone(self) -> "TrackedRequest":
+        """A copy for a snapshot: the frozen request shared, the lists and
+        the saved generator state copied, so the live record cannot
+        change the snapshot's."""
+        state = self.resume_gen_state
+        return dataclasses.replace(
+            self, generated=list(self.generated), logprobs=list(self.logprobs),
+            resume_gen_state=None if state is None else state.clone())
 
 
 class Scheduler:
@@ -121,6 +131,28 @@ class Scheduler:
             (removed if predicate(tr) else kept).append(tr)
         self.queue = kept
         return removed
+
+    def drain_queue(self) -> List[TrackedRequest]:
+        """Empty the queue and return what it held (the circuit breaker
+        rejects it)."""
+        out = list(self.queue)
+        self.queue.clear()
+        return out
+
+    @property
+    def last_uid(self) -> int:
+        """The highest uid handed out (uids are dense from 1)."""
+        return self._uid
+
+    def restore_state(self, uid_counter: int, queue, slots) -> None:
+        """Adopt a snapshot's queue and slots (clones of them)."""
+        if len(slots) != self.num_slots:
+            raise ValueError(
+                f"snapshot has {len(slots)} slots, engine has "
+                f"{self.num_slots}")
+        self._uid = uid_counter
+        self.queue = deque(tr.clone() for tr in queue)
+        self.slots = [tr.clone() if tr is not None else None for tr in slots]
 
     def finish(self, slot: int) -> TrackedRequest:
         r = self.slots[slot]
