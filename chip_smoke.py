@@ -129,15 +129,34 @@ Phases (any failure exits non-zero):
      peak device memory; its plain decode step held at fp32
      activations); `serve_minitron_4b` (g = 3); each with graph_step
      and replayed profiles; each phase prints its wall seconds;
-  8. a {"kernels": [...]} summary line (fused_vq_matmul's row also
-     sums its verify-window rows, `verify_window`), the card line, and
-     the result line {"ok": true, "device": {...}} last.
+  8. `serve_mixtral_8x22b`: mixtral-8x22b (top-2 MoE over 8 experts,
+     sliding-window rings of 4096) at full width and all 56 layers,
+     synthetic 2-bit VQ weights drawn on the card from their shapes,
+     max_len 4608, 8 requests (prompts of 4160 and 4080 tokens, whose
+     rings wrap in prefill and in decode, and six of 32-200): weight
+     bytes against bf16 dense, peak memory, decode ms a step, tok/s, the
+     long prompts' prefill s (eager, at the exact length), launches (B1
+     and B3, the attention kernels 0), the plain decode step at bf16
+     within MIXTRAL_PLAIN_REL beside the share of top-2 routing choices
+     that agree (two faulty controls above it) and at fp32 within 1e-3,
+     graph_step over a ring, a replayed step's device time with the
+     "other" kernels that take the most; then at 4 layers, full width:
+     a paged ring (16-position blocks) with the contiguous ring's tokens
+     exactly, kv_bits 8 and 4 rings and the split-pinned planner with
+     their token agreement; the check phase holds B1 at mixtral's decode
+     linears (attention at M = 4, experts at M = 2) and B3 at an
+     expert's gu at M = 1300;
+  9. a {"kernels": [...]} summary line (fused_vq_matmul's row also
+     sums its verify-window rows, `verify_window`; B1's and B3's carry
+     their mixtral rows), the card line, and the result line {"ok":
+     true, "device": {...}} last.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
 before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import statistics
@@ -170,6 +189,22 @@ VQL_KC = 2048                  # serve_vql's codewords (a 32000-row vocab)
 # the VQ-Logits head against its expansion, both bf16 GEMMs rounded to
 # bf16: one bf16 ulp of the largest logit
 VQL_REL = 2.0 ** -7
+# serve_mixtral_8x22b: 56 layers at full width, rings of 4096 positions;
+# two prompts past the window (the first wraps in its prefill's ring
+# conversion, the second in decode) among six of 32-200 tokens
+MIXTRAL = "mixtral_8x22b"
+MIXTRAL_MAX_LEN = 4608
+MIXTRAL_LONG = (4160, 4080)
+MIXTRAL_SUB_LAYERS = 4         # the sub-phase's depth (paged, kv_bits, split)
+# its bf16 plain decode step against the kernels' step: a top-2 routing
+# choice near a tie flips on bf16 rounding alone and moves the logits far
+# more than rounding does, so the bound is half the smallest faulty
+# control on qwen2-72b (0.898), which the two controls must exceed here
+MIXTRAL_PLAIN_REL = 0.45
+# B1 at mixtral's decode linears (attention at M = slots, an expert at
+# its capacity for 4 tokens) and B3 at an expert's gu at the capacity of
+# a 4160-token prompt
+MIXTRAL_B3_M = 1300
 LINEARS = (("wqkv", 4096, 12288), ("wo", 4096, 4096), ("gu", 4096, 22016),
            ("down", 11008, 4096))
 # the dense configs served after llama2-7b, and the (H, Hk) of their
@@ -536,6 +571,7 @@ def check_kernels(torch, timer):
 
     check_grouped_attention(torch, gen, record)
     check_other_linears(torch, gen, record)
+    check_mixtral_linears(torch, gen, record)
 
     # INT8 GEMM at the prefill lm_head shape, at every bucket the served
     # prefill runs (bf16 activations and head, quantized as the wrapper
@@ -1076,6 +1112,36 @@ def card_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
+class Routing:
+    """Records the top-k expert ids of every MoE routing call made inside
+    the block (``models.common.moe_route``, wrapped, put back at exit),
+    so two runs can count the (token, layer) choices they agree on."""
+
+    def __enter__(self):
+        from repro_torch.models import common as cm
+
+        self.calls, self._cm, real = [], cm, cm.moe_route
+
+        def route(logits, cfg):
+            out = real(logits, cfg)
+            self.calls.append(out[0].sort(dim=-1).values.clone())
+            return out
+
+        self._real, cm.moe_route = real, route
+        return self
+
+    def __exit__(self, *exc):
+        self._cm.moe_route = self._real
+
+    def agreement(self, other: "Routing"):
+        """Share of (token, layer) top-k sets equal in both runs."""
+        same = sum(int((a == b).all(-1).sum())
+                   for a, b in zip(self.calls, other.calls))
+        total = sum(a.shape[0] for a in self.calls)
+        assert len(self.calls) == len(other.calls)
+        return same / total if total else None
+
+
 class Uncounted:
     """Kernel launches inside the block are taken back out of the counts
     (the checks beside a served path, not the path)."""
@@ -1459,17 +1525,17 @@ def phase_seconds(name, t0) -> None:
     emit({"phase_seconds": name, "seconds": time.perf_counter() - t0})
 
 
-def build_weights(torch, arch):
-    """``arch`` at full width and depth with random 2-bit VQ block weights
-    drawn on the card from SEED (block linears built from their shapes);
-    one line with the weights' bytes on the card against the same model
-    dense in bf16. Returns the model, its params and the phase's prompts
-    (the llama2 phases' lengths)."""
+def build_weights(torch, arch, cfg=None):
+    """``arch`` at full width and depth (or ``cfg``, a cut of it) with
+    random 2-bit VQ block weights drawn on the card from SEED (block
+    linears built from their shapes); one line with the weights' bytes on
+    the card against the same model dense in bf16. Returns the model, its
+    params and the phase's prompts (the llama2 phases' lengths)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.perf_counter()
@@ -1489,7 +1555,8 @@ def build_weights(torch, arch):
 def weight_bytes(torch, params) -> dict:
     """The params' bytes on the card, their VQ'd part, the same model dense
     in bf16, and counts."""
-    from repro_torch.core.quantize import compressed_model_bytes, vq_nodes
+    from repro_torch.core.quantize import (compressed_model_bytes,
+                                           count_vq_layers, vq_nodes)
     from repro_torch.models.api import param_count, param_tensors
 
     vq_b, vq_dense_b = compressed_model_bytes(params)
@@ -1500,7 +1567,7 @@ def weight_bytes(torch, params) -> dict:
             # the VQ'd linears dense in bf16, and every other tensor in bf16
             "bf16_dense_bytes": vq_dense_b + 2 * (param_count(params)
                                                   - param_count(vq)),
-            "vq_linears": len(vq),
+            "vq_linears": count_vq_layers(params),
             "param_count": param_count(params),
             "device_bytes": torch.cuda.memory_allocated()}
 
@@ -1570,6 +1637,55 @@ def serve_other_configs(torch, timer):
     phase_seconds("serve_minitron_4b (+ weights)", t0)
     fresh()
     return out
+
+
+def check_mixtral_linears(torch, gen, record):
+    """B1 at mixtral-8x22b's decode linears: wqkv and wo at M = SLOTS, an
+    expert's gu and down at M = 2 (its capacity for SLOTS tokens); B3 at
+    an expert's gu with bf16 x at M = MIXTRAL_B3_M (its capacity for a
+    4160-token prompt); each against its plain version, beside fp32 and
+    bf16 torch.matmul on the dequantized weight, with its launch shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.vq import dequantize, synthetic_vq
+    from repro_torch.kernels.dequant_gemv import dequant_gemv
+    from repro_torch.kernels.dequant_gemv.ops import (
+        launch_shape as dequant_launch_shape)
+    from repro_torch.models.common import moe_capacity
+
+    cfg = get_config(MIXTRAL)
+    cap = moe_capacity(cfg, SLOTS)
+    assert moe_capacity(cfg, MIXTRAL_LONG[0]) == MIXTRAL_B3_M
+    for name, K, N in arch_linears(dataclasses.replace(cfg, d_ff=cfg.moe_d_ff)):
+        vq = synthetic_vq(gen, K, N, C=2, device="cuda")
+        M = SLOTS if name in ("wqkv", "wo") else cap
+        x = torch.randn((M, K), generator=gen, device="cuda")
+        check_b1(torch, record, vq, x, {"model": MIXTRAL, "linear": name,
+                                        "expert": name in ("gu", "down")},
+                 launch_shape=True)
+        if name == "gu":
+            M = MIXTRAL_B3_M
+            xb = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+            x32 = xb.float()
+            w = dequantize(vq)
+            wb = w.to(torch.bfloat16)
+            run = lambda: dequant_gemv(xb, vq, out_dtype=torch.float32)
+            plain = lambda: dequant_gemv(xb, vq, out_dtype=torch.float32,
+                                         use_kernel=False)
+            got, want = run(), plain()
+            V = K // 8
+            record("dequant_gemv", {
+                "model": MIXTRAL, "M": M, "linear": name, "expert": True,
+                "K": K, "N": N, "x": "bfloat16",
+                "launch_shape": dequant_launch_shape(
+                    M, V, N, torch.cuda.get_device_properties(
+                        0).multi_processor_count)},
+                got, want, 1e-4 * max(1.0, want.abs().max().item()), run,
+                plain, lambda: torch.matmul(x32, w),
+                M * K * 2 + 2 * V * N + 2 * 8 * 256 * 4 + N * 4 + M * N * 4,
+                2 * 2 * M * K * N, peak=BF16_FLOPS,
+                extra={"library_bf16_ms": lambda: torch.matmul(xb, wb)})
+            del w, wb, got, want
+        del vq
 
 
 def serve_qwen3_ckpt(torch, rc, required):
@@ -1700,6 +1816,205 @@ def serve_qwen2(torch, required):
     engine_checks(torch, eng.model, eng, toks, "serve_qwen2_72b", required,
                   rel=QWEN2_PLAIN_REL, fp32_plain=True, eager_profiles=False)
     return launches
+
+
+def mixtral_prompts(cfg):
+    """serve_mixtral_8x22b's traffic: the two long prompts and six of
+    32-200 tokens, drawn from SEED."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    lens = [MIXTRAL_LONG[0], *rng.integers(32, 201, 3), MIXTRAL_LONG[1],
+            *rng.integers(32, 201, 3)]
+    return [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+            for n in lens]
+
+
+def drain(torch, eng, prompts):
+    """Serve ``prompts`` greedily to MAX_NEW tokens on ``eng`` with every
+    kernel count set to 0 first. Returns (per-request outputs, launches,
+    wall seconds)."""
+    from repro_torch import kernels
+    from repro_torch.serve import GenerationRequest
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    uids = [eng.submit(GenerationRequest(prompt=p, max_new_tokens=MAX_NEW))
+            for p in prompts]
+    while not eng.idle:
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = [eng.output(u) for u in uids]
+    assert all(o.finish_reason == "length" and o.num_tokens == MAX_NEW
+               for o in outs), [(o.finish_reason, o.num_tokens) for o in outs]
+    return outs, kernels.launch_counts(), wall
+
+
+def serve_mixtral(torch):
+    """Phase 8: mixtral-8x22b (top-2 MoE over 8 experts, sliding-window
+    rings) at full width and all 56 layers, 2-bit VQ weights drawn on the
+    card from their shapes, bf16 activations, a dense bf16 head, 4 slots,
+    greedy, max_len MIXTRAL_MAX_LEN (rings of 4096): the weights' bytes
+    against bf16 dense, peak device memory, decode ms a step, tok/s, the
+    long prompts' prefill s, the launches (B1, B3 > 0; the attention
+    kernels 0: a ring attends through plain torch, as the reference
+    gates them), the engine's checks (the plain step at bf16 within
+    MIXTRAL_PLAIN_REL with the routing agreement, at fp32 within 1e-3,
+    graph_step, profiles) and a replayed step's device time by kernel
+    with the "other" kernels that take the most. Then the sub-phase at
+    MIXTRAL_SUB_LAYERS layers: a paged ring (16-position blocks) gives
+    the contiguous ring's tokens exactly; kv_bits 8 and 4 and the
+    split-pinned planner, each with its token agreement with the fp run.
+    Returns each run's launches."""
+    import gc
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import PlanPolicy
+    from repro_torch.models import RunConfig
+    from repro_torch.serve import Engine, EngineConfig
+
+    t_phase = time.perf_counter()
+    name = "serve_mixtral_8x22b"
+    rc = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
+    required = ("fused_vq_matmul", "dequant_gemv")
+    absent = ("flash_decode", "flash_decode_kvq", "flash_decode_paged",
+              "flash_decode_kvq_paged", "vq_gemm", "oc_lookup", "int8_gemm")
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    model, params, _ = build_weights(torch, MIXTRAL)
+    cfg = model.cfg
+    prompts = mixtral_prompts(cfg)
+    wb = weight_bytes(torch, params)
+    ecfg = EngineConfig(num_slots=SLOTS, max_len=MIXTRAL_MAX_LEN)
+    t0 = time.perf_counter()
+    eng = Engine(model, params, rc, ecfg, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    body = eng.caches["body"]
+    ring = body["k"].shape[2]
+    assert ring == cfg.sliding_window == 4096, ring
+    assert not any(bool(t.any()) for t in body.values()), \
+        f"{name}: the decode graph's build left the caches written"
+    # the long prompts wrap the ring: one in its prefill, one in decode
+    assert MIXTRAL_LONG[0] > ring and MIXTRAL_LONG[1] < ring < \
+        MIXTRAL_LONG[1] + MAX_NEW - 1
+    outs, launches, wall = drain(torch, eng, prompts)
+    m = eng.metrics()
+    for o, p in zip(outs, prompts):
+        emit({"phase": name, "request": o.uid, "prompt_len": len(p),
+              "tokens": o.num_tokens, "prefill_s": o.prefill_s,
+              "decode_ms_per_step": o.decode_s * 1e3 / max(1, o.num_tokens - 1)})
+    row = {"phase": name, **wb, "layers": cfg.num_layers,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "cache_bytes": sum(t.numel() * t.element_size()
+                              for t in body.values()),
+           "ring": ring, "requests": len(prompts), "slots": SLOTS,
+           "max_len": ecfg.max_len, "engine_build_s": build_s,
+           "decode_graph_build_s": eng.decode_graph.build_s,
+           "wall_s": wall, "tokens_generated": m["tokens_generated"],
+           "tok_per_s": m["tokens_generated"] / wall,
+           "decode_steps": m["decode_steps"],
+           "decode_ms_per_step": m["decode_s"] * 1e3 / m["decode_steps"],
+           "prefill_s": m["prefill_s"],
+           "long_prompt_prefill_s": {len(p): o.prefill_s
+                                     for o, p in zip(outs, prompts)
+                                     if len(p) in MIXTRAL_LONG},
+           "trace_counts": eng.trace_counts, "launches": launches}
+    emit(row)
+    assert 35e9 < wb["weight_bytes_on_card"] < 37e9, wb
+    missing = [k for k in required if launches[k] == 0]
+    assert not missing, f"{name}: kernels never launched on its path: {missing}"
+    ran = [k for k in absent if launches[k]]
+    assert not ran, f"{name}: kernels off its path launched: {ran}"
+    assert eng.trace_counts["prefill"] == len({len(p) for p in prompts})
+    out[name] = launches
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    toks = torch.randint(0, cfg.vocab_size, (SLOTS, 64), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    engine_checks(torch, model, eng, toks, name, required,
+                  rel=MIXTRAL_PLAIN_REL, fp32_plain=True,
+                  eager_profiles=False)
+    tok = toks[:, -1:].cpu().numpy()
+    pos = np.full((SLOTS, 1), 64, np.int32)
+    emit({"phase": f"{name}_replay_profile", **device_profile(
+        torch, lambda: eng.decode_graph(tokens=tok, positions=pos),
+        top_other=16)})
+    del eng, model, params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_seconds(name, t_phase)
+
+    # the sub-phase: MIXTRAL_SUB_LAYERS layers at full width
+    t_phase = time.perf_counter()
+    sub = f"{name}_{MIXTRAL_SUB_LAYERS}l"
+    model, params, _ = build_weights(torch, MIXTRAL, dataclasses.replace(
+        get_config(MIXTRAL), num_layers=MIXTRAL_SUB_LAYERS))
+    runs = {"fp": ({}, required), "paged": ({"paged": True,
+                                             "block_size": BLOCK}, required),
+            "kv_bits_8": ({"kv_bits": 8}, required),
+            "kv_bits_4": ({"kv_bits": 4}, required),
+            "split": ({}, ("vq_gemm", "oc_lookup", "dequant_gemv"))}
+    tokens = {}
+    for label, (kw, need) in runs.items():
+        pinned = pin_split() if label == "split" else None
+        try:
+            eng = Engine(model, params, rc, EngineConfig(
+                num_slots=SLOTS, max_len=MIXTRAL_MAX_LEN, **kw), device="cuda")
+            outs, launches, wall = drain(torch, eng, prompts)
+        finally:
+            if pinned is not None:
+                pinned()
+        tokens[label] = {"tokens": [list(o.tokens) for o in outs]}
+        m = eng.metrics()
+        emit({"phase": sub, "run": label, "wall_s": wall,
+              "decode_ms_per_step": m["decode_s"] * 1e3 / m["decode_steps"],
+              "tok_per_s": m["tokens_generated"] / wall,
+              "peak_blocks_in_use": m["peak_blocks_in_use"],
+              **({"page_len": eng.paging.page_len,
+                  "blocks_per_slot": eng.paging.blocks_per_slot}
+                 if eng.paging is not None else {}),
+              "agreement_with_fp": agreement(tokens[label], tokens["fp"]),
+              "launches": launches})
+        missing = [k for k in need if launches[k] == 0]
+        assert not missing, f"{sub} {label}: never launched: {missing}"
+        off = [k for k in absent if launches[k] and k not in need]
+        off += ["fused_vq_matmul"] * bool(label == "split"
+                                           and launches["fused_vq_matmul"])
+        assert not off, f"{sub} {label}: kernels off its path launched: {off}"
+        out[f"{sub}_{label}"] = launches
+        del eng
+    assert tokens["paged"] == tokens["fp"], f"{sub}: the paged ring differs"
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_seconds(sub, t_phase)
+    return out
+
+
+def pin_split():
+    """Pin the default planner to the two-kernel split (a calibration that
+    prices eva_fused above eva_split, as serve_split); returns the call
+    that puts the planner back."""
+    from repro_torch.core import calibrate
+    from repro_torch.core import plan as plan_mod
+
+    planner = plan_mod.default_planner()
+    before = planner.calibration
+    entry = lambda us: calibrate.BackendCalibration(
+        overhead_us=us, us_per_mac=0.0, us_per_add=0.0, us_per_byte=0.0,
+        rows=calibrate.MIN_FIT_ROWS)
+    planner.reload_calibration(calibrate.Calibration(
+        calibrate.SCHEMA, "pinned: eva_split below eva_fused",
+        {"eva_fused": entry(1e6), "eva_split": entry(1.0)}))
+    planner.cache_clear()
+
+    def restore():
+        planner.reload_calibration(before)
+        planner.cache_clear()
+
+    return restore
 
 
 def agreement(a, b) -> float:
@@ -1839,21 +2154,11 @@ def serve_split(torch, model, params, prompts):
     to the two-kernel split (a calibration that prices eva_fused above
     eva_split, with enough rows to be used); the planner is restored
     after, whatever happens."""
-    from repro_torch.core import calibrate
-    from repro_torch.core import plan as plan_mod
     from repro_torch.core.plan import PlanPolicy
     from repro_torch.models import RunConfig
     from repro_torch.serve import EngineConfig
 
-    planner = plan_mod.default_planner()
-    before = planner.calibration
-    entry = lambda us: calibrate.BackendCalibration(
-        overhead_us=us, us_per_mac=0.0, us_per_add=0.0, us_per_byte=0.0,
-        rows=calibrate.MIN_FIT_ROWS)
-    planner.reload_calibration(calibrate.Calibration(
-        calibrate.SCHEMA, "pinned: eva_split below eva_fused",
-        {"eva_fused": entry(1e6), "eva_split": entry(1.0)}))
-    planner.cache_clear()
+    restore = pin_split()
     try:
         out = serve_phase(
             torch, model, params, prompts, "serve_split",
@@ -1861,8 +2166,7 @@ def serve_split(torch, model, params, prompts):
             EngineConfig(num_slots=SLOTS, max_len=MAX_LEN),
             ("vq_gemm", "oc_lookup", "flash_decode", "dequant_gemv"))
     finally:
-        planner.reload_calibration(before)
-        planner.cache_clear()
+        restore()
     assert out["launches"]["fused_vq_matmul"] == 0, out["launches"]
     return out
 
@@ -2013,12 +2317,15 @@ def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
             cache = encode_prefill_cache(cache, kv_codebook_tree(params),
                                          eng.kvq)
         base = (paged_base(torch, model, eng, cache, n) if paged
-                else pad_prefill_cache(cache, eng.ecfg.max_len))
+                else pad_prefill_cache(cache, eng.ecfg.max_len,
+                                       window=eng.window))
         clone = lambda: {"body": {n: t.clone() for n, t in base["body"].items()}}
         step = (toks[:, -1:], torch.full((SLOTS, 1), n, dtype=torch.int32,
                                          device="cuda"))
-        got, _ = model.decode(params, *step, clone(), rc)
-        want, _ = model.decode(params, *step, clone(), plain_rc)
+        with Routing() as r_got:
+            got, _ = model.decode(params, *step, clone(), rc)
+        with Routing() as r_want:
+            want, _ = model.decode(params, *step, clone(), plain_rc)
         if fp32_plain:
             for key, faulty in (("position_minus_1", (step[0], step[1] - 1)),
                                 ("next_token_id",
@@ -2031,6 +2338,8 @@ def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
     row = {"phase": f"{name}_plain_decode_step", "max_abs_logit_drift": drift,
            "rel_drift": rel_drift, "rel_bound": rel,
            "argmax_agreement": agree, "finite": finite}
+    if r_got.calls:  # a MoE model: (token, layer) top-k choices that agree
+        row["routing_agreement"] = r_got.agreement(r_want)
     if eng.spec_k:
         # row 0 of a verify window (no drafts: its rows past 0 read token
         # 0) against the one-token step above, on the same cache: plain
@@ -2050,23 +2359,25 @@ def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
         del win
     del got, want
     if fp32_plain:
-        import dataclasses
-
         from repro_torch.models import build_model
 
         row["control_rel_drift"] = controls
         m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
         with torch.no_grad():
             _, c32 = m32.prefill(params, {"tokens": toks}, rc)
-            c32 = pad_prefill_cache(c32, eng.ecfg.max_len)
-            got, _ = m32.decode(params, *step, c32, rc)
+            c32 = pad_prefill_cache(c32, eng.ecfg.max_len, window=eng.window)
+            with Routing() as r_got:
+                got, _ = m32.decode(params, *step, c32, rc)
             _, c32 = m32.prefill(params, {"tokens": toks}, rc)
-            c32 = pad_prefill_cache(c32, eng.ecfg.max_len)
-            want, _ = m32.decode(params, *step, c32, plain_rc)
+            c32 = pad_prefill_cache(c32, eng.ecfg.max_len, window=eng.window)
+            with Routing() as r_want:
+                want, _ = m32.decode(params, *step, c32, plain_rc)
         drift32, rel32, agree32, finite32 = logit_drift(torch, got, want,
                                                         cfg.vocab_size)
         row["fp32"] = {"max_abs_logit_drift": drift32, "rel_drift": rel32,
                        "argmax_agreement": agree32, "finite": finite32}
+        if r_got.calls:
+            row["fp32"]["routing_agreement"] = r_got.agreement(r_want)
         del got, want, c32
     emit(row)
     assert finite and rel_drift <= rel and agree >= 0.75, row
@@ -2125,7 +2436,8 @@ def paged_base(torch, model, eng, cache, n):
             base, {"body": {k: t[:, b:b + 1] for k, t in cache["body"].items()}},
             torch.tensor([b], device="cuda"),
             torch.from_numpy(tables[b]).to("cuda"),
-            torch.tensor([n], dtype=torch.int32, device="cuda"), meta)
+            torch.tensor([n], dtype=torch.int32, device="cuda"), meta,
+            window=eng.window)
     paging.set_block_tables(base, tables)
     return base
 
@@ -2279,7 +2591,9 @@ def graph_step(torch, model, eng, base, clone, name):
         if not equal:
             failed.append(label)
     assert eng.trace_counts["decode"] == 1, eng.trace_counts
-    assert sorted(eng.prefill_graphs)[-1] == eng.ecfg.max_len, eng.prefill_graphs
+    # an unbucketed (MoE) engine's prefill is eager: no prefill graph
+    assert not eng._buckets or sorted(eng.prefill_graphs)[-1] == \
+        eng.ecfg.max_len, eng.prefill_graphs
     assert not failed, f"{name} graph_step: replay differs from eager: {failed}"
 
 
@@ -2344,14 +2658,16 @@ def pool_bytes(torch, pool):
                if tuple(s["segment_pool_id"]) == pool)
 
 
-def device_profile(torch, run, steps: int = 5) -> dict:
+def device_profile(torch, run, steps: int = 5, top_other: int = 0) -> dict:
     """Host wall per call of ``run`` over ``steps`` back-to-back calls
     (synchronized at the end, no profiler) against the device time of
     the kernels the calls ran (torch.profiler, device activity only: the
     host's op events are not read, and recording them costs seconds a
     call), grouped by the port's kernels (each CUDA function matched by
     its whole name) and everything else; ``profile_s``: the host seconds
-    the profiled calls and the reading of their events took."""
+    the profiled calls and the reading of their events took.
+    ``top_other``: also the ms a call and launches of that many of the
+    "other" CUDA functions that take the most time."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad():
@@ -2367,7 +2683,7 @@ def device_profile(torch, run, steps: int = 5) -> dict:
             for _ in range(steps):
                 run()
             torch.cuda.synchronize()
-    groups, label = {}, {}
+    groups, label, other = {}, {}, {}
     n_kernels = 0
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -2377,14 +2693,23 @@ def device_profile(torch, run, steps: int = 5) -> dict:
             label[ev.name] = next((lab for fn, lab in KERNEL_FUNCTIONS.items()
                                    if re.search(rf"\b{fn}\b", ev.name)), "other")
         key = label[ev.name]
-        groups[key] = groups.get(key, 0.0) + ev.time_range.elapsed_us()
+        us = ev.time_range.elapsed_us()
+        groups[key] = groups.get(key, 0.0) + us
+        if key == "other":
+            t, c = other.get(ev.name, (0.0, 0))
+            other[ev.name] = (t + us, c + 1)
     busy_ms = sum(groups.values()) / 1e3 / steps
     return {"profile_s": time.perf_counter() - t0, "wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": busy_ms if n_kernels else None,
             "idle_share": (1 - busy_ms / wall_ms) if n_kernels else None,
             "device_kernels_per_step": n_kernels / steps,
             "device_ms_by_kernel": {k: v / 1e3 / steps
-                                    for k, v in sorted(groups.items())}}
+                                    for k, v in sorted(groups.items())},
+            **({"top_other": [
+                {"name": n[:120], "ms": t / 1e3 / steps, "launches": c / steps}
+                for n, (t, c) in sorted(other.items(),
+                                        key=lambda kv: -kv[1][0])[:top_other]]}
+               if top_other else {})}
 
 
 def profile_decode(torch, model, eng, cache, step, name, required,
@@ -2421,7 +2746,9 @@ def profile_decode(torch, model, eng, cache, step, name, required,
     eng.last_token[:], eng.positions[:] = tok[:, 0], pos[:, 0]
     engine_step = device_profile(torch, eng._decode)
     eng.active[:] = False
-    bucket = max(b for b in eng._buckets if b <= PROFILE_BUCKET)
+    # an unbucketed (MoE) engine prefills eagerly at the exact length
+    bucket = (max(b for b in eng._buckets if b <= PROFILE_BUCKET)
+              if eng._buckets else PROFILE_BUCKET)
     arrays = step_inputs(eng, bucket, np.random.default_rng(SEED + 4))
     prefill = eng.prefill_graph(bucket)
     dt = device_inputs(torch, prefill, arrays)
@@ -2431,12 +2758,32 @@ def profile_decode(torch, model, eng, cache, step, name, required,
     emit({"phase": f"{name}_decode_profile", "batch": SLOTS,
           "eager": eager, "replay": replay, "engine_step": engine_step})
     emit({"phase": f"{name}_prefill_profile", "bucket": bucket,
-          "eager": prefill_eager, "replay": prefill_replay})
+          "eager": prefill_eager, "replay": prefill_replay,
+          "captured": bool(eng._buckets)})
     missing = [k for k in required
                if k not in (replay if k in DECODE_KERNELS else prefill_replay)[
                    "device_ms_by_kernel"]]
     assert not missing, (f"{name}: kernels absent from the replays' device "
                          f"events: {missing}")
+
+
+def mixtral_rows(rows, name, launches) -> dict:
+    """The check phase's rows of ``name`` (B1 or B3) at mixtral-8x22b's
+    linears, and the launches in ``serve_mixtral_8x22b``; for B1 also a
+    decode layer's sum (wqkv + wo + E x (gu + down), E = 8)."""
+    keys = ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
+            "library_bf16_ms")
+    rs = [r for r in rows if r["case"].get("model") == MIXTRAL]
+    out = {"linears": [{"linear": r["case"]["linear"], "M": r["case"]["M"],
+                        "bound_by": r["bound_by"],
+                        **{k: r[k] for k in keys}} for r in rs],
+           "launches": launches["serve_mixtral_8x22b"][name]}
+    if name == "fused_vq_matmul":
+        experts = 8
+        out["decode_layer"] = {k: sum(r[k] * (experts if r["case"]["expert"]
+                                              else 1) for r in rs)
+                               for k in keys}
+    return out
 
 
 def verify_window(rows) -> dict:
@@ -2480,6 +2827,7 @@ def main() -> int:
     phase_seconds("breakdown", t0)
     launches = serve(torch, timer)
     launches.update(serve_other_configs(torch, timer))
+    launches.update(serve_mixtral(torch))
     phase_of = {"flash_decode": "serve", "flash_decode_kvq": "serve_kvq",
                 "int8_gemm": "serve_kvq", "vq_gemm": "serve_split",
                 "oc_lookup": "serve_split",
@@ -2537,6 +2885,9 @@ def main() -> int:
             # verify window, M = slots x (K + 1)
             **({"verify_window": verify_window(rows[name])}
                if name == "fused_vq_matmul" else {}),
+            # B1 and B3 at mixtral-8x22b's linears, and B1's decode layer
+            **({MIXTRAL: mixtral_rows(rows[name], name, launches)}
+               if name in ("fused_vq_matmul", "dequant_gemv") else {}),
             "launches_by_phase": {ph: c[name] for ph, c in launches.items()
                                   if c.get(name)}})
     emit({"kernels": summary})

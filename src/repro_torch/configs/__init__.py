@@ -1,9 +1,9 @@
 """Architecture registry of the port: ``get_config(arch)`` /
-``get_smoke_config(arch)`` / ``all_configs()``. The dense family is
-ported: the paper's own model (llama2-7b) and the four dense assigned
-architectures, in the reference's ``ARCH_IDS`` order. The other families
-(whisper, xlstm, deepseek, mixtral, recurrentgemma, vision) wait for
-ROADMAP A7."""
+``get_smoke_config(arch)`` / ``all_configs()``. Ported: the paper's own
+model (llama2-7b), the four dense assigned architectures and mixtral
+(top-2 MoE with sliding-window rings), in the reference's ``ARCH_IDS``
+order. The other families (whisper, xlstm, deepseek, recurrentgemma,
+vision) wait for ROADMAP A7."""
 from __future__ import annotations
 
 import importlib
@@ -16,6 +16,7 @@ ARCH_IDS: List[str] = [
     "qwen3_0_6b",
     "llama3_8b",
     "qwen2_72b",
+    "mixtral_8x22b",
     # the paper's own model
     "llama2_7b",
 ]

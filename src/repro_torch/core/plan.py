@@ -547,15 +547,21 @@ def plan_node(p: Dict[str, Any], x: torch.Tensor, *, mode: str,
 
 def preplan_params(params: Any, policy: PlanPolicy, *, mode: str, m: int,
                    act_dtype: torch.dtype, planner: Optional[Planner] = None,
+                   expert_m: Optional[int] = None,
                    ) -> List[Tuple[Tuple[Any, ...], MatmulPlan]]:
     """Walk a param tree (dicts, and the list of ``layers``) and plan
-    every linear leaf at ``m`` tokens in flight under run ``mode``,
-    warming the planner cache; returns (path, plan) pairs for logs.
-    Pre-planning is a warm-up plus a report, never a constraint."""
+    every linear leaf at ``m`` tokens in flight under run ``mode`` — a
+    MoE layer's experts (under ``"experts"``) at ``expert_m``, the rows
+    of each expert's capacity buffer (``models.common.moe_capacity``),
+    when given — warming the planner cache; returns (path, plan) pairs
+    for logs. Pre-planning is a warm-up plus a report, never a
+    constraint."""
     planner = planner or _PLANNER
     out: List[Tuple[Tuple[Any, ...], MatmulPlan]] = []
 
     def walk(node, path):
+        rows = (expert_m if expert_m is not None and "experts" in path
+                else m)
         if isinstance(node, (list, tuple)):
             for i, sub in enumerate(node):
                 walk(sub, path + (i,))
@@ -563,7 +569,7 @@ def preplan_params(params: Any, policy: PlanPolicy, *, mode: str, m: int,
         if not isinstance(node, dict):
             return
         if "vq" in node:
-            spec = LinearSpec.for_vq(node["vq"], M=m, x_dtype=act_dtype,
+            spec = LinearSpec.for_vq(node["vq"], M=rows, x_dtype=act_dtype,
                                      out_dtype=act_dtype)
             out.append((path, planner.plan(spec, policy.resolve_vq_mode(mode))))
             return
@@ -578,7 +584,7 @@ def preplan_params(params: Any, policy: PlanPolicy, *, mode: str, m: int,
         if isinstance(w, torch.Tensor) and w.dim() >= 2:
             kind = "int8" if (mode == "prefill" and policy.int8_prefill) \
                 else "dense"
-            spec = LinearSpec.for_dense(w, M=m, x_dtype=act_dtype,
+            spec = LinearSpec.for_dense(w, M=rows, x_dtype=act_dtype,
                                         out_dtype=act_dtype, kind=kind)
             out.append((path, planner.plan(spec, policy)))
             return

@@ -4,8 +4,11 @@
 Every eligible FC weight under a block segment becomes ``{"vq":
 VQWeight}``; same-input projection families are grouped into one wide
 leaf (wq|wk|wv -> "wqkv", gate|up -> "gu") with recorded ``splits``.
-Embeddings, lm_head and norms stay dense (large fp32 leaves cast to bf16
-for serving).
+A MoE layer's experts (under the ``"experts"`` segment, stacked on a
+leading E axis) become one VQWeight stacked on E, gate|up grouped into
+``gu`` expert by expert. Embeddings, lm_head, norms and the MoE router
+(its N = E is below the quantizer's 64) stay dense (large fp32 leaves
+cast to bf16 for serving).
 
 ``synthetic`` reads only each weight's SHAPE, so it accepts params whose
 block weights live on the ``meta`` device (``Model.init(...,
@@ -15,8 +18,9 @@ weights. ``fit`` (k-means), quantizing the LM head and the shard-aware
 grouping options are not ported yet (ROADMAP A8).
 
 ``count_vq_layers`` and ``compressed_model_bytes`` count the quantized
-sites and their bytes (the port holds one VQWeight a layer, so a site
-counts once per layer where the reference's stacked node counts once).
+linears and their bytes (the port holds one VQWeight a layer, so a site
+counts once per layer where the reference's stacked node counts once;
+an E-stacked expert site counts E linears).
 
 ``attach_kv_codebooks`` gives every attention node the per-head KV-VQ
 codebooks a compressed cache encodes against (``kv_cb``: {"k", "v"} of
@@ -97,8 +101,9 @@ def quantize_params(params: Any, cfg: ModelConfig, *,
         raise ValueError("quantize_params(method='synthetic') needs a "
                          "torch.Generator on the target device")
     d, n, C = cfg.vq_d, cfg.vq_n, cfg.vq_C
-    def make_vq(K: int, N: int, splits=()) -> VQWeight:
-        return synthetic_vq(generator, K, N, d=d, n=n, C=C, splits=splits,
+    def make_vq(w: torch.Tensor, N: int, splits=()) -> VQWeight:
+        return synthetic_vq(generator, int(w.shape[-2]), N, d=d, n=n, C=C,
+                            splits=splits, lead=tuple(w.shape[:-2]),
                             device=dev)
 
     def groupable(node, path, members, sibling) -> bool:
@@ -124,8 +129,8 @@ def quantize_params(params: Any, cfg: ModelConfig, *,
             if not groupable(out, path, members, sibling):
                 continue
             splits = tuple(int(out[m]["w"].shape[-1]) for m in members)
-            K = int(out[members[0]]["w"].shape[-2])
-            grouped = {"vq": make_vq(K, sum(splits), splits)}
+            grouped = {"vq": make_vq(out[members[0]]["w"], sum(splits),
+                                     splits)}
             if "b" in out[members[0]]:
                 grouped["b"] = torch.cat(
                     [out[m]["b"] for m in members], dim=-1).to(dev)
@@ -143,7 +148,7 @@ def quantize_params(params: Any, cfg: ModelConfig, *,
             if "w" in node and _eligible(path, node["w"]):
                 w = node["w"]
                 new = {kk: vv.to(dev) for kk, vv in node.items() if kk != "w"}
-                new["vq"] = make_vq(int(w.shape[-2]), int(w.shape[-1]))
+                new["vq"] = make_vq(w, int(w.shape[-1]))
                 return new
             node = group(node, path)
             return {kk: walk(vv, path + (kk,)) for kk, vv in node.items()}
@@ -169,17 +174,19 @@ def vq_nodes(params: Any):
 
 
 def count_vq_layers(params: Any) -> int:
-    """Number of quantized linears (one per layer and site)."""
-    return sum(1 for _ in vq_nodes(params))
+    """Number of quantized linears (one per layer and site, E per
+    E-stacked expert site)."""
+    return sum(node["vq"].lead for node in vq_nodes(params))
 
 
 def compressed_model_bytes(params: Any) -> Tuple[int, int]:
-    """(bytes of the VQ'd leaves, bytes of the same weights dense in bf16)."""
+    """(bytes of the VQ'd leaves, bytes of the same weights dense in
+    bf16), every stacked expert counted."""
     vq_b = dense_b = 0
     for node in vq_nodes(params):
         v = node["vq"]
         vq_b += v.compressed_bytes()
-        dense_b += v.K * v.N * 2
+        dense_b += v.lead * v.K * v.N * 2
     return vq_b, dense_b
 
 

@@ -17,6 +17,11 @@ A grouped projection family (Wq|Wk|Wv, W_gate|W_up) is ONE wide VQWeight
 of shape (K, sum N_i) with one codebook set; ``splits`` records the member
 widths (``()`` for an ordinary weight).
 
+A MoE layer's experts are one VQWeight stacked on a leading E axis
+(``idx`` (E, C, V, N), ``codebooks`` (E, C, d, 2^n), ``scale`` (E, N)),
+as the reference stacks them; ``vq_index`` gives expert e's (K, N)
+weight as contiguous views, the layout the kernels take.
+
 ``kmeans`` (Lloyd's, k-means++ seeded) draws from an explicit
 ``torch.Generator`` where the reference splits ``jax.random`` keys, so
 its centroids are not the reference's bit for bit; its assignment step
@@ -59,11 +64,27 @@ class VQWeight:
     def V(self) -> int:
         return self.K // self.d
 
+    @property
+    def lead(self) -> int:
+        """Weights stacked on leading axes (E for a MoE layer's experts;
+        1 for an ordinary weight)."""
+        return int(np.prod(self.idx.shape[:-3], dtype=np.int64))
+
     def compressed_bytes(self) -> int:
-        """Bytes of the indices, the fp32 codebooks and the fp32 scales."""
+        """Bytes of the indices, the fp32 codebooks and the fp32 scales
+        (of every stacked weight)."""
         idx_bytes = self.C * self.V * self.N * (1 if self.n <= 8 else 4)
         cb_bytes = self.C * self.d * (2 ** self.n) * 4
-        return idx_bytes + cb_bytes + self.N * 4
+        return self.lead * (idx_bytes + cb_bytes + self.N * 4)
+
+
+def vq_index(vq: VQWeight, i: int) -> VQWeight:
+    """Weight ``i`` of a VQWeight stacked on a leading axis (a MoE
+    layer's expert i): views of its indices, codebooks and scale, each
+    contiguous when the stack is."""
+    return VQWeight(idx=vq.idx[i], codebooks=vq.codebooks[i],
+                    scale=vq.scale[i], K=vq.K, N=vq.N, d=vq.d, n=vq.n,
+                    splits=vq.splits)
 
 
 def dequantize(vq: VQWeight) -> torch.Tensor:
@@ -81,21 +102,25 @@ def dequantize(vq: VQWeight) -> torch.Tensor:
 
 def synthetic_vq(generator: torch.Generator, K: int, N: int, *, d: int = 8,
                  n: int = 8, C: int = 2, splits: Tuple[int, ...] = (),
-                 device=None) -> VQWeight:
+                 lead: Tuple[int, ...] = (), device=None) -> VQWeight:
     """Random-but-valid VQ weight drawn on ``device`` from ``generator``
     (which must live on the same device): uniform indices, codebooks
-    ~ N(0, 1/(K*C)) so W_hat has unit-ish variance, unit scales."""
+    ~ N(0, 1/(K*C)) so W_hat has unit-ish variance, unit scales.
+    ``lead`` stacks that many independent weights on leading axes (a
+    MoE layer's experts: ``lead=(E,)``)."""
     if splits and sum(splits) != N:
         raise ValueError(f"splits {splits} do not sum to N={N}")
     if K % d:
         raise ValueError(f"K={K} not divisible by d={d}")
     V, k = K // d, 2 ** n
+    lead = tuple(lead)
     idx_dtype = torch.uint8 if n <= 8 else torch.int32
-    idx = torch.randint(0, k, (C, V, N), generator=generator, device=device,
-                        dtype=idx_dtype)
-    codebooks = torch.randn((C, d, k), generator=generator, device=device,
+    idx = torch.randint(0, k, lead + (C, V, N), generator=generator,
+                        device=device, dtype=idx_dtype)
+    codebooks = torch.randn(lead + (C, d, k), generator=generator,
+                            device=device,
                             dtype=torch.float32) / math.sqrt(K * C)
-    scale = torch.ones((N,), dtype=torch.float32, device=device)
+    scale = torch.ones(lead + (N,), dtype=torch.float32, device=device)
     return VQWeight(idx=idx, codebooks=codebooks, scale=scale, K=K, N=N, d=d,
                     n=n, splits=tuple(splits))
 

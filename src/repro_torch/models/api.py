@@ -1,4 +1,5 @@
-"""Model facade of the port (``repro/models/api.py``), dense family only:
+"""Model facade of the port (``repro/models/api.py``), the dense and MoE
+families:
 
     model = build_model(cfg)
     params = model.init(generator, device="cuda")
@@ -115,10 +116,16 @@ def param_count(params: Any) -> int:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    """The model of ``cfg``: the dense family with full attention."""
-    if (cfg.family != "dense" or cfg.use_mla or cfg.first_dense_layers
-            or cfg.sliding_window or cfg.local_window):
+    """The model of ``cfg``: the dense or MoE family, with full or
+    sliding-window attention.
+
+    Raises:
+      NotImplementedError: another family, MLA, ``first_dense_layers``
+        or a local window (ROADMAP A7)."""
+    if (cfg.family not in ("dense", "moe") or cfg.use_mla
+            or cfg.first_dense_layers or cfg.local_window):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family with full attention is "
-            "ported (other families and windowed attention: ROADMAP A7)")
+            f"{cfg.name}: only the dense and MoE families without MLA, "
+            "dense prefix layers or local windows are ported (the other "
+            "families: ROADMAP A7)")
     return Model(cfg)

@@ -1,15 +1,23 @@
-"""Shared model building blocks of the dense family (the subset of
-``repro/models/common.py`` the serving path reaches): configs, linear
-layers (dense / VQ / INT8 through the planner), rmsnorm, rotary
-embeddings, blocked prefill attention, decode attention over the KV
-cache — fp, int8 (``k``/``v`` int8 + bf16 ``k_s``/``v_s``) or KV-VQ
-(uint8 codebook indices + bf16 scales, the codebooks under the attention
-params' ``kv_cb``), contiguous or paged (block arenas and a block table,
-``serve/paging.py``) — the chunked-prefill continuation over a paged
-slot view, the SwiGLU MLP, embedding and LM head.
+"""Shared model building blocks of the dense and MoE families (the
+subset of ``repro/models/common.py`` the serving path reaches): configs,
+linear layers (dense / VQ / INT8 through the planner), rmsnorm, rotary
+embeddings, blocked prefill attention (causal, optionally within a
+sliding window), decode attention over the KV cache — fp, int8 (``k``/
+``v`` int8 + bf16 ``k_s``/``v_s``) or KV-VQ (uint8 codebook indices +
+bf16 scales, the codebooks under the attention params' ``kv_cb``),
+contiguous or paged (block arenas and a block table,
+``serve/paging.py``), a full cache or a sliding-window ring (``window >
+0``: the cache holds ``min(max_len, window)`` positions and position p
+lives at slot ``p % S``) — the chunked-prefill continuation over a paged
+slot view, the SwiGLU MLP, the top-k MoE layer with capacity routing,
+embedding and LM head.
 
 Params are plain dicts of tensors (VQWeight nodes after quantization);
-every initializer draws from an explicit ``torch.Generator``.
+every initializer draws from an explicit ``torch.Generator``. A MoE
+layer's experts are stacked on a leading E axis, as the reference holds
+them (a stacked VQWeight: ``idx`` (E, C, V, N), ``codebooks`` (E, C, d,
+2^n), ``scale`` (E, N)); ``_expert_ffn`` slices expert e's 2-D VQWeight
+(``core.vq.vq_index``: contiguous views) for the kernels.
 
 Unlike the functional reference, decode updates the KV cache IN PLACE
 (the new token's K/V rows and the ``len`` leaf), which saves a full copy
@@ -28,7 +36,7 @@ import torch.nn.functional as F
 from repro_torch.core import ops as core_ops
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.plan import PlanPolicy
-from repro_torch.core.vq import KVQuantConfig, kv_decode, kv_encode
+from repro_torch.core.vq import KVQuantConfig, kv_decode, kv_encode, vq_index
 
 Params = Any
 
@@ -41,7 +49,8 @@ Params = Any
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture description; the same fields and defaults as the
-    reference's ``ModelConfig`` (only the dense family is ported)."""
+    reference's ``ModelConfig`` (the dense and MoE families are
+    ported)."""
 
     name: str
     family: str                      # dense | moe | xlstm | rglru | whisper | vision
@@ -163,6 +172,30 @@ def make_mlp(gen, d_model: int, d_ff: int, *, block_device) -> Params:
             "down": make_linear(gen, d_ff, d_model, device=block_device)}
 
 
+def make_moe(gen, cfg: ModelConfig, *, device, block_device) -> Params:
+    """A MoE layer: the dense router ``wr`` (D, E) on ``device`` (never
+    quantized: N = E is below the quantizer's 64) and the experts'
+    gate/up/down stacked on a leading E axis on ``block_device``; the
+    shared experts (``num_shared_experts``) as one MLP of
+    ``num_shared_experts`` x the expert width."""
+    E, dff = cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+
+    def stack(K, N):
+        if torch.device(block_device).type == "meta":
+            return torch.empty((E, K, N), device="meta")
+        return torch.stack([_dense_init(gen, K, N, block_device)
+                            for _ in range(E)])
+
+    p = {"router": {"wr": _dense_init(gen, cfg.d_model, E, device)},
+         "experts": {"gate": {"w": stack(cfg.d_model, dff)},
+                     "up": {"w": stack(cfg.d_model, dff)},
+                     "down": {"w": stack(dff, cfg.d_model)}}}
+    if cfg.num_shared_experts:
+        p["shared"] = make_mlp(gen, cfg.d_model, dff * cfg.num_shared_experts,
+                               block_device=block_device)
+    return p
+
+
 def make_embedding(gen, vocab: int, d: int, device) -> Params:
     return {"emb": torch.randn((vocab, d), generator=gen, device=device) * 0.02}
 
@@ -250,14 +283,15 @@ def _attn_chunk_apply(p, v):
 
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      chunk: int = 1024,
+                      chunk: int = 1024, window: int = 0,
                       q_offset: Union[int, torch.Tensor] = 0) -> torch.Tensor:
     """Memory-bounded causal attention (prefill): q in chunks, kv chunks
     folded with an online softmax, -1e30 masking (the reference's
-    ``blocked_attention`` with ``causal=True``, no window, every kv chunk
-    visited). ``q_offset`` is the absolute position of q[0], an int or a
-    0-dim device tensor (the chunked-prefill continuation: no host
-    sync)."""
+    ``blocked_attention`` with ``causal=True``, every kv chunk visited).
+    ``window > 0`` also masks the positions ``window`` or more behind
+    each query (sliding-window attention). ``q_offset`` is the absolute
+    position of q[0], an int or a 0-dim device tensor (the
+    chunked-prefill continuation: no host sync)."""
     B, Sq, H, hd = q.shape
     hd_v = v.shape[-1]
     Skv = k.shape[1]
@@ -284,6 +318,8 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             s = _attn_chunk_scores(qi, k[:, lo:hi + 1], scale)   # (B,H,cq,ck)
             pos_c = torch.arange(lo, hi + 1, device=dev)
             mask = (pos_c[None, :] <= q_pos[:, None]) & (pos_c < Skv)[None, :]
+            if window > 0:
+                mask &= pos_c[None, :] > (q_pos[:, None] - window)
             s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
@@ -297,16 +333,28 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cache_len: torch.Tensor
-                     ) -> torch.Tensor:
+                     v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                     ring: bool = False) -> torch.Tensor:
     """Plain attention over a contiguous cache; ``cache_len`` counts the
-    Sq queries just written: query i sits at ``cache_len - Sq + i``."""
+    Sq queries just written: query i sits at ``cache_len - Sq + i``. A
+    ring (sliding-window) cache decodes one query at a time: every slot
+    below ``min(cache_len, S)`` is valid (the last S positions once the
+    ring has wrapped).
+
+    Raises:
+      ValueError: ``ring`` with more than one query."""
     B, S, Hk, hd = k_cache.shape
     Sq = q.shape[1]
+    if ring and Sq != 1:
+        raise ValueError("ring caches decode one token at a time")
     s = _attn_chunk_scores(q, k_cache, 1.0 / math.sqrt(hd))  # (B, H, Sq, S)
     pos = torch.arange(S, device=q.device)
-    qpos = cache_len[:, None] - Sq + torch.arange(Sq, device=q.device)[None, :]
-    valid = pos[None, None, :] <= qpos[..., None]               # (B, Sq, S)
+    if ring:
+        valid = (pos[None, :] < cache_len.clamp(max=S)[:, None])[:, None]
+    else:
+        qpos = (cache_len[:, None] - Sq
+                + torch.arange(Sq, device=q.device)[None, :])
+        valid = pos[None, None, :] <= qpos[..., None]           # (B, Sq, S)
     s = torch.where(valid[:, None], s, torch.full_like(s, -1e30))
     return _attn_chunk_apply(torch.softmax(s, dim=-1), v_cache).to(q.dtype)
 
@@ -335,17 +383,19 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _kvq_decode_attention(q, k_idx, v_idx, k_s, v_s, lengths, cb_k, cb_v,
                           rc: RunConfig,
-                          block_table: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          block_table: Optional[torch.Tensor] = None,
+                          window: int = 0) -> torch.Tensor:
     """Attend over a KV-VQ cache: contiguous (B, S, ...) leaves, or with
     ``block_table`` (B, W) the paged arenas (NB, bs, ...). A single query
-    resolves through the planner (``kind="kvq_attn"``: the dequantize
-    oracle under impl="torch", kernel B7 under impl="cuda"), a paged site
-    planned as a contiguous one of S = W * bs positions, as the reference
-    plans it, its operands the arenas and the table; several queries
-    dequantize and attend, as the reference does."""
+    over a full cache resolves through the planner (``kind="kvq_attn"``:
+    the dequantize oracle under impl="torch", kernel B7 under
+    impl="cuda"), a paged site planned as a contiguous one of S = W * bs
+    positions, as the reference plans it, its operands the arenas and
+    the table; several queries, and a ring cache (``window > 0``), whose
+    validity the kvq_attn backends do not know, dequantize and attend,
+    as the reference does."""
     paged = block_table is not None
-    if q.shape[1] == 1:
+    if q.shape[1] == 1 and window == 0:
         _, bs, Hk, idx_w = k_idx.shape
         S = block_table.shape[1] * bs if paged else bs
         spec = plan_mod.kvq_attention_spec(
@@ -359,7 +409,8 @@ def _kvq_decode_attention(q, k_idx, v_idx, k_s, v_s, lengths, cb_k, cb_v,
         k_idx, v_idx, k_s, v_s = (paged_view(t, block_table)
                                   for t in (k_idx, v_idx, k_s, v_s))
     return decode_attention(q, kv_decode(k_idx, k_s, cb_k),
-                            kv_decode(v_idx, v_s, cb_v), lengths)
+                            kv_decode(v_idx, v_s, cb_v), lengths,
+                            ring=window > 0)
 
 
 def _encoded_rows(p: Params, k: torch.Tensor, v: torch.Tensor,
@@ -378,19 +429,26 @@ def _encoded_rows(p: Params, k: torch.Tensor, v: torch.Tensor,
     return {"k": k, "v": v, "k_s": k_s, "v_s": v_s}
 
 
-def _decode_contiguous(p, q, rows, cache, rc: RunConfig) -> torch.Tensor:
+def _decode_contiguous(p, q, rows, cache, rc: RunConfig,
+                       window: int = 0) -> torch.Tensor:
     """Write ``rows`` (B, S, ...) at positions len..len+S-1 of the
-    contiguous cache, in place, then attend."""
+    contiguous cache, in place, then attend. A ring cache (``window >
+    0``) writes position p at slot ``p % Sc`` and drops nothing."""
     B, S = q.shape[:2]
     Sc = cache["k"].shape[1]
     cache_len = cache["len"]                                       # (B,)
+    ring = window > 0
     # the reference drops the positions past capacity (mode="drop").
     # With fixed shapes and no host sync, each dropped position of a
     # window repeats the write of its row's last position that fits,
     # so duplicate (b, slot) pairs all carry one value; a row where no
     # position fits writes slot Sc - 1's own value back. One token
     # (the engine's step) has no duplicates and needs no gather.
-    if S == 1:
+    if ring:
+        src, any_fit = None, None
+        slot = (cache_len[:, None].long()
+                + torch.arange(S, device=q.device)[None, :]) % Sc  # (B, S)
+    elif S == 1:
         src = None
         slot = cache_len[:, None].long().clamp(max=Sc - 1)         # (B, 1)
         any_fit = (cache_len < Sc)[:, None]
@@ -403,41 +461,50 @@ def _decode_contiguous(p, q, rows, cache, rc: RunConfig) -> torch.Tensor:
     b_iota = torch.arange(B, device=q.device)[:, None]
     for name, new in rows.items():
         buf = cache[name]
-        keep = any_fit.reshape(any_fit.shape + (1,) * (new.dim() - 2))
         new = new.to(buf.dtype) if src is None else new.to(buf.dtype)[b_iota, src]
+        if any_fit is None:
+            buf[b_iota, slot] = new
+            continue
+        keep = any_fit.reshape(any_fit.shape + (1,) * (new.dim() - 2))
         buf[b_iota, slot] = torch.where(keep, new, buf[b_iota, slot])
     cache["len"].copy_(cache_len + S)
     new_len = cache["len"]
     if "k_s" in cache and cache["k"].dtype == torch.uint8:
         return _kvq_decode_attention(q, cache["k"], cache["v"], cache["k_s"],
                                      cache["v_s"], new_len, p["kv_cb"]["k"],
-                                     p["kv_cb"]["v"], rc)
+                                     p["kv_cb"]["v"], rc, window=window)
     if "k_s" in cache:
         bf = torch.bfloat16
         return decode_attention(
             q, cache["k"].to(bf) * cache["k_s"][..., None].to(bf),
-            cache["v"].to(bf) * cache["v_s"][..., None].to(bf), new_len)
-    if rc.policy.impl == "cuda" and S == 1:
+            cache["v"].to(bf) * cache["v_s"][..., None].to(bf), new_len,
+            ring=ring)
+    if rc.policy.impl == "cuda" and S == 1 and not ring:
         from repro_torch.kernels.flash_decode import flash_decode
 
         return flash_decode(q, cache["k"], cache["v"], new_len)
-    return decode_attention(q, cache["k"], cache["v"], new_len)
+    return decode_attention(q, cache["k"], cache["v"], new_len, ring=ring)
 
 
-def _decode_paged(p, q, rows, cache, rc: RunConfig) -> torch.Tensor:
+def _decode_paged(p, q, rows, cache, rc: RunConfig,
+                  window: int = 0) -> torch.Tensor:
     """Write ``rows`` (B, S, ...) at positions len..len+S-1 through the
     block table, in place, then attend over the arenas (reference
     ``models/common.py:529-608``). Arenas hold NB + 1 blocks, the last
     the sink (``serve/paging.py``): the sentinel id NB is the sink's
     index, so a row of a free or mid-prefill slot (its table row all
     sentinel) and a position past capacity write there, and no two
-    writes of a step that anything reads share a target."""
+    writes of a step that anything reads share a target. A ring
+    (``window > 0``) writes position p at its slot ``p % (W * bs)``."""
     B, S = q.shape[:2]
     bt = cache["block_table"]                                      # (B, W)
     NB, bs = cache["k"].shape[0] - 1, cache["k"].shape[1]
     W = bt.shape[1]
+    ring = window > 0
     cache_len = cache["len"]                                       # (B,)
     pos = cache_len[:, None].long() + torch.arange(S, device=q.device)
+    if ring:
+        pos = pos % (W * bs)
     blk = bt.gather(1, (pos // bs).clamp(max=W - 1)).long()       # (B, S)
     phys = torch.where(pos < W * bs, blk, NB)
     off = pos % bs
@@ -449,23 +516,25 @@ def _decode_paged(p, q, rows, cache, rc: RunConfig) -> torch.Tensor:
     if "k_s" in cache and cache["k"].dtype == torch.uint8:
         return _kvq_decode_attention(
             q, arena["k"], arena["v"], arena["k_s"], arena["v_s"], new_len,
-            p["kv_cb"]["k"], p["kv_cb"]["v"], rc, block_table=bt)
+            p["kv_cb"]["k"], p["kv_cb"]["v"], rc, block_table=bt,
+            window=window)
     if "k_s" in cache:
         bf = torch.bfloat16
         view = {n: paged_view(a, bt) for n, a in arena.items()}
         return decode_attention(
             q, view["k"].to(bf) * view["k_s"][..., None].to(bf),
-            view["v"].to(bf) * view["v_s"][..., None].to(bf), new_len)
-    if rc.policy.impl == "cuda" and S == 1:
+            view["v"].to(bf) * view["v_s"][..., None].to(bf), new_len,
+            ring=ring)
+    if rc.policy.impl == "cuda" and S == 1 and not ring:
         from repro_torch.kernels.flash_decode import flash_decode_paged
 
         return flash_decode_paged(q, arena["k"], arena["v"], bt, new_len)
     return decode_attention(q, paged_view(arena["k"], bt),
-                            paged_view(arena["v"], bt), new_len)
+                            paged_view(arena["v"], bt), new_len, ring=ring)
 
 
-def _prefill_continuation(q, k, v, positions, cache, rc: RunConfig
-                          ) -> torch.Tensor:
+def _prefill_continuation(q, k, v, positions, cache, rc: RunConfig,
+                          window: int = 0) -> torch.Tensor:
     """A chunked-prefill continuation over a one-slot paged view
     (``serve/paging.slot_view``; reference ``models/common.py:679-722``):
     the chunk's K/V go through the table at their absolute positions,
@@ -473,7 +542,8 @@ def _prefill_continuation(q, k, v, positions, cache, rc: RunConfig
     sink, then the chunk attends over the view with its query offset at
     the committed length ``len``; ``len`` becomes ``len + prefill_len``.
     Everything stays on the device (no host sync), so a CUDA graph holds
-    it. The fp cache only, batch 1, as the reference."""
+    it. The fp cache only, batch 1, as the reference (which also gates
+    it off for rings: ``window`` masks the attention only)."""
     if "k_s" in cache:
         raise NotImplementedError(
             "chunked prefill over quantized (int8/KV-VQ) KV caches is not "
@@ -494,14 +564,15 @@ def _prefill_continuation(q, k, v, positions, cache, rc: RunConfig
         cache[name][phys, off] = new[0].to(cache[name].dtype)
     o = blocked_attention(q, paged_view(cache["k"][:NB], bt),
                           paged_view(cache["v"][:NB], bt),
-                          chunk=rc.attn_chunk, q_offset=hist[0])
+                          chunk=rc.attn_chunk, window=window,
+                          q_offset=hist[0])
     cache["len"].copy_(hist + true_c)
     return o
 
 
 def attention_fwd(p: Params, x: torch.Tensor, rc: RunConfig, cfg: ModelConfig,
-                  *, positions: torch.Tensor, cache: Optional[Dict] = None
-                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
+                  *, positions: torch.Tensor, cache: Optional[Dict] = None,
+                  window: int = 0) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Causal self-attention. Decode writes the new tokens' K/V rows —
     fp, int8-quantized or KV-VQ-encoded, as the cache's leaves say — and
     ``len`` into ``cache`` in place (positions past capacity are dropped),
@@ -510,7 +581,12 @@ def attention_fwd(p: Params, x: torch.Tensor, rc: RunConfig, cfg: ModelConfig,
     ``impl="cuda"`` (one new token), the KV-VQ cache through its planned
     backend, the int8 cache through plain torch (the reference has no
     kernel for it). Prefill over a paged slot view is a chunked-prefill
-    continuation (``_prefill_continuation``), also in place."""
+    continuation (``_prefill_continuation``), also in place.
+
+    ``window > 0`` is sliding-window attention: prefill masks positions
+    ``window`` or more behind each query, and the decode cache is a
+    ring (position p at slot ``p % S``) attended through plain torch on
+    every layout, as the reference gates its kernels (``window == 0``)."""
     B, S, _ = x.shape
     H, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "wqkv" in p:
@@ -530,20 +606,21 @@ def attention_fwd(p: Params, x: torch.Tensor, rc: RunConfig, cfg: ModelConfig,
     if rc.mode == "decode" and cache is not None:
         rows = _encoded_rows(p, k, v, cache, rc)
         decode = _decode_paged if "block_table" in cache else _decode_contiguous
-        o = decode(p, q, rows, cache, rc)
+        o = decode(p, q, rows, cache, rc, window=window)
         new_cache = cache
     elif cache is not None and "block_table" in cache:
         if rc.mode != "prefill":
             raise ValueError(
                 "paged cache reached attention_fwd outside decode/prefill")
-        o = _prefill_continuation(q, k, v, positions, cache, rc)
+        o = _prefill_continuation(q, k, v, positions, cache, rc,
+                                  window=window)
         new_cache = cache
     elif cache is not None:
         raise ValueError(
             "a prefill over an existing cache needs a paged slot view "
             "(serve/paging.slot_view)")
     else:
-        o = blocked_attention(q, k, v, chunk=rc.attn_chunk)
+        o = blocked_attention(q, k, v, chunk=rc.attn_chunk, window=window)
         if rc.mode == "prefill":
             new_cache = {"k": k, "v": v,
                          "len": (positions[:, -1] + 1).to(torch.int32)}
@@ -562,6 +639,112 @@ def mlp_fwd(p: Params, x: torch.Tensor, rc: RunConfig) -> torch.Tensor:
     else:
         g, u = linear(p["gate"], x, rc), linear(p["up"], x, rc)
     return linear(p["down"], F.silu(g) * u, rc)
+
+
+def moe_capacity(cfg: ModelConfig, T: int) -> int:
+    """Slots of each expert's buffer for ``T`` tokens: ceil(T * k / E x
+    capacity_factor), at least 1 and at most T (the reference's
+    expression, evaluated the same way)."""
+    cap = max(1, int(math.ceil(T * cfg.top_k / cfg.num_experts
+                               * cfg.capacity_factor)))
+    return min(cap, T)
+
+
+def _expert_node(node: Params, e: int) -> Params:
+    """Expert ``e``'s linear node of an E-stacked one: its VQWeight
+    (``vq_index``) or dense weight, with the node's other leaves."""
+    return {k: (vq_index(v, e) if k == "vq" else v[e]) for k, v in node.items()}
+
+
+def _expert_ffn(ep: Params, x: torch.Tensor, rc: RunConfig) -> torch.Tensor:
+    """x: (E, cap, D) -> (E, cap, D): each expert's SwiGLU MLP over its
+    ``cap`` rows, one expert at a time (the reference vmaps it over E),
+    empty rows included: every linear goes through the planner at M =
+    cap (under ``impl="cuda"`` B1 in decode, B3 in prefill), grouped
+    gate|up as one ``gu`` matmul per expert."""
+    outs = []
+    for e in range(x.shape[0]):
+        if "gu" in ep:
+            g, u = grouped_linear(_expert_node(ep["gu"], e), x[e], rc)
+        else:
+            g = linear(_expert_node(ep["gate"], e), x[e], rc)
+            u = linear(_expert_node(ep["up"], e), x[e], rc)
+        outs.append(linear(_expert_node(ep["down"], e), F.silu(g) * u, rc))
+    return torch.stack(outs)
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """fp32 one-hot rows of ``idx`` (a comparison: no host sync)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
+def moe_route(logits: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor, int]:
+    """Token-choice top-k routing with capacity (reference
+    ``models/common.py:1038-1066``) from the router's fp32 logits (T,
+    E): the fp32 softmax, the top k gates (a stable descending sort:
+    equal gates keep the lower expert first, as ``lax.top_k`` does)
+    renormalized, and each (token, choice)'s position in its expert's
+    buffer counted in integers (the reference's fp32 cumsum is exact at
+    these counts). Returns (topi (T, k), topv (T, k) fp32, pos (T*k,)
+    int64, keep (T*k,) bool, cap)."""
+    T, E, k = logits.shape[0], cfg.num_experts, cfg.top_k
+    gates = torch.softmax(logits, dim=-1)
+    srt, order = torch.sort(gates, dim=-1, descending=True, stable=True)
+    topv, topi = srt[:, :k], order[:, :k]
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    cap = moe_capacity(cfg, T)
+    flat = (topi.reshape(T * k, 1)
+            == torch.arange(E, device=logits.device)).long()      # (T*k, E)
+    pos = ((torch.cumsum(flat, dim=0) - flat) * flat).sum(-1)     # (T*k,)
+    return topi, topv, pos, pos < cap, cap
+
+
+def moe_fwd(p: Params, x: torch.Tensor, rc: RunConfig,
+            cfg: ModelConfig) -> torch.Tensor:
+    """Token-choice top-k MoE with capacity-based dense dispatch
+    (reference ``models/common.py:1038-1099``): route (``moe_route``;
+    the router's product in fp32, never quantized), gather each kept
+    (token, choice) into its expert's (cap, D) buffer, run every expert
+    over its buffer (``_expert_ffn``), and combine the kept outputs
+    weighted by the renormalized gates in fp32. A choice past its
+    expert's capacity is dropped (weight 0). Decode-sized dispatch (T*k
+    *E*cap <= 2^22) uses one-hot einsums, longer prefills a scatter and
+    gather, as the reference; both are exact (one nonzero term per
+    slot). Everything is static-shaped: no host sync, so a CUDA graph
+    holds it. Shared experts add an MLP over every token."""
+    orig = x.shape
+    D = orig[-1]
+    xt = x.reshape(-1, D)                                          # (T, D)
+    T, E, k = xt.shape[0], cfg.num_experts, cfg.top_k
+    logits = torch.matmul(xt.float(),
+                          p["router"]["wr"].to(xt.dtype).float())  # (T, E)
+    topi, topv, pos, keep, cap = moe_route(logits, cfg)
+    expert_of = topi.reshape(T * k)
+    weight_of = topv.reshape(T * k) * keep
+    tok_of = torch.arange(T, device=x.device)[:, None].expand(T, k).reshape(-1)
+    slot = pos.clamp(max=cap - 1)
+    if T * k * E * cap <= (1 << 22):
+        oh = _one_hot(expert_of, E) * keep[:, None].float()       # (T*k, E)
+        ohc = oh[:, :, None] * _one_hot(slot, cap)[:, None, :]
+        disp = torch.einsum("sec,sd->ecd", ohc,
+                            xt[tok_of].float()).to(xt.dtype)
+        out_e = _expert_ffn(p["experts"], disp, rc)               # (E, cap, D)
+        gathered = torch.einsum("sec,ecd->sd", ohc, out_e.float())
+    else:
+        disp = torch.zeros((E, cap, D), dtype=xt.dtype, device=x.device)
+        disp.index_put_((expert_of, slot),
+                        torch.where(keep[:, None], xt[tok_of],
+                                    torch.zeros_like(xt[tok_of])),
+                        accumulate=True)
+        out_e = _expert_ffn(p["experts"], disp, rc)
+        gathered = out_e[expert_of, slot].float()                 # (T*k, D)
+    comb = (gathered * weight_of[:, None]).reshape(T, k, D).sum(1)
+    y = comb.to(x.dtype)
+    if cfg.num_shared_experts:
+        y = y + mlp_fwd(p["shared"], xt, rc)
+    return y.reshape(orig)
 
 
 def embed(p: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -1,5 +1,9 @@
-"""Decoder-only transformer, dense family (``repro/models/transformer.py``
-without MoE/MLA). The reference scans a stacked layer axis; here
+"""Decoder-only transformer, the dense and MoE families
+(``repro/models/transformer.py`` without MLA and ``first_dense_layers``).
+A MoE config (``family="moe"``) has a ``"moe"`` node in each layer in
+place of ``"mlp"``; a config with ``sliding_window`` attends within the
+window and decodes over ring caches of ``min(max_len, window)``
+positions. The reference scans a stacked layer axis; here
 ``params["layers"]`` is a list of per-layer dicts walked by a Python
 loop, and the decode cache keeps the reference's stacked layout
 ``{"body": {"k": (L, B, S, Hk, hd), "v": ..., "len": (L, B)}}`` (plus
@@ -19,18 +23,24 @@ from repro_torch.models.common import ModelConfig, RunConfig
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, *, device,
                 block_device) -> Any:
-    """Dense params drawn from ``gen``; the block linears go to
-    ``block_device`` (``"meta"`` keeps only their shapes)."""
+    """Dense params drawn from ``gen``; the block linears (the experts
+    included) go to ``block_device`` (``"meta"`` keeps only their
+    shapes)."""
     layers = []
     for _ in range(cfg.num_layers):
-        layers.append({
+        layer = {
             "attn_norm": cm.make_rmsnorm(cfg.d_model, device),
             "mlp_norm": cm.make_rmsnorm(cfg.d_model, device),
             "attn": cm.make_attention(gen, cfg, device=device,
                                       block_device=block_device),
-            "mlp": cm.make_mlp(gen, cfg.d_model, cfg.d_ff,
-                               block_device=block_device),
-        })
+        }
+        if cfg.family == "moe":
+            layer["moe"] = cm.make_moe(gen, cfg, device=device,
+                                       block_device=block_device)
+        else:
+            layer["mlp"] = cm.make_mlp(gen, cfg.d_model, cfg.d_ff,
+                                       block_device=block_device)
+        layers.append(layer)
     params = {
         "embedding": cm.make_embedding(gen, cfg.padded_vocab, cfg.d_model,
                                        device),
@@ -48,9 +58,11 @@ def _layer_fwd(lp: Any, x: torch.Tensor, rc: RunConfig, cfg: ModelConfig, *,
                ) -> Tuple[torch.Tensor, Optional[Dict]]:
     h = cm.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
     a, new_cache = cm.attention_fwd(lp["attn"], h, rc, cfg, positions=positions,
-                                    cache=cache)
+                                    cache=cache, window=cfg.sliding_window)
     x = x + a
     h = cm.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+    if "moe" in lp:
+        return x + cm.moe_fwd(lp["moe"], h, rc, cfg), new_cache
     return x + cm.mlp_fwd(lp["mlp"], h, rc), new_cache
 
 
@@ -91,12 +103,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device, *,
     ``dtype``; with ``kv_int8``, int8 ``k``/``v`` and bf16 per-(token,
     head) ``k_s``/``v_s`` scales; with ``kvq``, uint8 codebook indices
     (``kvq.idx_width(head_dim)`` per token and head) and the same bf16
-    scale leaves. The paged layout is ``serve/paging.init_paged_cache``
-    (``Model.init_cache(paging=...)``); ring layouts wait for ROADMAP A7."""
+    scale leaves. A sliding-window config's caches are rings of
+    ``min(max_len, sliding_window)`` positions, in every layout. The
+    paged layout is ``serve/paging.init_paged_cache``
+    (``Model.init_cache(paging=...)``)."""
     if kvq is not None and kv_int8:
         raise ValueError("kvq is mutually exclusive with kv_int8")
     L, Hk = cfg.num_layers, cfg.num_kv_heads
-    lead = (L, batch, max_len, Hk)
+    S = (min(max_len, cfg.sliding_window) if cfg.sliding_window
+         else max_len)
+    lead = (L, batch, S, Hk)
     body = {"len": torch.zeros((L, batch), dtype=torch.int32, device=device)}
     if kvq is not None or kv_int8:
         width, kdt = ((kvq.idx_width(cfg.head_dim), torch.uint8)

@@ -8,9 +8,23 @@ all slots (every VQ linear through the EVA backend the planner ranks
 first — the fused kernel, unless a calibration prices the vq_gemm +
 oc_lookup split below it — attention through flash-decode), so every
 streamed index tile serves every active request. Free slots are fed
-token 0 at position 0. At construction every linear is pre-planned at
-the decode and prefill shapes (``Engine.plans``) and the plans and
-rankings are logged.
+token 0 at position 0, as the reference feeds them; in a MoE step they
+take expert capacity like any token. At construction every linear is
+pre-planned at the decode and prefill shapes (``Engine.plans``; a MoE
+layer's experts at M = their capacity for that many tokens) and the
+plans and rankings are logged.
+
+MoE capacity routing depends on the token count, so a MoE model's
+prefill is not bucketed (``_BUCKETABLE_FAMILIES``, as the reference):
+it runs at the exact prompt length, eagerly (``graphs.EagerStep``: a
+graph per length would be captured for about one use), and
+``trace_counts["prefill"]`` counts the distinct lengths, as the
+reference counts its retraces; prefill is pre-planned at ``max_len``
+(``plans["prefill@cap"]``, the reference's estimate). A sliding-window
+model's caches are rings (``min(max_len, window)`` positions, every
+layout); its requests need only a prompt that fits ``max_len``: decode
+wraps the ring. Chunked prefill and speculation stay off for both, as
+in the reference.
 
 ``EngineConfig.kv_bits`` selects the KV cache layout: 16 = fp, 8 = int8
 values + bf16 scales (attended through plain torch), 4/2 = KV-VQ uint8
@@ -100,12 +114,13 @@ from repro_torch.core import plan as plan_mod
 from repro_torch.core.quantize import attach_kv_codebooks, kv_codebook_tree
 from repro_torch.core.vq import KVQuantConfig
 from repro_torch.models.api import Model
-from repro_torch.models.common import RunConfig
+from repro_torch.models.common import RunConfig, moe_capacity
 from repro_torch.runtime.fault_tolerance import StepWatchdog
 from repro_torch.serve import api, paging, speculative
 from repro_torch.serve.api import (GenerationRequest, RequestEvicted,
                                    RequestOutput, SamplingParams, StreamEvent)
-from repro_torch.serve.graphs import HostInputs, StepGraph, tensor_leaves
+from repro_torch.serve.graphs import (EagerStep, HostInputs, StepGraph,
+                                      tensor_leaves)
 from repro_torch.serve.kvcache import (cache_bytes, encode_prefill_cache,
                                        pad_prefill_cache,
                                        quantize_prefill_cache_int8)
@@ -118,6 +133,10 @@ log = logging.getLogger(__name__)
 
 # prompts pad to power-of-two length buckets from this size up to max_len
 MIN_PREFILL_BUCKET = 8
+# families whose prefill is invariant to causal right-padding; MoE
+# capacity routing depends on the token count, so it prefills at the
+# exact prompt length (the reference's list)
+_BUCKETABLE_FAMILIES = ("dense", "whisper", "vision")
 
 
 def _insert_slot(batched: Any, single: Any, b: int) -> None:
@@ -212,14 +231,17 @@ class Engine:
         self.params = params
         self.rc = rc
         self.ecfg = ecfg
+        self.window = model.cfg.sliding_window or model.cfg.local_window
+        self._bucketed = model.cfg.family in _BUCKETABLE_FAMILIES
         self.sched = Scheduler(ecfg.num_slots, max_queue=ecfg.max_queue)
         self.metrics_counters = EngineMetrics(num_slots=ecfg.num_slots)
         B = ecfg.num_slots
         if ecfg.paged:
             self.paging: Optional[paging.PagingConfig] = \
                 paging.make_paging_config(
-                    model, B, ecfg.max_len, block_size=ecfg.block_size,
-                    num_blocks=ecfg.num_blocks, **self._cache_kw)
+                    model, B, ecfg.max_len, window=self.window,
+                    block_size=ecfg.block_size, num_blocks=ecfg.num_blocks,
+                    **self._cache_kw)
             self.caches = model.init_cache(B, ecfg.max_len,
                                            device=self.device,
                                            paging=self.paging,
@@ -242,10 +264,12 @@ class Engine:
             m = self.metrics_counters
             m.kv_bytes_in_use = m.peak_kv_bytes_in_use = cache_bytes(
                 self.caches)
-        # chunked prefill: paged fp caches only (the continuation cannot
-        # append quantized rows), as the reference gates it
+        # chunked prefill: paged fp caches of a bucketed family with full
+        # attention only (the continuation cannot append quantized rows
+        # or wrap a ring), as the reference gates it
         self._chunked = bool(ecfg.paged and ecfg.prefill_chunk
-                             and ecfg.kv_bits == 16)
+                             and ecfg.kv_bits == 16 and self._bucketed
+                             and self.window == 0)
 
         self.positions = np.zeros((B,), np.int32)
         self.last_token = np.zeros((B,), np.int32)
@@ -281,7 +305,8 @@ class Engine:
         self.trace_counts = {"decode": 0, "prefill": 0}
         if self._chunked:
             self.trace_counts["prefill_chunk"] = 0
-        self._buckets = api.prefill_buckets(ecfg.max_len, MIN_PREFILL_BUCKET)
+        self._buckets = (api.prefill_buckets(ecfg.max_len, MIN_PREFILL_BUCKET)
+                         if self._bucketed else ())
         self.prefill_graphs: Dict[int, StepGraph] = {}
         self.chunk_graphs: Dict[int, StepGraph] = {}
         # the prefill buckets' shared graph memory pool (``prefill_graph``)
@@ -311,17 +336,30 @@ class Engine:
 
     def _preplan(self) -> Dict[str, List[Tuple[Tuple[Any, ...], Any]]]:
         """Plan every linear at the shapes it runs at — decode at M =
-        num_slots, prefill at each length bucket — warming the planner
-        cache, and log each distinct plan and, where more than one
-        backend matched, its ranking."""
-        act = self.model.cfg.act_dtype
+        num_slots (a MoE layer's experts at their capacity for num_slots
+        tokens), prefill at each length bucket or, unbucketed, at
+        max_len (``prefill@cap``, the reference's estimate) — warming
+        the planner cache, and log each distinct plan and, where more
+        than one backend matched, its ranking."""
+        cfg = self.model.cfg
+        act = cfg.act_dtype
+
+        def expert_m(T):
+            return moe_capacity(cfg, T) if cfg.family == "moe" else None
+
+        B, max_len = self.ecfg.num_slots, self.ecfg.max_len
         plans = {"decode": plan_mod.preplan_params(
-            self.params, self.rc.policy, mode="decode",
-            m=self.ecfg.num_slots, act_dtype=act)}
-        for m, pl in plan_mod.preplan_prefill_buckets(
-                self.params, self.rc.policy, buckets=self._buckets,
-                act_dtype=act).items():
-            plans[f"prefill@{m}"] = pl
+            self.params, self.rc.policy, mode="decode", m=B, act_dtype=act,
+            expert_m=expert_m(B))}
+        if self._bucketed:
+            for m, pl in plan_mod.preplan_prefill_buckets(
+                    self.params, self.rc.policy, buckets=self._buckets,
+                    act_dtype=act).items():
+                plans[f"prefill@{m}"] = pl
+        else:
+            plans["prefill@cap"] = plan_mod.preplan_params(
+                self.params, self.rc.policy, mode="prefill", m=max_len,
+                act_dtype=act, expert_m=expert_m(max_len))
         for phase, pls in plans.items():
             uniq: Dict[str, int] = {}
             rankings: Dict[str, int] = {}
@@ -339,14 +377,15 @@ class Engine:
     # ------------------------------------------------------------ admission
     def _admission_error(self, request: GenerationRequest) -> Optional[str]:
         """Why ``request`` can never be served here (None if it can). A
-        contiguous cache needs room for every decode write; a paged one
-        admits length-aware: ``max_new_tokens`` is a cap, and the budget
-        clamps to the capacity left at activation."""
+        contiguous full cache needs room for every decode write; a paged
+        one admits length-aware: ``max_new_tokens`` is a cap, and the
+        budget clamps to the capacity left at activation. A ring
+        (windowed) cache wraps, so only the prompt must fit."""
         if request.prompt_len > self.ecfg.max_len:
             return (f"prompt length {request.prompt_len} exceeds max_len "
                     f"{self.ecfg.max_len}")
         need = request.prompt_len + request.max_new_tokens - 1
-        if need > self.ecfg.max_len:
+        if self.window == 0 and need > self.ecfg.max_len:
             if self.paging is None:
                 return (f"prompt_len + max_new_tokens - 1 = {need} exceeds "
                         f"the cache capacity max_len={self.ecfg.max_len}")
@@ -442,7 +481,11 @@ class Engine:
         cache into the slot's blocks itself
         (``paging.write_prefill_into_blocks``), returning the logits. The
         step holds no reference to the engine, so a dropped engine frees
-        its graphs at once.
+        its graphs at once. An unbucketed (MoE) engine's ``bucket`` is
+        the exact prompt length and its step an ``EagerStep``: nothing
+        is captured. A windowed model's cache is ring-converted: by the
+        slot insertion's ``pad_prefill_cache`` (contiguous) or by
+        ``write_prefill_into_blocks`` (paged).
 
         Every bucket captures into ``prefill_pool``: the buckets are
         replayed in any order, which is safe because ``_prefill_one``
@@ -462,21 +505,24 @@ class Engine:
                                                   rc)
                     return logits, encode(cache)
 
-                step = StepGraph(prefill, tokens, self.device,
-                                 pool=self.prefill_pool)
+                step = (StepGraph(prefill, tokens, self.device,
+                                  pool=self.prefill_pool) if self._bucketed
+                        else EagerStep(prefill, tokens, self.device))
             else:
-                caches, meta = self.caches, self.paging
+                caches, meta, window = self.caches, self.paging, self.window
 
                 def prefill(tokens, slot, bt_row, true_len):
                     logits, cache = model.prefill(params, {"tokens": tokens},
                                                   rc)
                     paging.write_prefill_into_blocks(
-                        caches, encode(cache), slot, bt_row, true_len, meta)
+                        caches, encode(cache), slot, bt_row, true_len, meta,
+                        window=window)
                     return logits
 
-                step = self._paged_step(prefill, {
-                    **tokens, **self._slot_inputs(),
-                    "true_len": ((1,), torch.int32)})
+                inputs = {**tokens, **self._slot_inputs(),
+                          "true_len": ((1,), torch.int32)}
+                step = (self._paged_step(prefill, inputs) if self._bucketed
+                        else EagerStep(prefill, inputs, self.device))
             self.prefill_graphs[bucket] = step
         return step
 
@@ -570,7 +616,7 @@ class Engine:
         c = (min(self.ecfg.prefill_chunk, target - pos0) if chunked
              else target)
         final = pos0 + c >= target
-        bucket = api.bucket_for(c, self._buckets)
+        bucket = api.bucket_for(c, self._buckets) if self._bucketed else c
         # edge-pad to the bucket: causally masked for the real rows
         chunk = np.pad(self._prefill_tokens(tr)[pos0:pos0 + c],
                        (0, bucket - c), mode="edge")[None]
@@ -596,7 +642,8 @@ class Engine:
                 return None, True, final
             if cache is not None:
                 _insert_slot(self.caches, pad_prefill_cache(
-                    cache, self.ecfg.max_len, true_len=c), slot)
+                    cache, self.ecfg.max_len, window=self.window,
+                    true_len=c), slot)
         tr.prefill_pos = pos0 + c
         if not final:
             return None, False, False
@@ -633,10 +680,10 @@ class Engine:
         if sp.logprobs:
             tr.logprobs.append(float(lp[0]))
         self.last_token[slot] = tok
-        # a paged engine admits length-aware: the budget clamps to the
-        # capacity left past the prompt
+        # a paged full cache admits length-aware: the budget clamps to
+        # the capacity left past the prompt (a ring wraps instead)
         budget = req.max_new_tokens
-        if self.paging is not None:
+        if self.paging is not None and self.window == 0:
             budget = min(budget, self.ecfg.max_len - target + 1)
         self.remaining[slot] = budget - 1
         self._prime_spec(slot, tr)

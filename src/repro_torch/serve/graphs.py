@@ -27,6 +27,10 @@ outputs over an earlier graph's freed intermediates, which that graph's
 next replay writes again.
 
 On the CPU a call runs ``fn`` directly over the same static buffers.
+``EagerStep`` has the same interface and runs ``fn`` directly on every
+device: the engine's exact-length prefill of the families whose prefill
+cannot be bucketed (MoE), where a graph would be captured for each
+prompt length and replayed about once.
 
 Kernel wrappers count their launches on the host (``kernels``), so under
 a graph they would tick only at capture. The step records each
@@ -165,3 +169,30 @@ class StepGraph:
         self.graph.replay()
         kernels.add_launch_counts(self.launches)
         return self.outputs
+
+
+class EagerStep:
+    """A serving step with ``StepGraph``'s interface that runs ``fn``
+    eagerly over its static input buffers on every device: nothing is
+    captured, so each call launches its kernels (and counts them) as it
+    goes. ``launches`` is empty and ``build_s`` 0."""
+
+    graph = None
+    outputs = None
+
+    def __init__(self, fn: Callable[..., Any], inputs: Dict[str, Spec],
+                 device: torch.device):
+        self.fn = fn
+        self.inputs = HostInputs(inputs, device)
+        self.launches: Dict[str, int] = {}
+        self.build_s = 0.0
+
+    def release(self) -> None:
+        self.fn = None
+
+    def __call__(self, **arrays: Any) -> Any:
+        if self.fn is None:
+            raise RuntimeError("this step was released")
+        static = self.inputs.load(arrays)
+        with torch.no_grad():
+            return self.fn(**static)

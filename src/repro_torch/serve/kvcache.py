@@ -4,11 +4,17 @@ returns into the engine's compressed layout (``quantize_prefill_cache_int8``
 for kv_bits=8, ``encode_prefill_cache`` for the KV-VQ kv_bits 4/2), then
 pad it to a fixed-capacity decode cache. Positions between the true
 prompt length and the bucket ride along unread: decode overwrites slot
-``len`` before attention unmasks it (``pos < len``). Ring (windowed)
-caches are not ported yet (ROADMAP A7)."""
+``len`` before attention unmasks it (``pos < len``).
+
+A sliding-window config's decode cache is a ring of ``min(capacity,
+window)`` positions (position p at slot ``p % ring``): ``_to_ring`` and
+``_to_ring_dynamic`` reorder the last ring positions of a prefill cache
+into ring order, the latter with the true length inside a longer
+buffer, its ring slots past ``min(true_len, ring)`` zeroed, as the
+reference does."""
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 import torch
 
@@ -29,23 +35,67 @@ def _pad_time(x: torch.Tensor, axis: int, capacity: int) -> torch.Tensor:
     return out
 
 
-def pad_prefill_cache(cache: Any, capacity: int, *,
+def _to_ring(x: torch.Tensor, axis: int, ring: int) -> torch.Tensor:
+    """The last ``ring`` positions of a full-length cache in ring order
+    (slot = position % ring); a shorter cache is padded to ``ring``."""
+    S = x.shape[axis]
+    if S <= ring:
+        return _pad_time(x, axis, ring)
+    s = torch.arange(ring, device=x.device)
+    pos = S - ring + torch.remainder(s - (S - ring), ring)
+    return x.index_select(axis, pos)
+
+
+def _to_ring_dynamic(x: torch.Tensor, axis: int, ring: int,
+                     true_len: Union[int, torch.Tensor]) -> torch.Tensor:
+    """``_to_ring`` of the first ``true_len`` positions of ``x`` (an int,
+    or a one-element device tensor: no host sync). Ring slots past
+    ``min(true_len, ring)`` hold no position and are zeroed, as the
+    reference's (``true_len == 0``: all zeros; ``true_len == ring``: the
+    first ``ring`` positions in order)."""
+    S = x.shape[axis]
+    s = torch.arange(ring, device=x.device)
+    if isinstance(true_len, torch.Tensor):
+        tl = true_len.reshape(()).long()
+        pos = torch.where(tl <= ring, s,
+                          tl - ring + torch.remainder(s - tl, ring))
+        valid = s < tl.clamp(max=ring)
+    else:
+        pos = (s if true_len <= ring
+               else true_len - ring + torch.remainder(s - true_len, ring))
+        valid = s < min(true_len, ring)
+    out = x.index_select(axis, pos.clamp(0, S - 1))
+    shape = [1] * out.dim()
+    shape[axis] = ring
+    return torch.where(valid.reshape(shape), out, torch.zeros_like(out))
+
+
+def pad_prefill_cache(cache: Any, capacity: int, *, window: int = 0,
                       true_len: Optional[int] = None) -> Any:
     """Pad every attention cache node ({"k", "v", "len"}, time axis -3;
-    its ``k_s``/``v_s`` scale leaves, time axis -2) to ``capacity``;
-    ``true_len`` overwrites the ``len`` leaves (the prompt's real length
-    inside its padded bucket)."""
+    its ``k_s``/``v_s`` scale leaves, time axis -2) to ``capacity``, or
+    with ``window > 0`` convert it to a ring of ``min(capacity,
+    window)`` positions (``_to_ring``; ``_to_ring_dynamic`` of the first
+    ``true_len`` positions when given); ``true_len`` overwrites the
+    ``len`` leaves (the prompt's real length inside its padded bucket)."""
+    eff = min(capacity, window) if window else capacity
+
+    def fix_time(x, axis):
+        if not window:
+            return _pad_time(x, axis, eff)
+        if true_len is None:
+            return _to_ring(x, axis, eff)
+        return _to_ring_dynamic(x, axis, eff, true_len)
 
     def walk(node):
         if isinstance(node, dict):
             if "k" in node and "v" in node and "len" in node:
                 out = dict(node)
                 for n in ("k", "v"):
-                    out[n] = _pad_time(node[n], node[n].dim() - 3, capacity)
+                    out[n] = fix_time(node[n], node[n].dim() - 3)
                 for n in ("k_s", "v_s"):
                     if n in node:
-                        out[n] = _pad_time(node[n], node[n].dim() - 2,
-                                           capacity)
+                        out[n] = fix_time(node[n], node[n].dim() - 2)
                 if true_len is not None:
                     out["len"] = torch.full_like(node["len"], true_len)
                 return out

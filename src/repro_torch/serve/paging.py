@@ -28,14 +28,19 @@ max_len`` positions up front whatever the requests use. Here:
                       it. The reference's arenas are ``arena[:, :NB]``.
 
 Only attention nodes ({"k", "v", "len"} and the int8 / KV-VQ scale
-leaves ``k_s``/``v_s``) are pageable: the dense family's only node. MLA
-latent caches, sliding-window rings and pass-through state wait for
-ROADMAP A7. ``paged_state`` is the host half of an engine snapshot.
+leaves ``k_s``/``v_s``) are pageable: the dense and MoE families' only
+node. MLA latent caches and pass-through state wait for ROADMAP A7.
+``paged_state`` is the host half of an engine snapshot.
 
-``block_size`` divides ``page_len`` (falling back to the gcd), so the
-gathered view is exactly the contiguous cache's ``(B, max_len, ...)``:
-paged decode runs the same attention arithmetic as the contiguous path
-and gives identical tokens.
+``page_len`` is a slot's logical capacity: ``max_len``, or for a
+sliding-window ring ``min(max_len, window)`` (the contiguous ring's
+size), so a ring slot never owns more than ``blocks_per_slot`` blocks;
+decode writes position p at ring slot ``p % page_len`` through the
+table, and a prefill is ring-converted (``kvcache._to_ring_dynamic``)
+before its block write. ``block_size`` divides ``page_len`` (falling
+back to the gcd), so the gathered view is exactly the contiguous
+cache's ``(B, page_len, ...)``: paged decode runs the same attention
+arithmetic as the contiguous path and gives identical tokens.
 
 The port updates in place where the reference returns new trees:
 ``set_block_tables`` writes the engine's table tensor (a captured decode
@@ -52,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import paged_view
+from repro_torch.serve.kvcache import _to_ring_dynamic
 
 # leaf name -> time axis (from the right: leaves carry the layer axis)
 _ATTN_TIME_AXES = {"k": -3, "v": -3, "k_s": -2, "v_s": -2}
@@ -185,14 +191,13 @@ def make_paging_config(model, num_slots: int, max_len: int, *,
                        window: int = 0, block_size: int = 16,
                        num_blocks: Optional[int] = None,
                        kv_int8: bool = False, kvq=None) -> PagingConfig:
-    """The pool geometry of ``model`` at ``num_slots`` x ``max_len``.
+    """The pool geometry of ``model`` at ``num_slots`` x ``max_len``
+    (``window > 0``: rings of ``min(max_len, window)`` positions).
     ``num_blocks`` defaults to ``num_slots * blocks_per_slot``, the
     contiguous cache's capacity, now shared. ``kv_int8`` / ``kvq`` select
     the compressed layouts; ``bytes_per_block`` sums every arena leaf of
     that layout."""
-    if window:
-        raise _unported("sliding-window (ring) caches")
-    page_len = max_len
+    page_len = min(max_len, window) if window else max_len
     bs = effective_block_size(block_size, page_len)
     W = page_len // bs
     if num_blocks is None:
@@ -331,13 +336,16 @@ def merge_slot(caches: Any, new_caches: Any, slot: torch.Tensor) -> None:
 
 def write_prefill_into_blocks(caches: Any, fresh: Any, slot: torch.Tensor,
                               bt_row: torch.Tensor, true_len: torch.Tensor,
-                              meta: PagingConfig) -> None:
+                              meta: PagingConfig, *, window: int = 0) -> None:
     """Commit a fresh one-request prefill cache (batch 1, its time axis a
     bucket of P <= page_len positions) into the paged cache, in place:
     the first ``true_len`` positions of every arena leaf go through
     ``bt_row`` (W,), the rest to the sink; ``len`` of column ``slot``
-    (a (1,) int64 tensor) becomes ``true_len`` ((1,) int32). Every index
-    is a tensor: no host sync, so a CUDA graph can hold it."""
+    (a (1,) int64 tensor) becomes ``true_len`` ((1,) int32). With
+    ``window > 0`` each leaf is first ring-converted
+    (``_to_ring_dynamic``: any P; its first ``min(true_len, page_len)``
+    ring slots are written). Every index is a tensor: no host sync, so a
+    CUDA graph can hold it."""
     bs, W = meta.block_size, meta.blocks_per_slot
     bt_row = bt_row.to(torch.int32)
 
@@ -347,6 +355,8 @@ def write_prefill_into_blocks(caches: Any, fresh: Any, slot: torch.Tensor,
                 continue
             arena, x = old[name], new[name]
             t %= x.dim()
+            if window:
+                x = _to_ring_dynamic(x, t, meta.page_len, true_len)
             vals = x.select(t - 1, 0)         # drop the batch axis
             P = vals.shape[t - 1]
             i = torch.arange(P, device=arena.device)

@@ -25,6 +25,7 @@ CASES = [
     ("qwen3-0.6b", ["--sample"]),
     ("minitron-4b", ["--vq-mode", "dequant", "--max-new", "5"]),
     ("qwen2-72b", ["--no-quantize", "--requests", "3", "--smoke"]),
+    ("mixtral-8x22b", ["--requests", "5", "--slots", "2", "--max-new", "6"]),
 ]
 
 
@@ -66,4 +67,4 @@ def test_serve_runs_on_the_card_by_default():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tserve.serve("llama3-8b")
     with pytest.raises(NotImplementedError, match="A7"):
-        tserve.serve("mixtral-8x22b", device="cpu")
+        tserve.serve("xlstm-125m", device="cpu")

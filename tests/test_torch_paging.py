@@ -198,8 +198,12 @@ def test_paging_config_refusals(setup):
         with pytest.raises(ValueError, match="one full slot"):
             mod.make_paging_config(model, 2, CAP, block_size=BS,
                                    num_blocks=CAP // BS - 1)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tpg.make_paging_config(setup["m"], 2, CAP, window=16)
+    # a sliding window: the ring's geometry (page_len = min(max_len,
+    # window)), as the reference's
+    ring = tpg.make_paging_config(setup["m"], 2, CAP, window=16)
+    assert ring.page_len == 16
+    assert dataclasses.asdict(ring) == dataclasses.asdict(
+        jpg.make_paging_config(setup["jm"], 2, CAP, window=16))
 
 
 # ------------------------------------------------------- the paged cache
