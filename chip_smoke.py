@@ -143,13 +143,39 @@ Phases (any failure exits non-zero):
      "other" kernels that take the most; then at 4 layers, full width:
      a paged ring (16-position blocks) with the contiguous ring's tokens
      exactly, kv_bits 8 and 4 rings and the split-pinned planner with
-     their token agreement; the check phase holds B1 at mixtral's decode
+     their token agreement, and the split's decode step held to the
+     fused one (bf16 within the phase's bound, with the share of routing
+     choices that agree; fp32 within 1e-3); the check phase holds B1 at
+     mixtral's decode
      linears (attention at M = 4, experts at M = 2) and B3 at an
      expert's gu at M = 1300;
-  9. a {"kernels": [...]} summary line (fused_vq_matmul's row also
+  9. `serve_deepseek_v2_lite_16b`: deepseek-v2-lite-16b (multi-head
+     latent attention over a 512-wide latent cache, a dense first layer,
+     then 64 routed experts top-6 beside 2 shared) at full width and all
+     27 layers, `serve`'s traffic: weight bytes against bf16 dense, peak
+     memory, the latent cache's bytes, decode ms a step, tok/s, prefill s
+     (eager, exact length), launches (B1, with its count a replayed step
+     equal to the model's 3463 linears, and B3; the attention kernels
+     0: MLA attends in plain torch, as the reference), the plain decode
+     step at bf16 within DEEPSEEK_PLAIN_REL beside the share of top-6
+     routing choices that agree (two faulty controls above it) and at
+     fp32 within 1e-3, graph_step, a replay profile with the "other"
+     kernels that take the most; then the absorbed decode (`mla_absorb`)
+     on the same weights, its token agreement with the expand form and
+     its replayed step; then at 4 layers, full width: the paged latent
+     cache with the contiguous run's tokens exactly, kv_bits 4 and the
+     split-pinned planner with their token agreement, and the split's
+     decode step held to the fused one as mixtral's; the check phase
+     holds B1 at deepseek's decode linears (wq_kva's ragged N = 3648,
+     wkv_b at M = 4 and at the expand decode's M = 2048, the experts at
+     M = 1), B4, B5 and the pair at every one a step runs, and B3 at its
+     prefill linears of a 200-token prompt;
+  10. a {"kernels": [...]} summary line (fused_vq_matmul's row also
      sums its verify-window rows, `verify_window`; B1's and B3's carry
-     their mixtral rows), the card line, and the result line {"ok":
-     true, "device": {...}} last.
+     their mixtral and deepseek rows, B4's and B5's their deepseek rows,
+     each with its decode step's sum where it has one), the card line,
+     and the result
+     line {"ok": true, "device": {...}} last.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
 before printing any result.
@@ -195,7 +221,6 @@ VQL_REL = 2.0 ** -7
 MIXTRAL = "mixtral_8x22b"
 MIXTRAL_MAX_LEN = 4608
 MIXTRAL_LONG = (4160, 4080)
-MIXTRAL_SUB_LAYERS = 4         # the sub-phase's depth (paged, kv_bits, split)
 # its bf16 plain decode step against the kernels' step: a top-2 routing
 # choice near a tie flips on bf16 rounding alone and moves the logits far
 # more than rounding does, so the bound is half the smallest faulty
@@ -205,6 +230,26 @@ MIXTRAL_PLAIN_REL = 0.45
 # its capacity for 4 tokens) and B3 at an expert's gu at the capacity of
 # a 4160-token prompt
 MIXTRAL_B3_M = 1300
+# serve_deepseek_v2_lite_16b: 27 layers at full width (MLA, a dense first
+# layer, then 64 routed experts top-6 beside 2 shared), serve's traffic
+DEEPSEEK = "deepseek_v2_lite_16b"
+# the MoE models' sub-phase depth (paged, kv_bits, split): deepseek's
+# dense first layer and 3 MoE layers
+MOE_SUB_LAYERS = 4
+# a MoE model's served path: B1 and B3; never B2/B7 (rings and MLA attend
+# in plain torch, as the reference gates them), B4/B5 (the fused planner)
+# or B6 (no int8 prefill)
+MOE_REQUIRED = ("fused_vq_matmul", "dequant_gemv")
+MOE_ABSENT = ("flash_decode", "flash_decode_kvq", "flash_decode_paged",
+              "flash_decode_kvq_paged", "vq_gemm", "oc_lookup", "int8_gemm")
+# its bf16 plain decode step against the kernels' step, within half the
+# smaller of its two faulty controls (the plain step one position early:
+# 0.250 of the max logit on the first run, NVIDIA H100 80GB HBM3, 700 W;
+# the sound step read 0.059 there, 0.885 of its top-6 choices agreeing)
+DEEPSEEK_PLAIN_REL = 0.125
+# the prompt length the check phase holds B3 at deepseek's prefill
+# linears (a routed expert at its capacity for it: 24 rows)
+DEEPSEEK_B3_T = 200
 LINEARS = (("wqkv", 4096, 12288), ("wo", 4096, 4096), ("gu", 4096, 22016),
            ("down", 11008, 4096))
 # the dense configs served after llama2-7b, and the (H, Hk) of their
@@ -305,10 +350,7 @@ def check_kernels(torch, timer):
                                                   flash_decode_paged_ref,
                                                   flash_decode_ref)
     from repro_torch.models.common import paged_view
-    from repro_torch.kernels.fused_vq_matmul import fused_vq_matmul
     from repro_torch.kernels.int8_gemm import int8_gemm, int8_gemm_ref
-    from repro_torch.kernels.oc_lookup import eva_split_matmul, oc_lookup
-    from repro_torch.kernels.vq_gemm import vq_gemm
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {n: [] for n in (*REPLACES, "eva_split_matmul")}
@@ -384,63 +426,11 @@ def check_kernels(torch, timer):
                    extra={"library_bf16_ms": lambda: torch.matmul(xb, wb)})
             del vq, w, wb
 
-    # the two-kernel split: vq_gemm (B4) and oc_lookup (B5, fed B4's
-    # output codebook) at the decode linears and the ragged shape, and
-    # the pair against its plain version and the fused kernel at M = slots
+    # the two-kernel split (check_split) at the decode linears and the
+    # ragged shape, the pair against its plain version and B1 at M = slots
     for M, name, K, N in lookup_cases:
-        vq = synthetic_vq(gen, K, N, C=C, device="cuda")
-        vq.scale = torch.rand(N, generator=gen, device="cuda") + 0.5
-        x = torch.randn((M, K), generator=gen, device="cuda")
-        V, cb = K // 8, vq.codebooks
-        case = {"M": M, "linear": name, "K": K, "N": N}
-        # B4 with fp32 x and with bf16 x as served (read as stored, no
-        # cast kernel), the bf16 run bitwise equal to the fp32 run of the
-        # same values; the library call is the batched fp32 matmul of the
-        # same (fp32) values
-        xb = x.to(torch.bfloat16)
-        for xi in (x, xb):
-            xf = xi.float().reshape(M * V, 8)
-            run = lambda: vq_gemm(xi, cb)
-            O, want = run(), vq_gemm(xi, cb, use_kernel=False)
-            record("vq_gemm", {**case, "x": str(xi.dtype).split(".")[-1]}, O,
-                   want, 1e-4 * max(1.0, want.abs().max().item()), run,
-                   lambda: vq_gemm(xi, cb, use_kernel=False),
-                   lambda: torch.matmul(xf[None], cb),
-                   xi.numel() * xi.element_size() + C * 8 * 256 * 4
-                   + C * M * V * 256 * 4, C * M * V * 256 * 8 * 2)
-        assert torch.equal(O, vq_gemm(xb.float(), cb)), f"vq_gemm bf16 x {case}"
-        O = vq_gemm(x, cb)
-        run = lambda: oc_lookup(O, vq.idx, vq.scale)
-        got = run()
-        want = oc_lookup(O, vq.idx, vq.scale, use_kernel=False)
-        # no single PyTorch call computes the lookup-and-add
-        record("oc_lookup", case, got, want,
-               1e-4 * max(1.0, want.abs().max().item()), run,
-               lambda: oc_lookup(O, vq.idx, vq.scale, use_kernel=False), None,
-               C * V * N + C * M * V * 256 * 4 + N * 4 + M * N * 4,
-               C * M * V * N + M * N)
-        if M == SLOTS:
-            xb, w = x.to(torch.bfloat16), dequantize(vq)
-            wb = w.to(torch.bfloat16)
-            run = lambda: eva_split_matmul(x, vq, out_dtype=torch.float32)
-            got = run()
-            want = eva_split_matmul(x, vq, out_dtype=torch.float32,
-                                    use_kernel=False)
-            tol = 1e-4 * max(1.0, want.abs().max().item())
-            fused = fused_vq_matmul(x, vq, out_dtype=torch.float32)
-            vs_fused = (got - fused).abs().max().item()
-            emit({"phase": "eva_split_vs_fused", "case": case,
-                  "max_abs_diff": vs_fused, "tol": tol})
-            assert vs_fused <= tol, f"eva_split vs fused {case}: {vs_fused}"
-            record("eva_split_matmul", case, got, want, tol, run,
-                   lambda: eva_split_matmul(x, vq, out_dtype=torch.float32,
-                                            use_kernel=False),
-                   lambda: torch.matmul(x, w),
-                   M * K * 4 + C * V * N + C * 8 * 256 * 4 + N * 4 + M * N * 4,
-                   C * M * V * 256 * 8 * 2 + C * M * V * N + M * N,
-                   extra={"library_bf16_ms": lambda: torch.matmul(xb, wb)})
-            del w, wb
-        del vq, O
+        check_split(torch, gen, record, K, N, M, {"linear": name},
+                    pair=M == SLOTS)
 
     # B2 at mixed lengths (the summary's case) and with every row at
     # max_len (the cache the engine reaches as requests grow); the library
@@ -572,6 +562,7 @@ def check_kernels(torch, timer):
     check_grouped_attention(torch, gen, record)
     check_other_linears(torch, gen, record)
     check_mixtral_linears(torch, gen, record)
+    check_deepseek_linears(torch, gen, record)
 
     # INT8 GEMM at the prefill lm_head shape, at every bucket the served
     # prefill runs (bf16 activations and head, quantized as the wrapper
@@ -596,6 +587,74 @@ def check_kernels(torch, timer):
                peak=INT8_OPS)
     check_verify_window_linears(torch, gen, record)
     return rows
+
+
+def check_split(torch, gen, record, K, N, M, case, pair):
+    """The two-kernel split on a fresh (K, N) weight with M rows of fp32
+    x: vq_gemm (B4) with fp32 x and with bf16 x as served (read as
+    stored, no cast kernel; the bf16 run bitwise equal to the fp32 run of
+    the same values), and oc_lookup (B5) fed B4's output codebook, each
+    against its plain version within 1e-4 x max|y|. ``pair``: also
+    eva_split_matmul (B4 then B5) against its plain version and against
+    B1 (the fused kernel) within the same tolerance. B4's library call is
+    the batched fp32 matmul of the same (fp32) values; no single PyTorch
+    call computes B5's lookup-and-add; the pair's is fp32 torch.matmul on
+    the dequantized weight, bf16 timed beside it."""
+    from repro_torch.core.vq import dequantize, synthetic_vq
+    from repro_torch.kernels.fused_vq_matmul import fused_vq_matmul
+    from repro_torch.kernels.oc_lookup import eva_split_matmul, oc_lookup
+    from repro_torch.kernels.vq_gemm import vq_gemm
+
+    C = 2
+    vq = synthetic_vq(gen, K, N, C=C, device="cuda")
+    vq.scale = torch.rand(N, generator=gen, device="cuda") + 0.5
+    x = torch.randn((M, K), generator=gen, device="cuda")
+    V, cb = K // 8, vq.codebooks
+    case = {"M": M, **case, "K": K, "N": N}
+    xb = x.to(torch.bfloat16)
+    for xi in (x, xb):
+        xf = xi.float().reshape(M * V, 8)
+        run = lambda: vq_gemm(xi, cb)
+        O, want = run(), vq_gemm(xi, cb, use_kernel=False)
+        record("vq_gemm", {**case, "x": str(xi.dtype).split(".")[-1]}, O,
+               want, 1e-4 * max(1.0, want.abs().max().item()), run,
+               lambda: vq_gemm(xi, cb, use_kernel=False),
+               lambda: torch.matmul(xf[None], cb),
+               xi.numel() * xi.element_size() + C * 8 * 256 * 4
+               + C * M * V * 256 * 4, C * M * V * 256 * 8 * 2)
+        del O, want
+    assert torch.equal(vq_gemm(xb, cb), vq_gemm(xb.float(), cb)), \
+        f"vq_gemm bf16 x {case}"
+    O = vq_gemm(x, cb)
+    run = lambda: oc_lookup(O, vq.idx, vq.scale)
+    got = run()
+    want = oc_lookup(O, vq.idx, vq.scale, use_kernel=False)
+    record("oc_lookup", case, got, want,
+           1e-4 * max(1.0, want.abs().max().item()), run,
+           lambda: oc_lookup(O, vq.idx, vq.scale, use_kernel=False), None,
+           C * V * N + C * M * V * 256 * 4 + N * 4 + M * N * 4,
+           C * M * V * N + M * N)
+    del O, got, want
+    if not pair:
+        return
+    w = dequantize(vq)
+    wb = w.to(torch.bfloat16)
+    run = lambda: eva_split_matmul(x, vq, out_dtype=torch.float32)
+    got = run()
+    want = eva_split_matmul(x, vq, out_dtype=torch.float32, use_kernel=False)
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    fused = fused_vq_matmul(x, vq, out_dtype=torch.float32)
+    vs_fused = (got - fused).abs().max().item()
+    emit({"phase": "eva_split_vs_fused", "case": case,
+          "max_abs_diff": vs_fused, "tol": tol})
+    assert vs_fused <= tol, f"eva_split vs fused {case}: {vs_fused}"
+    record("eva_split_matmul", case, got, want, tol, run,
+           lambda: eva_split_matmul(x, vq, out_dtype=torch.float32,
+                                    use_kernel=False),
+           lambda: torch.matmul(x, w),
+           M * K * 4 + C * V * N + C * 8 * 256 * 4 + N * 4 + M * N * 4,
+           C * M * V * 256 * 8 * 2 + C * M * V * N + M * N,
+           extra={"library_bf16_ms": lambda: torch.matmul(xb, wb)})
 
 
 def check_verify_window_linears(torch, gen, record):
@@ -1644,48 +1703,124 @@ def check_mixtral_linears(torch, gen, record):
     expert's gu and down at M = 2 (its capacity for SLOTS tokens); B3 at
     an expert's gu with bf16 x at M = MIXTRAL_B3_M (its capacity for a
     4160-token prompt); each against its plain version, beside fp32 and
-    bf16 torch.matmul on the dequantized weight, with its launch shape."""
+    bf16 torch.matmul on the dequantized weight, with its launch shape;
+    each B1 case carries its launches a decode step (``per_step``: L for
+    the attention's, E x L for an expert's)."""
     from repro_torch.configs import get_config
-    from repro_torch.core.vq import dequantize, synthetic_vq
-    from repro_torch.kernels.dequant_gemv import dequant_gemv
-    from repro_torch.kernels.dequant_gemv.ops import (
-        launch_shape as dequant_launch_shape)
+    from repro_torch.core.vq import synthetic_vq
     from repro_torch.models.common import moe_capacity
 
     cfg = get_config(MIXTRAL)
     cap = moe_capacity(cfg, SLOTS)
+    L, E = cfg.num_layers, cfg.num_experts
     assert moe_capacity(cfg, MIXTRAL_LONG[0]) == MIXTRAL_B3_M
     for name, K, N in arch_linears(dataclasses.replace(cfg, d_ff=cfg.moe_d_ff)):
         vq = synthetic_vq(gen, K, N, C=2, device="cuda")
-        M = SLOTS if name in ("wqkv", "wo") else cap
+        expert = name in ("gu", "down")
+        M = cap if expert else SLOTS
         x = torch.randn((M, K), generator=gen, device="cuda")
-        check_b1(torch, record, vq, x, {"model": MIXTRAL, "linear": name,
-                                        "expert": name in ("gu", "down")},
-                 launch_shape=True)
+        case = {"model": MIXTRAL, "linear": name,
+                "per_step": E * L if expert else L}
+        check_b1(torch, record, vq, x, case, launch_shape=True)
         if name == "gu":
-            M = MIXTRAL_B3_M
-            xb = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
-            x32 = xb.float()
-            w = dequantize(vq)
-            wb = w.to(torch.bfloat16)
-            run = lambda: dequant_gemv(xb, vq, out_dtype=torch.float32)
-            plain = lambda: dequant_gemv(xb, vq, out_dtype=torch.float32,
-                                         use_kernel=False)
-            got, want = run(), plain()
-            V = K // 8
-            record("dequant_gemv", {
-                "model": MIXTRAL, "M": M, "linear": name, "expert": True,
-                "K": K, "N": N, "x": "bfloat16",
-                "launch_shape": dequant_launch_shape(
-                    M, V, N, torch.cuda.get_device_properties(
-                        0).multi_processor_count)},
-                got, want, 1e-4 * max(1.0, want.abs().max().item()), run,
-                plain, lambda: torch.matmul(x32, w),
-                M * K * 2 + 2 * V * N + 2 * 8 * 256 * 4 + N * 4 + M * N * 4,
-                2 * 2 * M * K * N, peak=BF16_FLOPS,
-                extra={"library_bf16_ms": lambda: torch.matmul(xb, wb)})
-            del w, wb, got, want
+            check_b3(torch, record, vq, torch.randn(
+                (MIXTRAL_B3_M, K), generator=gen, device="cuda").bfloat16(),
+                case)
         del vq
+
+
+def check_b3(torch, record, vq, xb, case):
+    """B3 on bf16 ``xb`` (M, K) against its plain version, beside fp32 and
+    bf16 torch.matmul on the dequantized weight, with its launch shape;
+    the bound: the products' flops at the bf16 tensor-core rate. A
+    prefill linear runs in no decode step: ``case``'s ``per_step`` is
+    dropped."""
+    from repro_torch.core.vq import dequantize
+    from repro_torch.kernels.dequant_gemv import dequant_gemv
+    from repro_torch.kernels.dequant_gemv.ops import (
+        launch_shape as dequant_launch_shape)
+
+    (M, K), N = xb.shape, vq.N
+    V = K // 8
+    case = {k: v for k, v in case.items() if k != "per_step"}
+    x32 = xb.float()
+    w = dequantize(vq)
+    wb = w.to(torch.bfloat16)
+    run = lambda: dequant_gemv(xb, vq, out_dtype=torch.float32)
+    plain = lambda: dequant_gemv(xb, vq, out_dtype=torch.float32,
+                                 use_kernel=False)
+    got, want = run(), plain()
+    record("dequant_gemv", {
+        "M": M, **case, "K": K, "N": N, "x": "bfloat16",
+        "launch_shape": dequant_launch_shape(M, V, N, torch.cuda.
+                                             get_device_properties(0)
+                                             .multi_processor_count)},
+        got, want, 1e-4 * max(1.0, want.abs().max().item()), run, plain,
+        lambda: torch.matmul(x32, w),
+        M * K * 2 + 2 * V * N + 2 * 8 * 256 * 4 + N * 4 + M * N * 4,
+        2 * 2 * M * K * N, peak=BF16_FLOPS,
+        extra={"library_bf16_ms": lambda: torch.matmul(xb, wb)})
+
+
+def deepseek_linears(cfg):
+    """(name, K, N, decode M, times a decode step, prefill M) of every VQ
+    linear deepseek-v2-lite-16b runs, at 4 slots, max_len MAX_LEN and a
+    DEEPSEEK_B3_T-token prompt: the attention's grouped wq|wkv_a, wkv_b
+    (decode: over the whole latent cache, M = slots x max_len, in the
+    expand form; M = slots is its absorbed or prefill shape, no step
+    runs it there), wo; the dense first layer's and the shared experts'
+    MLPs; a routed expert at its capacity."""
+    from repro_torch.models.common import moe_capacity
+
+    H, r, D = cfg.num_heads, cfg.kv_lora_rank, cfg.d_model
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dff, L, E = cfg.moe_d_ff, cfg.num_layers, cfg.num_experts
+    sh, pre = dff * cfg.num_shared_experts, cfg.first_dense_layers
+    cap, T = moe_capacity(cfg, SLOTS), DEEPSEEK_B3_T
+    cap_t = moe_capacity(cfg, T)
+    return (("wq_kva", D, H * (dn + dr) + r + dr, SLOTS, L, T),
+            ("wkv_b", r, H * (dn + dv), SLOTS, 0, T),
+            ("wkv_b_expand", r, H * (dn + dv), SLOTS * MAX_LEN, L, None),
+            ("wo", H * dv, D, SLOTS, L, T),
+            ("dense_gu", D, 2 * cfg.d_ff, SLOTS, pre, T),
+            ("dense_down", cfg.d_ff, D, SLOTS, pre, T),
+            ("shared_gu", D, 2 * sh, SLOTS, L - pre, T),
+            ("shared_down", sh, D, SLOTS, L - pre, T),
+            ("expert_gu", D, 2 * dff, cap, E * (L - pre), cap_t),
+            ("expert_down", dff, D, cap, E * (L - pre), cap_t))
+
+
+def check_deepseek_linears(torch, gen, record):
+    """B1 at deepseek-v2-lite-16b's decode linears (``deepseek_linears``:
+    wq_kva's N = 3648 is ragged at both column tiles; wkv_b at M = 2048,
+    the expand decode, far past the M <= 16 the tile model was fitted
+    at; the experts at M = 1) and B3 at its prefill linears of a
+    DEEPSEEK_B3_T-token prompt (the first layer's down at V = 1368, an
+    expert's down at V = 176, at M = 24), each against its plain
+    version, beside fp32 and bf16 torch.matmul on the dequantized
+    weight, with its launch shape. Then the split-pinned planner's pair,
+    B4 and B5 (``check_split``), at every decode linear a step runs
+    (wkv_b at M = 2048: M x V = 131072 rows of B4's output codebook),
+    each against its plain version and the pair against B1."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.vq import synthetic_vq
+
+    cfg = get_config(DEEPSEEK)
+    for name, K, N, M, per_step, m_pre in deepseek_linears(cfg):
+        vq = synthetic_vq(gen, K, N, C=2, device="cuda")
+        case = {"model": DEEPSEEK, "linear": name, "per_step": per_step}
+        x = torch.randn((M, K), generator=gen, device="cuda")
+        check_b1(torch, record, vq, x, case, launch_shape=True)
+        del x
+        if m_pre is not None:
+            check_b3(torch, record, vq, torch.randn(
+                (m_pre, K), generator=gen, device="cuda").bfloat16(), case)
+        del vq
+    for name, K, N, M, per_step, _ in deepseek_linears(cfg):
+        if per_step:
+            check_split(torch, gen, record, K, N, M, {
+                "model": DEEPSEEK, "linear": name, "per_step": per_step},
+                pair=True)
 
 
 def serve_qwen3_ckpt(torch, rc, required):
@@ -1851,117 +1986,104 @@ def drain(torch, eng, prompts):
     return outs, kernels.launch_counts(), wall
 
 
-def serve_mixtral(torch):
-    """Phase 8: mixtral-8x22b (top-2 MoE over 8 experts, sliding-window
-    rings) at full width and all 56 layers, 2-bit VQ weights drawn on the
-    card from their shapes, bf16 activations, a dense bf16 head, 4 slots,
-    greedy, max_len MIXTRAL_MAX_LEN (rings of 4096): the weights' bytes
-    against bf16 dense, peak device memory, decode ms a step, tok/s, the
-    long prompts' prefill s, the launches (B1, B3 > 0; the attention
-    kernels 0: a ring attends through plain torch, as the reference
-    gates them), the engine's checks (the plain step at bf16 within
-    MIXTRAL_PLAIN_REL with the routing agreement, at fp32 within 1e-3,
-    graph_step, profiles) and a replayed step's device time by kernel
-    with the "other" kernels that take the most. Then the sub-phase at
-    MIXTRAL_SUB_LAYERS layers: a paged ring (16-position blocks) gives
-    the contiguous ring's tokens exactly; kv_bits 8 and 4 and the
-    split-pinned planner, each with its token agreement with the fp run.
-    Returns each run's launches."""
-    import gc
+def serve_moe(torch, model, params, prompts, label, rc, ecfg, row):
+    """Serve ``prompts`` greedily on a fresh Engine of a MoE model
+    (``drain``) and print its row: ``row`` (the caller's keys), peak
+    device memory (since the caller's reset), cache bytes, the engine's
+    and the decode graph's build s and pool bytes, wall s, tok/s, decode
+    ms a step, prefill s by prompt length, a replay's launches and the
+    run's. Asserts the decode graph's build left the caches unwritten,
+    MOE_REQUIRED launched and MOE_ABSENT not, and one eager prefill
+    trace a distinct prompt length. Returns (engine, tokens, launches)."""
+    from repro_torch.serve import Engine, cache_bytes
 
-    import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.core.plan import PlanPolicy
-    from repro_torch.models import RunConfig
-    from repro_torch.serve import Engine, EngineConfig
-
-    t_phase = time.perf_counter()
-    name = "serve_mixtral_8x22b"
-    rc = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
-    required = ("fused_vq_matmul", "dequant_gemv")
-    absent = ("flash_decode", "flash_decode_kvq", "flash_decode_paged",
-              "flash_decode_kvq_paged", "vq_gemm", "oc_lookup", "int8_gemm")
-    out = {}
-    torch.cuda.reset_peak_memory_stats()
-    model, params, _ = build_weights(torch, MIXTRAL)
-    cfg = model.cfg
-    prompts = mixtral_prompts(cfg)
-    wb = weight_bytes(torch, params)
-    ecfg = EngineConfig(num_slots=SLOTS, max_len=MIXTRAL_MAX_LEN)
     t0 = time.perf_counter()
     eng = Engine(model, params, rc, ecfg, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    body = eng.caches["body"]
-    ring = body["k"].shape[2]
-    assert ring == cfg.sliding_window == 4096, ring
-    assert not any(bool(t.any()) for t in body.values()), \
-        f"{name}: the decode graph's build left the caches written"
-    # the long prompts wrap the ring: one in its prefill, one in decode
-    assert MIXTRAL_LONG[0] > ring and MIXTRAL_LONG[1] < ring < \
-        MIXTRAL_LONG[1] + MAX_NEW - 1
+    assert not any(bool(t.any()) for node in eng.caches.values()
+                   for t in node.values()), \
+        f"{label}: the decode graph's build left the caches written"
     outs, launches, wall = drain(torch, eng, prompts)
     m = eng.metrics()
-    for o, p in zip(outs, prompts):
-        emit({"phase": name, "request": o.uid, "prompt_len": len(p),
-              "tokens": o.num_tokens, "prefill_s": o.prefill_s,
-              "decode_ms_per_step": o.decode_s * 1e3 / max(1, o.num_tokens - 1)})
-    row = {"phase": name, **wb, "layers": cfg.num_layers,
-           "peak_device_bytes": torch.cuda.max_memory_allocated(),
-           "cache_bytes": sum(t.numel() * t.element_size()
-                              for t in body.values()),
-           "ring": ring, "requests": len(prompts), "slots": SLOTS,
-           "max_len": ecfg.max_len, "engine_build_s": build_s,
-           "decode_graph_build_s": eng.decode_graph.build_s,
-           "wall_s": wall, "tokens_generated": m["tokens_generated"],
-           "tok_per_s": m["tokens_generated"] / wall,
-           "decode_steps": m["decode_steps"],
-           "decode_ms_per_step": m["decode_s"] * 1e3 / m["decode_steps"],
-           "prefill_s": m["prefill_s"],
-           "long_prompt_prefill_s": {len(p): o.prefill_s
-                                     for o, p in zip(outs, prompts)
-                                     if len(p) in MIXTRAL_LONG},
-           "trace_counts": eng.trace_counts, "launches": launches}
-    emit(row)
-    assert 35e9 < wb["weight_bytes_on_card"] < 37e9, wb
-    missing = [k for k in required if launches[k] == 0]
-    assert not missing, f"{name}: kernels never launched on its path: {missing}"
-    ran = [k for k in absent if launches[k]]
-    assert not ran, f"{name}: kernels off its path launched: {ran}"
+    emit({"phase": label, **row, "layers": model.cfg.num_layers,
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "cache_bytes": cache_bytes(eng.caches),
+          "requests": len(prompts), "slots": SLOTS,
+          "max_len": ecfg.max_len, "engine_build_s": build_s,
+          "decode_graph_build_s": eng.decode_graph.build_s,
+          "decode_graph_pool_bytes": pool_bytes(
+              torch, eng.decode_graph.graph.pool()),
+          "wall_s": wall, "tokens_generated": m["tokens_generated"],
+          "tok_per_s": m["tokens_generated"] / wall,
+          "decode_steps": m["decode_steps"],
+          "decode_ms_per_step": m["decode_s"] * 1e3 / m["decode_steps"],
+          "prefill_s": m["prefill_s"],
+          "prefill_s_by_prompt_len": {len(p): o.prefill_s
+                                      for o, p in zip(outs, prompts)},
+          "decode_launches_per_step": eng.decode_graph.launches,
+          "trace_counts": eng.trace_counts, "launches": launches})
+    missing = [k for k in MOE_REQUIRED if launches[k] == 0]
+    assert not missing, f"{label}: kernels never launched on its path: " \
+                        f"{missing}"
+    ran = [k for k in MOE_ABSENT if launches[k]]
+    assert not ran, f"{label}: kernels off its path launched: {ran}"
     assert eng.trace_counts["prefill"] == len({len(p) for p in prompts})
-    out[name] = launches
+    return eng, {"tokens": [list(o.tokens) for o in outs]}, launches
+
+
+def moe_checks(torch, model, eng, name, rel):
+    """``engine_checks`` on a served MoE engine (the bf16 plain step
+    within ``rel`` with the routing agreement and two faulty controls, at
+    fp32 within 1e-3; graph_step; the replays' profiles), then a
+    replayed decode step's device time with the "other" kernels that take
+    the most. Returns that step's (tokens, positions)."""
+    import numpy as np
+
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    toks = torch.randint(0, cfg.vocab_size, (SLOTS, 64), generator=gen,
+    toks = torch.randint(0, model.cfg.vocab_size, (SLOTS, 64), generator=gen,
                          device="cuda", dtype=torch.int32)
-    engine_checks(torch, model, eng, toks, name, required,
-                  rel=MIXTRAL_PLAIN_REL, fp32_plain=True,
-                  eager_profiles=False)
+    engine_checks(torch, model, eng, toks, name, MOE_REQUIRED, rel=rel,
+                  fp32_plain=True, eager_profiles=False)
     tok = toks[:, -1:].cpu().numpy()
     pos = np.full((SLOTS, 1), 64, np.int32)
     emit({"phase": f"{name}_replay_profile", **device_profile(
         torch, lambda: eng.decode_graph(tokens=tok, positions=pos),
         top_other=16)})
-    del eng, model, params, toks
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_seconds(name, t_phase)
+    return tok, pos
 
-    # the sub-phase: MIXTRAL_SUB_LAYERS layers at full width
+
+def moe_sub_phase(torch, arch, max_len, prompts, kv_bits, rel):
+    """A MoE model at MOE_SUB_LAYERS layers, full width: ``prompts``
+    served greedily with the fp cache, a paged one (16-position blocks;
+    its tokens must equal the fp run's exactly), each of ``kv_bits`` and
+    the split-pinned planner (B4 + B5, no B1), each with its token
+    agreement with the fp run; then ``split_step`` on the split run's
+    engine (``rel``: its bf16 bound). Returns each run's launches."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import PlanPolicy
+    from repro_torch.models import RunConfig
+    from repro_torch.serve import Engine, EngineConfig, cache_bytes
+
     t_phase = time.perf_counter()
-    sub = f"{name}_{MIXTRAL_SUB_LAYERS}l"
-    model, params, _ = build_weights(torch, MIXTRAL, dataclasses.replace(
-        get_config(MIXTRAL), num_layers=MIXTRAL_SUB_LAYERS))
-    runs = {"fp": ({}, required), "paged": ({"paged": True,
-                                             "block_size": BLOCK}, required),
-            "kv_bits_8": ({"kv_bits": 8}, required),
-            "kv_bits_4": ({"kv_bits": 4}, required),
-            "split": ({}, ("vq_gemm", "oc_lookup", "dequant_gemv"))}
-    tokens = {}
+    sub = f"serve_{arch}_{MOE_SUB_LAYERS}l"
+    rc = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
+    model, params, _ = build_weights(torch, arch, dataclasses.replace(
+        get_config(arch), num_layers=MOE_SUB_LAYERS))
+    split = ("vq_gemm", "oc_lookup", "dequant_gemv")
+    runs = {"fp": ({}, MOE_REQUIRED),
+            "paged": ({"paged": True, "block_size": BLOCK}, MOE_REQUIRED),
+            **{f"kv_bits_{b}": ({"kv_bits": b}, MOE_REQUIRED)
+               for b in kv_bits},
+            "split": ({}, split)}
+    tokens, out = {}, {}
     for label, (kw, need) in runs.items():
         pinned = pin_split() if label == "split" else None
         try:
             eng = Engine(model, params, rc, EngineConfig(
-                num_slots=SLOTS, max_len=MIXTRAL_MAX_LEN, **kw), device="cuda")
+                num_slots=SLOTS, max_len=max_len, **kw), device="cuda")
             outs, launches, wall = drain(torch, eng, prompts)
         finally:
             if pinned is not None:
@@ -1971,25 +2093,202 @@ def serve_mixtral(torch):
         emit({"phase": sub, "run": label, "wall_s": wall,
               "decode_ms_per_step": m["decode_s"] * 1e3 / m["decode_steps"],
               "tok_per_s": m["tokens_generated"] / wall,
+              "cache_bytes": cache_bytes(eng.caches),
+              "peak_kv_bytes_in_use": m["peak_kv_bytes_in_use"],
               "peak_blocks_in_use": m["peak_blocks_in_use"],
               **({"page_len": eng.paging.page_len,
-                  "blocks_per_slot": eng.paging.blocks_per_slot}
+                  "blocks_per_slot": eng.paging.blocks_per_slot,
+                  "bytes_per_block": eng.paging.bytes_per_block}
                  if eng.paging is not None else {}),
               "agreement_with_fp": agreement(tokens[label], tokens["fp"]),
               "launches": launches})
         missing = [k for k in need if launches[k] == 0]
         assert not missing, f"{sub} {label}: never launched: {missing}"
-        off = [k for k in absent if launches[k] and k not in need]
+        off = [k for k in MOE_ABSENT if launches[k] and k not in need]
         off += ["fused_vq_matmul"] * bool(label == "split"
                                            and launches["fused_vq_matmul"])
         assert not off, f"{sub} {label}: kernels off its path launched: {off}"
         out[f"{sub}_{label}"] = launches
+        if label == "split":
+            split_step(torch, eng, sub, rel)
         del eng
-    assert tokens["paged"] == tokens["fp"], f"{sub}: the paged ring differs"
+    assert tokens["paged"] == tokens["fp"], f"{sub}: the paged cache differs"
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
     phase_seconds(sub, t_phase)
+    return out
+
+
+def split_step(torch, eng, name, rel):
+    """The witness beside the split run's token agreement: one decode
+    step on ``eng``'s params and run config, from one prefilled cache
+    (SLOTS rows of 64 tokens), with the default planner pinned to the
+    split (B4 + B5) and with it fused (B1), each asserted to launch its
+    own kernels only; held with bf16 activations within ``rel`` of
+    max|logit| (argmax on 3 of 4 rows), beside the share of (token,
+    layer) top-k routing choices the two agree on, and with fp32
+    activations within 1e-3. A low agreement of the split's greedy
+    streams with a sound step is near-tie routing flips on bf16
+    rounding, not a wrong B4 or B5. Its launches are not counted."""
+    from repro_torch import kernels
+    from repro_torch.models import build_model
+    from repro_torch.serve.kvcache import pad_prefill_cache
+
+    cfg = eng.model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    toks = torch.randint(0, cfg.vocab_size, (SLOTS, 64), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    step = (toks[:, -1:], torch.full((SLOTS, 1), 64, dtype=torch.int32,
+                                     device="cuda"))
+    row = {"phase": f"{name}_split_vs_fused_step", "rel_bound": rel}
+    for dtype, model in (("bf16", eng.model), ("fp32", build_model(
+            dataclasses.replace(cfg, dtype="float32")))):
+        with torch.no_grad(), Uncounted():
+            _, cache = model.prefill(eng.params, {"tokens": toks}, eng.rc)
+            base = pad_prefill_cache(cache, eng.ecfg.max_len,
+                                     window=eng.window)
+            logits, routes = {}, {}
+            for backend, want in (("fused", "fused_vq_matmul"),
+                                  ("split", "vq_gemm")):
+                pinned = pin_split() if backend == "split" else None
+                try:
+                    kernels.reset_launch_counts()
+                    with Routing() as routes[backend]:
+                        logits[backend], _ = model.decode(
+                            eng.params, *step,
+                            {seg: {k: t.clone() for k, t in node.items()}
+                             for seg, node in base.items()}, eng.rc)
+                    ran = kernels.launch_counts()
+                finally:
+                    if pinned is not None:
+                        pinned()
+                other = "vq_gemm" if backend == "fused" else "fused_vq_matmul"
+                assert ran[want] and not ran[other], (name, backend, ran)
+        drift, rel_drift, agree, finite = logit_drift(
+            torch, logits["split"], logits["fused"], cfg.vocab_size)
+        row[dtype] = {"max_abs_logit_drift": drift, "rel_drift": rel_drift,
+                      "argmax_agreement": agree, "finite": finite,
+                      "routing_agreement": routes["split"].agreement(
+                          routes["fused"])}
+        del logits, cache, base
+    emit(row)
+    assert row["bf16"]["finite"] and row["bf16"]["rel_drift"] <= rel \
+        and row["bf16"]["argmax_agreement"] >= 0.75, row
+    assert row["fp32"]["finite"] and row["fp32"]["rel_drift"] <= 1e-3 \
+        and row["fp32"]["argmax_agreement"] >= 0.75, row
+
+
+def serve_mixtral(torch):
+    """Phase 8: mixtral-8x22b (top-2 MoE over 8 experts, sliding-window
+    rings) at full width and all 56 layers, 2-bit VQ weights drawn on the
+    card from their shapes, bf16 activations, a dense bf16 head, 4 slots,
+    greedy, max_len MIXTRAL_MAX_LEN (rings of 4096): the weights' bytes
+    against bf16 dense, peak device memory, decode ms a step, tok/s, the
+    long prompts' prefill s, the launches (``serve_moe``), the engine's
+    checks (``moe_checks``, the bf16 bound MIXTRAL_PLAIN_REL) and a
+    replayed step's device time by kernel with the "other" kernels that
+    take the most. Then the sub-phase (``moe_sub_phase``): a paged ring
+    gives the contiguous ring's tokens exactly; kv_bits 8 and 4 and the
+    split-pinned planner. Returns each run's launches."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import PlanPolicy
+    from repro_torch.models import RunConfig
+    from repro_torch.serve import EngineConfig
+
+    t_phase = time.perf_counter()
+    name = f"serve_{MIXTRAL}"
+    rc = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    model, params, _ = build_weights(torch, MIXTRAL)
+    cfg = model.cfg
+    prompts = mixtral_prompts(cfg)
+    wb = weight_bytes(torch, params)
+    assert 35e9 < wb["weight_bytes_on_card"] < 37e9, wb
+    # the long prompts wrap the ring: one in its prefill, one in decode
+    ring = min(MIXTRAL_MAX_LEN, cfg.sliding_window)
+    assert ring == 4096 and MIXTRAL_LONG[0] > ring and \
+        MIXTRAL_LONG[1] < ring < MIXTRAL_LONG[1] + MAX_NEW - 1
+    eng, _, launches = serve_moe(
+        torch, model, params, prompts, name, rc,
+        EngineConfig(num_slots=SLOTS, max_len=MIXTRAL_MAX_LEN),
+        {**wb, "ring": ring})
+    assert eng.caches["body"]["k"].shape[2] == ring
+    out = {name: launches}
+    moe_checks(torch, model, eng, name, MIXTRAL_PLAIN_REL)
+    del eng, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_seconds(name, t_phase)
+    out.update(moe_sub_phase(torch, MIXTRAL, MIXTRAL_MAX_LEN, prompts,
+                             (8, 4), MIXTRAL_PLAIN_REL))
+    return out
+
+
+def serve_deepseek(torch):
+    """Phase 9: deepseek-v2-lite-16b (MLA with a 512-wide latent cache, a
+    dense first layer, then 64 routed experts top-6 beside 2 shared) at
+    full width and all 27 layers, 2-bit VQ weights drawn on the card from
+    their shapes, bf16 activations, a dense bf16 head; serve's traffic (4
+    slots, max_len MAX_LEN, 8 greedy requests of 32-200 prompt tokens,
+    MAX_NEW each): the weights' bytes against bf16 dense, peak device
+    memory, the latent cache's bytes, decode ms a step, tok/s, prefill s
+    (eager, at the exact length), the launches (``serve_moe``; B1's in a
+    replay equal to the model's count of decode linears), the engine's
+    checks (``moe_checks``, the bf16 bound DEEPSEEK_PLAIN_REL), a
+    replayed step's device time with the "other" kernels that take the
+    most; then the absorbed decode (``mla_absorb``) on the same weights:
+    its token agreement with the expand form and its step. Then the
+    sub-phase (``moe_sub_phase``): the paged latent cache gives the
+    contiguous run's tokens exactly; kv_bits 4 and the split-pinned
+    planner. Returns each run's launches."""
+    import gc
+
+    from repro_torch.core.plan import PlanPolicy
+    from repro_torch.models import RunConfig
+    from repro_torch.serve import EngineConfig
+
+    t_phase = time.perf_counter()
+    name = f"serve_{DEEPSEEK}"
+    rc = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
+    model, params, prompts = build_weights(torch, DEEPSEEK)
+    cfg = model.cfg
+    wb = weight_bytes(torch, params)
+    assert 4.5e9 < wb["weight_bytes_on_card"] < 5.0e9, wb
+    # B1 a decode step: every linear of deepseek_linears times its count;
+    # the absorbed decode runs no wkv_b (one a layer)
+    b1_step = sum(n for *_, n, _ in deepseek_linears(cfg))
+    ecfg = EngineConfig(num_slots=SLOTS, max_len=MAX_LEN)
+    out = {}
+    for label, run_rc, b1 in ((name, rc, b1_step), (
+            f"{name}_absorb", rc.replace(mla_absorb=True),
+            b1_step - cfg.num_layers)):
+        torch.cuda.reset_peak_memory_stats()   # the weights stay counted
+        eng, tokens, out[label] = serve_moe(
+            torch, model, params, prompts, label, run_rc, ecfg,
+            {**wb, "mla_absorb": run_rc.mla_absorb})
+        assert set(eng.caches) == {"pre", "body"}, set(eng.caches)
+        assert eng.decode_graph.launches["fused_vq_matmul"] == b1, \
+            (label, eng.decode_graph.launches, b1)
+        if not run_rc.mla_absorb:
+            expand = tokens
+            tok, pos = moe_checks(torch, model, eng, name, DEEPSEEK_PLAIN_REL)
+        else:
+            emit({"phase": label, "agreement_with_expand":
+                  agreement(tokens, expand), **device_profile(
+                      torch, lambda: eng.decode_graph(
+                          tokens=tok, positions=pos), top_other=8)})
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_seconds(f"{name} (+ _absorb)", t_phase)
+    out.update(moe_sub_phase(torch, DEEPSEEK, MAX_LEN, prompts, (4,),
+                             DEEPSEEK_PLAIN_REL))
     return out
 
 
@@ -2319,7 +2618,8 @@ def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
         base = (paged_base(torch, model, eng, cache, n) if paged
                 else pad_prefill_cache(cache, eng.ecfg.max_len,
                                        window=eng.window))
-        clone = lambda: {"body": {n: t.clone() for n, t in base["body"].items()}}
+        clone = lambda: {seg: {n: t.clone() for n, t in node.items()}
+                         for seg, node in base.items()}
         step = (toks[:, -1:], torch.full((SLOTS, 1), n, dtype=torch.int32,
                                          device="cuda"))
         with Routing() as r_got:
@@ -2433,7 +2733,8 @@ def paged_base(torch, model, eng, cache, n):
     tables[:, :8] = perm[:SLOTS * 8].reshape(SLOTS, 8).cpu().numpy()
     for b in range(SLOTS):
         paging.write_prefill_into_blocks(
-            base, {"body": {k: t[:, b:b + 1] for k, t in cache["body"].items()}},
+            base, {seg: {k: t[:, b:b + 1] for k, t in node.items()}
+                   for seg, node in cache.items()},
             torch.tensor([b], device="cuda"),
             torch.from_numpy(tables[b]).to("cuda"),
             torch.tensor([n], dtype=torch.int32, device="cuda"), meta,
@@ -2468,13 +2769,14 @@ def device_inputs(torch, step, arrays):
 
 
 def cache_leaves(caches):
-    """name -> leaf of a cache tree's body, a paged arena without its
+    """"segment/name" -> leaf of every subtree of a cache tree ("body",
+    and "pre" before deepseek's MoE layers), a paged arena without its
     sink (the last block: dropped writes land there in no fixed order,
     and nothing reads it)."""
-    body = caches["body"]
-    return {n: t[:, :-1] if "block_table" in body and n in ("k", "v", "k_s",
-                                                            "v_s") else t
-            for n, t in body.items()}
+    arenas = ("k", "v", "k_s", "v_s", "latent", "k_rope", "latent_s")
+    return {f"{seg}/{n}": (t[:, :-1] if "block_table" in node
+                           and n in arenas else t)
+            for seg, node in caches.items() for n, t in node.items()}
 
 
 def replay_vs_eager(torch, eng, step, arrays):
@@ -2528,8 +2830,9 @@ def graph_step(torch, model, eng, base, clone, name):
     failed = []
 
     plain = clone()
-    for n, t in eng.caches["body"].items():
-        t.copy_(base["body"][n])
+    for seg, node in eng.caches.items():
+        for n, t in node.items():
+            t.copy_(base[seg][n])
     start = int(base["body"]["len"][0, 0])
     toks = rng.integers(0, vocab, (GRAPH_STEPS, SLOTS, 1)).astype(np.int32)
     pos = np.broadcast_to(start + np.arange(GRAPH_STEPS, dtype=np.int32)[
@@ -2767,22 +3070,24 @@ def profile_decode(torch, model, eng, cache, step, name, required,
                          f"events: {missing}")
 
 
-def mixtral_rows(rows, name, launches) -> dict:
-    """The check phase's rows of ``name`` (B1 or B3) at mixtral-8x22b's
-    linears, and the launches in ``serve_mixtral_8x22b``; for B1 also a
-    decode layer's sum (wqkv + wo + E x (gu + down), E = 8)."""
+def model_rows(rows, model, name, phase) -> dict:
+    """The check phase's rows of kernel ``name`` at ``model``'s linears
+    (of B4 the served bf16 x) with the times every row has, the kernel's
+    launches in ``phase`` (a serve phase's counts), and, where every row
+    carries its launches a decode step (``per_step``), the sum of a
+    decode step: each row's times by its count."""
     keys = ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
             "library_bf16_ms")
-    rs = [r for r in rows if r["case"].get("model") == MIXTRAL]
+    rs = [r for r in rows if r["case"].get("model") == model
+          and r["case"].get("x", "bfloat16") == "bfloat16"]
+    keys = [k for k in keys if all(r.get(k) is not None for r in rs)]
     out = {"linears": [{"linear": r["case"]["linear"], "M": r["case"]["M"],
                         "bound_by": r["bound_by"],
                         **{k: r[k] for k in keys}} for r in rs],
-           "launches": launches["serve_mixtral_8x22b"][name]}
-    if name == "fused_vq_matmul":
-        experts = 8
-        out["decode_layer"] = {k: sum(r[k] * (experts if r["case"]["expert"]
-                                              else 1) for r in rs)
-                               for k in keys}
+           "launches": phase[name]}
+    if all("per_step" in r["case"] for r in rs):
+        out["decode_step"] = {k: sum(r[k] * r["case"]["per_step"] for r in rs)
+                              for k in keys}
     return out
 
 
@@ -2828,6 +3133,7 @@ def main() -> int:
     launches = serve(torch, timer)
     launches.update(serve_other_configs(torch, timer))
     launches.update(serve_mixtral(torch))
+    launches.update(serve_deepseek(torch))
     phase_of = {"flash_decode": "serve", "flash_decode_kvq": "serve_kvq",
                 "int8_gemm": "serve_kvq", "vq_gemm": "serve_split",
                 "oc_lookup": "serve_split",
@@ -2885,9 +3191,16 @@ def main() -> int:
             # verify window, M = slots x (K + 1)
             **({"verify_window": verify_window(rows[name])}
                if name == "fused_vq_matmul" else {}),
-            # B1 and B3 at mixtral-8x22b's linears, and B1's decode layer
-            **({MIXTRAL: mixtral_rows(rows[name], name, launches)}
+            # B1 and B3 at mixtral-8x22b's and deepseek-v2-lite-16b's
+            # linears, B4 and B5 at deepseek's decode linears (served in
+            # its sub-phase's split run), and B1's, B4's and B5's decode
+            # step
+            **({m: model_rows(rows[name], m, name, launches[f"serve_{m}"])
+                for m in (MIXTRAL, DEEPSEEK)}
                if name in ("fused_vq_matmul", "dequant_gemv") else {}),
+            **({DEEPSEEK: model_rows(rows[name], DEEPSEEK, name, launches[
+                f"serve_{DEEPSEEK}_{MOE_SUB_LAYERS}l_split"])}
+               if name in ("vq_gemm", "oc_lookup") else {}),
             "launches_by_phase": {ph: c[name] for ph, c in launches.items()
                                   if c.get(name)}})
     emit({"kernels": summary})

@@ -547,21 +547,22 @@ def plan_node(p: Dict[str, Any], x: torch.Tensor, *, mode: str,
 
 def preplan_params(params: Any, policy: PlanPolicy, *, mode: str, m: int,
                    act_dtype: torch.dtype, planner: Optional[Planner] = None,
-                   expert_m: Optional[int] = None,
+                   site_m: Optional[Dict[str, int]] = None,
                    ) -> List[Tuple[Tuple[Any, ...], MatmulPlan]]:
-    """Walk a param tree (dicts, and the list of ``layers``) and plan
-    every linear leaf at ``m`` tokens in flight under run ``mode`` — a
-    MoE layer's experts (under ``"experts"``) at ``expert_m``, the rows
-    of each expert's capacity buffer (``models.common.moe_capacity``),
-    when given — warming the planner cache; returns (path, plan) pairs
-    for logs. Pre-planning is a warm-up plus a report, never a
-    constraint."""
+    """Walk a param tree (dicts, and the layer lists) and plan every
+    linear leaf at ``m`` tokens in flight under run ``mode`` — a leaf
+    whose path holds a key of ``site_m`` at that key's rows instead
+    (a MoE layer's ``"experts"`` at each expert's capacity buffer,
+    ``models.common.moe_capacity``; MLA's ``"wkv_b"`` at slots x
+    max_len, the whole latent cache an expand decode runs it over) —
+    warming the planner cache; returns (path, plan) pairs for logs.
+    Pre-planning is a warm-up plus a report, never a constraint."""
     planner = planner or _PLANNER
     out: List[Tuple[Tuple[Any, ...], MatmulPlan]] = []
+    site_m = site_m or {}
 
     def walk(node, path):
-        rows = (expert_m if expert_m is not None and "experts" in path
-                else m)
+        rows = next((r for key, r in site_m.items() if key in path), m)
         if isinstance(node, (list, tuple)):
             for i, sub in enumerate(node):
                 walk(sub, path + (i,))

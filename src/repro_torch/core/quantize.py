@@ -24,10 +24,13 @@ an E-stacked expert site counts E linears).
 
 ``attach_kv_codebooks`` gives every attention node the per-head KV-VQ
 codebooks a compressed cache encodes against (``kv_cb``: {"k", "v"} of
-shape (Hk, R, 256, vec_d)), and ``kv_codebook_tree`` collects them
-stacked by layer, the layout ``serve/kvcache.encode_prefill_cache``
-takes. Only the calibration-free grid codebooks are ported; calibrated
-(k-means) ones wait for ROADMAP A8.
+shape (Hk, R, 256, vec_d); an MLA node {"lat": (1, R, 256, vec_d)}, its
+latent one "head" of width kv_lora_rank), and ``kv_codebook_tree``
+collects them stacked by layer under each segment's cache subtree
+(``"layers"`` -> ``"body"``, ``"pre_layers"`` -> ``"pre"``), the layout
+``serve/kvcache.encode_prefill_cache`` takes. Only the calibration-free
+grid codebooks are ported; calibrated (k-means) ones wait for ROADMAP
+A8.
 
 ``attach_vq_logits_head`` replaces the dense LM head with a VQ-Logits
 head (``core/logits_vq.py``) fitted by k-means.
@@ -60,8 +63,8 @@ _GROUP_FAMILIES = (
     (("gate", "up"), "gu", "down"),
 )
 _NO_GROUP_KEYS = ("cross_attn", "xattn")
-# cache subtree of each stacked param segment (the dense family has one)
-_KV_STACK_SEGMENTS = {"layers": "body"}
+# cache subtree of each stacked param segment
+_KV_STACK_SEGMENTS = {"layers": "body", "pre_layers": "pre"}
 _BF16_MIN_SIZE = 65536
 
 
@@ -198,25 +201,33 @@ def _is_gqa_attn_node(node: Any, path: Tuple[str, ...]) -> bool:
 
 def attach_kv_codebooks(params: Any, cfg: ModelConfig,
                         kvq: KVQuantConfig) -> Any:
-    """A new param tree whose every attention node carries ``kv_cb`` =
-    {"k", "v"}: the deterministic ``kv_grid_codebooks`` lattice of
-    ``kvq`` (Hk, R, 256, vec_d), on the params' device, one tensor shared
-    by all layers (read only). Idempotent: existing ``kv_cb`` nodes are
-    replaced; everything else is shared with ``params``, not copied.
+    """A new param tree whose every attention node carries ``kv_cb``: the
+    deterministic ``kv_grid_codebooks`` lattice of ``kvq``, {"k", "v"}
+    (Hk, R, 256, vec_d) on a GQA node, {"lat"} (1, R, 256, vec_d) over
+    the kv_lora_rank latent on an MLA node, on the params' device, one
+    tensor shared by all layers (read only). Idempotent: existing
+    ``kv_cb`` nodes are replaced; everything else is shared with
+    ``params``, not copied.
 
     Raises:
-      ValueError: head_dim not divisible by ``kvq.vec_d``.
+      ValueError: head_dim (MLA: kv_lora_rank) not divisible by
+        ``kvq.vec_d``.
     """
-    cb = kv_grid_codebooks(cfg.num_kv_heads, cfg.head_dim, kvq,
-                           device=tensor_device(params))
+    dev = tensor_device(params)
+    if cfg.use_mla:
+        cbs = {"lat": kv_grid_codebooks(1, cfg.kv_lora_rank, kvq, device=dev)}
+    else:
+        cb = kv_grid_codebooks(cfg.num_kv_heads, cfg.head_dim, kvq,
+                               device=dev)
+        cbs = {"k": cb, "v": cb}
 
     def walk(node, path):
         if isinstance(node, list):
             return [walk(v, path + (str(i),)) for i, v in enumerate(node)]
         if not isinstance(node, dict):
             return node
-        if _is_gqa_attn_node(node, path):
-            return {**node, "kv_cb": {"k": cb, "v": cb}}
+        if _is_gqa_attn_node(node, path) or "wkv_b" in node:   # MLA
+            return {**node, "kv_cb": dict(cbs)}
         return {k: walk(v, path + (k,)) for k, v in node.items()}
 
     return walk(params, ())
@@ -225,7 +236,8 @@ def attach_kv_codebooks(params: Any, cfg: ModelConfig,
 def kv_codebook_tree(params: Any) -> Dict[str, Any]:
     """The attached ``kv_cb`` nodes keyed by cache subtree, each leaf
     stacked over the layers of its segment: {"body": {"k": (L, Hk, R,
-    256, vd), "v": ...}}.
+    256, vd), "v": ...}} (MLA: {"lat": (L, 1, R, 256, vd)}; a
+    ``"pre"`` subtree for ``"pre_layers"``).
 
     Raises:
       ValueError: params carry no kv_cb nodes (attach first)."""

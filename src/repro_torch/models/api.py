@@ -1,5 +1,5 @@
 """Model facade of the port (``repro/models/api.py``), the dense and MoE
-families:
+families (MLA and dense prefix layers included):
 
     model = build_model(cfg)
     params = model.init(generator, device="cuda")
@@ -116,16 +116,15 @@ def param_count(params: Any) -> int:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    """The model of ``cfg``: the dense or MoE family, with full or
-    sliding-window attention.
+    """The model of ``cfg``: the dense or MoE family, with full,
+    sliding-window or multi-head latent attention (MLA) and optional
+    dense prefix layers (``first_dense_layers``).
 
     Raises:
-      NotImplementedError: another family, MLA, ``first_dense_layers``
-        or a local window (ROADMAP A7)."""
-    if (cfg.family not in ("dense", "moe") or cfg.use_mla
-            or cfg.first_dense_layers or cfg.local_window):
+      NotImplementedError: another family, or a local window (ROADMAP
+        A7)."""
+    if cfg.family not in ("dense", "moe") or cfg.local_window:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and MoE families without MLA, "
-            "dense prefix layers or local windows are ported (the other "
-            "families: ROADMAP A7)")
+            f"{cfg.name}: only the dense and MoE families without local "
+            "windows are ported (the other families: ROADMAP A7)")
     return Model(cfg)

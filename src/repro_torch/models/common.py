@@ -9,8 +9,10 @@ contiguous or paged (block arenas and a block table,
 ``serve/paging.py``), a full cache or a sliding-window ring (``window >
 0``: the cache holds ``min(max_len, window)`` positions and position p
 lives at slot ``p % S``) — the chunked-prefill continuation over a paged
-slot view, the SwiGLU MLP, the top-k MoE layer with capacity routing,
-embedding and LM head.
+slot view, multi-head latent attention (MLA, deepseek-v2: a latent
+cache of ``kv_lora_rank`` + a shared rope key per token, fp or KV-VQ,
+contiguous or paged), the SwiGLU MLP, the top-k MoE layer with
+capacity routing, embedding and LM head.
 
 Params are plain dicts of tensors (VQWeight nodes after quantization);
 every initializer draws from an explicit ``torch.Generator``. A MoE
@@ -36,7 +38,8 @@ import torch.nn.functional as F
 from repro_torch.core import ops as core_ops
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.plan import PlanPolicy
-from repro_torch.core.vq import KVQuantConfig, kv_decode, kv_encode, vq_index
+from repro_torch.core.vq import (KVQuantConfig, dequantize, kv_decode,
+                                 kv_encode, vq_index)
 
 Params = Any
 
@@ -112,13 +115,17 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     """Static execution-mode knobs: the run ``mode`` (train | prefill |
-    decode), the matmul ``plan_policy``, the prefill attention chunk and
-    ``kv_vq``, the KV-VQ config whose scale variant decode appends encode
-    with (the cache layout itself is read off the cache's leaves)."""
+    decode), the matmul ``plan_policy``, the prefill attention chunk,
+    ``mla_absorb`` (MLA decode attends in the latent space, ``wkv_b``
+    folded into the query and output sides, instead of expanding the
+    whole latent cache through ``wkv_b``) and ``kv_vq``, the KV-VQ config
+    whose scale variant decode appends encode with (the cache layout
+    itself is read off the cache's leaves)."""
 
     mode: str = "train"
     plan_policy: PlanPolicy = PlanPolicy()
     attn_chunk: int = 1024
+    mla_absorb: bool = False
     kv_vq: Optional[KVQuantConfig] = None
 
     @property
@@ -164,6 +171,21 @@ def make_attention(gen, cfg: ModelConfig, *, device, block_device) -> Params:
         p["qnorm"] = make_rmsnorm(cfg.head_dim, device)
         p["knorm"] = make_rmsnorm(cfg.head_dim, device)
     return p
+
+
+def make_mla(gen, cfg: ModelConfig, *, device, block_device) -> Params:
+    """An MLA block (reference ``models/common.py:741-751``): ``wq`` (D,
+    H(dn + dr)), ``wkv_a`` (D, r + dr), the latent's rmsnorm ``kv_norm``,
+    ``wkv_b`` (r, H(dn + dv)) and ``wo`` (H dv, D)."""
+    H, r = cfg.num_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {"wq": make_linear(gen, cfg.d_model, H * (dn + dr),
+                              device=block_device),
+            "wkv_a": make_linear(gen, cfg.d_model, r + dr,
+                                 device=block_device),
+            "kv_norm": make_rmsnorm(r, device),
+            "wkv_b": make_linear(gen, r, H * (dn + dv), device=block_device),
+            "wo": make_linear(gen, H * dv, cfg.d_model, device=block_device)}
 
 
 def make_mlp(gen, d_model: int, d_ff: int, *, block_device) -> Params:
@@ -625,6 +647,156 @@ def attention_fwd(p: Params, x: torch.Tensor, rc: RunConfig, cfg: ModelConfig,
             new_cache = {"k": k, "v": v,
                          "len": (positions[:, -1] + 1).to(torch.int32)}
     y = linear(p["wo"], o.reshape(B, S, H * hd), rc)
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (deepseek-v2): compressed KV latent cache
+# ---------------------------------------------------------------------------
+
+
+def _mla_write(cache: Dict, rows: Dict[str, torch.Tensor]) -> Tuple[
+        Dict[str, torch.Tensor], torch.Tensor]:
+    """Write one token's latent-cache ``rows`` (name -> (B, F)) at
+    position ``len`` of every row, clamped to the last slot (the
+    reference's ``minimum(len, Sc - 1)``: a full cache overwrites its last
+    position), contiguous or through the block table (a sentinel block is
+    the sink), in place; then ``len`` += 1. Returns each written leaf's
+    (B, Sc, F) view (a paged arena's gathered view, the sink excluded)
+    and the new lengths."""
+    first = cache[next(iter(rows))]
+    cache_len = cache["len"]                                       # (B,)
+    if "block_table" in cache:
+        bt = cache["block_table"]                                  # (B, W)
+        NB, bs = first.shape[0] - 1, first.shape[1]
+        slot = cache_len.long().clamp(max=bt.shape[1] * bs - 1)
+        blk = bt.gather(1, (slot // bs)[:, None])[:, 0].long()
+        for name, new in rows.items():
+            cache[name][blk, slot % bs] = new.to(cache[name].dtype)
+        views = {n: paged_view(cache[n][:NB], bt) for n in rows}
+    else:
+        slot = cache_len.long().clamp(max=first.shape[1] - 1)
+        b_iota = torch.arange(slot.shape[0], device=slot.device)
+        for name, new in rows.items():
+            cache[name][b_iota, slot] = new.to(cache[name].dtype)
+        views = {n: cache[n] for n in rows}
+    cache["len"].copy_(cache_len + 1)
+    return views, cache["len"]
+
+
+def _mla_absorbed(p: Params, q_nope, q_rope, lat, kr, new_len,
+                  cfg: ModelConfig, out_dtype) -> torch.Tensor:
+    """Weight-absorbed MLA decode attention (reference
+    ``models/common.py:875-907``): ``wkv_b`` (dequantized when VQ'd) is
+    folded into the query and output sides, and the scores and the
+    weighted sum run over the (B, Sc, r) latent cache in fp32."""
+    H, r = cfg.num_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    node = p["wkv_b"]
+    wb = dequantize(node["vq"]) if "vq" in node else node["w"]
+    wb = wb.float().reshape(r, H, dn + dv)
+    Wk, Wv = wb[..., :dn], wb[..., dn:]
+    latf, krf = lat.float(), kr.float()
+    q_eff = torch.einsum("bshd,rhd->bshr", q_nope.float(), Wk)    # (B,1,H,r)
+    s_nope = torch.einsum("bshr,bSr->bhsS", q_eff, latf)
+    s_rope = torch.einsum("bshd,bSd->bhsS", q_rope.float(), krf)
+    scores = (s_nope + s_rope) / math.sqrt(float(dn + dr))
+    valid = (torch.arange(lat.shape[1], device=lat.device)[None, :]
+             < new_len[:, None])
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full_like(scores, -1e30))
+    attn = torch.softmax(scores, dim=-1)                          # (B,H,1,S)
+    o_lat = torch.einsum("bhsS,bSr->bshr", attn, latf)
+    return torch.einsum("bshr,rhv->bshv", o_lat, Wv).to(out_dtype)
+
+
+def mla_fwd(p: Params, x: torch.Tensor, rc: RunConfig, cfg: ModelConfig, *,
+            positions: torch.Tensor, cache: Optional[Dict] = None
+            ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Multi-head latent attention (reference ``models/common.py:754-930``):
+    K/V compressed to a ``kv_lora_rank`` latent (rmsnormed) plus one
+    ``qk_rope_dim`` rope key shared by the heads per token; ``wkv_b``
+    expands the latent into each head's no-rope key and value. A grouped
+    ``wq_kva`` node runs q and kv_a as one matmul.
+
+    Prefill expands the prompt's latent and attends through
+    ``blocked_attention`` (q/k head dim dn + dr against v's dv), returning
+    a fresh {"latent", "k_rope", "len"} cache. Decode (one token) writes
+    the token's latent — fp, or under a KV-VQ cache (``latent_s`` present)
+    uint8 indices and a bf16 scale encoded against ``p["kv_cb"]["lat"]``,
+    one "head" of width r — and its rope key into the cache in place,
+    contiguous or through the block table, then attends over the whole
+    (dequantized, or gathered) latent cache: by default the faithful
+    expand (``wkv_b`` over every cached position, then
+    ``decode_attention``), under ``rc.mla_absorb`` in the latent space
+    (``_mla_absorbed``). Attention is plain torch in every branch, as
+    in the reference (its flash-decode kernels serve ``attention_fwd``
+    only).
+
+    Raises:
+      NotImplementedError: a prefill over a paged cache (chunked prefill
+        of an MLA cache is not supported, as in the reference).
+      ValueError: a prefill over a contiguous cache."""
+    B, S, _ = x.shape
+    H, r = cfg.num_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    if "wq_kva" in p:
+        q, kv_a = grouped_linear(p["wq_kva"], x, rc)
+    else:
+        q, kv_a = linear(p["wq"], x, rc), linear(p["wkv_a"], x, rc)
+    q = q.reshape(B, S, H, dn + dr)
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    latent = rmsnorm(p["kv_norm"], kv_a[..., :r], cfg.norm_eps)
+    k_rope = apply_rope(kv_a[..., r:][:, :, None, :], positions,
+                        cfg.rope_theta)                           # (B,S,1,dr)
+
+    def expand(lat, kr):
+        kv = linear(p["wkv_b"], lat, rc).reshape(
+            lat.shape[0], lat.shape[1], H, dn + dv)
+        k_nope, vv = kv[..., :dn], kv[..., dn:]
+        dt = torch.promote_types(k_nope.dtype, kr.dtype)
+        kk = torch.cat([k_nope.to(dt),
+                        kr.to(dt).expand(*k_nope.shape[:3], dr)], dim=-1)
+        return kk, vv
+
+    new_cache = None
+    if cache is not None and rc.mode != "decode":
+        if "block_table" in cache:
+            raise NotImplementedError(
+                "chunked prefill for MLA latent caches is not supported "
+                "(serve/engine.py gates chunking off for use_mla models)")
+        raise ValueError("an MLA prefill takes no cache")
+    if cache is not None:
+        rows = {"k_rope": k_rope.reshape(B, dr)}
+        kvq = "latent_s" in cache
+        if kvq:
+            variant = rc.kv_vq.variant if rc.kv_vq is not None else "outlier"
+            cb_lat = p["kv_cb"]["lat"]                          # (1,R,E,vd)
+            idx, sc = kv_encode(latent[:, :, None, :], cb_lat, variant)
+            rows.update(latent=idx.reshape(B, -1),
+                        latent_s=sc.reshape(B, 1))
+        else:
+            rows["latent"] = latent.reshape(B, r)
+        views, new_len = _mla_write(cache, rows)
+        lat = (kv_decode(views["latent"][:, :, None, :], views["latent_s"],
+                         cb_lat)[:, :, 0, :] if kvq else views["latent"])
+        if rc.mla_absorb:
+            o = _mla_absorbed(p, q_nope, q_rope, lat, views["k_rope"],
+                              new_len, cfg, x.dtype)
+        else:
+            kk, vv = expand(lat, views["k_rope"][:, :, None, :])
+            o = decode_attention(torch.cat([q_nope, q_rope], dim=-1), kk,
+                                 vv, new_len)
+        new_cache = cache
+    else:
+        kk, vv = expand(latent, k_rope)
+        o = blocked_attention(torch.cat([q_nope, q_rope], dim=-1), kk, vv,
+                              chunk=rc.attn_chunk)
+        if rc.mode == "prefill":
+            new_cache = {"latent": latent, "k_rope": k_rope.reshape(B, S, dr),
+                         "len": (positions[:, -1] + 1).to(torch.int32)}
+    y = linear(p["wo"], o.reshape(B, S, H * dv), rc)
     return y, new_cache
 
 

@@ -24,7 +24,11 @@ reference counts its retraces; prefill is pre-planned at ``max_len``
 model's caches are rings (``min(max_len, window)`` positions, every
 layout); its requests need only a prompt that fits ``max_len``: decode
 wraps the ring. Chunked prefill and speculation stay off for both, as
-in the reference.
+in the reference. An MLA model (deepseek-v2, a MoE) caches a latent a
+token (fp or KV-VQ; it has no int8 layout, so kv_bits=8 raises, as in
+the reference) and its dense prefix layers' caches form a ``"pre"``
+subtree beside ``"body"``, which slot insertion, paging, snapshots and
+the graphs walk like it.
 
 ``EngineConfig.kv_bits`` selects the KV cache layout: 16 = fp, 8 = int8
 values + bf16 scales (attended through plain torch), 4/2 = KV-VQ uint8
@@ -190,6 +194,10 @@ class Engine:
         if ecfg.kv_bits not in (16, 8, 4, 2):
             raise ValueError(
                 f"kv_bits={ecfg.kv_bits} unsupported; expected 16/8/4/2")
+        if ecfg.kv_bits == 8 and model.cfg.use_mla:
+            raise ValueError(
+                "kv_bits=8 has no MLA latent layout; use 16 or the KV-VQ "
+                "4/2-bit modes")
         self.spec_k = int(ecfg.speculate_k)
         if self.spec_k < 0:
             raise ValueError(f"speculate_k must be >= 0, got {self.spec_k}")
@@ -265,11 +273,12 @@ class Engine:
             m.kv_bytes_in_use = m.peak_kv_bytes_in_use = cache_bytes(
                 self.caches)
         # chunked prefill: paged fp caches of a bucketed family with full
-        # attention only (the continuation cannot append quantized rows
-        # or wrap a ring), as the reference gates it
+        # attention and no MLA latent only (the continuation cannot append
+        # quantized rows, wrap a ring or write a latent), as the
+        # reference gates it
         self._chunked = bool(ecfg.paged and ecfg.prefill_chunk
                              and ecfg.kv_bits == 16 and self._bucketed
-                             and self.window == 0)
+                             and self.window == 0 and not model.cfg.use_mla)
 
         self.positions = np.zeros((B,), np.int32)
         self.last_token = np.zeros((B,), np.int32)
@@ -337,20 +346,25 @@ class Engine:
     def _preplan(self) -> Dict[str, List[Tuple[Tuple[Any, ...], Any]]]:
         """Plan every linear at the shapes it runs at — decode at M =
         num_slots (a MoE layer's experts at their capacity for num_slots
-        tokens), prefill at each length bucket or, unbucketed, at
-        max_len (``prefill@cap``, the reference's estimate) — warming
+        tokens, an expand MLA decode's ``wkv_b`` at num_slots x max_len),
+        prefill at each length bucket or, unbucketed, at max_len
+        (``prefill@cap``, the reference's estimate) — warming
         the planner cache, and log each distinct plan and, where more
         than one backend matched, its ranking."""
         cfg = self.model.cfg
         act = cfg.act_dtype
 
-        def expert_m(T):
-            return moe_capacity(cfg, T) if cfg.family == "moe" else None
+        def site_m(T, decode=False):
+            rows = ({"experts": moe_capacity(cfg, T)}
+                    if cfg.family == "moe" else {})
+            if decode and cfg.use_mla and not self.rc.mla_absorb:
+                rows["wkv_b"] = T * max_len       # the whole latent cache
+            return rows
 
         B, max_len = self.ecfg.num_slots, self.ecfg.max_len
         plans = {"decode": plan_mod.preplan_params(
             self.params, self.rc.policy, mode="decode", m=B, act_dtype=act,
-            expert_m=expert_m(B))}
+            site_m=site_m(B, decode=True))}
         if self._bucketed:
             for m, pl in plan_mod.preplan_prefill_buckets(
                     self.params, self.rc.policy, buckets=self._buckets,
@@ -359,7 +373,7 @@ class Engine:
         else:
             plans["prefill@cap"] = plan_mod.preplan_params(
                 self.params, self.rc.policy, mode="prefill", m=max_len,
-                act_dtype=act, expert_m=expert_m(max_len))
+                act_dtype=act, site_m=site_m(max_len))
         for phase, pls in plans.items():
             uniq: Dict[str, int] = {}
             rankings: Dict[str, int] = {}

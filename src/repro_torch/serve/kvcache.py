@@ -6,6 +6,10 @@ pad it to a fixed-capacity decode cache. Positions between the true
 prompt length and the bucket ride along unread: decode overwrites slot
 ``len`` before attention unmasks it (``pos < len``).
 
+An MLA config's cache nodes hold a latent ({"latent", "k_rope",
+"len"}, under KV-VQ also "latent_s"; time axis -2): padded like the
+attention nodes, and KV-VQ-encoded against the latent codebook.
+
 A sliding-window config's decode cache is a ring of ``min(capacity,
 window)`` positions (position p at slot ``p % ring``): ``_to_ring`` and
 ``_to_ring_dynamic`` reorder the last ring positions of a prefill cache
@@ -76,8 +80,10 @@ def pad_prefill_cache(cache: Any, capacity: int, *, window: int = 0,
     its ``k_s``/``v_s`` scale leaves, time axis -2) to ``capacity``, or
     with ``window > 0`` convert it to a ring of ``min(capacity,
     window)`` positions (``_to_ring``; ``_to_ring_dynamic`` of the first
-    ``true_len`` positions when given); ``true_len`` overwrites the
-    ``len`` leaves (the prompt's real length inside its padded bucket)."""
+    ``true_len`` positions when given); an MLA node's leaves (time axis
+    -2) are padded to ``min(capacity, window)``, never ring-converted,
+    as the reference's; ``true_len`` overwrites the ``len`` leaves (the
+    prompt's real length inside its padded bucket)."""
     eff = min(capacity, window) if window else capacity
 
     def fix_time(x, axis):
@@ -97,6 +103,14 @@ def pad_prefill_cache(cache: Any, capacity: int, *, window: int = 0,
                     if n in node:
                         out[n] = fix_time(node[n], node[n].dim() - 2)
                 if true_len is not None:
+                    out["len"] = torch.full_like(node["len"], true_len)
+                return out
+            if "latent" in node and "k_rope" in node:
+                out = dict(node)
+                for n in ("latent", "k_rope", "latent_s"):
+                    if n in node:
+                        out[n] = _pad_time(node[n], node[n].dim() - 2, eff)
+                if true_len is not None and "len" in node:
                     out["len"] = torch.full_like(node["len"], true_len)
                 return out
             return {k: walk(v) for k, v in node.items()}
@@ -129,12 +143,16 @@ def encode_prefill_cache(cache: Any, codebooks: Any,
                          kvq: KVQuantConfig) -> Any:
     """Encode an fp prefill cache into the KV-VQ layout: every attention
     node with codebooks becomes uint8 ``k``/``v`` indices and bf16
-    ``k_s``/``v_s`` scales, layer by layer against its own codebooks.
+    ``k_s``/``v_s`` scales, every MLA node uint8 ``latent`` indices and a
+    bf16 ``latent_s`` (L, B, S, 1) scale, layer by layer against its own
+    codebooks.
 
     Args:
-      cache: prefill cache tree ({"body": {"k": (L, B, S, Hk, hd), ...}}).
+      cache: prefill cache tree ({"body": {"k": (L, B, S, Hk, hd), ...}}
+        or MLA {"body": {"latent": (L, B, S, r), ...}, "pre": ...}).
       codebooks: ``core.quantize.kv_codebook_tree(params)`` — {"body":
-        {"k": (L, Hk, R, 256, vd), "v": ...}}.
+        {"k": (L, Hk, R, 256, vd), "v": ...}} or {"body": {"lat": (L, 1,
+        R, 256, vd)}, "pre": ...}.
       kvq: the KVQuantConfig (supplies the scale variant).
 
     Nodes already uint8, and nodes without codebooks, pass through.
@@ -155,6 +173,13 @@ def encode_prefill_cache(cache: Any, codebooks: Any,
                 v_idx, v_s = enc(node["v"], cbs["v"])
                 return {"k": k_idx, "v": v_idx, "k_s": k_s, "v_s": v_s,
                         "len": node["len"]}
+            if "latent" in node and "k_rope" in node:
+                if cbs is None or node["latent"].dtype == torch.uint8:
+                    return node
+                idx, sc = enc(node["latent"][..., None, :], cbs["lat"])
+                out = dict(node)
+                out["latent"], out["latent_s"] = idx[..., 0, :], sc
+                return out
             return {k: walk(v, cbs.get(k) if isinstance(cbs, dict) else None)
                     for k, v in node.items()}
         return node

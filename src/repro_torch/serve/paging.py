@@ -27,9 +27,11 @@ max_len`` positions up front whatever the requests use. Here:
                       does; the attention mask (``pos < len``) never shows
                       it. The reference's arenas are ``arena[:, :NB]``.
 
-Only attention nodes ({"k", "v", "len"} and the int8 / KV-VQ scale
-leaves ``k_s``/``v_s``) are pageable: the dense and MoE families' only
-node. MLA latent caches and pass-through state wait for ROADMAP A7.
+Attention nodes ({"k", "v", "len"} and the int8 / KV-VQ scale leaves
+``k_s``/``v_s``) and MLA latent nodes ({"latent", "k_rope", "len"}, under
+KV-VQ also ``latent_s``) are pageable: the dense and MoE families' only
+nodes (a ``"pre"`` subtree pages like ``"body"``). Pass-through state
+waits for ROADMAP A7.
 ``paged_state`` is the host half of an engine snapshot.
 
 ``page_len`` is a slot's logical capacity: ``max_len``, or for a
@@ -61,16 +63,24 @@ from repro_torch.serve.kvcache import _to_ring_dynamic
 
 # leaf name -> time axis (from the right: leaves carry the layer axis)
 _ATTN_TIME_AXES = {"k": -3, "v": -3, "k_s": -2, "v_s": -2}
+_MLA_TIME_AXES = {"latent": -2, "k_rope": -2, "latent_s": -2}
 
 
-def _is_attn_node(node: dict) -> bool:
-    return "k" in node and "v" in node and "len" in node
+def _time_axes(node: dict) -> Optional[Dict[str, int]]:
+    """The pageable leaves' time axes of a cache node: an attention node
+    ({"k", "v", "len"}) or an MLA node ({"latent", "k_rope", ...}); None
+    for any other."""
+    if "k" in node and "v" in node and "len" in node:
+        return _ATTN_TIME_AXES
+    if "latent" in node and "k_rope" in node:
+        return _MLA_TIME_AXES
+    return None
 
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"paged {what} is not ported yet (ROADMAP A7): only full-attention "
-        "caches are pageable")
+        f"paged {what} is not ported yet (ROADMAP A7): only attention and "
+        "MLA latent caches are pageable")
 
 
 def effective_block_size(block_size: int, page_len: int) -> int:
@@ -178,10 +188,11 @@ def paged_state(tables: np.ndarray, pool: BlockPool,
 
 
 def _walk_attn(node: Any, fn) -> Any:
-    """Apply ``fn`` to every attention node of a cache tree; any other
-    leaf is pass-through state, which no port family has yet."""
+    """Apply ``fn`` to every pageable (attention or MLA) node of a cache
+    tree; any other leaf is pass-through state, which no port family has
+    yet."""
     if isinstance(node, dict):
-        if _is_attn_node(node):
+        if _time_axes(node) is not None:
             return fn(node)
         return {k: _walk_attn(v, fn) for k, v in node.items()}
     raise _unported("pass-through state")
@@ -212,7 +223,7 @@ def make_paging_config(model, num_slots: int, max_len: int, *,
 
     def count(node):
         nonlocal per_block
-        for name, t in _ATTN_TIME_AXES.items():
+        for name, t in _time_axes(node).items():
             if name in node:
                 leaf = node[name]
                 B, S = leaf.shape[t - 1], leaf.shape[t]
@@ -239,17 +250,18 @@ def _cache_kw(kv_int8: bool, kvq) -> dict:
 def init_paged_cache(model, num_slots: int, max_len: int,
                      meta: PagingConfig, *, device, kv_int8: bool = False,
                      kvq=None) -> Any:
-    """The paged decode cache, zeroed: each attention leaf becomes an
-    arena ``(L, NB + 1, bs, ...)`` (the last block the sink), ``len``
-    stays ``(L, B)``, and a sentinel-filled ``block_table`` ``(L, B, W)``
-    int32 joins the node."""
+    """The paged decode cache, zeroed: each attention (or MLA latent)
+    leaf becomes an arena ``(L, NB + 1, bs, ...)`` (the last block the
+    sink), ``len`` stays ``(L, B)``, and a sentinel-filled
+    ``block_table`` ``(L, B, W)`` int32 joins the node."""
     specs = model.init_cache(num_slots, max_len, device="meta",
                              **_cache_kw(kv_int8, kvq))
 
     def page(node):
         out = {}
+        axes = _time_axes(node)
         for name, leaf in node.items():
-            t = _ATTN_TIME_AXES.get(name)
+            t = axes.get(name)
             if t is None:  # "len"
                 out[name] = torch.zeros(leaf.shape, dtype=leaf.dtype,
                                         device=device)
@@ -278,13 +290,21 @@ def is_paged(caches: Any) -> bool:
 
 
 def attn_nodes(caches: Any) -> List[dict]:
-    """The attention nodes of a cache tree, in order (in a paged tree,
-    each with its arenas and block table)."""
+    """The attention and MLA nodes of a cache tree, in order (in a paged
+    tree, each with its arenas and block table)."""
     if isinstance(caches, dict):
-        if _is_attn_node(caches):
+        if _time_axes(caches) is not None:
             return [caches]
         return [n for v in caches.values() for n in attn_nodes(v)]
     return []
+
+
+def _node_pairs(old: Any, new: Any) -> List[Tuple[dict, dict]]:
+    """The pageable nodes of ``old`` each beside the node at the same
+    path of ``new`` (matched by key, whatever the trees' key order)."""
+    if _time_axes(old) is not None:
+        return [(old, new)]
+    return [pair for k, v in old.items() for pair in _node_pairs(v, new[k])]
 
 
 def set_block_tables(caches: Any, tables: np.ndarray) -> None:
@@ -330,7 +350,7 @@ def merge_slot(caches: Any, new_caches: Any, slot: torch.Tensor) -> None:
     arenas were written through shared storage, the full table is kept,
     ``prefill_len`` dropped, and the view's ``len`` goes into column
     ``slot`` (a (1,) int64 tensor) of every layer."""
-    for old, new in zip(attn_nodes(caches), attn_nodes(new_caches)):
+    for old, new in _node_pairs(caches, new_caches):
         old["len"].index_copy_(1, slot, new["len"].to(old["len"].dtype))
 
 
@@ -350,7 +370,7 @@ def write_prefill_into_blocks(caches: Any, fresh: Any, slot: torch.Tensor,
     bt_row = bt_row.to(torch.int32)
 
     def commit(old, new):
-        for name, t in _ATTN_TIME_AXES.items():
+        for name, t in _time_axes(old).items():
             if name not in old:
                 continue
             arena, x = old[name], new[name]
@@ -369,7 +389,7 @@ def write_prefill_into_blocks(caches: Any, fresh: Any, slot: torch.Tensor,
         old["len"].index_copy_(1, slot, true_len.to(old["len"].dtype)
                                .reshape(1, 1).expand(L, 1))
 
-    for old, new in zip(attn_nodes(caches), attn_nodes(fresh)):
+    for old, new in _node_pairs(caches, fresh):
         commit(old, new)
 
 

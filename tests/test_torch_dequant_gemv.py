@@ -165,6 +165,25 @@ def test_kernel_bf16_x_matches_plain(cuda, K, N, M):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K,N,M", [
+    (2048, 3648, 200), (512, 4096, 200), (2048, 2048, 200),  # attention
+    (10944, 2048, 200),                     # first layer's down, V = 1368
+    (2048, 2816, 24), (1408, 2048, 24),     # an expert at capacity 24
+    (2816, 2048, 200)])                     # the shared experts' down
+def test_kernel_bf16_x_matches_plain_at_deepseek_linears(cuda, K, N, M):
+    """deepseek-v2-lite-16b's prefill linears of a 200-token prompt."""
+    x, vq = _card_case(K, N, M)
+    xb = x.bfloat16()
+    before = dequant_gemv.launches
+    got = dequant_gemv(xb, vq, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert dequant_gemv.launches == before + 1
+    want = dequant_gemv(xb, vq, out_dtype=torch.float32, use_kernel=False)
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("M", [1, 63, 65, 129])
 def test_kernel_tile_edges(cuda, M, dtype):

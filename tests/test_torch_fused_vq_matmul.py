@@ -262,6 +262,29 @@ def test_kernel_matches_plain_full_width(cuda, K, N, M):
     assert (got - want).abs().max().item() <= tol
 
 
+# deepseek-v2-lite-16b's decode linears: wq_kva (N = 3648, ragged at both
+# column tiles), wkv_b at M = 4 and at the expand decode's M = slots x
+# max_len = 2048 (V = 64), wo, a routed expert's gu and down at its
+# capacity M = 1, the shared experts' and the dense first layer's MLPs
+DEEPSEEK = [(2048, 3648, 4), (512, 4096, 4), (512, 4096, 2048),
+            (2048, 2048, 4), (2048, 2816, 1), (1408, 2048, 1),
+            (2048, 5632, 4), (2816, 2048, 4), (2048, 21888, 4),
+            (10944, 2048, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,M", DEEPSEEK)
+def test_kernel_matches_plain_at_deepseek_linears(cuda, K, N, M):
+    x, vq = _card_case(K, N, M)
+    before = fused_vq_matmul.launches
+    got = fused_vq_matmul(x, vq, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fused_vq_matmul.launches == before + 1
+    want = fused_vq_matmul(x, vq, out_dtype=torch.float32, use_kernel=False)
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,N,M,C", [(296, 100, 3, 2), (296, 102, 9, 2),
                                      (64, 1030, 1, 1), (800, 2048, 17, 4)])

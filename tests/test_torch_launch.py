@@ -26,6 +26,8 @@ CASES = [
     ("minitron-4b", ["--vq-mode", "dequant", "--max-new", "5"]),
     ("qwen2-72b", ["--no-quantize", "--requests", "3", "--smoke"]),
     ("mixtral-8x22b", ["--requests", "5", "--slots", "2", "--max-new", "6"]),
+    ("deepseek-v2-lite-16b", ["--requests", "5", "--slots", "2",
+                              "--max-new", "6"]),
 ]
 
 

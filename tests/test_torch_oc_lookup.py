@@ -215,9 +215,26 @@ def test_kernel_bitwise_deterministic(cuda):
                        oc_lookup(O, vq.idx, vq.scale))
 
 
+# deepseek-v2-lite-16b's decode linears under the split-pinned planner
+# (K, N, M): wq_kva (N = 3648, ragged at both column tiles), wkv_b at the
+# expand decode's M = slots x max_len = 2048 (V = 64), wo, a routed
+# expert's gu and down at its capacity M = 1, the shared experts' and the
+# dense first layer's MLPs
+DEEPSEEK = [(2048, 3648, 4), (512, 4096, 2048), (2048, 2048, 4),
+            (2048, 2816, 1), (1408, 2048, 1), (2048, 5632, 4),
+            (2816, 2048, 4), (2048, 21888, 4), (10944, 2048, 4)]
+
+
 @pytest.mark.cuda
-def test_eva_split_matches_plain_and_fused(cuda):
-    x, vq = _card_case(4096, 12288, 4)
+@pytest.mark.parametrize("K,N,M", DEEPSEEK)
+def test_kernel_matches_plain_at_deepseek_linears(cuda, K, N, M):
+    _check_lookup(*_card_case(K, N, M))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,M", [(4096, 12288, 4)] + DEEPSEEK)
+def test_eva_split_matches_plain_and_fused(cuda, K, N, M):
+    x, vq = _card_case(K, N, M)
     got = eva_split_matmul(x, vq, out_dtype=torch.float32)
     plain = eva_split_matmul(x, vq, out_dtype=torch.float32, use_kernel=False)
     fused = fused_vq_matmul(x, vq, out_dtype=torch.float32)

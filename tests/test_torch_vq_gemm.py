@@ -71,7 +71,7 @@ def test_plain_bf16_x_matches_jax(K, M, C, use_pallas):
 
 @pytest.mark.parametrize("sm_count", [1, 132])
 @pytest.mark.parametrize("C", [1, 2, 4])
-@pytest.mark.parametrize("MV", [1, 55, 111, 2048, 5504])
+@pytest.mark.parametrize("MV", [1, 55, 111, 2048, 5504, 131072])
 def test_launch_shape_covers_every_row_once(MV, C, sm_count):
     """CTA b writes rows [b * rows, min(MV, (b + 1) * rows)) of every
     codebook (vq_gemm.cu): each (c, row) exactly once, no CTA idle, at
@@ -144,6 +144,23 @@ def test_kernel_bf16_x_matches_plain_full_width(cuda, K, M):
     xb = x.to(torch.bfloat16)
     got = _check(xb, cb)
     assert torch.equal(got, vq_gemm(xb.float(), cb))
+
+
+# deepseek-v2-lite-16b's decode linears under the split-pinned planner:
+# (K, M) of wq_kva / wo / shared gu at M = 4, wkv_b at the expand
+# decode's M = slots x max_len = 2048 (M x V = 131072 rows of O), a routed
+# expert's gu and down at its capacity M = 1, the shared experts' and the
+# dense first layer's down
+DEEPSEEK = [(2048, 4), (512, 2048), (2048, 1), (1408, 1), (2816, 4),
+            (10944, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,M", DEEPSEEK)
+def test_kernel_matches_plain_at_deepseek_linears(cuda, K, M, dtype):
+    x, cb = _card_case(K, M)
+    _check(x.to(dtype), cb)
 
 
 @pytest.mark.cuda
