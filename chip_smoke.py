@@ -170,11 +170,31 @@ Phases (any failure exits non-zero):
      wkv_b at M = 4 and at the expand decode's M = 2048, the experts at
      M = 1), B4, B5 and the pair at every one a step runs, and B3 at its
      prefill linears of a 200-token prompt;
-  10. a {"kernels": [...]} summary line (fused_vq_matmul's row also
+  10. `serve_xlstm_125m`: xlstm-125m (alternating mLSTM / sLSTM blocks:
+     recurrent state of a fixed size a slot, no attention) at full width
+     and all 12 layers, `serve`'s traffic: weight bytes against bf16
+     dense, peak memory, the state's bytes, decode ms a step, tok/s,
+     prefill s (eager, exact length), launches (B1 54 a replayed step,
+     B3; the attention kernels 0), the caches after the decode graph's
+     build as init_cache made them, the plain decode step at bf16 within
+     XLSTM_PLAIN_REL (two faulty controls above it: the step from
+     init_cache's state and with the next token id) and at fp32 within
+     1e-3, graph_step over the recurrent state, a replay profile with the
+     "other" kernels that take the most; then on the same weights the
+     paged engine (pass-through state) with the contiguous run's tokens
+     exactly, the split-pinned planner with its token agreement and its
+     step held to the fused one, INT8 prefill (B6 at the sLSTM gates'
+     N = 4 and at the head), a snapshot mid-run restored into a fresh
+     engine (tokens equal), kv_bits = 4 and speculate_k = 3 refused
+     with the reference's messages, and the CLI (`--arch xlstm-125m
+     --full`); the check phase holds B1, B4, B5 and the pair at its
+     decode linears, B3 at its prefill linears of a 200-token prompt and
+     B6 at its gates and head;
+  11. a {"kernels": [...]} summary line (fused_vq_matmul's row also
      sums its verify-window rows, `verify_window`; B1's and B3's carry
-     their mixtral and deepseek rows, B4's and B5's their deepseek rows,
-     each with its decode step's sum where it has one), the card line,
-     and the result
+     their mixtral, deepseek and xlstm rows, B4's and B5's their deepseek
+     and xlstm rows, B6's its xlstm rows, each with its decode step's sum where it
+     has one), the card line, and the result
      line {"ok": true, "device": {...}} last.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
@@ -242,6 +262,8 @@ MOE_SUB_LAYERS = 4
 MOE_REQUIRED = ("fused_vq_matmul", "dequant_gemv")
 MOE_ABSENT = ("flash_decode", "flash_decode_kvq", "flash_decode_paged",
               "flash_decode_kvq_paged", "vq_gemm", "oc_lookup", "int8_gemm")
+# the split-pinned planner's path: B4 + B5 in decode, B3 in prefill
+SPLIT_REQUIRED = ("vq_gemm", "oc_lookup", "dequant_gemv")
 # its bf16 plain decode step against the kernels' step, within half the
 # smaller of its two faulty controls (the plain step one position early:
 # 0.250 of the max logit on the first run, NVIDIA H100 80GB HBM3, 700 W;
@@ -250,6 +272,18 @@ DEEPSEEK_PLAIN_REL = 0.125
 # the prompt length the check phase holds B3 at deepseek's prefill
 # linears (a routed expert at its capacity for it: 24 rows)
 DEEPSEEK_B3_T = 200
+# serve_xlstm_125m: 12 layers (6 mLSTM/sLSTM groups) at full width,
+# serve's traffic; recurrent state of a fixed size a slot
+XLSTM = "xlstm_125m"
+# its bf16 plain decode step against the kernels' step: 7.5x the sound
+# step's drift on the first run (0.0134 of the max logit) and under a
+# tenth of the smaller of its two faulty controls there (the plain step
+# from init_cache's state 1.045, with the next token id 1.217; NVIDIA
+# H100 80GB HBM3, 700 W)
+XLSTM_PLAIN_REL = 0.1
+# the prompt length the check phase holds B3 and B6 at xlstm's prefill
+# linears
+XLSTM_B3_T = 200
 LINEARS = (("wqkv", 4096, 12288), ("wo", 4096, 4096), ("gu", 4096, 22016),
            ("down", 11008, 4096))
 # the dense configs served after llama2-7b, and the (H, Hk) of their
@@ -563,6 +597,7 @@ def check_kernels(torch, timer):
     check_other_linears(torch, gen, record)
     check_mixtral_linears(torch, gen, record)
     check_deepseek_linears(torch, gen, record)
+    check_xlstm_linears(torch, gen, record)
 
     # INT8 GEMM at the prefill lm_head shape, at every bucket the served
     # prefill runs (bf16 activations and head, quantized as the wrapper
@@ -1986,23 +2021,27 @@ def drain(torch, eng, prompts):
     return outs, kernels.launch_counts(), wall
 
 
-def serve_moe(torch, model, params, prompts, label, rc, ecfg, row):
-    """Serve ``prompts`` greedily on a fresh Engine of a MoE model
-    (``drain``) and print its row: ``row`` (the caller's keys), peak
-    device memory (since the caller's reset), cache bytes, the engine's
-    and the decode graph's build s and pool bytes, wall s, tok/s, decode
-    ms a step, prefill s by prompt length, a replay's launches and the
-    run's. Asserts the decode graph's build left the caches unwritten,
-    MOE_REQUIRED launched and MOE_ABSENT not, and one eager prefill
-    trace a distinct prompt length. Returns (engine, tokens, launches)."""
+def serve_moe(torch, model, params, prompts, label, rc, ecfg, row,
+              fresh=None):
+    """Serve ``prompts`` greedily on a fresh Engine of a model that
+    prefills at the exact length (MoE, xLSTM; ``drain``) and print its
+    row: ``row`` (the caller's keys), peak device memory (since the
+    caller's reset), cache bytes, the engine's and the decode graph's
+    build s and pool bytes, wall s, tok/s, decode ms a step, prefill s
+    by prompt length, a replay's launches and the run's. Asserts the
+    decode graph's build left the caches as init_cache made them (zeros;
+    or ``fresh``, a cache tree of those values), MOE_REQUIRED launched
+    and MOE_ABSENT not, and one eager prefill trace a distinct prompt
+    length. Returns (engine, tokens, launches)."""
     from repro_torch.serve import Engine, cache_bytes
 
     t0 = time.perf_counter()
     eng = Engine(model, params, rc, ecfg, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    assert not any(bool(t.any()) for node in eng.caches.values()
-                   for t in node.values()), \
+    assert all(torch.equal(t, fresh[seg][n]) if fresh is not None
+               else not bool(t.any()) for seg, node in eng.caches.items()
+               for n, t in node.items()), \
         f"{label}: the decode graph's build left the caches written"
     outs, launches, wall = drain(torch, eng, prompts)
     m = eng.metrics()
@@ -2065,25 +2104,44 @@ def moe_sub_phase(torch, arch, max_len, prompts, kv_bits, rel):
     from repro_torch.configs import get_config
     from repro_torch.core.plan import PlanPolicy
     from repro_torch.models import RunConfig
-    from repro_torch.serve import Engine, EngineConfig, cache_bytes
 
     t_phase = time.perf_counter()
     sub = f"serve_{arch}_{MOE_SUB_LAYERS}l"
     rc = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
     model, params, _ = build_weights(torch, arch, dataclasses.replace(
         get_config(arch), num_layers=MOE_SUB_LAYERS))
-    split = ("vq_gemm", "oc_lookup", "dequant_gemv")
     runs = {"fp": ({}, MOE_REQUIRED),
             "paged": ({"paged": True, "block_size": BLOCK}, MOE_REQUIRED),
             **{f"kv_bits_{b}": ({"kv_bits": b}, MOE_REQUIRED)
                for b in kv_bits},
-            "split": ({}, split)}
-    tokens, out = {}, {}
-    for label, (kw, need) in runs.items():
+            "split": ({}, SPLIT_REQUIRED)}
+    out = sub_runs(torch, model, params, rc, prompts, max_len, sub, runs,
+                   rel)[0]
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_seconds(sub, t_phase)
+    return out
+
+
+def sub_runs(torch, model, params, rc, prompts, max_len, sub, runs, rel,
+             tokens=None):
+    """Serve ``prompts`` greedily on a fresh engine a run of ``runs``
+    (label -> (EngineConfig kwargs, kernels that must launch[, its run
+    config in place of ``rc``])), each with its token agreement with the
+    "fp" run (the first, or given in ``tokens``); the paged run's tokens
+    must equal it exactly; the split run (the default planner pinned to
+    B4 + B5) ends with ``split_step`` (``rel``: its bf16 bound). Returns
+    (each run's launches, each run's tokens)."""
+    from repro_torch.serve import Engine, EngineConfig, cache_bytes
+
+    tokens, out = dict(tokens or {}), {}
+    for label, (kw, need, *run_rc) in runs.items():
         pinned = pin_split() if label == "split" else None
         try:
-            eng = Engine(model, params, rc, EngineConfig(
-                num_slots=SLOTS, max_len=max_len, **kw), device="cuda")
+            eng = Engine(model, params, run_rc[0] if run_rc else rc,
+                         EngineConfig(num_slots=SLOTS, max_len=max_len, **kw),
+                         device="cuda")
             outs, launches, wall = drain(torch, eng, prompts)
         finally:
             if pinned is not None:
@@ -2113,11 +2171,7 @@ def moe_sub_phase(torch, arch, max_len, prompts, kv_bits, rel):
             split_step(torch, eng, sub, rel)
         del eng
     assert tokens["paged"] == tokens["fp"], f"{sub}: the paged cache differs"
-    del model, params
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_seconds(sub, t_phase)
-    return out
+    return out, tokens
 
 
 def split_step(torch, eng, name, rel):
@@ -2289,6 +2343,180 @@ def serve_deepseek(torch):
     phase_seconds(f"{name} (+ _absorb)", t_phase)
     out.update(moe_sub_phase(torch, DEEPSEEK, MAX_LEN, prompts, (4,),
                              DEEPSEEK_PLAIN_REL))
+    return out
+
+
+def xlstm_linears(cfg):
+    """(name, K, N, times a decode step) of every VQ linear xlstm-125m
+    runs: an mLSTM block's up_h and up_g (one shape), its grouped
+    wq|wk|wv and down; an sLSTM block's wz, wo and out (one shape) and
+    its GELU FFN's up and down: 9 a group."""
+    D, G = cfg.d_model, cfg.num_layers // len(cfg.xlstm_pattern)
+    di, ffn = 2 * D, int(4 / 3 * D) // 8 * 8
+    return (("up_h|up_g", D, di, 2 * G), ("wqkv", di, 3 * di, G),
+            ("down", di, D, G), ("wz|wo|out", D, D, 3 * G),
+            ("ffn_up", D, ffn, G), ("ffn_down", ffn, D, G))
+
+
+def check_xlstm_linears(torch, gen, record):
+    """B1 at xlstm-125m's decode linears (``xlstm_linears``, M = SLOTS:
+    N = 768 is ragged at the 1024-column tile) and B3 at its prefill
+    linears of an XLSTM_B3_T-token prompt, each against its plain
+    version, beside fp32 and bf16 torch.matmul on the dequantized
+    weight, with its launch shape; the split-pinned planner's pair, B4
+    and B5 (``check_split``), at every decode linear, each against its
+    plain version and the pair against B1; then B6 at the dense linears
+    an INT8 prefill runs: the sLSTM gates wi|wf (K = 768, N = 4: the
+    wrapper pads the operands to 16 columns; cuBLAS's int8 GEMM takes no
+    N = 4, so no library call) and the head (N = 50304), bit-equal to
+    the plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.ops import quantize_int8
+    from repro_torch.core.vq import synthetic_vq
+    from repro_torch.kernels.int8_gemm import int8_gemm, int8_gemm_ref
+
+    cfg = get_config(XLSTM)
+    T, G = XLSTM_B3_T, cfg.num_layers // len(cfg.xlstm_pattern)
+    for name, K, N, per_step in xlstm_linears(cfg):
+        vq = synthetic_vq(gen, K, N, C=2, device="cuda")
+        case = {"model": XLSTM, "linear": name, "per_step": per_step}
+        check_b1(torch, record, vq, torch.randn(
+            (SLOTS, K), generator=gen, device="cuda"), case,
+            launch_shape=True)
+        check_b3(torch, record, vq, torch.randn(
+            (T, K), generator=gen, device="cuda").bfloat16(), case)
+        del vq
+        check_split(torch, gen, record, K, N, SLOTS, case, pair=True)
+    for name, N, per_prefill in (("wi|wf", cfg.num_heads, 2 * G),
+                                 ("lm_head", cfg.padded_vocab, 1)):
+        K = cfg.d_model
+        w = torch.randn((K, N), generator=gen, device="cuda").bfloat16()
+        x = torch.randn((T, K), generator=gen, device="cuda").bfloat16()
+        (xq, xs), (wq, ws) = quantize_int8(x, axis=-1), quantize_int8(w, axis=0)
+        wq_cm = wq.t().contiguous().t()
+        run = lambda: int8_gemm(xq, wq, xs, ws)
+        plain = lambda: int8_gemm_ref(xq, wq, xs, ws)
+        record("int8_gemm", {"model": XLSTM, "linear": name, "M": T, "K": K,
+                             "N": N, "per_prefill": per_prefill},
+               run(), plain(), 0.0, run, plain,
+               (lambda: torch._int_mm(xq, wq_cm).float() * xs * ws)
+               if N % 8 == 0 else None,
+               T * K + K * N + 4 * T + 4 * N + 4 * T * N, 2 * T * N * K,
+               peak=INT8_OPS)
+
+
+def serve_xlstm(torch):
+    """Phase 10: xlstm-125m (alternating mLSTM / sLSTM blocks, recurrent
+    state of a fixed size a slot, no attention) at full width and all 12
+    layers, 2-bit VQ weights drawn on the card from their shapes, bf16
+    activations, a dense bf16 head; serve's traffic (4 slots, max_len
+    MAX_LEN, 8 greedy requests of 32-200 prompt tokens, MAX_NEW each):
+    the weights' bytes against bf16 dense, peak device memory, the
+    state's bytes, decode ms a step, tok/s, prefill s (eager, at the
+    exact length), the launches (``serve_moe``: B1 54 a replayed step,
+    B3; never B2/B7), the caches after the decode graph's build as
+    init_cache made them (sLSTM's n = 1e-6), the engine's checks
+    (``moe_checks``: the bf16 plain step within XLSTM_PLAIN_REL with two
+    faulty controls, fp32 within 1e-3, graph_step over the recurrent
+    state, the replays' profiles); then on the same weights
+    (``sub_runs``): the paged engine (pass-through state, no block
+    bytes) with the contiguous run's tokens exactly, the split-pinned
+    planner (B4 + B5) with its token agreement and its step held to the
+    fused one, and INT8 prefill (B6 at the sLSTM gates, N = 4, and the
+    head: 2 x 6 + 1 launches a prefill); a snapshot mid-run restored
+    into a fresh engine (tokens equal the uninterrupted run's); kv_bits
+    = 4 and speculate_k = 3 refused with the reference's messages; and
+    the CLI at full width. Returns each run's launches."""
+    import gc
+
+    from repro_torch.core.plan import PlanPolicy
+    from repro_torch.models import RunConfig
+    from repro_torch.serve import Engine, EngineConfig, GenerationRequest
+
+    t_phase = time.perf_counter()
+    name = f"serve_{XLSTM}"
+    rc = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    model, params, prompts = build_weights(torch, XLSTM)
+    cfg = model.cfg
+    wb = weight_bytes(torch, params)
+    assert 0.15e9 < wb["weight_bytes_on_card"] < 0.25e9, wb
+    b1_step = sum(n for *_, n in xlstm_linears(cfg))
+    assert b1_step == wb["vq_linears"] == 54, (b1_step, wb)
+    ecfg = EngineConfig(num_slots=SLOTS, max_len=MAX_LEN)
+    eng, tokens, launches = serve_moe(
+        torch, model, params, prompts, name, rc, ecfg, wb,
+        fresh=model.init_cache(SLOTS, MAX_LEN, device="cuda"))
+    assert set(eng.caches) == {"b0_mlstm", "b1_slstm"}, set(eng.caches)
+    assert eng.decode_graph.launches["fused_vq_matmul"] == b1_step, \
+        eng.decode_graph.launches
+    out = {name: launches}
+    moe_checks(torch, model, eng, name, XLSTM_PLAIN_REL)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    G = cfg.num_layers // len(cfg.xlstm_pattern)
+    int8_rc = rc.replace_policy(int8_prefill=True)
+    runs = {"paged": ({"paged": True, "block_size": BLOCK}, MOE_REQUIRED),
+            "split": ({}, SPLIT_REQUIRED),
+            "int8_prefill": ({}, MOE_REQUIRED + ("int8_gemm",), int8_rc)}
+    sub, got = sub_runs(torch, model, params, rc, prompts, MAX_LEN, name,
+                        runs, XLSTM_PLAIN_REL, tokens={"fp": tokens})
+    assert sub[f"{name}_int8_prefill"]["int8_gemm"] == \
+        len(prompts) * (2 * G + 1), sub[f"{name}_int8_prefill"]
+    out.update(sub)
+
+    # a snapshot mid-run restored into a fresh engine
+    reqs = [GenerationRequest(prompt=p, max_new_tokens=MAX_NEW)
+            for p in prompts]
+    with Uncounted():
+        eng = Engine(model, params, rc, ecfg, device="cuda")
+        uids = [eng.submit(r) for r in reqs]
+        for _ in range(12):
+            eng.step()
+        t0 = time.perf_counter()
+        snap = eng.snapshot()
+        snap_ms = (time.perf_counter() - t0) * 1e3
+        while not eng.idle:
+            eng.step()
+        want = [list(eng.output(u).tokens) for u in uids]
+        del eng
+        eng = Engine(model, params, rc, ecfg, device="cuda")
+        t0 = time.perf_counter()
+        eng.restore(snap)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        while not eng.idle:
+            eng.step()
+        restored = [list(eng.output(u).tokens) for u in uids]
+        del eng
+    emit({"phase": f"{name}_snapshot", "after_ticks": 12,
+          "snapshot_cache_bytes": sum(
+              a.nbytes for p, a in snap.arrays.items()
+              if p.startswith("/caches/") and a is not None),
+          "snapshot_ms": snap_ms, "restore_ms": restore_ms,
+          "tokens_equal": restored == want,
+          "agreement_with_fp": agreement({"tokens": want}, tokens)})
+    assert restored == want, f"{name}: restored differs from uninterrupted"
+
+    refused = {}
+    for kw, match in (({"kv_bits": 4}, "requires an attention-cache family"),
+                      ({"speculate_k": 3},
+                       "speculate_k > 0 requires family='dense'")):
+        try:
+            Engine(model, params, rc, dataclasses.replace(ecfg, **kw),
+                   device="cuda")
+        except ValueError as e:
+            refused[str(kw)] = str(e)
+            assert match in str(e), e
+        else:
+            raise AssertionError(f"{name}: {kw} was not refused")
+    emit({"phase": f"{name}_refusals", **refused})
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_cli(torch, ["--arch", "xlstm-125m", "--full"])
+    phase_seconds(name, t_phase)
     return out
 
 
@@ -2597,12 +2825,16 @@ def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
     (a deep model, whose bf16 rounding flips alone move the logits past
     PLAIN_REL): ``rel`` is wider, and two controls show that it still
     tells a fault apart (the plain step one position early, and with the
-    next token id, must both drift past ``rel``); the two steps are also
-    held to each other with fp32 activations (the same params) within
-    1e-3. ``eager_profiles=False``: only the replays are profiled."""
+    next token id, must both drift past ``rel``; a model without
+    attention reads no position: its first control is the plain step
+    from init_cache's state, as if the prompt's state were never
+    inserted); the two steps are also held to each other with fp32
+    activations (the same params) within 1e-3. ``eager_profiles=False``:
+    only the replays are profiled."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch.core.quantize import kv_codebook_tree
     from repro_torch.serve.kvcache import encode_prefill_cache, pad_prefill_cache
+    from repro_torch.serve.paging import attn_nodes
 
     cfg = model.cfg
     paged = eng.paging is not None
@@ -2627,10 +2859,14 @@ def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
         with Routing() as r_want:
             want, _ = model.decode(params, *step, clone(), plain_rc)
         if fp32_plain:
-            for key, faulty in (("position_minus_1", (step[0], step[1] - 1)),
-                                ("next_token_id",
-                                 ((step[0] + 1) % cfg.vocab_size, step[1]))):
-                ctl, _ = model.decode(params, *faulty, clone(), plain_rc)
+            first = (("position_minus_1", (step[0], step[1] - 1), clone)
+                     if attn_nodes(base) else
+                     ("init_state", step, lambda: model.init_cache(
+                         SLOTS, eng.ecfg.max_len, device="cuda")))
+            for key, faulty, cache_of in (first, (
+                    "next_token_id", ((step[0] + 1) % cfg.vocab_size,
+                                      step[1]), clone)):
+                ctl, _ = model.decode(params, *faulty, cache_of(), plain_rc)
                 controls[key] = logit_drift(torch, got, ctl, cfg.vocab_size)[1]
                 del ctl
     drift, rel_drift, agree, finite = logit_drift(torch, got, want,
@@ -2822,6 +3058,7 @@ def graph_step(torch, model, eng, base, clone, name):
     engine's decode graph is held by ``spec_replays``."""
     import numpy as np
     from repro_torch import kernels
+    from repro_torch.serve.paging import attn_nodes
 
     params, vocab = eng.params, model.cfg.vocab_size
     rc_decode = eng.rc.replace(mode="decode")
@@ -2833,7 +3070,9 @@ def graph_step(torch, model, eng, base, clone, name):
     for seg, node in eng.caches.items():
         for n, t in node.items():
             t.copy_(base[seg][n])
-    start = int(base["body"]["len"][0, 0])
+    # a model without attention (xLSTM) reads no position
+    lens = [node["len"] for node in attn_nodes(base)]
+    start = int(lens[0][0, 0]) if lens else 0
     toks = rng.integers(0, vocab, (GRAPH_STEPS, SLOTS, 1)).astype(np.int32)
     pos = np.broadcast_to(start + np.arange(GRAPH_STEPS, dtype=np.int32)[
         :, None, None], toks.shape).copy()
@@ -3134,6 +3373,7 @@ def main() -> int:
     launches.update(serve_other_configs(torch, timer))
     launches.update(serve_mixtral(torch))
     launches.update(serve_deepseek(torch))
+    launches.update(serve_xlstm(torch))
     phase_of = {"flash_decode": "serve", "flash_decode_kvq": "serve_kvq",
                 "int8_gemm": "serve_kvq", "vq_gemm": "serve_split",
                 "oc_lookup": "serve_split",
@@ -3191,15 +3431,21 @@ def main() -> int:
             # verify window, M = slots x (K + 1)
             **({"verify_window": verify_window(rows[name])}
                if name == "fused_vq_matmul" else {}),
-            # B1 and B3 at mixtral-8x22b's and deepseek-v2-lite-16b's
-            # linears, B4 and B5 at deepseek's decode linears (served in
-            # its sub-phase's split run), and B1's, B4's and B5's decode
-            # step
+            # B1 and B3 at mixtral-8x22b's, deepseek-v2-lite-16b's and
+            # xlstm-125m's linears, B4 and B5 at deepseek's and xlstm's
+            # decode linears (served in their split runs), B6 at xlstm's
+            # INT8 prefill (its N = 4 gates and its head), and B1's, B4's
+            # and B5's decode step
             **({m: model_rows(rows[name], m, name, launches[f"serve_{m}"])
-                for m in (MIXTRAL, DEEPSEEK)}
+                for m in (MIXTRAL, DEEPSEEK, XLSTM)}
                if name in ("fused_vq_matmul", "dequant_gemv") else {}),
+            **({XLSTM: model_rows(rows[name], XLSTM, name, launches[
+                f"serve_{XLSTM}_int8_prefill"])}
+               if name == "int8_gemm" else {}),
             **({DEEPSEEK: model_rows(rows[name], DEEPSEEK, name, launches[
-                f"serve_{DEEPSEEK}_{MOE_SUB_LAYERS}l_split"])}
+                f"serve_{DEEPSEEK}_{MOE_SUB_LAYERS}l_split"]),
+                XLSTM: model_rows(rows[name], XLSTM, name,
+                                  launches[f"serve_{XLSTM}_split"])}
                if name in ("vq_gemm", "oc_lookup") else {}),
             "launches_by_phase": {ph: c[name] for ph, c in launches.items()
                                   if c.get(name)}})

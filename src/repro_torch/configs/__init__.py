@@ -1,10 +1,10 @@
 """Architecture registry of the port: ``get_config(arch)`` /
 ``get_smoke_config(arch)`` / ``all_configs()``. Ported: the paper's own
-model (llama2-7b), the four dense assigned architectures, deepseek-v2-lite
-(MLA, a dense first layer, 64 routed experts top-6) and mixtral (top-2
-MoE with sliding-window rings), in the reference's ``ARCH_IDS`` order.
-The other families (whisper, xlstm, recurrentgemma, vision) wait for
-ROADMAP A7."""
+model (llama2-7b), the four dense assigned architectures, xlstm-125m
+(alternating mLSTM / sLSTM blocks), deepseek-v2-lite (MLA, a dense first
+layer, 64 routed experts top-6) and mixtral (top-2 MoE with
+sliding-window rings), in the reference's ``ARCH_IDS`` order. The other
+families (whisper, recurrentgemma, vision) wait for ROADMAP A7."""
 from __future__ import annotations
 
 import importlib
@@ -17,6 +17,7 @@ ARCH_IDS: List[str] = [
     "qwen3_0_6b",
     "llama3_8b",
     "qwen2_72b",
+    "xlstm_125m",
     "deepseek_v2_lite_16b",
     "mixtral_8x22b",
     # the paper's own model

@@ -12,9 +12,9 @@ params on ``device``:
     ``scale``, ``K``, ``N``, ``d``, ``n``, ``splits``) becomes the port's
     ``VQWeight``, and a VQLogitsHead-like node (``codebook``, ``assign``,
     ``scale``) the port's ``VQLogitsHead``;
-  * the stacked layer axes the reference scans over (``"layers"`` and
-    deepseek's dense prefix ``"pre_layers"``, leading dim L on every
-    leaf) become lists of L per-layer dicts —
+  * the stacked layer axes the reference scans over (``"layers"``,
+    deepseek's dense prefix ``"pre_layers"`` and xLSTM's ``"groups"``,
+    leading dim L on every leaf) become lists of L per-layer dicts —
     attached KV-VQ codebooks included: an attention node's ``kv_cb``
     {"k", "v"} of shape (L, Hk, R, 256, vd) becomes one (Hk, R, 256, vd)
     pair per layer (an MLA node's {"lat"} (L, 1, R, 256, vd) likewise).
@@ -23,7 +23,8 @@ The leaves may also be tensors (on any device; they are moved to
 ``device``), tuples and None, as ``checkpoint.manager`` restores them.
 
 ``to_reference_layout(tree)`` is the inverse of the unstacking: every
-``"layers"`` / ``"pre_layers"`` list of per-layer dicts becomes one node
+``"layers"`` / ``"pre_layers"`` / ``"groups"`` list of per-layer dicts
+becomes one node
 whose leaves (and
 VQWeight tensors) are stacked on a leading L axis, numpy arrays with
 ``np.stack`` and tensors with ``torch.stack``. A tensor several layers
@@ -48,7 +49,7 @@ from repro_torch.core.vq import VQWeight
 
 _VQ_FIELDS = ("idx", "codebooks", "scale", "K", "N", "d", "n", "splits")
 _VQL_FIELDS = ("codebook", "assign", "scale")
-_STACKED = ("layers", "pre_layers")
+_STACKED = ("layers", "pre_layers", "groups")
 
 
 def is_vq(node: Any) -> bool:
@@ -141,8 +142,8 @@ def _stack(layers: list) -> Any:
 
 def to_reference_layout(tree: Any) -> Any:
     """The reference's layout of a port tree (see module docstring):
-    ``"layers"`` and ``"pre_layers"`` lists stacked on L; everything else
-    as it is."""
+    ``"layers"``, ``"pre_layers"`` and ``"groups"`` lists stacked on L;
+    everything else as it is."""
     if is_vq(tree) or is_vql(tree):
         return tree
     if isinstance(tree, dict):

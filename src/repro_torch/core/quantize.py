@@ -7,8 +7,9 @@ leaf (wq|wk|wv -> "wqkv", gate|up -> "gu") with recorded ``splits``.
 A MoE layer's experts (under the ``"experts"`` segment, stacked on a
 leading E axis) become one VQWeight stacked on E, gate|up grouped into
 ``gu`` expert by expert. Embeddings, lm_head, norms and the MoE router
-(its N = E is below the quantizer's 64) stay dense (large fp32 leaves
-cast to bf16 for serving).
+(its N = E is below the quantizer's 64) stay dense; an fp32 leaf that
+the reference's stacked layout makes large (its elements times its
+segment's layers) is cast to bf16 for serving.
 
 ``synthetic`` reads only each weight's SHAPE, so it accepts params whose
 block weights live on the ``meta`` device (``Model.init(...,
@@ -76,8 +77,11 @@ def _eligible(path: Tuple[str, ...], w: torch.Tensor) -> bool:
     return w.shape[-2] >= _MIN_DIM and w.shape[-1] >= _MIN_DIM
 
 
-def _to_serving_dtype(leaf: torch.Tensor) -> torch.Tensor:
-    if leaf.dtype != torch.float32 or leaf.numel() < _BF16_MIN_SIZE:
+def _to_serving_dtype(leaf: torch.Tensor, stack: int = 1) -> torch.Tensor:
+    """bf16 for an fp32 leaf of at least ``_BF16_MIN_SIZE`` elements as
+    the reference stacks it: a leaf of one of ``stack`` layers (a segment
+    list's length) counts ``stack`` times."""
+    if leaf.dtype != torch.float32 or leaf.numel() * stack < _BF16_MIN_SIZE:
         return leaf
     return leaf.to(torch.bfloat16)
 
@@ -142,9 +146,10 @@ def quantize_params(params: Any, cfg: ModelConfig, *,
             out[gkey] = grouped
         return out
 
-    def walk(node, path):
-        if isinstance(node, list):
-            return [walk(v, path + (str(i),)) for i, v in enumerate(node)]
+    def walk(node, path, stack):
+        if isinstance(node, list):   # a segment's layers: stacked by the
+            return [walk(v, path + (str(i),), len(node))   # reference
+                    for i, v in enumerate(node)]
         if isinstance(node, dict):
             if "vq" in node or "vql" in node:  # already compressed
                 return node
@@ -154,14 +159,15 @@ def quantize_params(params: Any, cfg: ModelConfig, *,
                 new["vq"] = make_vq(w, int(w.shape[-1]))
                 return new
             node = group(node, path)
-            return {kk: walk(vv, path + (kk,)) for kk, vv in node.items()}
+            return {kk: walk(vv, path + (kk,), stack)
+                    for kk, vv in node.items()}
         if node.is_meta:
             raise ValueError(
                 f"dense leaf {'/'.join(path)} has no values (meta device); "
                 "only quantized block weights may be built from shapes")
-        return _to_serving_dtype(node.to(dev))
+        return _to_serving_dtype(node.to(dev), stack)
 
-    return walk(params, ())
+    return walk(params, (), 1)
 
 
 def vq_nodes(params: Any):

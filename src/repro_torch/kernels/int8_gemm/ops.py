@@ -64,21 +64,31 @@ def _launch(xq, wq, xs, ws) -> torch.Tensor:
     return y
 
 
+def pad_to_tiles(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor,
+                 ws: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The operands zero-padded to the kernel's alignment, as the
+    reference's wrapper pads them to its tiles: K to ``K_ALIGN`` (zeros
+    add nothing to the integer sums) and N to ``N_ALIGN`` (the padded
+    columns come out 0, and the caller slices them off; sLSTM's gates
+    ``wi``/``wf`` have N = 4)."""
+    K, N = xq.shape[1], wq.shape[1]
+    pk, pn = (-K) % K_ALIGN, (-N) % N_ALIGN
+    if pk:
+        xq, wq = F.pad(xq, (0, pk)), F.pad(wq, (0, 0, 0, pk))
+    if pn:
+        wq, ws = F.pad(wq, (0, pn)), F.pad(ws, (0, pn))
+    return xq, wq, xs, ws
+
+
 def int8_gemm(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor,
               ws: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
     """y = float(xq @ wq) * xs * ws: int8 xq (M, K) and wq (K, N), fp32
-    xs (M, 1) and ws (1, N) -> fp32 (M, N). K and N are zero-padded to
-    the kernel's alignment when needed (zeros add nothing to the integer
-    sums). ``use_kernel=False`` runs the plain version on any device."""
+    xs (M, 1) and ws (1, N) -> fp32 (M, N). The kernel takes the
+    operands ``pad_to_tiles`` pads and its result is sliced back to N.
+    ``use_kernel=False`` runs the plain version on any device."""
     if use_kernel and xq.is_cuda:
-        K, N = xq.shape[1], wq.shape[1]
-        pk, pn = (-K) % K_ALIGN, (-N) % N_ALIGN
-        if pk:
-            xq, wq = F.pad(xq, (0, pk)), F.pad(wq, (0, 0, 0, pk))
-        if pn:
-            wq, ws = F.pad(wq, (0, pn)), F.pad(ws, (0, pn))
-        return _launch(xq.contiguous(), wq.contiguous(), xs.contiguous(),
-                       ws.contiguous())[:, :N]
+        return _launch(*(t.contiguous() for t in pad_to_tiles(
+            xq, wq, xs, ws)))[:, :wq.shape[1]]
     if use_kernel and xq.device.type != "cpu":
         raise ValueError(f"{_NAME}: no kernel for device {xq.device}")
     return int8_gemm_ref(xq, wq, xs, ws)

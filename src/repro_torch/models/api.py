@@ -1,5 +1,6 @@
-"""Model facade of the port (``repro/models/api.py``), the dense and MoE
-families (MLA and dense prefix layers included):
+"""Model facade of the port (``repro/models/api.py``): the dense and MoE
+families (``models/transformer.py``; MLA and dense prefix layers
+included) and xLSTM (``models/xlstm.py``), dispatched on ``cfg.family``:
 
     model = build_model(cfg)
     params = model.init(generator, device="cuda")
@@ -22,13 +23,19 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.core.logits_vq import VQLogitsHead
 from repro_torch.core.quantize import quantize_params
 from repro_torch.core.vq import KVQuantConfig, VQWeight
-from repro_torch.models import transformer
+from repro_torch.models import transformer, xlstm
 from repro_torch.models.common import ModelConfig, RunConfig
+
+_FAMILY = {"dense": transformer, "moe": transformer, "xlstm": xlstm}
 
 
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
+
+    @property
+    def module(self):
+        return _FAMILY[self.cfg.family]
 
     def init(self, generator: torch.Generator, *, device: DeviceLike = None,
              block_device: DeviceLike = None) -> Any:
@@ -38,7 +45,7 @@ class Model:
         materializing the dense block weights."""
         dev = resolve_device(device)
         block = dev if block_device is None else torch.device(block_device)
-        return transformer.init_params(generator, self.cfg, device=dev,
+        return self.module.init_params(generator, self.cfg, device=dev,
                                        block_device=block)
 
     def quantize(self, params: Any, *, method: str = "synthetic",
@@ -49,7 +56,7 @@ class Model:
 
     def forward(self, params: Any, batch: Dict[str, Any], rc: RunConfig,
                 caches=None) -> Tuple[torch.Tensor, Any]:
-        return transformer.forward(params, batch["tokens"], rc, self.cfg,
+        return self.module.forward(params, batch["tokens"], rc, self.cfg,
                                    positions=batch.get("positions"),
                                    caches=caches)
 
@@ -68,16 +75,19 @@ class Model:
         """Decode caches: fp, or with ``kv_int8`` / ``kvq`` (a
         ``core.vq.KVQuantConfig``) the int8 or KV-VQ layout; contiguous,
         or with ``paging`` (a ``serve.paging.PagingConfig``) block arenas
-        and a block table (``serve.paging.init_paged_cache``)."""
+        and a block table (``serve.paging.init_paged_cache``). An xLSTM
+        model's recurrent state ignores ``kv_int8`` and ``kvq``, as the
+        reference's (it is not a KV cache)."""
         if paging is not None:
             from repro_torch.serve import paging as paging_mod
 
             return paging_mod.init_paged_cache(
                 self, batch, max_len, paging, device=resolve_device(device),
                 kv_int8=kv_int8, kvq=kvq)
-        return transformer.init_cache(self.cfg, batch, max_len,
-                                      dtype or self.cfg.act_dtype,
-                                      resolve_device(device),
+        dtype, dev = dtype or self.cfg.act_dtype, resolve_device(device)
+        if self.cfg.family == "xlstm":
+            return xlstm.init_cache(self.cfg, batch, max_len, dtype, dev)
+        return transformer.init_cache(self.cfg, batch, max_len, dtype, dev,
                                       kv_int8=kv_int8, kvq=kvq)
 
     def prefill(self, params, batch: Dict[str, Any], rc: RunConfig):
@@ -118,13 +128,13 @@ def param_count(params: Any) -> int:
 def build_model(cfg: ModelConfig) -> Model:
     """The model of ``cfg``: the dense or MoE family, with full,
     sliding-window or multi-head latent attention (MLA) and optional
-    dense prefix layers (``first_dense_layers``).
+    dense prefix layers (``first_dense_layers``), or xLSTM.
 
     Raises:
-      NotImplementedError: another family, or a local window (ROADMAP
-        A7)."""
-    if cfg.family not in ("dense", "moe") or cfg.local_window:
+      NotImplementedError: another family (rglru, whisper, vision), or a
+        local window (ROADMAP A7)."""
+    if cfg.family not in _FAMILY or cfg.local_window:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and MoE families without local "
-            "windows are ported (the other families: ROADMAP A7)")
+            f"{cfg.name}: only the dense, MoE and xLSTM families without "
+            "local windows are ported (the other families: ROADMAP A7)")
     return Model(cfg)

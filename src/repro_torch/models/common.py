@@ -11,8 +11,8 @@ contiguous or paged (block arenas and a block table,
 lives at slot ``p % S``) — the chunked-prefill continuation over a paged
 slot view, multi-head latent attention (MLA, deepseek-v2: a latent
 cache of ``kv_lora_rank`` + a shared rope key per token, fp or KV-VQ,
-contiguous or paged), the SwiGLU MLP, the top-k MoE layer with
-capacity routing, embedding and LM head.
+contiguous or paged), the SwiGLU and GELU MLPs, the top-k MoE layer
+with capacity routing, embedding and LM head.
 
 Params are plain dicts of tensors (VQWeight nodes after quantization);
 every initializer draws from an explicit ``torch.Generator``. A MoE
@@ -116,15 +116,18 @@ class ModelConfig:
 class RunConfig:
     """Static execution-mode knobs: the run ``mode`` (train | prefill |
     decode), the matmul ``plan_policy``, the prefill attention chunk,
-    ``mla_absorb`` (MLA decode attends in the latent space, ``wkv_b``
-    folded into the query and output sides, instead of expanding the
-    whole latent cache through ``wkv_b``) and ``kv_vq``, the KV-VQ config
-    whose scale variant decode appends encode with (the cache layout
-    itself is read off the cache's leaves)."""
+    ``lm_head_last_only`` (an xLSTM prefill projects only the last token
+    onto the vocabulary), ``mla_absorb`` (MLA decode attends in the
+    latent space, ``wkv_b`` folded into the query and output sides,
+    instead of expanding the whole latent cache through ``wkv_b``) and
+    ``kv_vq``, the KV-VQ config whose scale variant decode appends
+    encode with (the cache layout itself is read off the cache's
+    leaves)."""
 
     mode: str = "train"
     plan_policy: PlanPolicy = PlanPolicy()
     attn_chunk: int = 1024
+    lm_head_last_only: bool = False
     mla_absorb: bool = False
     kv_vq: Optional[KVQuantConfig] = None
 
@@ -151,8 +154,15 @@ def _dense_init(gen: torch.Generator, K: int, N: int, device) -> torch.Tensor:
     return torch.randn((K, N), generator=gen, device=device) / math.sqrt(K)
 
 
-def make_linear(gen, K: int, N: int, *, device) -> Params:
-    return {"w": _dense_init(gen, K, N, device)}
+def make_linear(gen, K: int, N: int, *, device, bias: bool = False,
+                bias_device=None) -> Params:
+    """A (K, N) linear on ``device``; ``bias`` adds zeros (N,) on
+    ``bias_device`` (default ``device``): real zeros even over meta
+    weights, since quantization keeps them."""
+    p = {"w": _dense_init(gen, K, N, device)}
+    if bias:
+        p["b"] = torch.zeros((N,), device=bias_device or device)
+    return p
 
 
 def make_rmsnorm(d: int, device) -> Params:
@@ -192,6 +202,17 @@ def make_mlp(gen, d_model: int, d_ff: int, *, block_device) -> Params:
     return {"gate": make_linear(gen, d_model, d_ff, device=block_device),
             "up": make_linear(gen, d_model, d_ff, device=block_device),
             "down": make_linear(gen, d_ff, d_model, device=block_device)}
+
+
+def make_gelu_mlp(gen, d_model: int, d_ff: int, *, device,
+                  block_device) -> Params:
+    """A biased GELU MLP (xLSTM's sLSTM FFN): ``up`` (d_model, d_ff) and
+    ``down`` (d_ff, d_model) on ``block_device``, their biases on
+    ``device``."""
+    return {"up": make_linear(gen, d_model, d_ff, device=block_device,
+                              bias=True, bias_device=device),
+            "down": make_linear(gen, d_ff, d_model, device=block_device,
+                                bias=True, bias_device=device)}
 
 
 def make_moe(gen, cfg: ModelConfig, *, device, block_device) -> Params:
@@ -257,7 +278,16 @@ def grouped_linear(p: Params, x: torch.Tensor, rc: RunConfig
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return (y * p["g"].float()).to(x.dtype)
+    g = p["g"]
+    if g.dtype == torch.float32:
+        # an fp32 product then a cast: two vectorized kernels, faster on
+        # the card than the one below, which casts element by element
+        return (y * g).to(x.dtype)
+    # a bf16 gain (a stacked leaf's serving dtype): one kernel takes the
+    # fp32 product and rounds it to x's dtype as it stores, bit for bit
+    # the upcast gain's product (faster than an upcast kernel or a
+    # mixed-dtype product followed by a cast)
+    return torch.mul(y, g, out=torch.empty_like(x))
 
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -811,6 +841,13 @@ def mlp_fwd(p: Params, x: torch.Tensor, rc: RunConfig) -> torch.Tensor:
     else:
         g, u = linear(p["gate"], x, rc), linear(p["up"], x, rc)
     return linear(p["down"], F.silu(g) * u, rc)
+
+
+def gelu_mlp_fwd(p: Params, x: torch.Tensor, rc: RunConfig) -> torch.Tensor:
+    """down(gelu(up(x))) with ``jax.nn.gelu``'s default, the tanh
+    approximation."""
+    return linear(p["down"], F.gelu(linear(p["up"], x, rc),
+                                    approximate="tanh"), rc)
 
 
 def moe_capacity(cfg: ModelConfig, T: int) -> int:

@@ -28,7 +28,13 @@ in the reference. An MLA model (deepseek-v2, a MoE) caches a latent a
 token (fp or KV-VQ; it has no int8 layout, so kv_bits=8 raises, as in
 the reference) and its dense prefix layers' caches form a ``"pre"``
 subtree beside ``"body"``, which slot insertion, paging, snapshots and
-the graphs walk like it.
+the graphs walk like it. An xLSTM model's cache is recurrent state of a
+fixed size a slot, with no ``len`` leaf and no attention: its prefill
+integrates pad tokens, so it runs at the exact prompt length too; slot
+insertion overwrites a slot's state at admission (a preempted request's
+state is rebuilt by its re-prefill); a paged engine keeps the state
+contiguous (pass-through) and pages nothing; ``kv_bits`` must be 16, as
+in the reference.
 
 ``EngineConfig.kv_bits`` selects the KV cache layout: 16 = fp, 8 = int8
 values + bf16 scales (attended through plain torch), 4/2 = KV-VQ uint8
@@ -194,6 +200,10 @@ class Engine:
         if ecfg.kv_bits not in (16, 8, 4, 2):
             raise ValueError(
                 f"kv_bits={ecfg.kv_bits} unsupported; expected 16/8/4/2")
+        if ecfg.kv_bits != 16 and model.cfg.family not in ("dense", "moe"):
+            raise ValueError(
+                f"kv_bits={ecfg.kv_bits} requires an attention-cache "
+                f"family (dense/moe), got {model.cfg.family!r}")
         if ecfg.kv_bits == 8 and model.cfg.use_mla:
             raise ValueError(
                 "kv_bits=8 has no MLA latent layout; use 16 or the KV-VQ "
@@ -250,10 +260,7 @@ class Engine:
                     model, B, ecfg.max_len, window=self.window,
                     block_size=ecfg.block_size, num_blocks=ecfg.num_blocks,
                     **self._cache_kw)
-            self.caches = model.init_cache(B, ecfg.max_len,
-                                           device=self.device,
-                                           paging=self.paging,
-                                           **self._cache_kw)
+            self.caches = self._init_cache()
             self.pool: Optional[paging.BlockPool] = paging.BlockPool(
                 self.paging.num_blocks)
             # the host's tables and owned ids; the device's table lags
@@ -265,9 +272,7 @@ class Engine:
             self._update_kv_gauges()
         else:
             self.paging, self.pool, self.tables = None, None, None
-            self.caches = model.init_cache(B, ecfg.max_len,
-                                           device=self.device,
-                                           **self._cache_kw)
+            self.caches = self._init_cache()
             # the contiguous cache is allocated once, worst case
             m = self.metrics_counters
             m.kv_bytes_in_use = m.peak_kv_bytes_in_use = cache_bytes(
@@ -336,12 +341,22 @@ class Engine:
             knobs["poison"] = ((B,), torch.float32)
         self._knobs = HostInputs(knobs, self.device)
         self.decode_graph = self._make_decode_graph()
-        # the build's warm-up wrote rows and len into every slot: back to
-        # init_cache's zeros (paged: the sentinel in every table)
-        for t in tensor_leaves(self.caches):
-            t.zero_()
-        if self.paging is not None:
-            paging.set_block_tables(self.caches, self.tables)
+        # the build's warm-up wrote into every slot: back to what
+        # init_cache makes (sLSTM's n = 1e-6; paged: the sentinel in
+        # every table), from a fresh cache made on the host so that the
+        # device never holds two
+        for t, v in zip(tensor_leaves(self.caches),
+                        tensor_leaves(self._init_cache("cpu"))):
+            t.copy_(v)
+
+    def _init_cache(self, device: DeviceLike = None) -> Any:
+        """A fresh cache of the engine's layout (paged when the engine
+        pages), as ``init_cache`` makes it, on ``device`` (default the
+        engine's)."""
+        kw = {"paging": self.paging} if self.paging is not None else {}
+        return self.model.init_cache(self.ecfg.num_slots, self.ecfg.max_len,
+                                     device=device or self.device, **kw,
+                                     **self._cache_kw)
 
     def _preplan(self) -> Dict[str, List[Tuple[Tuple[Any, ...], Any]]]:
         """Plan every linear at the shapes it runs at — decode at M =

@@ -30,8 +30,13 @@ max_len`` positions up front whatever the requests use. Here:
 Attention nodes ({"k", "v", "len"} and the int8 / KV-VQ scale leaves
 ``k_s``/``v_s``) and MLA latent nodes ({"latent", "k_rope", "len"}, under
 KV-VQ also ``latent_s``) are pageable: the dense and MoE families' only
-nodes (a ``"pre"`` subtree pages like ``"body"``). Pass-through state
-waits for ROADMAP A7.
+nodes (a ``"pre"`` subtree pages like ``"body"``). Every other leaf is
+pass-through state of a fixed size a slot (xLSTM's recurrent state, (G,
+B, ...), batch on axis 1): it keeps its contiguous shape, zeroed, as the
+reference's; a paged prefill and ``merge_slot`` write the slot's row of
+it, and it takes no block (``bytes_per_block`` counts arenas only). A
+chunked-prefill view of pass-through state is not ported: no ported
+family with such state chunks its prefill.
 ``paged_state`` is the host half of an engine snapshot.
 
 ``page_len`` is a slot's logical capacity: ``max_len``, or for a
@@ -79,8 +84,8 @@ def _time_axes(node: dict) -> Optional[Dict[str, int]]:
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"paged {what} is not ported yet (ROADMAP A7): only attention and "
-        "MLA latent caches are pageable")
+        f"{what} is not ported yet (ROADMAP A7): no ported family with "
+        "pass-through state chunks its prefill")
 
 
 def effective_block_size(block_size: int, page_len: int) -> int:
@@ -187,15 +192,14 @@ def paged_state(tables: np.ndarray, pool: BlockPool,
             "owned": tuple(tuple(int(b) for b in o) for o in owned)}
 
 
-def _walk_attn(node: Any, fn) -> Any:
-    """Apply ``fn`` to every pageable (attention or MLA) node of a cache
-    tree; any other leaf is pass-through state, which no port family has
-    yet."""
+def _walk(node: Any, page, keep) -> Any:
+    """A cache tree with ``page`` applied to every pageable (attention or
+    MLA) node and ``keep`` to every pass-through leaf."""
     if isinstance(node, dict):
         if _time_axes(node) is not None:
-            return fn(node)
-        return {k: _walk_attn(v, fn) for k, v in node.items()}
-    raise _unported("pass-through state")
+            return page(node)
+        return {k: _walk(v, page, keep) for k, v in node.items()}
+    return keep(node)
 
 
 def make_paging_config(model, num_slots: int, max_len: int, *,
@@ -207,7 +211,7 @@ def make_paging_config(model, num_slots: int, max_len: int, *,
     ``num_blocks`` defaults to ``num_slots * blocks_per_slot``, the
     contiguous cache's capacity, now shared. ``kv_int8`` / ``kvq`` select
     the compressed layouts; ``bytes_per_block`` sums every arena leaf of
-    that layout."""
+    that layout (0 for a model with pass-through state only)."""
     page_len = min(max_len, window) if window else max_len
     bs = effective_block_size(block_size, page_len)
     W = page_len // bs
@@ -230,7 +234,7 @@ def make_paging_config(model, num_slots: int, max_len: int, *,
                 per_block += (leaf.numel() // (B * S)) * bs * leaf.element_size()
         return node
 
-    _walk_attn(specs, count)
+    _walk(specs, count, lambda leaf: leaf)
     return PagingConfig(block_size=bs, num_blocks=num_blocks,
                         page_len=page_len, blocks_per_slot=W,
                         bytes_per_block=per_block, sentinel=num_blocks)
@@ -253,7 +257,9 @@ def init_paged_cache(model, num_slots: int, max_len: int,
     """The paged decode cache, zeroed: each attention (or MLA latent)
     leaf becomes an arena ``(L, NB + 1, bs, ...)`` (the last block the
     sink), ``len`` stays ``(L, B)``, and a sentinel-filled
-    ``block_table`` ``(L, B, W)`` int32 joins the node."""
+    ``block_table`` ``(L, B, W)`` int32 joins the node; a pass-through
+    leaf keeps its shape (zeros, as the reference's: a prefill writes a
+    slot's row before anything reads it)."""
     specs = model.init_cache(num_slots, max_len, device="meta",
                              **_cache_kw(kv_int8, kvq))
 
@@ -281,7 +287,8 @@ def init_paged_cache(model, num_slots: int, max_len: int,
                                         device=device)
         return out
 
-    return _walk_attn(specs, page)
+    return _walk(specs, page, lambda leaf: torch.zeros(
+        leaf.shape, dtype=leaf.dtype, device=device))
 
 
 def is_paged(caches: Any) -> bool:
@@ -299,10 +306,11 @@ def attn_nodes(caches: Any) -> List[dict]:
     return []
 
 
-def _node_pairs(old: Any, new: Any) -> List[Tuple[dict, dict]]:
-    """The pageable nodes of ``old`` each beside the node at the same
-    path of ``new`` (matched by key, whatever the trees' key order)."""
-    if _time_axes(old) is not None:
+def _node_pairs(old: Any, new: Any) -> List[Tuple[Any, Any]]:
+    """The pageable nodes and pass-through leaves of ``old``, each beside
+    the node or leaf at the same path of ``new`` (matched by key,
+    whatever the trees' key order)."""
+    if not isinstance(old, dict) or _time_axes(old) is not None:
         return [(old, new)]
     return [pair for k, v in old.items() for pair in _node_pairs(v, new[k])]
 
@@ -327,8 +335,8 @@ def slot_view(caches: Any, bt_row: torch.Tensor, hist: torch.Tensor,
     add to every lane's ``len``, so the device leaf is not trusted
     mid-prefill), and a ``prefill_len`` leaf carries the chunk's true
     length ``chunk_true`` (1,) into ``attention_fwd``. (The reference
-    also takes the slot, for pass-through leaves, which the port's
-    caches do not have.)"""
+    also takes the slot, for pass-through leaves; their view is not
+    ported.)"""
 
     def page(node):
         L = node["len"].shape[0]
@@ -342,16 +350,23 @@ def slot_view(caches: Any, bt_row: torch.Tensor, hist: torch.Tensor,
             L, 1).contiguous()
         return out
 
-    return _walk_attn(caches, page)
+    def keep(leaf):
+        raise _unported("a chunked-prefill view of pass-through state")
+
+    return _walk(caches, page, keep)
 
 
 def merge_slot(caches: Any, new_caches: Any, slot: torch.Tensor) -> None:
     """Fold a chunk step's view back into the full cache, in place: the
     arenas were written through shared storage, the full table is kept,
     ``prefill_len`` dropped, and the view's ``len`` goes into column
-    ``slot`` (a (1,) int64 tensor) of every layer."""
+    ``slot`` (a (1,) int64 tensor) of every layer, as does the view's row
+    of each pass-through leaf."""
     for old, new in _node_pairs(caches, new_caches):
-        old["len"].index_copy_(1, slot, new["len"].to(old["len"].dtype))
+        if isinstance(old, torch.Tensor):
+            old.index_copy_(1, slot, new.to(old.dtype))
+        else:
+            old["len"].index_copy_(1, slot, new["len"].to(old["len"].dtype))
 
 
 def write_prefill_into_blocks(caches: Any, fresh: Any, slot: torch.Tensor,
@@ -364,8 +379,9 @@ def write_prefill_into_blocks(caches: Any, fresh: Any, slot: torch.Tensor,
     (a (1,) int64 tensor) becomes ``true_len`` ((1,) int32). With
     ``window > 0`` each leaf is first ring-converted
     (``_to_ring_dynamic``: any P; its first ``min(true_len, page_len)``
-    ring slots are written). Every index is a tensor: no host sync, so a
-    CUDA graph can hold it."""
+    ring slots are written). A pass-through leaf's row goes into column
+    ``slot``. Every index is a tensor: no host sync, so a CUDA graph can
+    hold it."""
     bs, W = meta.block_size, meta.blocks_per_slot
     bt_row = bt_row.to(torch.int32)
 
@@ -390,7 +406,10 @@ def write_prefill_into_blocks(caches: Any, fresh: Any, slot: torch.Tensor,
                                .reshape(1, 1).expand(L, 1))
 
     for old, new in _node_pairs(caches, fresh):
-        commit(old, new)
+        if isinstance(old, torch.Tensor):
+            old.index_copy_(1, slot, new.to(old.dtype))
+        else:
+            commit(old, new)
 
 
 def gather_block_view(arena: torch.Tensor, block_table: torch.Tensor

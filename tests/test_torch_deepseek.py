@@ -81,7 +81,7 @@ def test_config_and_registry_equal_reference():
     assert tconfigs.get_config("deepseek-v2-lite-16b") == \
         tconfigs.get_config(ARCH)
     ids = tconfigs.ARCH_IDS
-    assert ids.index("qwen2_72b") + 1 == ids.index(ARCH) == \
+    assert ids.index("xlstm_125m") + 1 == ids.index(ARCH) == \
         ids.index("mixtral_8x22b") - 1
     model = build_model(tconfigs.get_config(ARCH))
     assert model.cfg.use_mla and model.cfg.first_dense_layers == 1

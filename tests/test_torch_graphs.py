@@ -26,6 +26,12 @@ step over the block arenas and tables, the paged prefill buckets (which
 commit into the slot's blocks) and the chunk continuations, whose slot,
 table row, committed length and true length are static inputs too.
 
+xLSTM's decode step is held the same way (contiguous and paged: its
+recurrent state, updated in place, is pass-through in a paged tree), and
+its exact-length eager prefills read nothing back to the host; the
+construction puts back the state init_cache made (sLSTM's ``n`` =
+1e-6), not zeros.
+
 On the card (marked ``cuda``, skipped here) a replayed decode step and a
 replayed prefill bucket equal the eager ones bitwise, and the launch
 counts of the replays are the capture's counts times the replays.
@@ -311,7 +317,7 @@ def test_paged_steps_get_the_same_static_inputs(paged_served):
 def test_paged_construction_leaves_the_cache_as_init_cache_made_it(
         paged_served):
     """Arenas zero (the decode build's warm-up wrote only the sink, then
-    everything was zeroed) and every table entry the sentinel."""
+    everything was put back) and every table entry the sentinel."""
     eng, model = paged_served["eng"], paged_served["model"]
     kw = ({"kv_int8": True} if paged_served["kv_bits"] == 8 else
           {"kvq": eng.kvq} if eng.kvq is not None else {})
@@ -349,7 +355,7 @@ def test_dropped_engine_is_freed_without_a_collection(model_params, kv_bits):
 def test_step_graph_on_cpu_restores_state_and_counts_nothing():
     """On the CPU a StepGraph runs its function directly over the static
     buffers. The warm-up runs it once, and its in-place writes stay for
-    the caller to restore, as the engine zeroes its caches; no kernel
+    the caller to restore, as the engine puts its caches back; no kernel
     count moves."""
     state = torch.arange(4.0)
     seen = []
@@ -385,6 +391,91 @@ def test_launch_counts_set_and_read_back():
             n: k + (10 if n in some else 0) for n, k in counts.items()}
     finally:
         kernels.reset_launch_counts()
+
+
+# ---------------------------------------------------------------- xlstm
+
+
+def _recording_eager(calls):
+    class Recording(graphs.EagerStep):
+        """The engine's EagerStep (an exact-length prefill), its function
+        run under ``_StepOps``."""
+
+        def __init__(self, fn, inputs, device):
+            log = []
+            calls.append((tuple(inputs), log))
+
+            def step(**static):
+                mode = _StepOps(static.values())
+                with mode:
+                    out = fn(**static)
+                log.append({"inputs": dict(static), "ops": mode.ops,
+                            "foreign": mode.foreign})
+                return out
+
+            super().__init__(step, inputs, device)
+
+    return Recording
+
+
+@pytest.fixture(scope="module", params=[False, True],
+                ids=["contiguous", "paged"])
+def xlstm_served(request):
+    """xlstm SMOKE with 2-bit VQ weights: an engine built and driven with
+    its decode StepGraph and its exact-length eager prefills recorded."""
+    cfg = get_smoke_config("xlstm_125m")
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = model.quantize(model.init(gen, device="cpu"), generator=gen,
+                            device="cpu")
+    calls, eager = [], []
+    kw = {"paged": True, "block_size": 4} if request.param else {}
+    with mock.patch.object(engine_mod, "StepGraph", _recording(calls)), \
+            mock.patch.object(engine_mod, "EagerStep",
+                              _recording_eager(eager)):
+        eng = Engine(model, params, RunConfig(attn_chunk=16),
+                     EngineConfig(num_slots=2, max_len=32, **kw),
+                     device="cpu")
+        fresh = [t.clone() for t in _leaves(eng.caches)]
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in PROMPT_LENS]
+        out = eng.generate(prompts, MAX_NEW)
+    return {"eng": eng, "calls": calls, "eager": eager, "fresh": fresh,
+            "out": out, "model": model}
+
+
+def test_xlstm_decode_step_reads_nothing_from_the_host(xlstm_served):
+    """The recurrent decode step (its state updated in place) under the
+    same guard: no host op, and nothing read but params, state leaves and
+    its static inputs; the eager exact-length prefills read nothing back
+    to the host either."""
+    eng = xlstm_served["eng"]
+    assert [names for names, _ in xlstm_served["calls"]] == [
+        ("tokens", "positions")]
+    assert len(xlstm_served["calls"][0][1]) == \
+        1 + eng.metrics()["decode_steps"]
+    assert len(xlstm_served["eager"]) == len(set(PROMPT_LENS))
+    test_steps_read_nothing_from_the_host(xlstm_served)
+    for names, log in xlstm_served["eager"]:
+        for call in log:
+            assert not {op for op in call["ops"] if op in HOST_OPS}, names
+    assert all(len(o) == MAX_NEW for o in xlstm_served["out"].values())
+
+
+def test_xlstm_construction_leaves_the_state_as_init_cache_made_it(
+        xlstm_served):
+    """The decode build's warm-up stepped every slot's state; the engine
+    put back init_cache's values (sLSTM's ``n`` = 1e-6 contiguous, zeros
+    as a paged tree holds pass-through state), not zeros everywhere."""
+    eng, model = xlstm_served["eng"], xlstm_served["model"]
+    want = list(_leaves(model.init_cache(2, 32, device="cpu",
+                                         paging=eng.paging)))
+    got = xlstm_served["fresh"]
+    assert len(got) == len(want) == 7
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert any(bool(t.any()) for t in got) == (eng.paging is None)
 
 
 # ---------------------------------------------------------------- card

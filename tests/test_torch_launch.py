@@ -53,6 +53,22 @@ def test_cli_prints_the_reference_counters(arch, flags, capsys):
     assert got == want
 
 
+def test_cli_serves_xlstm(capsys):
+    """xlstm-125m (SMOKE, bf16) through the port's CLI: the reference's
+    two lines, every request admitted and finished at its length. The
+    reference's own CLI cannot serve it on the CPU (XLA's CPU dot takes
+    no bf16 x bf16 -> fp32, which its sLSTM gates ask for), so the
+    counters are checked against the trace, not against it."""
+    served, engine = _lines(capsys, lambda: tserve.main(
+        ["--arch", "xlstm-125m", "--requests", "5", "--slots", "2",
+         "--max-new", "6", "--device", "cpu"]))
+    assert served == ("5", "30")
+    admitted, rejected, finished, stop, length, steps, occ = engine
+    assert (admitted, rejected, finished, stop, length) == \
+        ("5", "0", "5", "0", "5")
+    assert int(steps) >= 3 * 5 and 0 < float(occ) <= 1
+
+
 def test_serve_returns_the_engine_and_every_request():
     out = tserve.serve("qwen3-0.6b", requests=3, max_new=4, num_slots=2,
                        device="cpu")
@@ -69,4 +85,4 @@ def test_serve_runs_on_the_card_by_default():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tserve.serve("llama3-8b")
     with pytest.raises(NotImplementedError, match="A7"):
-        tserve.serve("xlstm-125m", device="cpu")
+        tserve.serve("recurrentgemma-2b", device="cpu")

@@ -157,7 +157,7 @@ def test_mask_pad_vocab_and_unported_families():
     out = m._mask_pad_vocab(torch.zeros(2, cfg.padded_vocab))
     assert out.shape == (2, 512) and out[0, 500].item() == np.float32(-1e30)
     with pytest.raises(NotImplementedError, match="A7"):
-        build_model(ModelConfig(name="x", family="xlstm", num_layers=1,
+        build_model(ModelConfig(name="x", family="rglru", num_layers=1,
                                 d_model=8, num_heads=1, num_kv_heads=1,
                                 d_ff=8, vocab_size=8))
     if not torch.cuda.is_available():  # no GPU: the default device raises
@@ -329,3 +329,31 @@ def test_decode_window_past_capacity_drops_as_reference(models, kv_bits):
     _assert_cache_as_reference(tc["body"], jc["body"])
     assert tc["body"]["len"].tolist() == [[S_PROMPT + S] * B] * 2
     _close(got.numpy(), want, rel=1 / 127 if kv_bits == 8 else 1e-4)
+
+
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("g_dtype", ["bfloat16", "float32"])
+def test_rmsnorm_forms_agree_and_match_reference(g_dtype, x_dtype):
+    """rmsnorm's two forms (an fp32 gain: the product then a cast; a bf16
+    gain, the serving dtype of a stacked gain: the product rounded as it
+    is stored) give bit for bit the same values for the same gain, and
+    the reference's: bitwise at bf16 activations, within 1e-6 relative
+    at fp32 (XLA's and torch's mean and rsqrt differ in the last ulp)."""
+    from repro.models import common as jcm
+    from repro_torch.models import common as tcm
+
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((3, 5, 64)).astype(np.float32)
+    g = (1.0 + 0.1 * rng.standard_normal(64)).astype(np.float32)
+    tg = torch.from_numpy(g).to(getattr(torch, g_dtype))
+    tx = torch.from_numpy(x).to(getattr(torch, x_dtype))
+    got = tcm.rmsnorm({"g": tg}, tx)
+    assert got.dtype == tx.dtype
+    assert torch.equal(got, tcm.rmsnorm({"g": tg.float()}, tx))
+    want = np.asarray(jcm.rmsnorm({"g": jnp.asarray(g).astype(g_dtype)},
+                                  jnp.asarray(x).astype(x_dtype))
+                      .astype(jnp.float32))
+    if x_dtype == "bfloat16":
+        np.testing.assert_array_equal(got.float().numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)

@@ -231,8 +231,21 @@ def test_kernel_matches_plain_at_deepseek_linears(cuda, K, N, M):
     _check_lookup(*_card_case(K, N, M))
 
 
+# xlstm-125m's decode linears under the split-pinned planner (K, N, M):
+# up_h / up_g, the grouped wq|wk|wv, down, wz / wo / out (N = 768, ragged
+# at the 1024-column tile), the FFN's up and down, at M = 4
+XLSTM = [(768, 1536, 4), (1536, 4608, 4), (1536, 768, 4), (768, 768, 4),
+         (768, 1024, 4), (1024, 768, 4)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("K,N,M", [(4096, 12288, 4)] + DEEPSEEK)
+@pytest.mark.parametrize("K,N,M", XLSTM)
+def test_kernel_matches_plain_at_xlstm_linears(cuda, K, N, M):
+    _check_lookup(*_card_case(K, N, M))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,M", [(4096, 12288, 4)] + DEEPSEEK + XLSTM)
 def test_eva_split_matches_plain_and_fused(cuda, K, N, M):
     x, vq = _card_case(K, N, M)
     got = eva_split_matmul(x, vq, out_dtype=torch.float32)

@@ -163,6 +163,19 @@ def test_kernel_matches_plain_at_deepseek_linears(cuda, K, M, dtype):
     _check(x.to(dtype), cb)
 
 
+# xlstm-125m's decode linears under the split-pinned planner: K of
+# 768 / 1536 / 1024 (V = 96 / 192 / 128) at M = 4
+XLSTM = [(768, 4), (1536, 4), (1024, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,M", XLSTM)
+def test_kernel_matches_plain_at_xlstm_linears(cuda, K, M, dtype):
+    x, cb = _card_case(K, M)
+    _check(x.to(dtype), cb)
+
+
 @pytest.mark.cuda
 def test_kernel_bf16_x_is_one_kernel(cuda):
     from torch.profiler import ProfilerActivity, profile
