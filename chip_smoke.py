@@ -96,7 +96,10 @@ Phases (any failure exits non-zero):
      (`serve`'s traffic with a synthetic VQ-Logits head of 2048
      codewords, against the same model with the head's expansion:
      greedy token agreement, prefill logits within VQL_REL, the head's
-     device time beside the dense bf16 head's); then `serve_resilience`
+     device time beside the dense bf16 head's; the dense head's fp32
+     accumulator timed with CUDA events beside its product rounded to
+     bf16 before the cast, the form it took before); then
+     `serve_resilience`
      (`serve`'s weights and traffic through the resilience layer, every
      count set to 0 at its start): serve_with_restarts with a prefill, a
      decode and a sample fault (3 restarts, all scripted, each fresh
@@ -190,10 +193,32 @@ Phases (any failure exits non-zero):
      --full`); the check phase holds B1, B4, B5 and the pair at its
      decode linears, B3 at its prefill linears of a 200-token prompt and
      B6 at its gates and head;
-  11. a {"kernels": [...]} summary line (fused_vq_matmul's row also
+  11. `serve_recurrentgemma_2b`: recurrentgemma-2b (RG-LRU recurrent
+     layers and local-attention rings in one cache tree) at full width
+     and all 26 layers, `serve`'s traffic: weight bytes against bf16
+     dense, peak memory, the state's and the rings' bytes, decode ms a
+     step, tok/s, prefill s (eager, exact length), launches (B1 158 a
+     replayed step, B3 158 a prompt; the attention kernels 0: rings
+     attend in plain torch), the caches after the decode graph's build as
+     init_cache made them, the plain decode step at bf16 within
+     RGLRU_PLAIN_REL (two faulty controls above it) and at fp32 within
+     1e-3, graph_step over the mixed tree, a replay profile with the
+     "other" kernels that take the most; then on the same weights the
+     paged engine (rings through the block table, the state
+     pass-through) with the contiguous run's tokens exactly, the
+     split-pinned planner with its step held to the fused one, INT8
+     prefill (B6 at the head), rings of 2048 that wrap in a 2100-token
+     prefill and in a 2030-token prompt's decode (paged == contiguous), a
+     snapshot restored, kv_bits = 4 and speculate_k = 3 refused with the
+     reference's messages, and the CLI (`--arch recurrentgemma-2b
+     --full`); the check phase holds B1, B4, B5 and the pair at its
+     decode linears, B3 at its prefill linears of a 200-token prompt and
+     B6 at its head;
+  12. a {"kernels": [...]} summary line (fused_vq_matmul's row also
      sums its verify-window rows, `verify_window`; B1's and B3's carry
-     their mixtral, deepseek and xlstm rows, B4's and B5's their deepseek
-     and xlstm rows, B6's its xlstm rows, each with its decode step's sum where it
+     their mixtral, deepseek, xlstm and recurrentgemma rows, B4's and
+     B5's their deepseek, xlstm and recurrentgemma rows, B6's its xlstm
+     and recurrentgemma rows, each with its decode step's sum where it
      has one), the card line, and the result
      line {"ok": true, "device": {...}} last.
 
@@ -224,6 +249,7 @@ TIGHT_BLOCKS = 40              # serve_paged_tight's pool (W = 32): it preempts
 GRAPH_STEPS = 8                # decode replays held to eager steps
 PROFILE_BUCKET = 128           # the prefill replay that is profiled
 HOST_REPS = 50                 # back-to-back calls per host-clock timing
+PROFILE_ATTEMPTS = 3           # profiles taken while one records no event
 PLAIN_REL = 0.05               # a bf16 decode step against its plain version
 QWEN2_PLAIN_REL = 0.15         # the same through 80 random layers
 SEED = 0
@@ -284,6 +310,24 @@ XLSTM_PLAIN_REL = 0.1
 # the prompt length the check phase holds B3 and B6 at xlstm's prefill
 # linears
 XLSTM_B3_T = 200
+# serve_recurrentgemma_2b: 26 layers (8 (rec, rec, attn) groups, then 2
+# rec layers) at full width, serve's traffic; RG-LRU state and
+# local-attention rings of min(max_len, 2048) positions in one cache tree
+RGLRU = "recurrentgemma_2b"
+# its bf16 plain decode step against the kernels' step: 3.4x the sound
+# step's drift on the first run (0.0294 of the max logit) and under
+# three fifths of the smaller of its two faulty controls there (the plain
+# step one position early 0.174, with the next token id 1.356; NVIDIA
+# H100 80GB HBM3, 700 W)
+RGLRU_PLAIN_REL = 0.1
+# its ring-wrap sub-run at full width: rings of 2048 (max_len 2560); the
+# first long prompt wraps in its prefill's ring conversion, the second in
+# decode, among two of 32-200 tokens
+RGLRU_WRAP_MAX_LEN = 2560
+RGLRU_WRAP = (2100, 2030)
+# the prompt length the check phase holds B3 and B6 at its prefill
+# linears
+RGLRU_B3_T = 200
 LINEARS = (("wqkv", 4096, 12288), ("wo", 4096, 4096), ("gu", 4096, 22016),
            ("down", 11008, 4096))
 # the dense configs served after llama2-7b, and the (H, Hk) of their
@@ -598,6 +642,7 @@ def check_kernels(torch, timer):
     check_mixtral_linears(torch, gen, record)
     check_deepseek_linears(torch, gen, record)
     check_xlstm_linears(torch, gen, record)
+    check_rglru_linears(torch, gen, record)
 
     # INT8 GEMM at the prefill lm_head shape, at every bucket the served
     # prefill runs (bf16 activations and head, quantized as the wrapper
@@ -1027,7 +1072,7 @@ def serve(torch, timer):
     emit({"phase": "split_vs_fused",
           "greedy_token_agreement": agreement(fp, split)})
     spec = serve_spec(torch, model, params, prompts, fp)
-    vql = serve_vql(torch, model, params, prompts)
+    vql = serve_vql(torch, timer, model, params, prompts)
     resilience = serve_resilience(torch, model, params, prompts, fp, spec)
     return {"serve": fp["launches"], "serve_kvq": kvq["launches"],
             "serve_split": split["launches"],
@@ -1122,7 +1167,7 @@ def serve_spec(torch, model, params, prompts, fp):
     return out
 
 
-def serve_vql(torch, model, params, prompts):
+def serve_vql(torch, timer, model, params, prompts):
     """`serve_vql`: `serve`'s traffic with a synthetic VQ-Logits head
     (VQL_KC bf16 codewords for the 32000-row vocab, drawn from SEED + 7)
     in place of the dense head, through the serve phase's checks; then
@@ -1131,7 +1176,10 @@ def serve_vql(torch, model, params, prompts):
     the same prompts within VQL_REL of the largest, and the head's
     device time (profiled alone at M = slots,
     as decode runs it) beside the dense bf16 head's, with their
-    bytes."""
+    bytes; then the dense head alone with ``timer`` (CUDA events, L2
+    flushed): its fp32 accumulator, beside its product rounded to bf16
+    before the cast (the form it took before), with the largest
+    difference the rounding makes, relative to the largest logit."""
     import numpy as np
     from repro_torch.core import plan as plan_mod
     from repro_torch.core.logits_vq import expand, synthetic_logits_vq
@@ -1178,6 +1226,16 @@ def serve_vql(torch, model, params, prompts):
         {"vql": head}, x, rc_dec, out_dtype=torch.float32))
     dense_prof = device_profile(torch, lambda: linear(
         {"w": w}, x, rc_dec, out_dtype=torch.float32))
+    # the dense head's fp32 accumulator against its product rounded to
+    # bf16 before the cast to fp32, as fp_matmul gave it before
+    dense_ms = timer(lambda: linear({"w": w}, x, rc_dec,
+                                    out_dtype=torch.float32))
+    rounded_ms = timer(lambda: torch.matmul(x, w).float())
+    with torch.no_grad():
+        y = linear({"w": w}, x, rc_dec, out_dtype=torch.float32)
+        rounding = ((torch.matmul(x, w).float() - y).abs().max()
+                    / y.abs().max()).item()
+    del y
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     row = {"phase": "serve_vql_vs_dense_head", "kc": VQL_KC,
            "vocab": cfg.padded_vocab, "head_plan": plans,
@@ -1189,6 +1247,9 @@ def serve_vql(torch, model, params, prompts):
            "head_kernels": head_prof["device_kernels_per_step"],
            "dense_head_device_ms": dense_prof["device_busy_ms_per_step"],
            "dense_head_kernels": dense_prof["device_kernels_per_step"],
+           "dense_head_ms": dense_ms,
+           "dense_head_bf16_product_ms": rounded_ms,
+           "dense_head_bf16_product_rel_diff": rounding,
            "head_bytes": nbytes(head.codebook, head.assign, head.scale),
            "dense_head_bytes": nbytes(w)}
     emit(row)
@@ -2034,14 +2095,16 @@ def serve_moe(torch, model, params, prompts, label, rc, ecfg, row,
     and MOE_ABSENT not, and one eager prefill trace a distinct prompt
     length. Returns (engine, tokens, launches)."""
     from repro_torch.serve import Engine, cache_bytes
+    from repro_torch.serve.graphs import tensor_leaves
 
     t0 = time.perf_counter()
     eng = Engine(model, params, rc, ecfg, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    assert all(torch.equal(t, fresh[seg][n]) if fresh is not None
-               else not bool(t.any()) for seg, node in eng.caches.items()
-               for n, t in node.items()), \
+    leaves = list(tensor_leaves(eng.caches))
+    assert all(torch.equal(t, f) for t, f in zip(
+        leaves, tensor_leaves(fresh))) if fresh is not None else \
+        not any(bool(t.any()) for t in leaves), \
         f"{label}: the decode graph's build left the caches written"
     outs, launches, wall = drain(torch, eng, prompts)
     m = eng.metrics()
@@ -2211,8 +2274,7 @@ def split_step(torch, eng, name, rel):
                     with Routing() as routes[backend]:
                         logits[backend], _ = model.decode(
                             eng.params, *step,
-                            {seg: {k: t.clone() for k, t in node.items()}
-                             for seg, node in base.items()}, eng.rc)
+                            map_cache(lambda t: t.clone(), base), eng.rc)
                     ran = kernels.launch_counts()
                 finally:
                     if pinned is not None:
@@ -2431,7 +2493,7 @@ def serve_xlstm(torch):
 
     from repro_torch.core.plan import PlanPolicy
     from repro_torch.models import RunConfig
-    from repro_torch.serve import Engine, EngineConfig, GenerationRequest
+    from repro_torch.serve import EngineConfig
 
     t_phase = time.perf_counter()
     name = f"serve_{XLSTM}"
@@ -2466,7 +2528,25 @@ def serve_xlstm(torch):
         len(prompts) * (2 * G + 1), sub[f"{name}_int8_prefill"]
     out.update(sub)
 
-    # a snapshot mid-run restored into a fresh engine
+    snapshot_restored(torch, model, params, rc, ecfg, prompts, tokens, name)
+    refusals(torch, model, params, rc, ecfg, name,
+             "speculate_k > 0 requires family='dense'")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_cli(torch, ["--arch", "xlstm-125m", "--full"])
+    phase_seconds(name, t_phase)
+    return out
+
+
+def snapshot_restored(torch, model, params, rc, ecfg, prompts, tokens, name):
+    """A snapshot of an engine serving ``prompts`` greedily, taken after 12
+    ticks, restored into a fresh engine: its tokens must equal the
+    uninterrupted run's. One line: the snapshot's cache bytes, its
+    device-to-host ms, the restore ms and the agreement with ``tokens``
+    (the phase's fp run). Its launches are not counted."""
+    from repro_torch.serve import Engine, GenerationRequest
+
     reqs = [GenerationRequest(prompt=p, max_new_tokens=MAX_NEW)
             for p in prompts]
     with Uncounted():
@@ -2499,10 +2579,16 @@ def serve_xlstm(torch):
           "agreement_with_fp": agreement({"tokens": want}, tokens)})
     assert restored == want, f"{name}: restored differs from uninterrupted"
 
+
+def refusals(torch, model, params, rc, ecfg, name, spec_match):
+    """kv_bits = 4 and speculate_k = 3 must each raise the reference's
+    message (``spec_match``: the speculation gate's); one line with
+    both."""
+    from repro_torch.serve import Engine
+
     refused = {}
     for kw, match in (({"kv_bits": 4}, "requires an attention-cache family"),
-                      ({"speculate_k": 3},
-                       "speculate_k > 0 requires family='dense'")):
+                      ({"speculate_k": 3}, spec_match)):
         try:
             Engine(model, params, rc, dataclasses.replace(ecfg, **kw),
                    device="cuda")
@@ -2512,10 +2598,160 @@ def serve_xlstm(torch):
         else:
             raise AssertionError(f"{name}: {kw} was not refused")
     emit({"phase": f"{name}_refusals", **refused})
+
+
+def rglru_linears(cfg):
+    """(name, K, N, times a decode step) of every VQ linear
+    recurrentgemma-2b runs: a rec layer's gate_proj, x_proj, wa, wx and
+    out and attention's wo (one shape: d_model = d_rnn = the query
+    width), attention's grouped wq|wk|wv (MQA: N = 3072) and every
+    layer's gu and down: 7 a rec layer, 4 an attention layer, 158 a
+    step."""
+    D, F, period = cfg.d_model, cfg.d_ff, len(cfg.rec_pattern)
+    G, T = cfg.num_layers // period, cfg.num_layers % period
+    n_rec = G * cfg.rec_pattern.count("rec") + T
+    n_attn = G * cfg.rec_pattern.count("attn")
+    assert D == cfg.d_rnn == cfg.q_dim
+    return (("gate_proj|x_proj|wa|wx|out|wo", D, D, 5 * n_rec + n_attn),
+            ("wqkv", D, cfg.q_dim + 2 * cfg.kv_dim, n_attn),
+            ("gu", D, 2 * F, n_rec + n_attn), ("down", F, D, n_rec + n_attn))
+
+
+def check_rglru_linears(torch, gen, record):
+    """B1 at recurrentgemma-2b's decode linears (``rglru_linears``, M =
+    SLOTS) with its launch shape and B3 at its prefill linears of an
+    RGLRU_B3_T-token prompt (bf16 x), each against its plain version
+    beside fp32 and bf16 torch.matmul on the dequantized weight; the
+    split-pinned planner's pair, B4 and B5 (``check_split``), at every
+    decode linear; then B6 at the one dense linear an INT8 prefill runs,
+    the head (K = 2560, N = 256000), bit-equal to the plain version,
+    beside torch._int_mm with the same scales."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.ops import quantize_int8
+    from repro_torch.core.vq import synthetic_vq
+    from repro_torch.kernels.int8_gemm import int8_gemm, int8_gemm_ref
+
+    cfg = get_config(RGLRU)
+    T = RGLRU_B3_T
+    for name, K, N, per_step in rglru_linears(cfg):
+        vq = synthetic_vq(gen, K, N, C=2, device="cuda")
+        case = {"model": RGLRU, "linear": name, "per_step": per_step}
+        check_b1(torch, record, vq, torch.randn(
+            (SLOTS, K), generator=gen, device="cuda"), case,
+            launch_shape=True)
+        check_b3(torch, record, vq, torch.randn(
+            (T, K), generator=gen, device="cuda").bfloat16(), case)
+        del vq
+        check_split(torch, gen, record, K, N, SLOTS, case, pair=True)
+    K, N = cfg.d_model, cfg.padded_vocab
+    w = torch.randn((K, N), generator=gen, device="cuda").bfloat16()
+    x = torch.randn((T, K), generator=gen, device="cuda").bfloat16()
+    (xq, xs), (wq, ws) = quantize_int8(x, axis=-1), quantize_int8(w, axis=0)
+    del w
+    wq_cm = wq.t().contiguous().t()
+    run = lambda: int8_gemm(xq, wq, xs, ws)
+    plain = lambda: int8_gemm_ref(xq, wq, xs, ws)
+    record("int8_gemm", {"model": RGLRU, "linear": "lm_head", "M": T, "K": K,
+                         "N": N, "per_prefill": 1},
+           run(), plain(), 0.0, run, plain,
+           lambda: torch._int_mm(xq, wq_cm).float() * xs * ws,
+           T * K + K * N + 4 * T + 4 * N + 4 * T * N, 2 * T * N * K,
+           peak=INT8_OPS)
+
+
+def serve_rglru(torch):
+    """Phase 11: recurrentgemma-2b (RG-LRU recurrent layers and
+    local-attention rings in one cache tree) at full width and all 26
+    layers, 2-bit VQ weights drawn on the card from their shapes, bf16
+    activations, a dense bf16 head; serve's traffic (4 slots, max_len
+    MAX_LEN: rings of 512; 8 greedy requests of 32-200 prompt tokens,
+    MAX_NEW each): the weights' bytes against bf16 dense, peak device
+    memory, the state's and the rings' bytes, decode ms a step, tok/s,
+    prefill s (eager, at the exact length), the launches (``serve_moe``:
+    B1 158 a replayed step, B3 158 a prompt; never B2/B7: rings attend
+    in plain torch), the caches after the decode graph's build as
+    init_cache made them, the engine's checks (``moe_checks``: the bf16
+    plain step within RGLRU_PLAIN_REL with two faulty controls, fp32
+    within 1e-3, graph_step over the mixed tree, the replays'
+    profiles); then on the same weights (``sub_runs``): the paged engine
+    (rings through the block table, h and conv pass-through) with the
+    contiguous run's tokens exactly, the split-pinned planner (B4 + B5)
+    with its token agreement and its step held to the fused one, INT8
+    prefill (B6 at the head, one a prefill); the ring-wrap sub-run
+    (max_len RGLRU_WRAP_MAX_LEN: rings of 2048, prompts of RGLRU_WRAP
+    among two short ones, contiguous and paged, tokens equal); a
+    snapshot mid-run restored into a fresh engine; kv_bits = 4 and
+    speculate_k = 3 refused with the reference's messages; and the CLI
+    at full width. Returns each run's launches."""
+    import gc
+
+    import numpy as np
+    from repro_torch.core.plan import PlanPolicy
+    from repro_torch.models import RunConfig
+    from repro_torch.serve import EngineConfig
+    from repro_torch.serve.graphs import tensor_leaves
+
+    t_phase = time.perf_counter()
+    name = f"serve_{RGLRU}"
+    rc = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    model, params, prompts = build_weights(torch, RGLRU)
+    cfg = model.cfg
+    wb = weight_bytes(torch, params)
+    assert 3.0e9 < wb["weight_bytes_on_card"] < 3.4e9, wb
+    b1_step = sum(n for *_, n in rglru_linears(cfg))
+    assert b1_step == wb["vq_linears"] == 158, (b1_step, wb)
+    ecfg = EngineConfig(num_slots=SLOTS, max_len=MAX_LEN)
+    fresh = model.init_cache(SLOTS, MAX_LEN, device="cuda")
+    nbytes = lambda node: sum(t.numel() * t.element_size()
+                              for t in tensor_leaves(node))
+    rings = fresh["groups"]["b2_attn"]
+    sizes = {"state_bytes": nbytes(fresh) - nbytes(rings),
+             "ring_bytes": nbytes(rings), "ring": rings["k"].shape[2]}
+    eng, tokens, launches = serve_moe(torch, model, params, prompts, name,
+                                      rc, ecfg, {**wb, **sizes}, fresh=fresh)
+    del fresh, rings
+    assert set(eng.caches) == {"groups", "trail"}, set(eng.caches)
+    assert eng.decode_graph.launches["fused_vq_matmul"] == b1_step, \
+        eng.decode_graph.launches
+    assert launches["dequant_gemv"] == b1_step * len(prompts), launches
+    out = {name: launches}
+    moe_checks(torch, model, eng, name, RGLRU_PLAIN_REL)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_rc = rc.replace_policy(int8_prefill=True)
+    runs = {"paged": ({"paged": True, "block_size": BLOCK}, MOE_REQUIRED),
+            "split": ({}, SPLIT_REQUIRED),
+            "int8_prefill": ({}, MOE_REQUIRED + ("int8_gemm",), int8_rc)}
+    sub, _ = sub_runs(torch, model, params, rc, prompts, MAX_LEN, name, runs,
+                      RGLRU_PLAIN_REL, tokens={"fp": tokens})
+    assert sub[f"{name}_int8_prefill"]["int8_gemm"] == len(prompts), \
+        sub[f"{name}_int8_prefill"]
+    out.update(sub)
+
+    # the rings wrap: one long prompt in its prefill, one in decode
+    ring = min(RGLRU_WRAP_MAX_LEN, cfg.local_window)
+    assert ring == 2048 and RGLRU_WRAP[0] > ring and \
+        RGLRU_WRAP[1] < ring < RGLRU_WRAP[1] + MAX_NEW - 1
+    rng = np.random.default_rng(SEED + 8)
+    lens = [RGLRU_WRAP[0], *rng.integers(32, 201, 1), RGLRU_WRAP[1],
+            *rng.integers(32, 201, 1)]
+    wrap_prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+                    for n in lens]
+    wrap = {"fp": ({}, MOE_REQUIRED),
+            "paged": ({"paged": True, "block_size": BLOCK}, MOE_REQUIRED)}
+    out.update(sub_runs(torch, model, params, rc, wrap_prompts,
+                        RGLRU_WRAP_MAX_LEN, f"{name}_wrap", wrap,
+                        RGLRU_PLAIN_REL)[0])
+
+    snapshot_restored(torch, model, params, rc, ecfg, prompts, tokens, name)
+    refusals(torch, model, params, rc, ecfg, name,
+             "speculate_k > 0 requires a full (non-windowed) cache")
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
-    serve_cli(torch, ["--arch", "xlstm-125m", "--full"])
+    serve_cli(torch, ["--arch", "recurrentgemma-2b", "--full"])
     phase_seconds(name, t_phase)
     return out
 
@@ -2546,9 +2782,10 @@ def pin_split():
 
 def agreement(a, b) -> float:
     """Share of the greedy tokens two serve phases agree on."""
-    same = sum(x == y for i in range(N_REQUESTS)
+    n = len(a["tokens"])
+    same = sum(x == y for i in range(n)
                for x, y in zip(a["tokens"][i], b["tokens"][i]))
-    return same / (N_REQUESTS * MAX_NEW)
+    return same / (n * MAX_NEW)
 
 
 def serve_paged(torch, model, params, prompts, fp, kvq):
@@ -2850,8 +3087,7 @@ def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
         base = (paged_base(torch, model, eng, cache, n) if paged
                 else pad_prefill_cache(cache, eng.ecfg.max_len,
                                        window=eng.window))
-        clone = lambda: {seg: {n: t.clone() for n, t in node.items()}
-                         for seg, node in base.items()}
+        clone = lambda: map_cache(lambda t: t.clone(), base)
         step = (toks[:, -1:], torch.full((SLOTS, 1), n, dtype=torch.int32,
                                          device="cuda"))
         with Routing() as r_got:
@@ -2969,8 +3205,7 @@ def paged_base(torch, model, eng, cache, n):
     tables[:, :8] = perm[:SLOTS * 8].reshape(SLOTS, 8).cpu().numpy()
     for b in range(SLOTS):
         paging.write_prefill_into_blocks(
-            base, {seg: {k: t[:, b:b + 1] for k, t in node.items()}
-                   for seg, node in cache.items()},
+            base, map_cache(lambda t: t[:, b:b + 1], cache),
             torch.tensor([b], device="cuda"),
             torch.from_numpy(tables[b]).to("cuda"),
             torch.tensor([n], dtype=torch.int32, device="cuda"), meta,
@@ -3004,15 +3239,38 @@ def device_inputs(torch, step, arrays):
             for n, buf in step.inputs.dev.items()}
 
 
-def cache_leaves(caches):
-    """"segment/name" -> leaf of every subtree of a cache tree ("body",
-    and "pre" before deepseek's MoE layers), a paged arena without its
-    sink (the last block: dropped writes land there in no fixed order,
-    and nothing reads it)."""
+def cache_leaves(caches, prefix=""):
+    """path -> leaf of every node of a cache tree ("body", "pre" before
+    deepseek's MoE layers, rglru's "groups" and "trail"), a paged arena
+    without its sink (the last block: dropped writes land there in no
+    fixed order, and nothing reads it)."""
     arenas = ("k", "v", "k_s", "v_s", "latent", "k_rope", "latent_s")
-    return {f"{seg}/{n}": (t[:, :-1] if "block_table" in node
-                           and n in arenas else t)
-            for seg, node in caches.items() for n, t in node.items()}
+    out = {}
+    for n, t in caches.items():
+        if isinstance(t, dict):
+            out.update(cache_leaves(t, f"{prefix}{n}/"))
+        else:
+            out[prefix + n] = (t[:, :-1] if "block_table" in caches
+                               and n in arenas else t)
+    return out
+
+
+def map_cache(fn, tree):
+    """A cache tree with ``fn`` applied to every leaf."""
+    if isinstance(tree, dict):
+        return {k: map_cache(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def copy_cache(dst, src):
+    """Copy every leaf of cache tree ``src`` into the leaf at the same
+    path of ``dst``, in place (matched by key, whatever the trees' key
+    order)."""
+    for k, t in dst.items():
+        if isinstance(t, dict):
+            copy_cache(t, src[k])
+        else:
+            t.copy_(src[k])
 
 
 def replay_vs_eager(torch, eng, step, arrays):
@@ -3067,9 +3325,7 @@ def graph_step(torch, model, eng, base, clone, name):
     failed = []
 
     plain = clone()
-    for seg, node in eng.caches.items():
-        for n, t in node.items():
-            t.copy_(base[seg][n])
+    copy_cache(eng.caches, base)
     # a model without attention (xLSTM) reads no position
     lens = [node["len"] for node in attn_nodes(base)]
     start = int(lens[0][0, 0]) if lens else 0
@@ -3209,7 +3465,11 @@ def device_profile(torch, run, steps: int = 5, top_other: int = 0) -> dict:
     its whole name) and everything else; ``profile_s``: the host seconds
     the profiled calls and the reading of their events took.
     ``top_other``: also the ms a call and launches of that many of the
-    "other" CUDA functions that take the most time."""
+    "other" CUDA functions that take the most time. A profile that
+    records no device event at all is the tracer's failure, not the
+    calls' (CUPTI has once dropped every event of a replay that ran):
+    it is taken again, up to PROFILE_ATTEMPTS times in all
+    (``profile_attempts``)."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad():
@@ -3220,16 +3480,19 @@ def device_profile(torch, run, steps: int = 5, top_other: int = 0) -> dict:
             run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                run()
-            torch.cuda.synchronize()
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    run()
+                torch.cuda.synchronize()
+            device = [ev for ev in prof.events()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA]
+            if device:
+                break
     groups, label, other = {}, {}, {}
     n_kernels = 0
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for ev in device:
         n_kernels += 1
         if ev.name not in label:
             label[ev.name] = next((lab for fn, lab in KERNEL_FUNCTIONS.items()
@@ -3241,7 +3504,8 @@ def device_profile(torch, run, steps: int = 5, top_other: int = 0) -> dict:
             t, c = other.get(ev.name, (0.0, 0))
             other[ev.name] = (t + us, c + 1)
     busy_ms = sum(groups.values()) / 1e3 / steps
-    return {"profile_s": time.perf_counter() - t0, "wall_ms_per_step": wall_ms,
+    return {"profile_s": time.perf_counter() - t0,
+            "profile_attempts": attempt, "wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": busy_ms if n_kernels else None,
             "idle_share": (1 - busy_ms / wall_ms) if n_kernels else None,
             "device_kernels_per_step": n_kernels / steps,
@@ -3374,6 +3638,7 @@ def main() -> int:
     launches.update(serve_mixtral(torch))
     launches.update(serve_deepseek(torch))
     launches.update(serve_xlstm(torch))
+    launches.update(serve_rglru(torch))
     phase_of = {"flash_decode": "serve", "flash_decode_kvq": "serve_kvq",
                 "int8_gemm": "serve_kvq", "vq_gemm": "serve_split",
                 "oc_lookup": "serve_split",
@@ -3431,21 +3696,23 @@ def main() -> int:
             # verify window, M = slots x (K + 1)
             **({"verify_window": verify_window(rows[name])}
                if name == "fused_vq_matmul" else {}),
-            # B1 and B3 at mixtral-8x22b's, deepseek-v2-lite-16b's and
-            # xlstm-125m's linears, B4 and B5 at deepseek's and xlstm's
-            # decode linears (served in their split runs), B6 at xlstm's
-            # INT8 prefill (its N = 4 gates and its head), and B1's, B4's
-            # and B5's decode step
+            # B1 and B3 at mixtral-8x22b's, deepseek-v2-lite-16b's,
+            # xlstm-125m's and recurrentgemma-2b's linears, B4 and B5 at
+            # deepseek's, xlstm's and recurrentgemma's decode linears
+            # (served in their split runs), B6 at xlstm's and
+            # recurrentgemma's INT8 prefill (xlstm's N = 4 gates, each
+            # head), and B1's, B4's and B5's decode step
             **({m: model_rows(rows[name], m, name, launches[f"serve_{m}"])
-                for m in (MIXTRAL, DEEPSEEK, XLSTM)}
+                for m in (MIXTRAL, DEEPSEEK, XLSTM, RGLRU)}
                if name in ("fused_vq_matmul", "dequant_gemv") else {}),
-            **({XLSTM: model_rows(rows[name], XLSTM, name, launches[
-                f"serve_{XLSTM}_int8_prefill"])}
+            **({m: model_rows(rows[name], m, name, launches[
+                f"serve_{m}_int8_prefill"]) for m in (XLSTM, RGLRU)}
                if name == "int8_gemm" else {}),
             **({DEEPSEEK: model_rows(rows[name], DEEPSEEK, name, launches[
                 f"serve_{DEEPSEEK}_{MOE_SUB_LAYERS}l_split"]),
-                XLSTM: model_rows(rows[name], XLSTM, name,
-                                  launches[f"serve_{XLSTM}_split"])}
+                **{m: model_rows(rows[name], m, name,
+                                 launches[f"serve_{m}_split"])
+                   for m in (XLSTM, RGLRU)}}
                if name in ("vq_gemm", "oc_lookup") else {}),
             "launches_by_phase": {ph: c[name] for ph, c in launches.items()
                                   if c.get(name)}})

@@ -15,8 +15,9 @@ The files are the reference's files:
     ``__vqmeta__ = [K, N, d, n, *splits]``; a list or tuple item is
     ``__seq__<i>``; None is a ``__none__`` path with no array;
   * layout: the reference scans its layers, so on disk a ``"layers"``
-    (or ``"pre_layers"``, or xLSTM's ``"groups"``) node is one node whose
-    leaves are stacked on a leading L axis. The
+    (or ``"pre_layers"``, the xLSTM and RecurrentGemma ``"groups"``, or
+    RecurrentGemma's ``"trail"``) node is one node whose leaves are
+    stacked on a leading L axis. The
     port holds a list of per-layer dicts: ``save`` stacks it
     (``convert.to_reference_layout``), ``restore`` unstacks it
     (``convert.from_jax_params``); a tensor the layers share (the KV-VQ
@@ -272,10 +273,11 @@ class CheckpointManager:
 
     # ---- restore
     def restore(self, step: Optional[int] = None, *,
-                device: DeviceLike = None) -> Tuple[int, Dict[str, Any]]:
+                device: DeviceLike = None,
+                unstack: bool = True) -> Tuple[int, Dict[str, Any]]:
         """(step, state) of ``step`` (default: the latest), each group a
-        tree in the port's layout (per-layer lists) on ``device``
-        (default "cuda").
+        tree in the port's layout (per-layer lists; ``unstack=False``:
+        nested as on disk) on ``device`` (default "cuda").
 
         Raises:
           FileNotFoundError: no checkpoint in the directory.
@@ -295,5 +297,5 @@ class CheckpointManager:
                                else from_host(data[f"a{i}"]))
                         for i, path in enumerate(paths)}
             state[group] = from_jax_params(unflatten_from_paths(flat),
-                                           device=dev)
+                                           device=dev, unstack=unstack)
         return step, state

@@ -2,9 +2,10 @@
 ``get_smoke_config(arch)`` / ``all_configs()``. Ported: the paper's own
 model (llama2-7b), the four dense assigned architectures, xlstm-125m
 (alternating mLSTM / sLSTM blocks), deepseek-v2-lite (MLA, a dense first
-layer, 64 routed experts top-6) and mixtral (top-2 MoE with
-sliding-window rings), in the reference's ``ARCH_IDS`` order. The other
-families (whisper, recurrentgemma, vision) wait for ROADMAP A7."""
+layer, 64 routed experts top-6), mixtral (top-2 MoE with sliding-window
+rings) and recurrentgemma-2b (RG-LRU recurrent layers and local-attention
+rings), in the reference's ``ARCH_IDS`` order. The other families
+(whisper, vision) wait for ROADMAP A7."""
 from __future__ import annotations
 
 import importlib
@@ -20,6 +21,7 @@ ARCH_IDS: List[str] = [
     "xlstm_125m",
     "deepseek_v2_lite_16b",
     "mixtral_8x22b",
+    "recurrentgemma_2b",
     # the paper's own model
     "llama2_7b",
 ]

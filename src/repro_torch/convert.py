@@ -13,8 +13,9 @@ params on ``device``:
     ``VQWeight``, and a VQLogitsHead-like node (``codebook``, ``assign``,
     ``scale``) the port's ``VQLogitsHead``;
   * the stacked layer axes the reference scans over (``"layers"``,
-    deepseek's dense prefix ``"pre_layers"`` and xLSTM's ``"groups"``,
-    leading dim L on every leaf) become lists of L per-layer dicts —
+    deepseek's dense prefix ``"pre_layers"``, the xLSTM and RecurrentGemma
+    ``"groups"`` and RecurrentGemma's ``"trail"``, leading dim L on every
+    leaf) become lists of L per-layer dicts —
     attached KV-VQ codebooks included: an attention node's ``kv_cb``
     {"k", "v"} of shape (L, Hk, R, 256, vd) becomes one (Hk, R, 256, vd)
     pair per layer (an MLA node's {"lat"} (L, 1, R, 256, vd) likewise).
@@ -23,8 +24,8 @@ The leaves may also be tensors (on any device; they are moved to
 ``device``), tuples and None, as ``checkpoint.manager`` restores them.
 
 ``to_reference_layout(tree)`` is the inverse of the unstacking: every
-``"layers"`` / ``"pre_layers"`` / ``"groups"`` list of per-layer dicts
-becomes one node
+``"layers"`` / ``"pre_layers"`` / ``"groups"`` / ``"trail"`` list of
+per-layer dicts becomes one node
 whose leaves (and
 VQWeight tensors) are stacked on a leading L axis, numpy arrays with
 ``np.stack`` and tensors with ``torch.stack``. A tensor several layers
@@ -38,7 +39,7 @@ VQLogitsHead are recognized by their attributes.
 from __future__ import annotations
 
 import types
-from typing import Any
+from typing import Any, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +50,7 @@ from repro_torch.core.vq import VQWeight
 
 _VQ_FIELDS = ("idx", "codebooks", "scale", "K", "N", "d", "n", "splits")
 _VQL_FIELDS = ("codebook", "assign", "scale")
-_STACKED = ("layers", "pre_layers", "groups")
+_STACKED = ("layers", "pre_layers", "groups", "trail")
 
 
 def is_vq(node: Any) -> bool:
@@ -73,7 +74,8 @@ def to_tensor(a: Any, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _convert(node: Any, device: torch.device) -> Any:
+def _convert(node: Any, device: torch.device,
+             stacked: Tuple[str, ...] = _STACKED) -> Any:
     if is_vq(node):
         return VQWeight(idx=to_tensor(node.idx, device),
                         codebooks=to_tensor(node.codebooks, device),
@@ -84,10 +86,11 @@ def _convert(node: Any, device: torch.device) -> Any:
         return VQLogitsHead(*(to_tensor(getattr(node, f), device)
                               for f in _VQL_FIELDS))
     if isinstance(node, dict):
-        return {k: (_unstack(v, device) if k in _STACKED
-                    else _convert(v, device)) for k, v in node.items()}
+        return {k: (_unstack(v, device) if k in stacked
+                    else _convert(v, device, stacked))
+                for k, v in node.items()}
     if isinstance(node, tuple):
-        return tuple(_convert(v, device) for v in node)
+        return tuple(_convert(v, device, stacked) for v in node)
     if node is None:
         return None
     return to_tensor(node, device)
@@ -119,10 +122,14 @@ def _unstack(node: Any, device: torch.device) -> list:
     return [_convert(_index(node, i), device) for i in range(_leading(node))]
 
 
-def from_jax_params(tree: Any, *, device: DeviceLike = None) -> Any:
+def from_jax_params(tree: Any, *, device: DeviceLike = None,
+                    unstack: bool = True) -> Any:
     """The port's params for a numpy-leaved JAX param tree (see module
-    docstring). ``device`` defaults to "cuda"."""
-    return _convert(tree, resolve_device(device))
+    docstring). ``device`` defaults to "cuda". ``unstack=False`` keeps
+    every node as it is (a tree that is no param tree, such as an engine
+    snapshot's cache, whose ``"groups"`` are cache leaves)."""
+    return _convert(tree, resolve_device(device),
+                    _STACKED if unstack else ())
 
 
 def _stack(layers: list) -> Any:
@@ -142,8 +149,8 @@ def _stack(layers: list) -> Any:
 
 def to_reference_layout(tree: Any) -> Any:
     """The reference's layout of a port tree (see module docstring):
-    ``"layers"``, ``"pre_layers"`` and ``"groups"`` lists stacked on L;
-    everything else as it is."""
+    ``"layers"``, ``"pre_layers"``, ``"groups"`` and ``"trail"`` lists
+    stacked on L; everything else as it is."""
     if is_vq(tree) or is_vql(tree):
         return tree
     if isinstance(tree, dict):

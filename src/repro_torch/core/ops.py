@@ -25,10 +25,20 @@ from repro_torch.core.vq import VQWeight, dequantize
 
 def fp_matmul(x: torch.Tensor, w: torch.Tensor, *,
               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Dense y = x @ w. ``torch.matmul`` accumulates in fp32; a bf16
-    product is rounded to bf16 before the cast to ``out_dtype`` (the
-    reference keeps the fp32 accumulator — equal at fp32)."""
+    """Dense y = x @ w with fp32 accumulation, as the reference's. An fp32
+    ``out_dtype`` over lower-precision operands returns the fp32
+    accumulator itself, never a product rounded to x's dtype: on CUDA
+    ``torch.mm(..., out_dtype=torch.float32)`` over the 2-D view of x
+    (no upcast copy of w), on the CPU the product of both operands upcast
+    to fp32 (exact upcasts; ``aten::mm.dtype`` has no CPU kernel). Every
+    other case is ``torch.matmul`` cast to ``out_dtype``."""
     out_dtype = out_dtype or x.dtype
+    if out_dtype == torch.float32 and x.dtype != torch.float32:
+        if x.is_cuda and w.dtype == x.dtype and w.dim() == 2:
+            y = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                         out_dtype=torch.float32)
+            return y.reshape(*x.shape[:-1], w.shape[-1])
+        return torch.matmul(x.float(), w.float())
     return torch.matmul(x, w).to(out_dtype)
 
 

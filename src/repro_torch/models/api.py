@@ -1,6 +1,7 @@
 """Model facade of the port (``repro/models/api.py``): the dense and MoE
 families (``models/transformer.py``; MLA and dense prefix layers
-included) and xLSTM (``models/xlstm.py``), dispatched on ``cfg.family``:
+included), xLSTM (``models/xlstm.py``) and RecurrentGemma
+(``models/rglru.py``), dispatched on ``cfg.family``:
 
     model = build_model(cfg)
     params = model.init(generator, device="cuda")
@@ -23,10 +24,11 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.core.logits_vq import VQLogitsHead
 from repro_torch.core.quantize import quantize_params
 from repro_torch.core.vq import KVQuantConfig, VQWeight
-from repro_torch.models import transformer, xlstm
+from repro_torch.models import rglru, transformer, xlstm
 from repro_torch.models.common import ModelConfig, RunConfig
 
-_FAMILY = {"dense": transformer, "moe": transformer, "xlstm": xlstm}
+_FAMILY = {"dense": transformer, "moe": transformer, "xlstm": xlstm,
+           "rglru": rglru}
 
 
 @dataclasses.dataclass
@@ -75,9 +77,10 @@ class Model:
         """Decode caches: fp, or with ``kv_int8`` / ``kvq`` (a
         ``core.vq.KVQuantConfig``) the int8 or KV-VQ layout; contiguous,
         or with ``paging`` (a ``serve.paging.PagingConfig``) block arenas
-        and a block table (``serve.paging.init_paged_cache``). An xLSTM
-        model's recurrent state ignores ``kv_int8`` and ``kvq``, as the
-        reference's (it is not a KV cache)."""
+        and a block table (``serve.paging.init_paged_cache``). The
+        recurrent families (xLSTM, RecurrentGemma) ignore ``kv_int8`` and
+        ``kvq``, as the reference's: their state is not a KV cache, and
+        RecurrentGemma's rings stay fp."""
         if paging is not None:
             from repro_torch.serve import paging as paging_mod
 
@@ -85,8 +88,9 @@ class Model:
                 self, batch, max_len, paging, device=resolve_device(device),
                 kv_int8=kv_int8, kvq=kvq)
         dtype, dev = dtype or self.cfg.act_dtype, resolve_device(device)
-        if self.cfg.family == "xlstm":
-            return xlstm.init_cache(self.cfg, batch, max_len, dtype, dev)
+        if self.cfg.family in ("xlstm", "rglru"):
+            return self.module.init_cache(self.cfg, batch, max_len, dtype,
+                                          dev)
         return transformer.init_cache(self.cfg, batch, max_len, dtype, dev,
                                       kv_int8=kv_int8, kvq=kvq)
 
@@ -128,13 +132,16 @@ def param_count(params: Any) -> int:
 def build_model(cfg: ModelConfig) -> Model:
     """The model of ``cfg``: the dense or MoE family, with full,
     sliding-window or multi-head latent attention (MLA) and optional
-    dense prefix layers (``first_dense_layers``), or xLSTM.
+    dense prefix layers (``first_dense_layers``), xLSTM, or RecurrentGemma
+    (RG-LRU layers and local-attention rings).
 
     Raises:
-      NotImplementedError: another family (rglru, whisper, vision), or a
-        local window (ROADMAP A7)."""
-    if cfg.family not in _FAMILY or cfg.local_window:
+      NotImplementedError: another family (whisper, vision), or a local
+        window outside RecurrentGemma (ROADMAP A7)."""
+    if cfg.family not in _FAMILY or (cfg.local_window
+                                     and cfg.family != "rglru"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense, MoE and xLSTM families without "
-            "local windows are ported (the other families: ROADMAP A7)")
+            f"{cfg.name}: only the dense, MoE, xLSTM and RecurrentGemma "
+            "families are ported, local windows in RecurrentGemma only "
+            "(the other families: ROADMAP A7)")
     return Model(cfg)

@@ -34,7 +34,14 @@ integrates pad tokens, so it runs at the exact prompt length too; slot
 insertion overwrites a slot's state at admission (a preempted request's
 state is rebuilt by its re-prefill); a paged engine keeps the state
 contiguous (pass-through) and pages nothing; ``kv_bits`` must be 16, as
-in the reference.
+in the reference. A RecurrentGemma model's cache is one tree of both:
+local-attention rings of ``min(max_len, local_window)`` positions (the
+window comes from ``local_window``) beside RG-LRU state (``h``,
+``conv``); it prefills eagerly at the exact length, its slot insertion
+ring-converts the rings and overwrites the state, a paged engine pages
+the rings through the block table and keeps the state pass-through,
+``kv_bits`` must be 16 and ``speculate_k`` is refused (the windowed
+cache's check comes first), as in the reference.
 
 ``EngineConfig.kv_bits`` selects the KV cache layout: 16 = fp, 8 = int8
 values + bf16 scales (attended through plain torch), 4/2 = KV-VQ uint8

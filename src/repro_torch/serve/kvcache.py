@@ -83,7 +83,8 @@ def pad_prefill_cache(cache: Any, capacity: int, *, window: int = 0,
     ``true_len`` positions when given); an MLA node's leaves (time axis
     -2) are padded to ``min(capacity, window)``, never ring-converted,
     as the reference's; ``true_len`` overwrites the ``len`` leaves (the
-    prompt's real length inside its padded bucket)."""
+    prompt's real length inside its padded bucket). Any other leaf
+    (recurrent state beside the rings) passes through unchanged."""
     eff = min(capacity, window) if window else capacity
 
     def fix_time(x, axis):

@@ -31,9 +31,9 @@ Attention nodes ({"k", "v", "len"} and the int8 / KV-VQ scale leaves
 ``k_s``/``v_s``) and MLA latent nodes ({"latent", "k_rope", "len"}, under
 KV-VQ also ``latent_s``) are pageable: the dense and MoE families' only
 nodes (a ``"pre"`` subtree pages like ``"body"``). Every other leaf is
-pass-through state of a fixed size a slot (xLSTM's recurrent state, (G,
-B, ...), batch on axis 1): it keeps its contiguous shape, zeroed, as the
-reference's; a paged prefill and ``merge_slot`` write the slot's row of
+pass-through state of a fixed size a slot (xLSTM's recurrent state and
+RecurrentGemma's ``h``/``conv`` beside its rings, (G, B, ...), batch on
+axis 1): it keeps its contiguous shape, zeroed, as the reference's; a paged prefill and ``merge_slot`` write the slot's row of
 it, and it takes no block (``bytes_per_block`` counts arenas only). A
 chunked-prefill view of pass-through state is not ported: no ported
 family with such state chunks its prefill.

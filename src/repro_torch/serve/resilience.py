@@ -236,10 +236,12 @@ def load_snapshot_arrays(manager: Any,
                          ) -> Dict[str, np.ndarray]:
     """A persisted snapshot's arrays, under the keys of
     ``EngineSnapshot.arrays`` (the restored group is nested by path
-    segment, so it is flattened again), as the snapshot holds them."""
+    segment, so it is flattened again), as the snapshot holds them. The
+    group is restored as it is on disk: a cache's ``"groups"`` and
+    ``"trail"`` (RecurrentGemma's) are leaves, not param stacks."""
     from repro_torch.checkpoint import manager as ckpt_manager
 
-    _, state = manager.restore(step, device="cpu")
+    _, state = manager.restore(step, device="cpu", unstack=False)
     flat = ckpt_manager.flatten_with_paths(state["engine_arrays"])
     return {path: ckpt_manager.to_host(leaf) for path, leaf in flat
             if leaf is not None}

@@ -28,6 +28,8 @@ CASES = [
     ("mixtral-8x22b", ["--requests", "5", "--slots", "2", "--max-new", "6"]),
     ("deepseek-v2-lite-16b", ["--requests", "5", "--slots", "2",
                               "--max-new", "6"]),
+    ("recurrentgemma-2b", ["--requests", "5", "--slots", "2",
+                           "--max-new", "6"]),
 ]
 
 
@@ -85,4 +87,4 @@ def test_serve_runs_on_the_card_by_default():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tserve.serve("llama3-8b")
     with pytest.raises(NotImplementedError, match="A7"):
-        tserve.serve("recurrentgemma-2b", device="cpu")
+        tserve.serve("whisper-medium", device="cpu")
