@@ -214,12 +214,39 @@ Phases (any failure exits non-zero):
      --full`); the check phase holds B1, B4, B5 and the pair at its
      decode linears, B3 at its prefill linears of a 200-token prompt and
      B6 at its head;
-  12. a {"kernels": [...]} summary line (fused_vq_matmul's row also
+  12. `serve_whisper_medium`: whisper-medium (an encoder-decoder: the
+     encoder over one set of 1500 frames, drawn on the card and given to
+     the engine as its extras, read by every request's prefill; the
+     decoder's self-attention cache beside 1500-row cross memories that a
+     prefill writes once and decode only reads) at full width and all 24
+     + 24 layers, `serve`'s traffic through the graphed engine: weight
+     bytes against bf16 dense, the cross memories' and the self cache's
+     bytes, peak memory, decode ms a step, tok/s, prefill s, launches (B1
+     144 and B2 24 a replayed step, at head dim 64; B3 288 a prefill),
+     the caches after the decode graph's build as init_cache made them,
+     the plain decode step at bf16 within WHISPER_PLAIN_REL (two faulty
+     controls above it) and at fp32 within 1e-3, graph_step (decode and
+     every bucket, bitwise), the replays' profiles, and a replayed
+     decode step's and a replayed 128-token prefill's device time with
+     the "other" kernels that take the most; then on
+     the same weights the paged engine with prefill_chunk 64 (each chunk
+     re-encodes the frames; B2's paged entry) with the contiguous run's
+     tokens exactly, the split-pinned planner with its step held to the
+     fused one, INT8 prefill (B6 at frontend.proj and the head), a
+     snapshot restored, kv_bits = 4 and speculate_k = 3 refused with the
+     reference's messages, and the CLI (`--arch whisper-medium --full`);
+     the check phase holds B1, B4, B5 and the pair at its decode
+     linears, B3 at its decoder's prefill linears of a 200-token prompt
+     and at the encoder's and the cross memory's of 1500 rows, B2 and its
+     paged entry at head dim 64 with one query head a kv head, and B6 at
+     frontend.proj (1500 rows) and the head;
+  13. a {"kernels": [...]} summary line (fused_vq_matmul's row also
      sums its verify-window rows, `verify_window`; B1's and B3's carry
-     their mixtral, deepseek, xlstm and recurrentgemma rows, B4's and
-     B5's their deepseek, xlstm and recurrentgemma rows, B6's its xlstm
-     and recurrentgemma rows, each with its decode step's sum where it
-     has one), the card line, and the result
+     their mixtral, deepseek, xlstm, recurrentgemma and whisper rows,
+     B4's and B5's their deepseek, xlstm, recurrentgemma and whisper
+     rows, B6's its xlstm, recurrentgemma and whisper rows, B2's and its
+     paged entry's their whisper rows, each with its decode step's sum
+     where it has one), the card line, and the result
      line {"ok": true, "device": {...}} last.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
@@ -328,6 +355,26 @@ RGLRU_WRAP = (2100, 2030)
 # the prompt length the check phase holds B3 and B6 at its prefill
 # linears
 RGLRU_B3_T = 200
+# serve_whisper_medium: 24 encoder and 24 decoder layers at full width,
+# serve's traffic, one set of S_SRC frames (the engine's extras) for every
+# request's prefill; the cache holds the S_SRC-row cross memories
+WHISPER = "whisper_medium"
+WHISPER_FRAMES = 1500
+# its bf16 plain decode step against the kernels' step: 2.4x the sound
+# step's drift on the first run (0.0102 of the max logit) and under two
+# thirds of the smaller of its two faulty controls there (the plain step
+# one position early 0.0395: the position moves only rope and the
+# sinusoid, small beside the 1500-row cross memories; from init_cache's
+# state 1.110; NVIDIA H100 80GB HBM3, 700 W)
+WHISPER_PLAIN_REL = 0.025
+# the decoder prompt length the check phase holds B3 and B6 at (the
+# encoder's linears at WHISPER_FRAMES rows)
+WHISPER_B3_T = 200
+# the chunked-prefill sub-run's chunk (prompts of 32-200 tokens)
+WHISPER_CHUNK = 64
+# the kernels of its served path: B1, B2 (hd 64, one query head a kv
+# head) and B3
+WHISPER_REQUIRED = ("fused_vq_matmul", "flash_decode", "dequant_gemv")
 LINEARS = (("wqkv", 4096, 12288), ("wo", 4096, 4096), ("gu", 4096, 22016),
            ("down", 11008, 4096))
 # the dense configs served after llama2-7b, and the (H, Hk) of their
@@ -643,6 +690,7 @@ def check_kernels(torch, timer):
     check_deepseek_linears(torch, gen, record)
     check_xlstm_linears(torch, gen, record)
     check_rglru_linears(torch, gen, record)
+    check_whisper_linears(torch, gen, record)
 
     # INT8 GEMM at the prefill lm_head shape, at every bucket the served
     # prefill runs (bf16 activations and head, quantized as the wrapper
@@ -2188,14 +2236,15 @@ def moe_sub_phase(torch, arch, max_len, prompts, kv_bits, rel):
 
 
 def sub_runs(torch, model, params, rc, prompts, max_len, sub, runs, rel,
-             tokens=None):
+             tokens=None, extras=None):
     """Serve ``prompts`` greedily on a fresh engine a run of ``runs``
     (label -> (EngineConfig kwargs, kernels that must launch[, its run
     config in place of ``rc``])), each with its token agreement with the
     "fp" run (the first, or given in ``tokens``); the paged run's tokens
-    must equal it exactly; the split run (the default planner pinned to
-    B4 + B5) ends with ``split_step`` (``rel``: its bf16 bound). Returns
-    (each run's launches, each run's tokens)."""
+    must equal it exactly; a run with ``prefill_chunk`` must chunk; the
+    split run (the default planner pinned to B4 + B5) ends with
+    ``split_step`` (``rel``: its bf16 bound). ``extras``: the engines'
+    prefill extras. Returns (each run's launches, each run's tokens)."""
     from repro_torch.serve import Engine, EngineConfig, cache_bytes
 
     tokens, out = dict(tokens or {}), {}
@@ -2204,7 +2253,7 @@ def sub_runs(torch, model, params, rc, prompts, max_len, sub, runs, rel,
         try:
             eng = Engine(model, params, run_rc[0] if run_rc else rc,
                          EngineConfig(num_slots=SLOTS, max_len=max_len, **kw),
-                         device="cuda")
+                         extras, device="cuda")
             outs, launches, wall = drain(torch, eng, prompts)
         finally:
             if pinned is not None:
@@ -2217,6 +2266,8 @@ def sub_runs(torch, model, params, rc, prompts, max_len, sub, runs, rel,
               "cache_bytes": cache_bytes(eng.caches),
               "peak_kv_bytes_in_use": m["peak_kv_bytes_in_use"],
               "peak_blocks_in_use": m["peak_blocks_in_use"],
+              "prefill_chunks": m["prefill_chunks"],
+              "preemptions": m["preemptions"],
               **({"page_len": eng.paging.page_len,
                   "blocks_per_slot": eng.paging.blocks_per_slot,
                   "bytes_per_block": eng.paging.bytes_per_block}
@@ -2225,6 +2276,8 @@ def sub_runs(torch, model, params, rc, prompts, max_len, sub, runs, rel,
               "launches": launches})
         missing = [k for k in need if launches[k] == 0]
         assert not missing, f"{sub} {label}: never launched: {missing}"
+        assert not kw.get("prefill_chunk") or m["prefill_chunks"] > 0, \
+            f"{sub} {label}: no prompt was chunked"
         off = [k for k in MOE_ABSENT if launches[k] and k not in need]
         off += ["fused_vq_matmul"] * bool(label == "split"
                                            and launches["fused_vq_matmul"])
@@ -2262,7 +2315,8 @@ def split_step(torch, eng, name, rel):
     for dtype, model in (("bf16", eng.model), ("fp32", build_model(
             dataclasses.replace(cfg, dtype="float32")))):
         with torch.no_grad(), Uncounted():
-            _, cache = model.prefill(eng.params, {"tokens": toks}, eng.rc)
+            _, cache = model.prefill(eng.params, prefill_batch(eng, toks),
+                                     eng.rc)
             base = pad_prefill_cache(cache, eng.ecfg.max_len,
                                      window=eng.window)
             logits, routes = {}, {}
@@ -2539,18 +2593,20 @@ def serve_xlstm(torch):
     return out
 
 
-def snapshot_restored(torch, model, params, rc, ecfg, prompts, tokens, name):
+def snapshot_restored(torch, model, params, rc, ecfg, prompts, tokens, name,
+                      extras=None):
     """A snapshot of an engine serving ``prompts`` greedily, taken after 12
     ticks, restored into a fresh engine: its tokens must equal the
     uninterrupted run's. One line: the snapshot's cache bytes, its
     device-to-host ms, the restore ms and the agreement with ``tokens``
-    (the phase's fp run). Its launches are not counted."""
+    (the phase's fp run). Its launches are not counted. ``extras``: the
+    engines' prefill extras."""
     from repro_torch.serve import Engine, GenerationRequest
 
     reqs = [GenerationRequest(prompt=p, max_new_tokens=MAX_NEW)
             for p in prompts]
     with Uncounted():
-        eng = Engine(model, params, rc, ecfg, device="cuda")
+        eng = Engine(model, params, rc, ecfg, extras, device="cuda")
         uids = [eng.submit(r) for r in reqs]
         for _ in range(12):
             eng.step()
@@ -2561,7 +2617,7 @@ def snapshot_restored(torch, model, params, rc, ecfg, prompts, tokens, name):
             eng.step()
         want = [list(eng.output(u).tokens) for u in uids]
         del eng
-        eng = Engine(model, params, rc, ecfg, device="cuda")
+        eng = Engine(model, params, rc, ecfg, extras, device="cuda")
         t0 = time.perf_counter()
         eng.restore(snap)
         torch.cuda.synchronize()
@@ -2752,6 +2808,286 @@ def serve_rglru(torch):
     gc.collect()
     torch.cuda.empty_cache()
     serve_cli(torch, ["--arch", "recurrentgemma-2b", "--full"])
+    phase_seconds(name, t_phase)
+    return out
+
+
+def whisper_linears(cfg):
+    """(name, K, N, times a decode step, times a prefill, rows in prefill)
+    of every VQ linear whisper-medium runs, one entry a shape: the
+    decoder's decode linears (self-attention wqkv, then self wo, cross wq
+    and cross wo of one shape, up, down: 6 a layer, 144 a step), each
+    also a prefill linear at the prompt's rows; the encoder's and the
+    cross memory's at WHISPER_FRAMES rows (encoder wqkv, wo|cross wk|cross
+    wv, up, down)."""
+    D, F, L, E = cfg.d_model, cfg.d_ff, cfg.num_layers, cfg.encoder_layers
+    return (("wqkv", D, 3 * D, L, L, "prompt"),
+            ("wo|cross_wq|cross_wo", D, D, 3 * L, 3 * L, "prompt"),
+            ("up", D, F, L, L, "prompt"), ("down", F, D, L, L, "prompt"),
+            ("enc_wqkv", D, 3 * D, 0, E, "frames"),
+            ("enc_wo|cross_wk|cross_wv", D, D, 0, E + 2 * L, "frames"),
+            ("enc_up", D, F, 0, E, "frames"),
+            ("enc_down", F, D, 0, E, "frames"))
+
+
+def check_whisper_linears(torch, gen, record):
+    """Whisper-medium's kernels at its shapes: B1 at its decode linears (M
+    = SLOTS) with its launch shape, the split pair B4 and B5
+    (``check_split``) at each; B3 at the decoder's prefill linears of a
+    WHISPER_B3_T-token prompt and at the encoder's and the cross memory's
+    of WHISPER_FRAMES rows (bf16 x), each against its plain version beside
+    fp32 and bf16 torch.matmul on the dequantized weight; B2 and its paged
+    entry at head dim 64 with one query head a kv head (16 heads, SLOTS
+    rows at lengths 1/512/200/64; the paged one over a shuffled table of
+    16-position blocks, bitwise against the contiguous kernel over the
+    gathered view) against their plain versions beside SDPA; and B6 at
+    the dense linears an INT8 prefill runs: frontend.proj at
+    WHISPER_FRAMES rows and the head (N = 51968) at WHISPER_B3_T,
+    bit-equal to the plain version, beside torch._int_mm with the same
+    scales."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core.ops import quantize_int8
+    from repro_torch.core.vq import synthetic_vq
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_paged,
+                                                  flash_decode_paged_ref,
+                                                  flash_decode_ref)
+    from repro_torch.kernels.int8_gemm import int8_gemm, int8_gemm_ref
+    from repro_torch.models.common import paged_view
+
+    cfg = get_config(WHISPER)
+    for name, K, N, per_step, per_prefill, rows in whisper_linears(cfg):
+        vq = synthetic_vq(gen, K, N, C=2, device="cuda")
+        case = {"model": WHISPER, "linear": name}
+        if per_step:
+            check_b1(torch, record, vq, torch.randn(
+                (SLOTS, K), generator=gen, device="cuda"),
+                {**case, "per_step": per_step}, launch_shape=True)
+        M = WHISPER_B3_T if rows == "prompt" else WHISPER_FRAMES
+        check_b3(torch, record, vq, torch.randn(
+            (M, K), generator=gen, device="cuda").bfloat16(),
+            {**case, "per_prefill": per_prefill})
+        del vq
+        if per_step:
+            check_split(torch, gen, record, K, N, SLOTS,
+                        {**case, "per_step": per_step}, pair=True)
+
+    # B2 at hd 64, g 1: the decoder's self-attention
+    B, H, hd, L = SLOTS, cfg.num_heads, cfg.head_dim, cfg.num_layers
+    lengths = torch.tensor([1, MAX_LEN, 200, 64], dtype=torch.int32,
+                           device="cuda")
+    tot = int(lengths.sum())
+    mask = (torch.arange(MAX_LEN, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    W, NB = MAX_LEN // BLOCK, SLOTS * MAX_LEN // BLOCK
+    perm = torch.randperm(NB, generator=gen, device="cuda").int()
+    table = torch.full((B, W), NB, dtype=torch.int32, device="cuda")
+    used = 0
+    for b, n in enumerate(lengths.tolist()):
+        nb = -(-n // BLOCK)
+        table[b, :nb] = perm[used:used + nb]
+        used += nb
+    case = {"model": WHISPER, "linear": "self_attn", "M": B, "B": B, "H": H,
+            "Hk": H, "group": 1, "hd": hd, "S": MAX_LEN,
+            "lengths": lengths.tolist(), "dtype": "bfloat16", "per_step": L}
+    q = torch.randn((B, H, hd), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((B, MAX_LEN, H, hd), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((B, MAX_LEN, H, hd), generator=gen, device="cuda").bfloat16()
+    q4, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    fp_bytes = 2 * q.numel() * 2 + tot * 2 * H * hd * 2 + B * 4
+    fp_ops = tot * H * hd * 4
+    tol = lambda want: 2.0 ** -7 * max(1.0, want.float().abs().max().item())
+    run = lambda: flash_decode(q, k, v, lengths)
+    got, want = run(), flash_decode_ref(q, k, v, lengths)
+    record("flash_decode", case, got, want, tol(want), run,
+           lambda: flash_decode_ref(q, k, v, lengths),
+           lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask),
+           fp_bytes, fp_ops)
+    ka, va = (t.reshape((NB, BLOCK) + t.shape[2:]) for t in (k, v))
+    kv_, vv_ = paged_view(ka, table), paged_view(va, table)
+    run = lambda: flash_decode_paged(q, ka, va, table, lengths)
+    got, want = run(), flash_decode_paged_ref(q, ka, va, table, lengths)
+    assert torch.equal(got, flash_decode(q, kv_, vv_, lengths)), \
+        "flash_decode_paged != contiguous at hd 64"
+    record("flash_decode_paged", {**case, "blocks": NB, "block": BLOCK}, got,
+           want, tol(want), run,
+           lambda: flash_decode_paged_ref(q, ka, va, table, lengths), None,
+           fp_bytes + table.numel() * 4, fp_ops,
+           extra={"contiguous_ms": lambda: flash_decode(q, kv_, vv_, lengths),
+                  "gather_kernel_ms": lambda: flash_decode(
+                      q, paged_view(ka, table), paged_view(va, table),
+                      lengths)})
+    del k, v, ka, va, kv_, vv_
+
+    # B6: the dense linears of an INT8 prefill
+    for name, M, K, N in (("frontend.proj", WHISPER_FRAMES, cfg.d_model,
+                           cfg.d_model),
+                          ("lm_head", WHISPER_B3_T, cfg.d_model,
+                           cfg.padded_vocab)):
+        w = torch.randn((K, N), generator=gen, device="cuda").bfloat16()
+        x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+        (xq, xs), (wq, ws) = quantize_int8(x, axis=-1), quantize_int8(w,
+                                                                      axis=0)
+        del w
+        wq_cm = wq.t().contiguous().t()
+        run = lambda: int8_gemm(xq, wq, xs, ws)
+        plain = lambda: int8_gemm_ref(xq, wq, xs, ws)
+        record("int8_gemm", {"model": WHISPER, "linear": name, "M": M,
+                             "K": K, "N": N, "per_prefill": 1},
+               run(), plain(), 0.0, run, plain,
+               lambda: torch._int_mm(xq, wq_cm).float() * xs * ws,
+               M * K + K * N + 4 * M + 4 * N + 4 * M * N, 2 * M * N * K,
+               peak=INT8_OPS)
+
+
+def serve_whisper(torch):
+    """Phase 12: whisper-medium (an encoder-decoder: the encoder over one
+    set of WHISPER_FRAMES frames, given to the engine as its extras and
+    read by every request's prefill; the decoder's self-attention cache
+    beside the S_SRC-row cross memories a prefill writes once and decode
+    only reads) at full width and all 24 + 24 layers, 2-bit VQ weights
+    drawn on the card from their shapes, bf16 activations, a dense bf16
+    head; serve's traffic (4 slots, max_len MAX_LEN, 8 greedy requests of
+    32-200 prompt tokens, MAX_NEW each) through the graphed engine (decode
+    captured at construction, prefill buckets at first use): the weights'
+    bytes against bf16 dense, the cross memories' and the self cache's
+    bytes, peak memory, decode ms a step, tok/s, prefill s, the launches
+    (B1 144 a replayed step, B2 24 at head dim 64, B3 288 a prefill), the
+    caches after the decode graph's build as init_cache made them
+    (``cross_len`` S_SRC); the engine's checks (``engine_checks``: the
+    bf16 plain step within WHISPER_PLAIN_REL with two faulty controls,
+    fp32 within 1e-3, graph_step over the self cache and the memories,
+    the replays' profiles), a replayed decode step's and a replayed
+    PROFILE_BUCKET-token prefill's device time with the "other" kernels
+    that take the most; then on the same weights
+    (``sub_runs``): the paged engine with prefill_chunk WHISPER_CHUNK
+    (each chunk re-encodes the frames; B2's paged entry) with the
+    contiguous run's tokens exactly and chunks above 0, the split-pinned
+    planner (B4 + B5) with its token agreement and its step held to the
+    fused one, INT8 prefill (B6 at frontend.proj and the head: 2 a
+    prefill); a snapshot mid-run restored into a fresh engine (tokens
+    equal); kv_bits = 4 and speculate_k = 3 refused with the reference's
+    messages; and the CLI at full width. Returns each run's launches."""
+    import gc
+
+    import numpy as np
+    from repro_torch.core.plan import PlanPolicy
+    from repro_torch.models import RunConfig
+    from repro_torch.models.whisper import S_SRC
+    from repro_torch.serve import Engine, EngineConfig, cache_bytes
+    from repro_torch.serve.graphs import tensor_leaves
+
+    t_phase = time.perf_counter()
+    name = f"serve_{WHISPER}"
+    rc = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    model, params, prompts = build_weights(torch, WHISPER)
+    cfg = model.cfg
+    wb = weight_bytes(torch, params)
+    assert 0.35e9 < wb["weight_bytes_on_card"] < 0.45e9, wb
+    lin = whisper_linears(cfg)
+    b1_step = sum(ln[3] for ln in lin)
+    b3_prefill = sum(ln[4] for ln in lin)
+    assert b1_step == 144 and b3_prefill == wb["vq_linears"] == 288, \
+        (b1_step, b3_prefill, wb)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    extras = {"frames": torch.randn((WHISPER_FRAMES, cfg.d_model),
+                                    generator=gen, device="cuda")}
+    ecfg = EngineConfig(num_slots=SLOTS, max_len=MAX_LEN)
+    fresh = model.init_cache(SLOTS, MAX_LEN, device="cuda")
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    sizes = {"cross_memory_bytes": nbytes(
+        [fresh[n] for n in ("cross_k", "cross_v", "cross_len")]),
+        "self_cache_bytes": nbytes(tensor_leaves(fresh["self"])),
+        "frames": WHISPER_FRAMES}
+
+    t0 = time.perf_counter()
+    eng = Engine(model, params, rc, ecfg, extras, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    assert all(torch.equal(t, f) for t, f in zip(
+        tensor_leaves(eng.caches), tensor_leaves(fresh))), \
+        f"{name}: the decode graph's build left the caches written"
+    assert bool((eng.caches["cross_len"] == S_SRC).all())
+    del fresh
+    outs, launches, wall = drain(torch, eng, prompts)
+    m = eng.metrics()
+    tokens = {"tokens": [list(o.tokens) for o in outs]}
+    emit({"phase": name, **wb, **sizes, "layers": [cfg.encoder_layers,
+                                                   cfg.num_layers],
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "cache_bytes": cache_bytes(eng.caches),
+          "requests": len(prompts), "slots": SLOTS, "max_len": MAX_LEN,
+          "engine_build_s": build_s,
+          "decode_graph_build_s": eng.decode_graph.build_s,
+          "decode_graph_pool_bytes": pool_bytes(
+              torch, eng.decode_graph.graph.pool()),
+          "prefill_graph_pool_bytes": pool_bytes(torch, eng.prefill_pool),
+          "wall_s": wall, "tokens_generated": m["tokens_generated"],
+          "tok_per_s": m["tokens_generated"] / wall,
+          "decode_steps": m["decode_steps"],
+          "decode_ms_per_step": m["decode_s"] * 1e3 / m["decode_steps"],
+          "prefill_s": m["prefill_s"],
+          "prefill_build_s": sum(g.build_s
+                                 for g in eng.prefill_graphs.values()),
+          "prefill_s_by_prompt_len": {len(p): o.prefill_s
+                                      for o, p in zip(outs, prompts)},
+          "decode_launches_per_step": eng.decode_graph.launches,
+          "trace_counts": eng.trace_counts, "launches": launches})
+    missing = [k for k in WHISPER_REQUIRED if launches[k] == 0]
+    assert not missing, f"{name}: kernels never launched on its path: " \
+                        f"{missing}"
+    ran = [k for k in MOE_ABSENT if launches[k] and k not in WHISPER_REQUIRED]
+    assert not ran, f"{name}: kernels off its path launched: {ran}"
+    dl = eng.decode_graph.launches
+    assert dl["fused_vq_matmul"] == b1_step and \
+        dl["flash_decode"] == cfg.num_layers, dl
+    assert launches["dequant_gemv"] == b3_prefill * len(prompts), launches
+    out = {name: launches}
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    toks = torch.randint(0, cfg.vocab_size, (SLOTS, 64), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    engine_checks(torch, model, eng, toks, name, WHISPER_REQUIRED,
+                  rel=WHISPER_PLAIN_REL, fp32_plain=True,
+                  eager_profiles=False,
+                  control_names=("position_minus_1", "init_state"))
+    tok = toks[:, -1:].cpu().numpy()
+    pos = np.full((SLOTS, 1), 64, np.int32)
+    emit({"phase": f"{name}_replay_profile", **device_profile(
+        torch, lambda: eng.decode_graph(tokens=tok, positions=pos),
+        top_other=16)})
+    # a prefill replay's "other" (the encoder's plain attention over the
+    # frames), by kernel
+    arrays = step_inputs(eng, PROFILE_BUCKET, np.random.default_rng(SEED + 4))
+    prefill = eng.prefill_graph(PROFILE_BUCKET)
+    emit({"phase": f"{name}_prefill_replay_profile", "bucket": PROFILE_BUCKET,
+          **device_profile(torch, lambda: prefill(**arrays), top_other=8)})
+    del eng, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    int8_rc = rc.replace_policy(int8_prefill=True)
+    paged = ("fused_vq_matmul", "flash_decode_paged", "dequant_gemv")
+    runs = {"paged": ({"paged": True, "block_size": BLOCK,
+                       "prefill_chunk": WHISPER_CHUNK}, paged),
+            "split": ({}, SPLIT_REQUIRED + ("flash_decode",)),
+            "int8_prefill": ({}, WHISPER_REQUIRED + ("int8_gemm",), int8_rc)}
+    sub, _ = sub_runs(torch, model, params, rc, prompts, MAX_LEN, name, runs,
+                      WHISPER_PLAIN_REL, tokens={"fp": tokens}, extras=extras)
+    assert sub[f"{name}_int8_prefill"]["int8_gemm"] == 2 * len(prompts), \
+        sub[f"{name}_int8_prefill"]
+    out.update(sub)
+
+    snapshot_restored(torch, model, params, rc, ecfg, prompts, tokens, name,
+                      extras=extras)
+    refusals(torch, model, params, rc, ecfg, name,
+             "speculate_k > 0 requires family='dense'")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_cli(torch, ["--arch", "whisper-medium", "--full"])
     phase_seconds(name, t_phase)
     return out
 
@@ -3051,7 +3387,7 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required,
 
 
 def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
-                  fp32_plain=False, eager_profiles=True):
+                  fp32_plain=False, eager_profiles=True, control_names=None):
     """One decode step through the kernels and through the plain versions,
     on the engine's params and run config (codebooks attached, kv_vq
     set), from ``toks`` (SLOTS rows of n prompt tokens) in each slot of
@@ -3065,9 +3401,11 @@ def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
     next token id, must both drift past ``rel``; a model without
     attention reads no position: its first control is the plain step
     from init_cache's state, as if the prompt's state were never
-    inserted); the two steps are also held to each other with fp32
-    activations (the same params) within 1e-3. ``eager_profiles=False``:
-    only the replays are profiled."""
+    inserted); ``control_names`` names two of those three controls in
+    their place (whisper: its token embedding is small beside the
+    sinusoid, so the next token id moves little); the two steps are also
+    held to each other with fp32 activations (the same params) within
+    1e-3. ``eager_profiles=False``: only the replays are profiled."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch.core.quantize import kv_codebook_tree
     from repro_torch.serve.kvcache import encode_prefill_cache, pad_prefill_cache
@@ -3080,7 +3418,7 @@ def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
     n = toks.shape[1]
     controls = {}
     with torch.no_grad():
-        _, cache = model.prefill(params, {"tokens": toks}, rc)
+        _, cache = model.prefill(params, prefill_batch(eng, toks), rc)
         if eng.kvq is not None:
             cache = encode_prefill_cache(cache, kv_codebook_tree(params),
                                          eng.kvq)
@@ -3095,13 +3433,17 @@ def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
         with Routing() as r_want:
             want, _ = model.decode(params, *step, clone(), plain_rc)
         if fp32_plain:
-            first = (("position_minus_1", (step[0], step[1] - 1), clone)
-                     if attn_nodes(base) else
-                     ("init_state", step, lambda: model.init_cache(
-                         SLOTS, eng.ecfg.max_len, device="cuda")))
-            for key, faulty, cache_of in (first, (
-                    "next_token_id", ((step[0] + 1) % cfg.vocab_size,
-                                      step[1]), clone)):
+            faults = {
+                "position_minus_1": ((step[0], step[1] - 1), clone),
+                "init_state": (step, lambda: model.init_cache(
+                    SLOTS, eng.ecfg.max_len, device="cuda")),
+                "next_token_id": (((step[0] + 1) % cfg.vocab_size, step[1]),
+                                  clone)}
+            names = control_names or (
+                "position_minus_1" if attn_nodes(base) else "init_state",
+                "next_token_id")
+            for key in names:
+                faulty, cache_of = faults[key]
                 ctl, _ = model.decode(params, *faulty, cache_of(), plain_rc)
                 controls[key] = logit_drift(torch, got, ctl, cfg.vocab_size)[1]
                 del ctl
@@ -3136,11 +3478,11 @@ def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
         row["control_rel_drift"] = controls
         m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
         with torch.no_grad():
-            _, c32 = m32.prefill(params, {"tokens": toks}, rc)
+            _, c32 = m32.prefill(params, prefill_batch(eng, toks), rc)
             c32 = pad_prefill_cache(c32, eng.ecfg.max_len, window=eng.window)
             with Routing() as r_got:
                 got, _ = m32.decode(params, *step, c32, rc)
-            _, c32 = m32.prefill(params, {"tokens": toks}, rc)
+            _, c32 = m32.prefill(params, prefill_batch(eng, toks), rc)
             c32 = pad_prefill_cache(c32, eng.ecfg.max_len, window=eng.window)
             with Routing() as r_want:
                 want, _ = m32.decode(params, *step, c32, plain_rc)
@@ -3214,16 +3556,24 @@ def paged_base(torch, model, eng, cache, n):
     return base
 
 
+def prefill_batch(eng, toks):
+    """A model prefill's batch of ``toks`` (B, n) with the engine's
+    extras (whisper's frames) broadcast to B rows."""
+    return {"tokens": toks, **{k: v.expand(toks.shape[0], *v.shape[1:])
+                               for k, v in eng._extra_batch.items()}}
+
+
 def step_inputs(eng, bucket, rng, chunk=False):
     """Host inputs of a prefill step of ``bucket`` tokens: the tokens; on a
     paged engine also slot 1, its table row and a true length 3 short of
     the bucket, and for a chunk continuation 64 committed positions."""
     import numpy as np
+    from repro_torch.serve.paging import attn_nodes
 
     t = rng.integers(0, eng.model.cfg.vocab_size, (1, bucket)).astype(np.int32)
     if eng.paging is None:
         return {"tokens": t}
-    row = eng.caches["body"]["block_table"][0, 1].cpu().numpy()
+    row = attn_nodes(eng.caches)[0]["block_table"][0, 1].cpu().numpy()
     arrays = {"tokens": t, "slot": [1], "bt_row": row,
               "true_len": [bucket - 3]}
     if chunk:
@@ -3639,6 +3989,7 @@ def main() -> int:
     launches.update(serve_deepseek(torch))
     launches.update(serve_xlstm(torch))
     launches.update(serve_rglru(torch))
+    launches.update(serve_whisper(torch))
     phase_of = {"flash_decode": "serve", "flash_decode_kvq": "serve_kvq",
                 "int8_gemm": "serve_kvq", "vq_gemm": "serve_split",
                 "oc_lookup": "serve_split",
@@ -3697,22 +4048,28 @@ def main() -> int:
             **({"verify_window": verify_window(rows[name])}
                if name == "fused_vq_matmul" else {}),
             # B1 and B3 at mixtral-8x22b's, deepseek-v2-lite-16b's,
-            # xlstm-125m's and recurrentgemma-2b's linears, B4 and B5 at
-            # deepseek's, xlstm's and recurrentgemma's decode linears
-            # (served in their split runs), B6 at xlstm's and
-            # recurrentgemma's INT8 prefill (xlstm's N = 4 gates, each
-            # head), and B1's, B4's and B5's decode step
+            # xlstm-125m's, recurrentgemma-2b's and whisper-medium's
+            # linears, B4 and B5 at deepseek's, xlstm's, recurrentgemma's
+            # and whisper's decode linears (served in their split runs),
+            # B6 at xlstm's, recurrentgemma's and whisper's INT8 prefill
+            # (xlstm's N = 4 gates, whisper's frontend.proj, each head),
+            # B2 and its paged entry at whisper's head dim 64 (g = 1), and
+            # B1's, B2's, B4's and B5's decode step
             **({m: model_rows(rows[name], m, name, launches[f"serve_{m}"])
-                for m in (MIXTRAL, DEEPSEEK, XLSTM, RGLRU)}
+                for m in (MIXTRAL, DEEPSEEK, XLSTM, RGLRU, WHISPER)}
                if name in ("fused_vq_matmul", "dequant_gemv") else {}),
+            **({WHISPER: model_rows(rows[name], WHISPER, name, launches[
+                f"serve_{WHISPER}" + ("_paged" if name.endswith("_paged")
+                                      else "")])}
+               if name in ("flash_decode", "flash_decode_paged") else {}),
             **({m: model_rows(rows[name], m, name, launches[
-                f"serve_{m}_int8_prefill"]) for m in (XLSTM, RGLRU)}
+                f"serve_{m}_int8_prefill"]) for m in (XLSTM, RGLRU, WHISPER)}
                if name == "int8_gemm" else {}),
             **({DEEPSEEK: model_rows(rows[name], DEEPSEEK, name, launches[
                 f"serve_{DEEPSEEK}_{MOE_SUB_LAYERS}l_split"]),
                 **{m: model_rows(rows[name], m, name,
                                  launches[f"serve_{m}_split"])
-                   for m in (XLSTM, RGLRU)}}
+                   for m in (XLSTM, RGLRU, WHISPER)}}
                if name in ("vq_gemm", "oc_lookup") else {}),
             "launches_by_phase": {ph: c[name] for ph, c in launches.items()
                                   if c.get(name)}})

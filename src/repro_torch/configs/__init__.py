@@ -1,11 +1,12 @@
 """Architecture registry of the port: ``get_config(arch)`` /
 ``get_smoke_config(arch)`` / ``all_configs()``. Ported: the paper's own
-model (llama2-7b), the four dense assigned architectures, xlstm-125m
+model (llama2-7b), the four dense assigned architectures,
+whisper-medium (an encoder-decoder with cross-attention), xlstm-125m
 (alternating mLSTM / sLSTM blocks), deepseek-v2-lite (MLA, a dense first
 layer, 64 routed experts top-6), mixtral (top-2 MoE with sliding-window
 rings) and recurrentgemma-2b (RG-LRU recurrent layers and local-attention
-rings), in the reference's ``ARCH_IDS`` order. The other families
-(whisper, vision) wait for ROADMAP A7."""
+rings), in the reference's ``ARCH_IDS`` order. The vision family waits
+for ROADMAP A7."""
 from __future__ import annotations
 
 import importlib
@@ -18,6 +19,7 @@ ARCH_IDS: List[str] = [
     "qwen3_0_6b",
     "llama3_8b",
     "qwen2_72b",
+    "whisper_medium",
     "xlstm_125m",
     "deepseek_v2_lite_16b",
     "mixtral_8x22b",
@@ -32,7 +34,7 @@ def _norm(arch: str) -> str:
     if name not in ARCH_IDS:
         raise NotImplementedError(
             f"architecture {arch!r} is not ported yet (ROADMAP A7: the "
-            f"other families); ported: {ARCH_IDS}")
+            f"vision family); ported: {ARCH_IDS}")
     return name
 
 

@@ -14,8 +14,9 @@ params on ``device``:
     ``scale``) the port's ``VQLogitsHead``;
   * the stacked layer axes the reference scans over (``"layers"``,
     deepseek's dense prefix ``"pre_layers"``, the xLSTM and RecurrentGemma
-    ``"groups"`` and RecurrentGemma's ``"trail"``, leading dim L on every
-    leaf) become lists of L per-layer dicts —
+    ``"groups"``, RecurrentGemma's ``"trail"`` and Whisper's ``"encoder"``
+    and ``"decoder"``, leading dim L on every leaf) become lists of L
+    per-layer dicts —
     attached KV-VQ codebooks included: an attention node's ``kv_cb``
     {"k", "v"} of shape (L, Hk, R, 256, vd) becomes one (Hk, R, 256, vd)
     pair per layer (an MLA node's {"lat"} (L, 1, R, 256, vd) likewise).
@@ -24,8 +25,7 @@ The leaves may also be tensors (on any device; they are moved to
 ``device``), tuples and None, as ``checkpoint.manager`` restores them.
 
 ``to_reference_layout(tree)`` is the inverse of the unstacking: every
-``"layers"`` / ``"pre_layers"`` / ``"groups"`` / ``"trail"`` list of
-per-layer dicts becomes one node
+list of per-layer dicts under one of those keys becomes one node
 whose leaves (and
 VQWeight tensors) are stacked on a leading L axis, numpy arrays with
 ``np.stack`` and tensors with ``torch.stack``. A tensor several layers
@@ -50,7 +50,7 @@ from repro_torch.core.vq import VQWeight
 
 _VQ_FIELDS = ("idx", "codebooks", "scale", "K", "N", "d", "n", "splits")
 _VQL_FIELDS = ("codebook", "assign", "scale")
-_STACKED = ("layers", "pre_layers", "groups", "trail")
+_STACKED = ("layers", "pre_layers", "groups", "trail", "encoder", "decoder")
 
 
 def is_vq(node: Any) -> bool:
@@ -148,9 +148,9 @@ def _stack(layers: list) -> Any:
 
 
 def to_reference_layout(tree: Any) -> Any:
-    """The reference's layout of a port tree (see module docstring):
-    ``"layers"``, ``"pre_layers"``, ``"groups"`` and ``"trail"`` lists
-    stacked on L; everything else as it is."""
+    """The reference's layout of a port tree (see module docstring): the
+    per-layer lists of the stacked segments (``_STACKED``) stacked on L;
+    everything else as it is."""
     if is_vq(tree) or is_vql(tree):
         return tree
     if isinstance(tree, dict):

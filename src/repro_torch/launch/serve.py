@@ -10,10 +10,12 @@ The weights are random, drawn on the device from a ``torch.Generator``
 seeded with ``seed``, then quantized (``quantize(method="synthetic")``);
 at full width the block linears are built as synthetic VQ weights
 straight from their shapes (``Model.init(..., block_device="meta")``),
-so the model never holds its dense block weights. The tokens differ
-from the reference CLI's (another generator); the trace does not: the
-same numpy prompts, lengths, sampling and stop flags, so the schedule
-and the engine's counters match. ``--device`` (default ``cuda``) is the
+so the model never holds its dense block weights. A whisper model
+prefills from 16 frames of d_model, as the reference CLI's, drawn from
+the same generator after the weights. The tokens differ from the
+reference CLI's (another generator); the trace does not: the same numpy
+prompts, lengths, sampling and stop flags, so the schedule and the
+engine's counters match. ``--device`` (default ``cuda``) is the
 port's only extra flag.
 """
 from __future__ import annotations
@@ -58,7 +60,11 @@ def serve(arch: str = "llama2-7b", *, smoke: bool = True, requests: int = 8,
     rc = RunConfig(mode="decode", attn_chunk=64, plan_policy=PlanPolicy(
         vq_mode=vq_mode if quantize else "none", impl="cuda"))
     ecfg = EngineConfig(num_slots=num_slots, max_len=prompt_len + max_new + 8)
-    eng = Engine(model, params, rc, ecfg, device=dev)
+    extras = {}
+    if cfg.family == "whisper":
+        extras["frames"] = torch.randn((16, cfg.d_model), generator=gen,
+                                       device=dev)
+    eng = Engine(model, params, rc, ecfg, extras, device=dev)
     rng = np.random.default_rng(seed)
     eos_ids = () if eos is None else (int(eos),)
     reqs = []

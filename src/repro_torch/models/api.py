@@ -1,12 +1,14 @@
 """Model facade of the port (``repro/models/api.py``): the dense and MoE
 families (``models/transformer.py``; MLA and dense prefix layers
-included), xLSTM (``models/xlstm.py``) and RecurrentGemma
-(``models/rglru.py``), dispatched on ``cfg.family``:
+included), Whisper (``models/whisper.py``), xLSTM (``models/xlstm.py``)
+and RecurrentGemma (``models/rglru.py``), dispatched on ``cfg.family``:
 
     model = build_model(cfg)
     params = model.init(generator, device="cuda")
     qparams = model.quantize(params, generator=generator, device="cuda")
     logits, caches = model.prefill(params, {"tokens": tokens}, rc)
+    logits, caches = model.prefill(params, {"tokens": tokens,
+                                            "frames": frames}, rc)  # whisper
     logits, caches = model.decode(params, tokens, positions, caches, rc)
     logits, view = model.forward(params, batch, rc, caches=view)  # a chunk
 
@@ -24,11 +26,11 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.core.logits_vq import VQLogitsHead
 from repro_torch.core.quantize import quantize_params
 from repro_torch.core.vq import KVQuantConfig, VQWeight
-from repro_torch.models import rglru, transformer, xlstm
+from repro_torch.models import rglru, transformer, whisper, xlstm
 from repro_torch.models.common import ModelConfig, RunConfig
 
 _FAMILY = {"dense": transformer, "moe": transformer, "xlstm": xlstm,
-           "rglru": rglru}
+           "rglru": rglru, "whisper": whisper}
 
 
 @dataclasses.dataclass
@@ -58,9 +60,13 @@ class Model:
 
     def forward(self, params: Any, batch: Dict[str, Any], rc: RunConfig,
                 caches=None) -> Tuple[torch.Tensor, Any]:
+        """``batch``: "tokens", optionally "positions", and for whisper
+        the prefill's "frames" (B, S_src, d_model)."""
+        kw = ({"frames": batch["frames"]}
+              if self.cfg.family == "whisper" and "frames" in batch else {})
         return self.module.forward(params, batch["tokens"], rc, self.cfg,
                                    positions=batch.get("positions"),
-                                   caches=caches)
+                                   caches=caches, **kw)
 
     def _mask_pad_vocab(self, logits: torch.Tensor) -> torch.Tensor:
         pad = self.cfg.padded_vocab - self.cfg.vocab_size
@@ -78,9 +84,10 @@ class Model:
         ``core.vq.KVQuantConfig``) the int8 or KV-VQ layout; contiguous,
         or with ``paging`` (a ``serve.paging.PagingConfig``) block arenas
         and a block table (``serve.paging.init_paged_cache``). The
-        recurrent families (xLSTM, RecurrentGemma) ignore ``kv_int8`` and
-        ``kvq``, as the reference's: their state is not a KV cache, and
-        RecurrentGemma's rings stay fp."""
+        recurrent families (xLSTM, RecurrentGemma) and Whisper ignore
+        ``kv_int8`` and ``kvq``, as the reference's: recurrent state is
+        not a KV cache, and RecurrentGemma's rings and Whisper's caches
+        stay fp."""
         if paging is not None:
             from repro_torch.serve import paging as paging_mod
 
@@ -88,7 +95,7 @@ class Model:
                 self, batch, max_len, paging, device=resolve_device(device),
                 kv_int8=kv_int8, kvq=kvq)
         dtype, dev = dtype or self.cfg.act_dtype, resolve_device(device)
-        if self.cfg.family in ("xlstm", "rglru"):
+        if self.module is not transformer:
             return self.module.init_cache(self.cfg, batch, max_len, dtype,
                                           dev)
         return transformer.init_cache(self.cfg, batch, max_len, dtype, dev,
@@ -132,16 +139,16 @@ def param_count(params: Any) -> int:
 def build_model(cfg: ModelConfig) -> Model:
     """The model of ``cfg``: the dense or MoE family, with full,
     sliding-window or multi-head latent attention (MLA) and optional
-    dense prefix layers (``first_dense_layers``), xLSTM, or RecurrentGemma
+    dense prefix layers (``first_dense_layers``), Whisper (an
+    encoder-decoder with cross-attention), xLSTM, or RecurrentGemma
     (RG-LRU layers and local-attention rings).
 
     Raises:
-      NotImplementedError: another family (whisper, vision), or a local
-        window outside RecurrentGemma (ROADMAP A7)."""
+      NotImplementedError: the vision family, or a local window outside
+        RecurrentGemma (ROADMAP A7)."""
     if cfg.family not in _FAMILY or (cfg.local_window
                                      and cfg.family != "rglru"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense, MoE, xLSTM and RecurrentGemma "
-            "families are ported, local windows in RecurrentGemma only "
-            "(the other families: ROADMAP A7)")
+            f"{cfg.name}: every family but vision is ported, local "
+            "windows in RecurrentGemma only (vision: ROADMAP A7)")
     return Model(cfg)

@@ -1,8 +1,9 @@
-"""Shared model building blocks of the dense and MoE families (the
-subset of ``repro/models/common.py`` the serving path reaches): configs,
-linear layers (dense / VQ / INT8 through the planner), rmsnorm, rotary
-embeddings, blocked prefill attention (causal, optionally within a
-sliding window), decode attention over the KV cache — fp, int8 (``k``/
+"""Shared model building blocks (the subset of ``repro/models/common.py``
+the serving path reaches): configs, linear layers (dense / VQ / INT8
+through the planner), rmsnorm and layernorm, rotary embeddings, blocked
+prefill attention (causal, optionally within a sliding window, or
+bidirectional: an encoder, or cross-attention over a memory through
+``attention_fwd``'s ``kv_source``), decode attention over the KV cache — fp, int8 (``k``/
 ``v`` int8 + bf16 ``k_s``/``v_s``) or KV-VQ (uint8 codebook indices +
 bf16 scales, the codebooks under the attention params' ``kv_cb``),
 contiguous or paged (block arenas and a block table,
@@ -169,12 +170,22 @@ def make_rmsnorm(d: int, device) -> Params:
     return {"g": torch.ones((d,), device=device)}
 
 
-def make_attention(gen, cfg: ModelConfig, *, device, block_device) -> Params:
+def make_layernorm(d: int, device) -> Params:
+    return {"g": torch.ones((d,), device=device),
+            "b2": torch.zeros((d,), device=device)}
+
+
+def make_attention(gen, cfg: ModelConfig, *, device, block_device,
+                   bias: Optional[bool] = None) -> Params:
+    """wq, wk, wv and wo on ``block_device``; ``bias`` (default
+    ``cfg.qkv_bias``) gives wq, wk and wv zero biases on ``device`` (wo
+    never has one); ``qk_norm`` adds the per-head rmsnorms."""
+    bias = cfg.qkv_bias if bias is None else bias
     p = {"wq": make_linear(gen, cfg.d_model, cfg.q_dim, device=block_device),
          "wk": make_linear(gen, cfg.d_model, cfg.kv_dim, device=block_device),
          "wv": make_linear(gen, cfg.d_model, cfg.kv_dim, device=block_device),
          "wo": make_linear(gen, cfg.q_dim, cfg.d_model, device=block_device)}
-    if cfg.qkv_bias:  # real zeros even over meta weights: quantization keeps them
+    if bias:  # real zeros even over meta weights: quantization keeps them
         for name in ("wq", "wk", "wv"):
             p[name]["b"] = torch.zeros((p[name]["w"].shape[1],), device=device)
     if cfg.qk_norm:
@@ -290,13 +301,28 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return torch.mul(y, g, out=torch.empty_like(x))
 
 
-def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
-    """1 / theta^(2i / head_dim) as the reference computes it: the fp32
-    exponent, the power rounded once to fp32 (taken in fp64: fp32
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm as the reference computes it: the fp32 mean and variance,
+    ``rsqrt(var + eps)``, then the fp32 gain ``g`` and bias ``b2``."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["g"].float() + p["b2"].float()).to(x.dtype)
+
+
+def timescales(dim: int, theta: float, device) -> torch.Tensor:
+    """theta^(2i / dim) for i < dim / 2 as the reference computes it: the
+    fp32 exponent, the power rounded once to fp32 (taken in fp64: fp32
     ``pow`` is off by an ulp at theta 1e6 for some i, and a large theta
-    magnifies that in the angle), then the fp32 reciprocal."""
-    e = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / torch.pow(float(np.float32(theta)), e.double()).float()
+    magnifies that in the angle)."""
+    e = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    return torch.pow(float(np.float32(theta)), e.double()).float()
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    """1 / theta^(2i / head_dim): ``timescales``' fp32 reciprocal."""
+    return 1.0 / timescales(head_dim, theta, device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -336,13 +362,16 @@ def _attn_chunk_apply(p, v):
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       chunk: int = 1024, window: int = 0,
-                      q_offset: Union[int, torch.Tensor] = 0) -> torch.Tensor:
-    """Memory-bounded causal attention (prefill): q in chunks, kv chunks
-    folded with an online softmax, -1e30 masking (the reference's
-    ``blocked_attention`` with ``causal=True``, every kv chunk visited).
-    ``window > 0`` also masks the positions ``window`` or more behind
-    each query (sliding-window attention). ``q_offset`` is the absolute
-    position of q[0], an int or a 0-dim device tensor (the
+                      q_offset: Union[int, torch.Tensor] = 0,
+                      causal: bool = True) -> torch.Tensor:
+    """Memory-bounded attention (prefill): q in chunks, kv chunks folded
+    with an online softmax, -1e30 masking (the reference's
+    ``blocked_attention``, every kv chunk visited). ``causal`` masks the
+    positions after each query; ``causal=False`` (an encoder, or
+    cross-attention over Skv != Sq memory rows) masks only the kv
+    padding. ``window > 0`` also masks the positions ``window`` or more
+    behind each query (sliding-window attention). ``q_offset`` is the
+    absolute position of q[0], an int or a 0-dim device tensor (the
     chunked-prefill continuation: no host sync)."""
     B, Sq, H, hd = q.shape
     hd_v = v.shape[-1]
@@ -369,9 +398,11 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             lo, hi = jk * ck, jk * ck + ck - 1
             s = _attn_chunk_scores(qi, k[:, lo:hi + 1], scale)   # (B,H,cq,ck)
             pos_c = torch.arange(lo, hi + 1, device=dev)
-            mask = (pos_c[None, :] <= q_pos[:, None]) & (pos_c < Skv)[None, :]
+            mask = (pos_c < Skv)[None, :].expand(cq, ck)
+            if causal:
+                mask = mask & (pos_c[None, :] <= q_pos[:, None])
             if window > 0:
-                mask &= pos_c[None, :] > (q_pos[:, None] - window)
+                mask = mask & (pos_c[None, :] > (q_pos[:, None] - window))
             s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
@@ -624,8 +655,14 @@ def _prefill_continuation(q, k, v, positions, cache, rc: RunConfig,
 
 def attention_fwd(p: Params, x: torch.Tensor, rc: RunConfig, cfg: ModelConfig,
                   *, positions: torch.Tensor, cache: Optional[Dict] = None,
-                  window: int = 0) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Causal self-attention. Decode writes the new tokens' K/V rows —
+                  window: int = 0, causal: bool = True,
+                  kv_source: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Self-attention (causal unless ``causal=False``: an encoder), or
+    with ``kv_source`` (B, Skv, D) cross-attention: q from ``x``, k and
+    v from ``kv_source``, no rope, no cache, attended through
+    ``blocked_attention`` (whisper's decode attends its cached memory
+    through ``decode_attention`` itself, as the reference's). Decode writes the new tokens' K/V rows —
     fp, int8-quantized or KV-VQ-encoded, as the cache's leaves say — and
     ``len`` into ``cache`` in place (positions past capacity are dropped),
     contiguous or through the block table of a paged cache, then attends:
@@ -638,21 +675,34 @@ def attention_fwd(p: Params, x: torch.Tensor, rc: RunConfig, cfg: ModelConfig,
     ``window > 0`` is sliding-window attention: prefill masks positions
     ``window`` or more behind each query, and the decode cache is a
     ring (position p at slot ``p % S``) attended through plain torch on
-    every layout, as the reference gates its kernels (``window == 0``)."""
+    every layout, as the reference gates its kernels (``window == 0``).
+
+    Raises:
+      ValueError: ``kv_source`` with a grouped ``wqkv`` (the quantization
+        never groups cross-attention) or with a cache."""
     B, S, _ = x.shape
     H, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kv_in = x if kv_source is None else kv_source
+    Skv = kv_in.shape[1]
+    if kv_source is not None and ("wqkv" in p or cache is not None):
+        raise ValueError(
+            "grouped wqkv is invalid for cross-attention" if "wqkv" in p
+            else "cross-attention takes no cache: decode attends the "
+                 "cached memory through decode_attention")
     if "wqkv" in p:
         q, k, v = grouped_linear(p["wqkv"], x, rc)
     else:
-        q, k, v = (linear(p[n], x, rc) for n in ("wq", "wk", "wv"))
+        q = linear(p["wq"], x, rc)
+        k, v = linear(p["wk"], kv_in, rc), linear(p["wv"], kv_in, rc)
     q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, Hk, hd)
-    v = v.reshape(B, S, Hk, hd)
+    k = k.reshape(B, Skv, Hk, hd)
+    v = v.reshape(B, Skv, Hk, hd)
     if cfg.qk_norm:
         q = rmsnorm(p["qnorm"], q, cfg.norm_eps)
         k = rmsnorm(p["knorm"], k, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_source is None:  # rope only in self-attention
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if rc.mode == "decode" and cache is not None:
@@ -672,7 +722,8 @@ def attention_fwd(p: Params, x: torch.Tensor, rc: RunConfig, cfg: ModelConfig,
             "a prefill over an existing cache needs a paged slot view "
             "(serve/paging.slot_view)")
     else:
-        o = blocked_attention(q, k, v, chunk=rc.attn_chunk, window=window)
+        o = blocked_attention(q, k, v, chunk=rc.attn_chunk, window=window,
+                              causal=causal)
         if rc.mode == "prefill":
             new_cache = {"k": k, "v": v,
                          "len": (positions[:, -1] + 1).to(torch.int32)}

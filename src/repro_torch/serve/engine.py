@@ -41,7 +41,17 @@ window comes from ``local_window``) beside RG-LRU state (``h``,
 ring-converts the rings and overwrites the state, a paged engine pages
 the rings through the block table and keeps the state pass-through,
 ``kv_bits`` must be 16 and ``speculate_k`` is refused (the windowed
-cache's check comes first), as in the reference.
+cache's check comes first), as in the reference. A Whisper model
+prefills from the engine's ``extras`` beside the tokens: one set of
+frames (``extras={"frames": (S_src, d_model)}``), batched once at
+construction and kept on the device, which every prefill reads (the
+bucket graphs, the paged prefill and each chunk continuation, which
+re-encodes them, as the reference's). Its cache holds the self-attention
+rows beside cross memories that a prefill writes once and decode only
+reads: a prefill's memories (as many rows as frames) go into a slot's
+leading rows (``paging.anchored``); a paged engine pages the
+self-attention and keeps the memories pass-through; ``kv_bits`` must be
+16 and ``speculate_k`` is refused, as in the reference.
 
 ``EngineConfig.kv_bits`` selects the KV cache layout: 16 = fp, 8 = int8
 values + bf16 scales (attended through plain torch), 4/2 = KV-VQ uint8
@@ -157,12 +167,15 @@ _BUCKETABLE_FAMILIES = ("dense", "whisper", "vision")
 
 
 def _insert_slot(batched: Any, single: Any, b: int) -> None:
-    """Copy a batch-1 cache tree (batch on axis 1) into slot ``b``."""
+    """Copy a batch-1 cache tree (batch on axis 1) into slot ``b``; a leaf
+    shorter than the slot's (a cross memory of as many rows as there
+    were frames) at its leading rows, as the reference's
+    ``dynamic_update_slice`` anchors it (``paging.anchored``)."""
     if isinstance(batched, dict):
         for k, v in batched.items():
             _insert_slot(v, single[k], b)
     else:
-        batched[:, b].copy_(single[:, 0])
+        paging.anchored(batched, single)[:, b].copy_(single[:, 0])
 
 
 @dataclasses.dataclass
@@ -203,7 +216,17 @@ class EngineConfig:
 
 class Engine:
     def __init__(self, model: Model, params: Any, rc: RunConfig,
-                 ecfg: EngineConfig, *, device: DeviceLike = None):
+                 ecfg: EngineConfig, extras: Optional[Dict[str, Any]] = None,
+                 *, device: DeviceLike = None):
+        """``extras``: the prefill's inputs beside the tokens, one set for
+        every request (whisper: ``{"frames": (S_src, d_model)}``), arrays
+        or tensors, batched once as the reference does (a 2-D value gets
+        a batch axis, any other keeps its first row).
+
+        Raises:
+          ValueError: an unsupported ``kv_bits`` or ``speculate_k`` (the
+            reference's messages), params off the engine's device, or a
+            whisper model without ``frames``."""
         if ecfg.kv_bits not in (16, 8, 4, 2):
             raise ValueError(
                 f"kv_bits={ecfg.kv_bits} unsupported; expected 16/8/4/2")
@@ -233,6 +256,16 @@ class Engine:
                 raise ValueError(
                     "speculate_k > 0 is not supported with MLA decode")
         self.device = resolve_device(device)
+        extras = dict(extras or {})
+        if model.cfg.family == "whisper" and "frames" not in extras:
+            raise ValueError("a whisper engine prefills from frames: pass "
+                             "extras={'frames': (S_src, d_model)}")
+        # prefill extras (whisper's frames), batched once, on the device:
+        # tensors every prefill graph reads
+        self._extra_batch = {}
+        for k, v in extras.items():
+            v = torch.as_tensor(v).to(self.device)
+            self._extra_batch[k] = v[None] if v.dim() == 2 else v[:1]
         p_dev = tensor_device(params)
         if p_dev is not None and p_dev.type != self.device.type:
             raise ValueError(f"params live on {p_dev}, engine runs on "
@@ -533,12 +566,12 @@ class Engine:
         if step is None:
             self.trace_counts["prefill"] += 1
             model, params, rc = self.model, self.params, self._rc_prefill
-            encode = self._encoder()
+            encode, extra = self._encoder(), self._extra_batch
             tokens = {"tokens": ((1, bucket), torch.int32)}
             if self.paging is None:
                 def prefill(tokens):
-                    logits, cache = model.prefill(params, {"tokens": tokens},
-                                                  rc)
+                    logits, cache = model.prefill(
+                        params, {"tokens": tokens, **extra}, rc)
                     return logits, encode(cache)
 
                 step = (StepGraph(prefill, tokens, self.device,
@@ -548,8 +581,8 @@ class Engine:
                 caches, meta, window = self.caches, self.paging, self.window
 
                 def prefill(tokens, slot, bt_row, true_len):
-                    logits, cache = model.prefill(params, {"tokens": tokens},
-                                                  rc)
+                    logits, cache = model.prefill(
+                        params, {"tokens": tokens, **extra}, rc)
                     paging.write_prefill_into_blocks(
                         caches, encode(cache), slot, bt_row, true_len, meta,
                         window=window)
@@ -566,25 +599,26 @@ class Engine:
         """The chunked-prefill continuation of length bucket ``bucket``,
         built at its first use (``trace_counts["prefill_chunk"]``): the
         model's forward over a one-slot view of the paged cache
-        (``paging.slot_view``) at positions ``hist + [0, bucket)``, its
-        K/V written through the slot's table, then the view's ``len``
-        merged back (``paging.merge_slot``). Static inputs: tokens, slot,
-        bt_row, the committed length ``hist`` and the chunk's
-        ``true_len``. Returns the fp32 logits (1, bucket, padded vocab);
+        (``paging.slot_view``) at positions ``hist + [0, bucket)`` (with
+        the engine's extras: whisper re-encodes its frames), its K/V
+        written through the slot's table, then the view's ``len`` and
+        pass-through leaves merged back (``paging.merge_slot``). Static
+        inputs: tokens, slot, bt_row, the committed length ``hist`` and
+        the chunk's ``true_len``. Returns the fp32 logits (1, bucket, padded vocab);
         it shares ``prefill_pool`` with the prefill buckets."""
         step = self.chunk_graphs.get(bucket)
         if step is None:
             self.trace_counts["prefill_chunk"] += 1
             model, params, rc = self.model, self.params, self._rc_prefill
-            caches = self.caches
+            caches, extra = self.caches, self._extra_batch
 
             def chunk(tokens, slot, bt_row, hist, true_len):
-                view = paging.slot_view(caches, bt_row, hist, true_len)
+                view = paging.slot_view(caches, slot, bt_row, hist, true_len)
                 pos = hist + torch.arange(tokens.shape[1], dtype=torch.int32,
                                           device=tokens.device)[None]
                 logits, view = model.forward(
-                    params, {"tokens": tokens, "positions": pos}, rc,
-                    caches=view)
+                    params, {"tokens": tokens, "positions": pos, **extra},
+                    rc, caches=view)
                 paging.merge_slot(caches, view, slot)
                 return logits
 
@@ -601,12 +635,15 @@ class Engine:
     def _paged_step(self, fn, inputs) -> StepGraph:
         """Build a paged prefill step. Its warm-up runs over the zeroed
         static inputs: slot 0 and a true length of 0, so every arena
-        write goes to the sink, but ``len`` of slot 0 is set; ``len`` is
-        put back after the build."""
-        lens = [t.clone() for t in self._len_leaves()]
+        write goes to the sink, but slot 0's ``len`` and its column of
+        every pass-through leaf (whisper's cross memories) are written;
+        they are put back after the build."""
+        slot0 = [t[:, 0] for t in (*self._len_leaves(),
+                                   *paging.passthrough_leaves(self.caches))]
+        saved = [t.clone() for t in slot0]
         step = StepGraph(fn, inputs, self.device, pool=self.prefill_pool)
-        for t, saved in zip(self._len_leaves(), lens):
-            t.copy_(saved)
+        for t, s in zip(slot0, saved):
+            t.copy_(s)
         return step
 
     def _len_leaves(self) -> List[torch.Tensor]:

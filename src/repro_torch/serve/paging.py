@@ -30,13 +30,16 @@ max_len`` positions up front whatever the requests use. Here:
 Attention nodes ({"k", "v", "len"} and the int8 / KV-VQ scale leaves
 ``k_s``/``v_s``) and MLA latent nodes ({"latent", "k_rope", "len"}, under
 KV-VQ also ``latent_s``) are pageable: the dense and MoE families' only
-nodes (a ``"pre"`` subtree pages like ``"body"``). Every other leaf is
-pass-through state of a fixed size a slot (xLSTM's recurrent state and
-RecurrentGemma's ``h``/``conv`` beside its rings, (G, B, ...), batch on
-axis 1): it keeps its contiguous shape, zeroed, as the reference's; a paged prefill and ``merge_slot`` write the slot's row of
-it, and it takes no block (``bytes_per_block`` counts arenas only). A
-chunked-prefill view of pass-through state is not ported: no ported
-family with such state chunks its prefill.
+nodes (a ``"pre"`` subtree pages like ``"body"``, Whisper's ``"self"``
+likewise). Every other leaf is pass-through state of a fixed size a slot
+(xLSTM's recurrent state, RecurrentGemma's ``h``/``conv`` beside its
+rings, Whisper's cross memories ``cross_k``/``cross_v``/``cross_len``;
+(L, B, ...), batch on axis 1): it keeps its contiguous shape, zeroed, as
+the reference's, and takes no block (``bytes_per_block`` counts arenas
+only). A paged prefill and ``merge_slot`` write the slot's column of it,
+an update shorter than the slot's capacity (a cross memory of as many
+rows as there were frames) at its leading rows [0, n) (``anchored``);
+a chunk's ``slot_view`` holds the slot's column, sliced at ``slot``.
 ``paged_state`` is the host half of an engine snapshot.
 
 ``page_len`` is a slot's logical capacity: ``max_len``, or for a
@@ -80,12 +83,6 @@ def _time_axes(node: dict) -> Optional[Dict[str, int]]:
     if "latent" in node and "k_rope" in node:
         return _MLA_TIME_AXES
     return None
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP A7): no ported family with "
-        "pass-through state chunks its prefill")
 
 
 def effective_block_size(block_size: int, page_len: int) -> int:
@@ -315,6 +312,24 @@ def _node_pairs(old: Any, new: Any) -> List[Tuple[Any, Any]]:
     return [pair for k, v in old.items() for pair in _node_pairs(v, new[k])]
 
 
+def passthrough_leaves(caches: Any) -> List[torch.Tensor]:
+    """The pass-through leaves of a cache tree (every leaf outside its
+    attention and MLA nodes), in order."""
+    return [t for t, _ in _node_pairs(caches, caches)
+            if isinstance(t, torch.Tensor)]
+
+
+def anchored(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """The part of a pass-through leaf ``old`` (batch on axis 1) that an
+    update ``new`` covers: each axis past the batch narrowed to ``new``'s
+    extent, from 0 (a view), as the reference's ``dynamic_update_slice``
+    anchors an update shorter than the leaf."""
+    for ax in range(2, new.dim()):
+        if new.shape[ax] != old.shape[ax]:
+            old = old.narrow(ax, 0, new.shape[ax])
+    return old
+
+
 def set_block_tables(caches: Any, tables: np.ndarray) -> None:
     """Write ``tables`` (B, W) into every ``block_table`` leaf, broadcast
     over the layer axis, in place. The engine masks non-active rows to
@@ -326,17 +341,17 @@ def set_block_tables(caches: Any, tables: np.ndarray) -> None:
         bt.copy_(src.to(bt.device).expand_as(bt))
 
 
-def slot_view(caches: Any, bt_row: torch.Tensor, hist: torch.Tensor,
-              chunk_true: torch.Tensor) -> Any:
+def slot_view(caches: Any, slot: torch.Tensor, bt_row: torch.Tensor,
+              hist: torch.Tensor, chunk_true: torch.Tensor) -> Any:
     """A one-slot (B = 1) view of the paged cache for a chunked-prefill
     step, made on the device from tensors (no host sync): the arenas are
     shared, ``block_table`` is ``bt_row`` (W,) on every layer, ``len`` is
     ``hist`` (1,), the host's committed length (decode steps in between
     add to every lane's ``len``, so the device leaf is not trusted
     mid-prefill), and a ``prefill_len`` leaf carries the chunk's true
-    length ``chunk_true`` (1,) into ``attention_fwd``. (The reference
-    also takes the slot, for pass-through leaves; their view is not
-    ported.)"""
+    length ``chunk_true`` (1,) into ``attention_fwd``. Each pass-through
+    leaf is its column ``slot`` (a (1,) int64 tensor; a copy, as the
+    reference's ``dynamic_slice``)."""
 
     def page(node):
         L = node["len"].shape[0]
@@ -350,21 +365,19 @@ def slot_view(caches: Any, bt_row: torch.Tensor, hist: torch.Tensor,
             L, 1).contiguous()
         return out
 
-    def keep(leaf):
-        raise _unported("a chunked-prefill view of pass-through state")
-
-    return _walk(caches, page, keep)
+    return _walk(caches, page, lambda leaf: leaf.index_select(1, slot))
 
 
 def merge_slot(caches: Any, new_caches: Any, slot: torch.Tensor) -> None:
     """Fold a chunk step's view back into the full cache, in place: the
     arenas were written through shared storage, the full table is kept,
     ``prefill_len`` dropped, and the view's ``len`` goes into column
-    ``slot`` (a (1,) int64 tensor) of every layer, as does the view's row
-    of each pass-through leaf."""
+    ``slot`` (a (1,) int64 tensor) of every layer, as does the view's
+    column of each pass-through leaf (at its leading rows when shorter:
+    ``anchored``)."""
     for old, new in _node_pairs(caches, new_caches):
         if isinstance(old, torch.Tensor):
-            old.index_copy_(1, slot, new.to(old.dtype))
+            anchored(old, new).index_copy_(1, slot, new.to(old.dtype))
         else:
             old["len"].index_copy_(1, slot, new["len"].to(old["len"].dtype))
 
@@ -379,9 +392,10 @@ def write_prefill_into_blocks(caches: Any, fresh: Any, slot: torch.Tensor,
     (a (1,) int64 tensor) becomes ``true_len`` ((1,) int32). With
     ``window > 0`` each leaf is first ring-converted
     (``_to_ring_dynamic``: any P; its first ``min(true_len, page_len)``
-    ring slots are written). A pass-through leaf's row goes into column
-    ``slot``. Every index is a tensor: no host sync, so a CUDA graph can
-    hold it."""
+    ring slots are written). A pass-through leaf's column goes into
+    column ``slot``, at its leading rows when shorter (``anchored``).
+    Every index is a tensor: no host sync, so a CUDA graph can hold
+    it."""
     bs, W = meta.block_size, meta.blocks_per_slot
     bt_row = bt_row.to(torch.int32)
 
@@ -407,7 +421,7 @@ def write_prefill_into_blocks(caches: Any, fresh: Any, slot: torch.Tensor,
 
     for old, new in _node_pairs(caches, fresh):
         if isinstance(old, torch.Tensor):
-            old.index_copy_(1, slot, new.to(old.dtype))
+            anchored(old, new).index_copy_(1, slot, new.to(old.dtype))
         else:
             commit(old, new)
 

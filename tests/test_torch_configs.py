@@ -134,7 +134,7 @@ def test_registry_order_and_unported_families():
                                  if a in tconfigs.ARCH_IDS]
     assert set(tconfigs.ARCH_IDS) == set(NEW) | {
         "llama2_7b", "mixtral_8x22b", "deepseek_v2_lite_16b", "xlstm_125m",
-        "recurrentgemma_2b"}
+        "recurrentgemma_2b", "whisper_medium"}
     assert {a: dataclasses.asdict(c)
             for a, c in tconfigs.all_configs().items()} == \
         {a: dataclasses.asdict(jconfigs.get_config(a))

@@ -87,4 +87,4 @@ def test_serve_runs_on_the_card_by_default():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tserve.serve("llama3-8b")
     with pytest.raises(NotImplementedError, match="A7"):
-        tserve.serve("whisper-medium", device="cpu")
+        tserve.serve("llama-3.2-vision-11b", device="cpu")

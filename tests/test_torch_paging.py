@@ -275,7 +275,8 @@ def test_prefill_into_blocks_tables_and_slot_view_match_reference(setup,
 
     # the view of slot 2 with 11 committed positions and a 5-position chunk
     hist, true_c, slot = 11, 5, 2
-    tv = tpg.slot_view(tc, torch.from_numpy(tables[slot]),
+    tv = tpg.slot_view(tc, torch.tensor([slot]),
+                       torch.from_numpy(tables[slot]),
                        torch.tensor([hist], dtype=torch.int32),
                        torch.tensor([true_c], dtype=torch.int32))
     jv = jpg.slot_view(jc, slot, tables[slot], hist, true_c)
@@ -390,7 +391,7 @@ def test_sentinel_writes_never_touch_a_live_block(setup):
     # slot 1's chunk: 3 real positions from 4, an 8-position bucket; its
     # table row holds blocks 3 and 4, then the sentinel
     row = np.array([3, 4, NB, NB], np.int32)
-    view = tpg.slot_view(tc, torch.from_numpy(row),
+    view = tpg.slot_view(tc, torch.tensor([1]), torch.from_numpy(row),
                          torch.tensor([4], dtype=torch.int32),
                          torch.tensor([3], dtype=torch.int32))
     chunk = torch.from_numpy(rng.integers(0, 64, (1, 8)).astype(np.int32))
@@ -492,7 +493,7 @@ def test_chunked_prefill_matches_one_shot_and_reference(setup):
                                   torch.from_numpy(row),
                                   torch.tensor([c1], dtype=torch.int32), meta)
     tpg.set_block_tables(paged, row[None])
-    view = tpg.slot_view(paged, torch.from_numpy(row),
+    view = tpg.slot_view(paged, torch.tensor([0]), torch.from_numpy(row),
                          torch.tensor([c1], dtype=torch.int32),
                          torch.tensor([S - c1], dtype=torch.int32))
     batch = {"tokens": torch.from_numpy(toks[:, c1:S]),
@@ -537,7 +538,7 @@ def test_quantized_continuation_refuses(setup):
         meta = tpg.make_paging_config(m, 1, CAP, block_size=BS, **kw)
         cache = m.init_cache(1, CAP, device="cpu", paging=meta, **kw)
         row = torch.arange(meta.blocks_per_slot, dtype=torch.int32)
-        view = tpg.slot_view(cache, row,
+        view = tpg.slot_view(cache, torch.tensor([0]), row,
                              torch.tensor([4], dtype=torch.int32),
                              torch.tensor([4], dtype=torch.int32))
         params = tp if "kv_int8" in kw else tq.attach_kv_codebooks(

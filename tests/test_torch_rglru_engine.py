@@ -204,8 +204,9 @@ def test_paged_mixed_tree_as_reference():
     """The paged tree of rglru: the rings become arenas with a block
     table, ``h``/``conv`` keep their contiguous shapes; its geometry (the
     rings' bytes a block only) and a one-slot prefill cache committed
-    into slot 1 equal the reference's, leaf for leaf; a chunked view of
-    the pass-through state raises (no ported family chunks it)."""
+    into slot 1 equal the reference's, leaf for leaf, and so does a
+    chunk's view of slot 1 (its block-table row, ``len``, and its column
+    of ``h``/``conv``; the arenas shared)."""
     s = setup()
     W = s["cfg"].local_window
     jmeta = jpaging.make_paging_config(s["jm"], SLOTS, MAX_LEN, window=W,
@@ -243,9 +244,21 @@ def test_paged_mixed_tree_as_reference():
         np.testing.assert_array_equal(g.numpy(), a, err_msg=path)
     assert tpaging.is_paged(tc) and len(tpaging.attn_nodes(tc)) == 1
     assert tuple(tc["trail"]["h"].shape) == (2, SLOTS, s["cfg"].d_rnn)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tpaging.slot_view(tc, torch.from_numpy(row), torch.tensor([0]),
-                          torch.tensor([4]))
+    jv = jpaging.slot_view(jc, 1, row, 0, 4)
+    tv = tpaging.slot_view(tc, torch.tensor([1]), torch.from_numpy(row),
+                           torch.tensor([0], dtype=torch.int32),
+                           torch.tensor([4], dtype=torch.int32))
+    want = dict(ckpt_manager.flatten_with_paths(
+        {"c": jax.tree_util.tree_map(np.asarray, jv)}))
+    got = dict(ckpt_manager.flatten_with_paths({"c": tv}))
+    assert set(got) == set(want)
+    for path, a in want.items():
+        g = got[path]
+        if path.split("/")[-1] in ("k", "v"):
+            assert g is tc["groups"][ATTN][path.split("/")[-1]]
+            g = g[:, :NB]
+        np.testing.assert_array_equal(g.numpy(), a, err_msg=path)
+    assert tv["trail"]["h"].abs().sum() > 0
 
 
 def test_refusals_as_reference():

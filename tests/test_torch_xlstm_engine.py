@@ -184,7 +184,9 @@ def test_construction_leaves_the_cache_as_init_cache_made_it(layout):
 def test_paged_pass_through_state_as_reference(op):
     """The paged tree of xlstm (pass-through leaves only, zeros) and a
     one-slot state written into slot 1 by each package's paged prefill
-    commit and chunk merge: every leaf equal to the reference's."""
+    commit and chunk merge: every leaf equal to the reference's; a
+    chunk's view of slot 1 holds its column of every leaf, as the
+    reference's."""
     s = setup()
     jmeta = jpaging.make_paging_config(s["jm"], SLOTS, MAX_LEN, block_size=8)
     tmeta = tpaging.make_paging_config(s["m"], SLOTS, MAX_LEN, block_size=8)
@@ -214,9 +216,15 @@ def test_paged_pass_through_state_as_reference(op):
             np.testing.assert_array_equal(tc[k][n].numpy(), np.asarray(a))
             assert tc[k][n][:, slot].abs().sum() > 0
             assert not tc[k][n][:, 0].any()
-    with pytest.raises(NotImplementedError, match="A7"):
-        tpaging.slot_view(tc, torch.from_numpy(row), torch.tensor([0]),
-                          torch.tensor([4]))
+    jv = jpaging.slot_view(jc, slot, row, 0, 4)
+    tv = tpaging.slot_view(tc, torch.tensor([slot]), torch.from_numpy(row),
+                           torch.tensor([0], dtype=torch.int32),
+                           torch.tensor([4], dtype=torch.int32))
+    for k, node in jv.items():
+        for n, a in node.items():
+            assert tuple(tv[k][n].shape) == (a.shape[0], 1) + a.shape[2:]
+            np.testing.assert_array_equal(tv[k][n].numpy(), np.asarray(a))
+            assert tv[k][n].abs().sum() > 0
 
 
 # ----------------------------------------------------------------- resilience
