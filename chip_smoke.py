@@ -240,13 +240,40 @@ Phases (any failure exits non-zero):
      and at the encoder's and the cross memory's of 1500 rows, B2 and its
      paged entry at head dim 64 with one query head a kv head, and B6 at
      frontend.proj (1500 rows) and the head;
-  13. a {"kernels": [...]} summary line (fused_vq_matmul's row also
+  13. `serve_llama_3_2_vision_11b`: llama-3.2-vision-11b (8 groups of
+     four self layers and one gated cross-attention layer over one image
+     of 1601 patch embeddings, drawn on the card and given to the engine
+     as its extras, projected by every request's prefill; the self caches
+     beside 1601-row image memories that a prefill writes once and decode
+     only reads) at full width and all 40 layers, the cross layers' gates
+     set non-zero (the reference draws them at zero, which leaves the
+     image unread), `serve`'s traffic through the graphed engine: weight
+     bytes against bf16 dense, the image memories' and the self caches'
+     bytes, peak memory, decode ms a step, tok/s, prefill s, launches (B1
+     160 and B2 32 a replayed step; B3 176 a prefill), the caches after
+     the decode graph's build as init_cache made them, the plain decode
+     step at bf16 within VISION_PLAIN_REL (three faulty controls above
+     it, one with the memories zeroed) and at fp32 within 1e-3,
+     graph_step (decode and every bucket, bitwise), the replays'
+     profiles with the "other" kernels that take the most; then on the
+     same weights the paged engine with the contiguous run's tokens
+     exactly, the paged engine with prefill_chunk 64 (each chunk
+     re-projects the image) and its step after a chunked prefill held to
+     the one-shot one (bf16 within the bound, fp32 within 1e-3), the
+     split-pinned planner with its step held to the fused one, INT8
+     prefill (B6 at img_proj and the head), a snapshot restored, kv_bits
+     = 4 and speculate_k = 3 refused with the reference's messages, and
+     the CLI (`--arch llama-3.2-vision-11b --full`); the check phase
+     holds B1, B4, B5 and the pair at its decode linears, B3 at its
+     prefill linears of a 200-token prompt and at the cross wk/wv of 1601
+     image rows, and B6 at img_proj (1601 rows) and the head;
+  14. a {"kernels": [...]} summary line (fused_vq_matmul's row also
      sums its verify-window rows, `verify_window`; B1's and B3's carry
-     their mixtral, deepseek, xlstm, recurrentgemma and whisper rows,
-     B4's and B5's their deepseek, xlstm, recurrentgemma and whisper
-     rows, B6's its xlstm, recurrentgemma and whisper rows, B2's and its
-     paged entry's their whisper rows, each with its decode step's sum
-     where it has one), the card line, and the result
+     their mixtral, deepseek, xlstm, recurrentgemma, whisper and vision
+     rows, B4's and B5's their deepseek, xlstm, recurrentgemma, whisper
+     and vision rows, B6's its xlstm, recurrentgemma, whisper and vision
+     rows, B2's and its paged entry's their whisper rows, each with its
+     decode step's sum where it has one), the card line, and the result
      line {"ok": true, "device": {...}} last.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
@@ -272,6 +299,7 @@ INT8_OPS = 1979e12             # H100 SXM, dense int8 tensor cores
 BF16_FLOPS = 989e12            # H100 SXM, dense bf16 tensor cores
 SLOTS, MAX_LEN, N_REQUESTS, MAX_NEW = 4, 512, 8, 32
 BLOCK = 16                     # paged KV: positions a block
+PREFILL_CHUNK = 64             # chunked prefill (prompts of 32-200 tokens)
 TIGHT_BLOCKS = 40              # serve_paged_tight's pool (W = 32): it preempts
 GRAPH_STEPS = 8                # decode replays held to eager steps
 PROFILE_BUCKET = 128           # the prefill replay that is profiled
@@ -370,11 +398,38 @@ WHISPER_PLAIN_REL = 0.025
 # the decoder prompt length the check phase holds B3 and B6 at (the
 # encoder's linears at WHISPER_FRAMES rows)
 WHISPER_B3_T = 200
-# the chunked-prefill sub-run's chunk (prompts of 32-200 tokens)
-WHISPER_CHUNK = 64
 # the kernels of its served path: B1, B2 (hd 64, one query head a kv
 # head) and B3
 WHISPER_REQUIRED = ("fused_vq_matmul", "flash_decode", "dequant_gemv")
+# serve_llama_3_2_vision_11b: 8 groups of four self layers and one gated
+# cross layer at full width, serve's traffic, one image of VISION_IMG
+# patch embeddings (the engine's extras; one tile, the cache's capacity)
+# for every request's prefill
+VISION = "llama_3_2_vision_11b"
+VISION_IMG = 1601
+# the cross layers' (attn_gate, mlp_gate): the reference draws them at
+# zero, which would leave the image path unread
+VISION_GATES = (0.8, 0.6)
+# the image: one shared row plus this much independent noise a patch, as
+# a tile's patch embeddings share a component; independent rows average
+# out in the cross attention's near-uniform softmax over 1601 random keys
+# (zeroing the memories then moved the logits by 0.018 of the max logit,
+# barely past the bf16 step's own drift, on an H100)
+VISION_PATCH_NOISE = 0.5
+# its bf16 plain decode step against the kernels' step: 2.5x the sound
+# step's drift on the first run with a structured image (0.0162 of the max
+# logit) and under a third of the smallest of its three faulty controls
+# there (the plain step one position early 0.136, with the next token id
+# 0.794, with the image memories zeroed 0.482; NVIDIA H100 80GB HBM3,
+# 700 W); the step after a chunked prefill drifted 0.0112 from the
+# one-shot one
+VISION_PLAIN_REL = 0.04
+# the prompt length the check phase holds B3 and B6 at (the cross wk and
+# wv, and img_proj, at VISION_IMG rows)
+VISION_B3_T = 200
+# the kernels of its served path: B1, B2 (the self layers; the cross
+# decode attends in plain torch, as the reference's) and B3
+VISION_REQUIRED = ("fused_vq_matmul", "flash_decode", "dequant_gemv")
 LINEARS = (("wqkv", 4096, 12288), ("wo", 4096, 4096), ("gu", 4096, 22016),
            ("down", 11008, 4096))
 # the dense configs served after llama2-7b, and the (H, Hk) of their
@@ -691,6 +746,7 @@ def check_kernels(torch, timer):
     check_xlstm_linears(torch, gen, record)
     check_rglru_linears(torch, gen, record)
     check_whisper_linears(torch, gen, record)
+    check_vision_linears(torch, gen, record)
 
     # INT8 GEMM at the prefill lm_head shape, at every bucket the served
     # prefill runs (bf16 activations and head, quantized as the wrapper
@@ -1655,7 +1711,7 @@ def serve_resilience(torch, model, params, prompts, fp, spec):
     # (d) the tight paged engine, snapshotted after a preemption while a
     # chunk is in flight
     tight = dict(paged=True, block_size=BLOCK, num_blocks=TIGHT_BLOCKS,
-                 prefill_chunk=64)
+                 prefill_chunk=PREFILL_CHUNK)
     eng = mk(**tight)
     uids = [eng.submit(r) for r in reqs()]
     snap, at = None, None
@@ -1904,6 +1960,31 @@ def check_b3(torch, record, vq, xb, case):
         M * K * 2 + 2 * V * N + 2 * 8 * 256 * 4 + N * 4 + M * N * 4,
         2 * 2 * M * K * N, peak=BF16_FLOPS,
         extra={"library_bf16_ms": lambda: torch.matmul(xb, wb)})
+
+
+def check_b6(torch, gen, record, model, name, M, K, N, per_prefill=1):
+    """B6 at one dense linear of ``model``'s INT8 prefill: bf16 w (K, N)
+    and x (M, K) drawn from ``gen`` and quantized as the wrapper
+    quantizes them, bit-equal to the plain version, beside torch._int_mm
+    with the same scales (none at N not a multiple of 8, which cuBLAS's
+    int8 GEMM does not take)."""
+    from repro_torch.core.ops import quantize_int8
+    from repro_torch.kernels.int8_gemm import int8_gemm, int8_gemm_ref
+
+    w = torch.randn((K, N), generator=gen, device="cuda").bfloat16()
+    x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+    (xq, xs), (wq, ws) = quantize_int8(x, axis=-1), quantize_int8(w, axis=0)
+    del w
+    wq_cm = wq.t().contiguous().t()
+    run = lambda: int8_gemm(xq, wq, xs, ws)
+    plain = lambda: int8_gemm_ref(xq, wq, xs, ws)
+    record("int8_gemm", {"model": model, "linear": name, "M": M, "K": K,
+                         "N": N, "per_prefill": per_prefill},
+           run(), plain(), 0.0, run, plain,
+           (lambda: torch._int_mm(xq, wq_cm).float() * xs * ws)
+           if N % 8 == 0 else None,
+           M * K + K * N + 4 * M + 4 * N + 4 * M * N, 2 * M * N * K,
+           peak=INT8_OPS)
 
 
 def deepseek_linears(cfg):
@@ -2243,8 +2324,9 @@ def sub_runs(torch, model, params, rc, prompts, max_len, sub, runs, rel,
     "fp" run (the first, or given in ``tokens``); the paged run's tokens
     must equal it exactly; a run with ``prefill_chunk`` must chunk; the
     split run (the default planner pinned to B4 + B5) ends with
-    ``split_step`` (``rel``: its bf16 bound). ``extras``: the engines'
-    prefill extras. Returns (each run's launches, each run's tokens)."""
+    ``split_step`` and a "chunk" run with ``chunk_step`` (``rel``: their
+    bf16 bound). ``extras``: the engines' prefill extras. Returns (each
+    run's launches, each run's tokens)."""
     from repro_torch.serve import Engine, EngineConfig, cache_bytes
 
     tokens, out = dict(tokens or {}), {}
@@ -2285,9 +2367,81 @@ def sub_runs(torch, model, params, rc, prompts, max_len, sub, runs, rel,
         out[f"{sub}_{label}"] = launches
         if label == "split":
             split_step(torch, eng, sub, rel)
+        if label == "chunk":
+            chunk_step(torch, eng, sub, rel)
         del eng
     assert tokens["paged"] == tokens["fp"], f"{sub}: the paged cache differs"
     return out, tokens
+
+
+def chunk_step(torch, eng, name, rel):
+    """The witness beside a chunked run's token agreement: SLOTS prompts
+    of 1.5 chunks (the engine's ``prefill_chunk``) stepped through
+    ``eng``, and through an engine of its layout with fp32 activations
+    (the same params), until every slot has taken both chunks (the
+    prefill graph, then the chunk graph) and its first decode step
+    (the decode graph); then one plain decode step over the engine's
+    caches from the token that step sampled, held against the same two
+    decode steps after a one-shot prefill into a contiguous cache: bf16
+    within ``rel`` of max|logit| (argmax on 3 of 4 rows), fp32 within
+    1e-3. A chunk's linears run B3 at another M than the one-shot
+    prefill's, whose K splits differ (``dequant_gemv.ops.launch_shape``),
+    so the two prefills differ by rounding: a token agreement below 1 is
+    near-tie flips, not a wrong chunk. Its launches are not counted."""
+    import numpy as np
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, GenerationRequest
+    from repro_torch.serve.kvcache import pad_prefill_cache
+
+    cfg, ecfg = eng.model.cfg, eng.ecfg
+    c = ecfg.prefill_chunk
+    n = c + c // 2
+    # the plain step writes position n + 1 into the block the engine gave
+    # its decode step at position n
+    assert (n + 1) % ecfg.block_size, (n, ecfg.block_size)
+    prompts = np.random.default_rng(SEED + 8).integers(
+        0, cfg.vocab_size, (SLOTS, n)).astype(np.int32)
+    extras = {k: v[0] for k, v in eng._extra_batch.items()}
+    rc = eng.rc.replace(mode="prefill")
+    at = lambda p: torch.full((SLOTS, 1), p, dtype=torch.int32,
+                              device="cuda")
+    row = {"phase": f"{name}_chunked_vs_one_shot_step", "chunk": c,
+           "prompt": n, "rel_bound": rel}
+    for dtype in ("bf16", "fp32"):
+        with torch.no_grad(), Uncounted():
+            e = eng if dtype == "bf16" else Engine(
+                build_model(dataclasses.replace(cfg, dtype="float32")),
+                eng.params, eng.rc, ecfg, extras, device="cuda")
+            chunks = e.metrics()["prefill_chunks"]
+            for p in prompts:
+                e.submit(GenerationRequest(prompt=p, max_new_tokens=MAX_NEW))
+            while not e.active.all():
+                e.step()
+            trs = e.sched.slots
+            assert (e.positions == n + 1).all() and \
+                e.metrics()["prefill_chunks"] == chunks + SLOTS, \
+                (e.positions, e.metrics()["prefill_chunks"], chunks)
+            toks = torch.tensor(np.stack([tr.request.prompt for tr in trs]),
+                                dtype=torch.int32, device="cuda")
+            first, second = (torch.tensor([[tr.generated[i]] for tr in trs],
+                                          dtype=torch.int32, device="cuda")
+                             for i in (0, 1))
+            chunked, _ = e.model.decode(e.params, second, at(n + 1),
+                                        e.caches, e.rc)
+            _, cache = e.model.prefill(e.params, prefill_batch(e, toks), rc)
+            _, cache = e.model.decode(e.params, first, at(n), pad_prefill_cache(
+                cache, ecfg.max_len), e.rc)
+            one, _ = e.model.decode(e.params, second, at(n + 1), cache, e.rc)
+        drift, rel_drift, agree, finite = logit_drift(torch, chunked, one,
+                                                      cfg.vocab_size)
+        row[dtype] = {"max_abs_logit_drift": drift, "rel_drift": rel_drift,
+                      "argmax_agreement": agree, "finite": finite}
+        del one, chunked, cache, e
+    emit(row)
+    assert row["bf16"]["finite"] and row["bf16"]["rel_drift"] <= rel \
+        and row["bf16"]["argmax_agreement"] >= 0.75, row
+    assert row["fp32"]["finite"] and row["fp32"]["rel_drift"] <= 1e-3 \
+        and row["fp32"]["argmax_agreement"] >= 0.75, row
 
 
 def split_step(torch, eng, name, rel):
@@ -2487,9 +2641,7 @@ def check_xlstm_linears(torch, gen, record):
     N = 4, so no library call) and the head (N = 50304), bit-equal to
     the plain version."""
     from repro_torch.configs import get_config
-    from repro_torch.core.ops import quantize_int8
     from repro_torch.core.vq import synthetic_vq
-    from repro_torch.kernels.int8_gemm import int8_gemm, int8_gemm_ref
 
     cfg = get_config(XLSTM)
     T, G = XLSTM_B3_T, cfg.num_layers // len(cfg.xlstm_pattern)
@@ -2505,20 +2657,8 @@ def check_xlstm_linears(torch, gen, record):
         check_split(torch, gen, record, K, N, SLOTS, case, pair=True)
     for name, N, per_prefill in (("wi|wf", cfg.num_heads, 2 * G),
                                  ("lm_head", cfg.padded_vocab, 1)):
-        K = cfg.d_model
-        w = torch.randn((K, N), generator=gen, device="cuda").bfloat16()
-        x = torch.randn((T, K), generator=gen, device="cuda").bfloat16()
-        (xq, xs), (wq, ws) = quantize_int8(x, axis=-1), quantize_int8(w, axis=0)
-        wq_cm = wq.t().contiguous().t()
-        run = lambda: int8_gemm(xq, wq, xs, ws)
-        plain = lambda: int8_gemm_ref(xq, wq, xs, ws)
-        record("int8_gemm", {"model": XLSTM, "linear": name, "M": T, "K": K,
-                             "N": N, "per_prefill": per_prefill},
-               run(), plain(), 0.0, run, plain,
-               (lambda: torch._int_mm(xq, wq_cm).float() * xs * ws)
-               if N % 8 == 0 else None,
-               T * K + K * N + 4 * T + 4 * N + 4 * T * N, 2 * T * N * K,
-               peak=INT8_OPS)
+        check_b6(torch, gen, record, XLSTM, name, T, cfg.d_model, N,
+                 per_prefill)
 
 
 def serve_xlstm(torch):
@@ -2683,9 +2823,7 @@ def check_rglru_linears(torch, gen, record):
     the head (K = 2560, N = 256000), bit-equal to the plain version,
     beside torch._int_mm with the same scales."""
     from repro_torch.configs import get_config
-    from repro_torch.core.ops import quantize_int8
     from repro_torch.core.vq import synthetic_vq
-    from repro_torch.kernels.int8_gemm import int8_gemm, int8_gemm_ref
 
     cfg = get_config(RGLRU)
     T = RGLRU_B3_T
@@ -2699,20 +2837,8 @@ def check_rglru_linears(torch, gen, record):
             (T, K), generator=gen, device="cuda").bfloat16(), case)
         del vq
         check_split(torch, gen, record, K, N, SLOTS, case, pair=True)
-    K, N = cfg.d_model, cfg.padded_vocab
-    w = torch.randn((K, N), generator=gen, device="cuda").bfloat16()
-    x = torch.randn((T, K), generator=gen, device="cuda").bfloat16()
-    (xq, xs), (wq, ws) = quantize_int8(x, axis=-1), quantize_int8(w, axis=0)
-    del w
-    wq_cm = wq.t().contiguous().t()
-    run = lambda: int8_gemm(xq, wq, xs, ws)
-    plain = lambda: int8_gemm_ref(xq, wq, xs, ws)
-    record("int8_gemm", {"model": RGLRU, "linear": "lm_head", "M": T, "K": K,
-                         "N": N, "per_prefill": 1},
-           run(), plain(), 0.0, run, plain,
-           lambda: torch._int_mm(xq, wq_cm).float() * xs * ws,
-           T * K + K * N + 4 * T + 4 * N + 4 * T * N, 2 * T * N * K,
-           peak=INT8_OPS)
+    check_b6(torch, gen, record, RGLRU, "lm_head", T, cfg.d_model,
+             cfg.padded_vocab)
 
 
 def serve_rglru(torch):
@@ -2847,13 +2973,11 @@ def check_whisper_linears(torch, gen, record):
     scales."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
-    from repro_torch.core.ops import quantize_int8
     from repro_torch.core.vq import synthetic_vq
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_paged,
                                                   flash_decode_paged_ref,
                                                   flash_decode_ref)
-    from repro_torch.kernels.int8_gemm import int8_gemm, int8_gemm_ref
     from repro_torch.models.common import paged_view
 
     cfg = get_config(WHISPER)
@@ -2921,24 +3045,10 @@ def check_whisper_linears(torch, gen, record):
     del k, v, ka, va, kv_, vv_
 
     # B6: the dense linears of an INT8 prefill
-    for name, M, K, N in (("frontend.proj", WHISPER_FRAMES, cfg.d_model,
-                           cfg.d_model),
-                          ("lm_head", WHISPER_B3_T, cfg.d_model,
-                           cfg.padded_vocab)):
-        w = torch.randn((K, N), generator=gen, device="cuda").bfloat16()
-        x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
-        (xq, xs), (wq, ws) = quantize_int8(x, axis=-1), quantize_int8(w,
-                                                                      axis=0)
-        del w
-        wq_cm = wq.t().contiguous().t()
-        run = lambda: int8_gemm(xq, wq, xs, ws)
-        plain = lambda: int8_gemm_ref(xq, wq, xs, ws)
-        record("int8_gemm", {"model": WHISPER, "linear": name, "M": M,
-                             "K": K, "N": N, "per_prefill": 1},
-               run(), plain(), 0.0, run, plain,
-               lambda: torch._int_mm(xq, wq_cm).float() * xs * ws,
-               M * K + K * N + 4 * M + 4 * N + 4 * M * N, 2 * M * N * K,
-               peak=INT8_OPS)
+    check_b6(torch, gen, record, WHISPER, "frontend.proj", WHISPER_FRAMES,
+             cfg.d_model, cfg.d_model)
+    check_b6(torch, gen, record, WHISPER, "lm_head", WHISPER_B3_T,
+             cfg.d_model, cfg.padded_vocab)
 
 
 def serve_whisper(torch):
@@ -2961,7 +3071,7 @@ def serve_whisper(torch):
     the replays' profiles), a replayed decode step's and a replayed
     PROFILE_BUCKET-token prefill's device time with the "other" kernels
     that take the most; then on the same weights
-    (``sub_runs``): the paged engine with prefill_chunk WHISPER_CHUNK
+    (``sub_runs``): the paged engine with prefill_chunk PREFILL_CHUNK
     (each chunk re-encodes the frames; B2's paged entry) with the
     contiguous run's tokens exactly and chunks above 0, the split-pinned
     planner (B4 + B5) with its token agreement and its step held to the
@@ -3071,7 +3181,7 @@ def serve_whisper(torch):
     int8_rc = rc.replace_policy(int8_prefill=True)
     paged = ("fused_vq_matmul", "flash_decode_paged", "dequant_gemv")
     runs = {"paged": ({"paged": True, "block_size": BLOCK,
-                       "prefill_chunk": WHISPER_CHUNK}, paged),
+                       "prefill_chunk": PREFILL_CHUNK}, paged),
             "split": ({}, SPLIT_REQUIRED + ("flash_decode",)),
             "int8_prefill": ({}, WHISPER_REQUIRED + ("int8_gemm",), int8_rc)}
     sub, _ = sub_runs(torch, model, params, rc, prompts, MAX_LEN, name, runs,
@@ -3088,6 +3198,228 @@ def serve_whisper(torch):
     gc.collect()
     torch.cuda.empty_cache()
     serve_cli(torch, ["--arch", "whisper-medium", "--full"])
+    phase_seconds(name, t_phase)
+    return out
+
+
+def vision_linears(cfg):
+    """(name, K, N, times a decode step, times a prefill, rows in prefill)
+    of every VQ linear llama-3.2-vision-11b runs, one entry a shape: the
+    self layers' wqkv; wo, the cross wq and the cross wo of one shape
+    (D x D); gu and down of every layer (4 a self layer and 4 a cross
+    layer in decode: 160 a step), each also a prefill linear at the
+    prompt's rows; the cross wk and wv at the image's VISION_IMG rows
+    (prefill only: 176 a prompt)."""
+    D, F = cfg.d_model, cfg.d_ff
+    G = cfg.num_layers // cfg.cross_attn_period
+    S = cfg.num_layers - G
+    return (("wqkv", D, cfg.q_dim + 2 * cfg.kv_dim, S, S, "prompt"),
+            ("wo|cross_wq|cross_wo", D, D, S + 2 * G, S + 2 * G, "prompt"),
+            ("gu", D, 2 * F, S + G, S + G, "prompt"),
+            ("down", F, D, S + G, S + G, "prompt"),
+            ("cross_wk|cross_wv", D, cfg.kv_dim, 0, 2 * G, "image"))
+
+
+def check_vision_linears(torch, gen, record):
+    """llama-3.2-vision-11b's kernels at its shapes: B1 at its decode
+    linears (M = SLOTS) with its launch shape and the split pair B4 and
+    B5 (``check_split``) at each; B3 at its prefill linears of a
+    VISION_B3_T-token prompt and at the cross wk/wv of VISION_IMG image
+    rows (bf16 x), each against its plain version beside fp32 and bf16
+    torch.matmul on the dequantized weight; and B6 at the dense linears an
+    INT8 prefill runs: img_proj at VISION_IMG rows and the head (N =
+    128256) at VISION_B3_T, bit-equal to the plain version, beside
+    torch._int_mm with the same scales. B2 runs at llama3-8b's shapes
+    (hd 128, g = 4), whose rows the grouped-heads check holds."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.vq import synthetic_vq
+
+    cfg = get_config(VISION)
+    for name, K, N, per_step, per_prefill, rows in vision_linears(cfg):
+        vq = synthetic_vq(gen, K, N, C=2, device="cuda")
+        case = {"model": VISION, "linear": name}
+        if per_step:
+            check_b1(torch, record, vq, torch.randn(
+                (SLOTS, K), generator=gen, device="cuda"),
+                {**case, "per_step": per_step}, launch_shape=True)
+        M = VISION_B3_T if rows == "prompt" else VISION_IMG
+        check_b3(torch, record, vq, torch.randn(
+            (M, K), generator=gen, device="cuda").bfloat16(),
+            {**case, "per_prefill": per_prefill})
+        del vq
+        if per_step:
+            check_split(torch, gen, record, K, N, SLOTS,
+                        {**case, "per_step": per_step}, pair=True)
+
+    # B6: the dense linears of an INT8 prefill
+    check_b6(torch, gen, record, VISION, "img_proj", VISION_IMG, cfg.d_model,
+             cfg.d_model)
+    check_b6(torch, gen, record, VISION, "lm_head", VISION_B3_T, cfg.d_model,
+             cfg.padded_vocab)
+
+
+def serve_vision(torch):
+    """Phase 13: llama-3.2-vision-11b (8 groups of four self layers and
+    one gated cross-attention layer over one image of VISION_IMG patch
+    embeddings, drawn on the card (a shared row plus VISION_PATCH_NOISE
+    a patch) and given to the engine as its extras,
+    projected by every request's prefill; the self-attention caches
+    beside VISION_IMG-row image memories that a prefill writes once and
+    decode only reads) at full width and all 40 layers, 2-bit VQ weights
+    drawn on the card from their shapes with the cross layers' gates set
+    to VISION_GATES (zero at init: the image would change nothing), bf16
+    activations, a dense bf16 head; serve's traffic (4 slots, max_len
+    MAX_LEN, 8 greedy requests of 32-200 prompt tokens, MAX_NEW each)
+    through the graphed engine: the weights' bytes against bf16 dense,
+    the image memories' and the self cache's bytes, peak memory, decode
+    ms a step, tok/s, prefill s, the launches (B1 160 and B2 32 a
+    replayed step, B3 176 a prefill), the caches after the decode graph's
+    build as init_cache made them (``xlen`` VISION_IMG); the engine's
+    checks (``engine_checks``: the bf16 plain step within
+    VISION_PLAIN_REL with three faulty controls, the third the memories
+    zeroed, fp32 within 1e-3, graph_step over the self caches and the
+    memories), a replayed decode step's and a replayed PROFILE_BUCKET-
+    token prefill's device time with the "other" kernels that take the
+    most; then on the same weights (``sub_runs``): the paged engine (B2's
+    paged entry) with the contiguous run's tokens exactly, the paged
+    engine with prefill_chunk PREFILL_CHUNK (each chunk re-projects the
+    image) with chunks above 0 and its decode step after a chunked
+    prefill held to the one-shot one (``chunk_step``), the split-pinned
+    planner (B4 + B5) with its token agreement
+    and its step held to the fused one, INT8 prefill (B6 at img_proj and
+    the head: 2 a prefill); a snapshot mid-run restored into a fresh
+    engine (tokens equal); kv_bits = 4 and speculate_k = 3 refused with
+    the reference's messages; and the CLI at full width. Returns each
+    run's launches."""
+    import gc
+
+    import numpy as np
+    from repro_torch.core.plan import PlanPolicy
+    from repro_torch.models import RunConfig
+    from repro_torch.models.vision import N_IMG_TOKENS
+    from repro_torch.serve import Engine, EngineConfig, cache_bytes
+    from repro_torch.serve.graphs import tensor_leaves
+
+    t_phase = time.perf_counter()
+    name = f"serve_{VISION}"
+    rc = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    model, params, prompts = build_weights(torch, VISION)
+    cfg = model.cfg
+    for g in params["groups"]:
+        g["cross"]["attn_gate"].fill_(VISION_GATES[0])
+        g["cross"]["mlp_gate"].fill_(VISION_GATES[1])
+    wb = weight_bytes(torch, params)
+    assert 4.1e9 < wb["weight_bytes_on_card"] < 4.6e9, wb
+    lin = vision_linears(cfg)
+    b1_step = sum(ln[3] for ln in lin)
+    b3_prefill = sum(ln[4] for ln in lin)
+    assert b1_step == 160 and b3_prefill == wb["vq_linears"] == 176, \
+        (b1_step, b3_prefill, wb)
+    n_self = cfg.num_layers - cfg.num_layers // cfg.cross_attn_period
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    shared = torch.randn((1, cfg.d_model), generator=gen, device="cuda")
+    extras = {"image_embeds": shared + VISION_PATCH_NOISE * torch.randn(
+        (VISION_IMG, cfg.d_model), generator=gen, device="cuda")}
+    ecfg = EngineConfig(num_slots=SLOTS, max_len=MAX_LEN)
+    fresh = model.init_cache(SLOTS, MAX_LEN, device="cuda")
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    sizes = {"image_memory_bytes": nbytes(tensor_leaves(fresh["cross"])),
+             "self_cache_bytes": nbytes(tensor_leaves(
+                 {n: c for n, c in fresh.items() if n != "cross"})),
+             "image_rows": VISION_IMG, "gates": VISION_GATES}
+
+    t0 = time.perf_counter()
+    eng = Engine(model, params, rc, ecfg, extras, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    assert all(torch.equal(t, f) for t, f in zip(
+        tensor_leaves(eng.caches), tensor_leaves(fresh))), \
+        f"{name}: the decode graph's build left the caches written"
+    assert bool((eng.caches["cross"]["xlen"] == N_IMG_TOKENS).all())
+    del fresh
+    outs, launches, wall = drain(torch, eng, prompts)
+    m = eng.metrics()
+    tokens = {"tokens": [list(o.tokens) for o in outs]}
+    emit({"phase": name, **wb, **sizes, "layers": cfg.num_layers,
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "cache_bytes": cache_bytes(eng.caches),
+          "requests": len(prompts), "slots": SLOTS, "max_len": MAX_LEN,
+          "engine_build_s": build_s,
+          "decode_graph_build_s": eng.decode_graph.build_s,
+          "decode_graph_pool_bytes": pool_bytes(
+              torch, eng.decode_graph.graph.pool()),
+          "prefill_graph_pool_bytes": pool_bytes(torch, eng.prefill_pool),
+          "wall_s": wall, "tokens_generated": m["tokens_generated"],
+          "tok_per_s": m["tokens_generated"] / wall,
+          "decode_steps": m["decode_steps"],
+          "decode_ms_per_step": m["decode_s"] * 1e3 / m["decode_steps"],
+          "prefill_s": m["prefill_s"],
+          "prefill_build_s": sum(g.build_s
+                                 for g in eng.prefill_graphs.values()),
+          "prefill_s_by_prompt_len": {len(p): o.prefill_s
+                                      for o, p in zip(outs, prompts)},
+          "decode_launches_per_step": eng.decode_graph.launches,
+          "trace_counts": eng.trace_counts, "launches": launches})
+    missing = [k for k in VISION_REQUIRED if launches[k] == 0]
+    assert not missing, f"{name}: kernels never launched on its path: " \
+                        f"{missing}"
+    ran = [k for k in MOE_ABSENT if launches[k] and k not in VISION_REQUIRED]
+    assert not ran, f"{name}: kernels off its path launched: {ran}"
+    dl = eng.decode_graph.launches
+    assert dl["fused_vq_matmul"] == b1_step and \
+        dl["flash_decode"] == n_self, dl
+    assert launches["dequant_gemv"] == b3_prefill * len(prompts), launches
+    out = {name: launches}
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    toks = torch.randint(0, cfg.vocab_size, (SLOTS, 64), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    engine_checks(torch, model, eng, toks, name, VISION_REQUIRED,
+                  rel=VISION_PLAIN_REL, fp32_plain=True,
+                  eager_profiles=False,
+                  control_names=("position_minus_1", "next_token_id",
+                                 "memories_zeroed"))
+    tok = toks[:, -1:].cpu().numpy()
+    pos = np.full((SLOTS, 1), 64, np.int32)
+    emit({"phase": f"{name}_replay_profile", **device_profile(
+        torch, lambda: eng.decode_graph(tokens=tok, positions=pos),
+        top_other=16)})
+    # a prefill replay's "other" (the image projection and the cross
+    # layers' plain attention over the image), by kernel
+    arrays = step_inputs(eng, PROFILE_BUCKET, np.random.default_rng(SEED + 4))
+    prefill = eng.prefill_graph(PROFILE_BUCKET)
+    emit({"phase": f"{name}_prefill_replay_profile", "bucket": PROFILE_BUCKET,
+          **device_profile(torch, lambda: prefill(**arrays), top_other=8)})
+    del eng, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    int8_rc = rc.replace_policy(int8_prefill=True)
+    paged = ("fused_vq_matmul", "flash_decode_paged", "dequant_gemv")
+    # the chunks' linears run B3 at another M than a one-shot prefill
+    # (other K splits), so a chunked run differs from the contiguous one
+    # by rounding: the paged run without chunks must give its tokens
+    # exactly, the chunked run is held by chunk_step
+    runs = {"paged": ({"paged": True, "block_size": BLOCK}, paged),
+            "chunk": ({"paged": True, "block_size": BLOCK,
+                       "prefill_chunk": PREFILL_CHUNK}, paged),
+            "split": ({}, SPLIT_REQUIRED + ("flash_decode",)),
+            "int8_prefill": ({}, VISION_REQUIRED + ("int8_gemm",), int8_rc)}
+    sub, _ = sub_runs(torch, model, params, rc, prompts, MAX_LEN, name, runs,
+                      VISION_PLAIN_REL, tokens={"fp": tokens}, extras=extras)
+    assert sub[f"{name}_int8_prefill"]["int8_gemm"] == 2 * len(prompts), \
+        sub[f"{name}_int8_prefill"]
+    out.update(sub)
+
+    snapshot_restored(torch, model, params, rc, ecfg, prompts, tokens, name,
+                      extras=extras)
+    refusals(torch, model, params, rc, ecfg, name,
+             "speculate_k > 0 requires family='dense'")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_cli(torch, ["--arch", "llama-3.2-vision-11b", "--full"])
     phase_seconds(name, t_phase)
     return out
 
@@ -3154,7 +3486,7 @@ def serve_paged(torch, model, params, prompts, fp, kvq):
             absent=contiguous),
         "serve_paged_tight": serve_phase(
             torch, model, params, prompts, "serve_paged_tight", rc,
-            paged(num_blocks=TIGHT_BLOCKS, prefill_chunk=64),
+            paged(num_blocks=TIGHT_BLOCKS, prefill_chunk=PREFILL_CHUNK),
             ("fused_vq_matmul", "flash_decode_paged", "dequant_gemv"),
             absent=contiguous)}
     tight = out["serve_paged_tight"]["metrics"]
@@ -3401,9 +3733,11 @@ def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
     next token id, must both drift past ``rel``; a model without
     attention reads no position: its first control is the plain step
     from init_cache's state, as if the prompt's state were never
-    inserted); ``control_names`` names two of those three controls in
-    their place (whisper: its token embedding is small beside the
-    sinusoid, so the next token id moves little); the two steps are also
+    inserted); ``control_names`` names the controls in their place, of
+    those three and ``memories_zeroed``, the plain step with every cross
+    memory zeroed (whisper: its token embedding is small beside the
+    sinusoid, so the next token id moves little; vision: the memories
+    must be read); the two steps are also
     held to each other with fp32 activations (the same params) within
     1e-3. ``eager_profiles=False``: only the replays are profiled."""
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -3437,6 +3771,7 @@ def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
                 "position_minus_1": ((step[0], step[1] - 1), clone),
                 "init_state": (step, lambda: model.init_cache(
                     SLOTS, eng.ecfg.max_len, device="cuda")),
+                "memories_zeroed": (step, lambda: zeroed_memories(clone())),
                 "next_token_id": (((step[0] + 1) % cfg.vocab_size, step[1]),
                                   clone)}
             names = control_names or (
@@ -3520,6 +3855,15 @@ def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
                    eager_profiles=eager_profiles)
 
 
+def zeroed_memories(caches):
+    """``caches`` with every image memory leaf (vision's ``xk``/``xv``)
+    zeroed in place."""
+    for path, t in cache_leaves(caches).items():
+        if path.split("/")[-1] in ("xk", "xv"):
+            t.zero_()
+    return caches
+
+
 def logit_drift(torch, got, want, vocab):
     """Max |got - want| over the vocab of a (B, 1, V) step, relative to
     max |want|, the argmax agreement, and whether got is finite."""
@@ -3558,7 +3902,7 @@ def paged_base(torch, model, eng, cache, n):
 
 def prefill_batch(eng, toks):
     """A model prefill's batch of ``toks`` (B, n) with the engine's
-    extras (whisper's frames) broadcast to B rows."""
+    extras (whisper's frames, vision's image) broadcast to B rows."""
     return {"tokens": toks, **{k: v.expand(toks.shape[0], *v.shape[1:])
                                for k, v in eng._extra_batch.items()}}
 
@@ -3990,6 +4334,7 @@ def main() -> int:
     launches.update(serve_xlstm(torch))
     launches.update(serve_rglru(torch))
     launches.update(serve_whisper(torch))
+    launches.update(serve_vision(torch))
     phase_of = {"flash_decode": "serve", "flash_decode_kvq": "serve_kvq",
                 "int8_gemm": "serve_kvq", "vq_gemm": "serve_split",
                 "oc_lookup": "serve_split",
@@ -4048,28 +4393,31 @@ def main() -> int:
             **({"verify_window": verify_window(rows[name])}
                if name == "fused_vq_matmul" else {}),
             # B1 and B3 at mixtral-8x22b's, deepseek-v2-lite-16b's,
-            # xlstm-125m's, recurrentgemma-2b's and whisper-medium's
-            # linears, B4 and B5 at deepseek's, xlstm's, recurrentgemma's
-            # and whisper's decode linears (served in their split runs),
-            # B6 at xlstm's, recurrentgemma's and whisper's INT8 prefill
-            # (xlstm's N = 4 gates, whisper's frontend.proj, each head),
+            # xlstm-125m's, recurrentgemma-2b's, whisper-medium's and
+            # llama-3.2-vision-11b's linears, B4 and B5 at deepseek's,
+            # xlstm's, recurrentgemma's, whisper's and vision's decode
+            # linears (served in their split runs), B6 at xlstm's,
+            # recurrentgemma's, whisper's and vision's INT8 prefill
+            # (xlstm's N = 4 gates, whisper's frontend.proj, vision's
+            # img_proj, each head),
             # B2 and its paged entry at whisper's head dim 64 (g = 1), and
             # B1's, B2's, B4's and B5's decode step
             **({m: model_rows(rows[name], m, name, launches[f"serve_{m}"])
-                for m in (MIXTRAL, DEEPSEEK, XLSTM, RGLRU, WHISPER)}
+                for m in (MIXTRAL, DEEPSEEK, XLSTM, RGLRU, WHISPER, VISION)}
                if name in ("fused_vq_matmul", "dequant_gemv") else {}),
             **({WHISPER: model_rows(rows[name], WHISPER, name, launches[
                 f"serve_{WHISPER}" + ("_paged" if name.endswith("_paged")
                                       else "")])}
                if name in ("flash_decode", "flash_decode_paged") else {}),
             **({m: model_rows(rows[name], m, name, launches[
-                f"serve_{m}_int8_prefill"]) for m in (XLSTM, RGLRU, WHISPER)}
+                f"serve_{m}_int8_prefill"])
+                for m in (XLSTM, RGLRU, WHISPER, VISION)}
                if name == "int8_gemm" else {}),
             **({DEEPSEEK: model_rows(rows[name], DEEPSEEK, name, launches[
                 f"serve_{DEEPSEEK}_{MOE_SUB_LAYERS}l_split"]),
                 **{m: model_rows(rows[name], m, name,
                                  launches[f"serve_{m}_split"])
-                   for m in (XLSTM, RGLRU, WHISPER)}}
+                   for m in (XLSTM, RGLRU, WHISPER, VISION)}}
                if name in ("vq_gemm", "oc_lookup") else {}),
             "launches_by_phase": {ph: c[name] for ph, c in launches.items()
                                   if c.get(name)}})

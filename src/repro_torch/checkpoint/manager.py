@@ -15,10 +15,10 @@ The files are the reference's files:
     ``__vqmeta__ = [K, N, d, n, *splits]``; a list or tuple item is
     ``__seq__<i>``; None is a ``__none__`` path with no array;
   * layout: the reference scans its layers, so on disk a ``"layers"``
-    (or ``"pre_layers"``, the xLSTM and RecurrentGemma ``"groups"``,
-    RecurrentGemma's ``"trail"``, or Whisper's ``"encoder"`` and
-    ``"decoder"``) node is one node whose leaves are stacked on a leading
-    L axis. The
+    (or ``"pre_layers"``, the xLSTM, RecurrentGemma and Vision
+    ``"groups"``, RecurrentGemma's ``"trail"``, or Whisper's ``"encoder"``
+    and ``"decoder"``) node is one node whose leaves are stacked on a
+    leading L axis (a scalar, Vision's gates, becomes an (L,) array). The
     port holds a list of per-layer dicts: ``save`` stacks it
     (``convert.to_reference_layout``), ``restore`` unstacks it
     (``convert.from_jax_params``); a tensor the layers share (the KV-VQ

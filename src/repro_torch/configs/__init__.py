@@ -1,12 +1,13 @@
 """Architecture registry of the port: ``get_config(arch)`` /
-``get_smoke_config(arch)`` / ``all_configs()``. Ported: the paper's own
-model (llama2-7b), the four dense assigned architectures,
-whisper-medium (an encoder-decoder with cross-attention), xlstm-125m
-(alternating mLSTM / sLSTM blocks), deepseek-v2-lite (MLA, a dense first
-layer, 64 routed experts top-6), mixtral (top-2 MoE with sliding-window
-rings) and recurrentgemma-2b (RG-LRU recurrent layers and local-attention
-rings), in the reference's ``ARCH_IDS`` order. The vision family waits
-for ROADMAP A7."""
+``get_smoke_config(arch)`` / ``all_configs()``. Every configuration of
+the reference, in its ``ARCH_IDS`` order: the paper's own model
+(llama2-7b), the four dense assigned architectures, whisper-medium (an
+encoder-decoder with cross-attention), xlstm-125m (alternating mLSTM /
+sLSTM blocks), deepseek-v2-lite (MLA, a dense first layer, 64 routed
+experts top-6), mixtral (top-2 MoE with sliding-window rings),
+recurrentgemma-2b (RG-LRU recurrent layers and local-attention rings)
+and llama-3.2-vision-11b (gated cross-attention over image
+embeddings)."""
 from __future__ import annotations
 
 import importlib
@@ -24,6 +25,7 @@ ARCH_IDS: List[str] = [
     "deepseek_v2_lite_16b",
     "mixtral_8x22b",
     "recurrentgemma_2b",
+    "llama_3_2_vision_11b",
     # the paper's own model
     "llama2_7b",
 ]
@@ -32,9 +34,7 @@ ARCH_IDS: List[str] = [
 def _norm(arch: str) -> str:
     name = arch.replace("-", "_").replace(".", "_")
     if name not in ARCH_IDS:
-        raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet (ROADMAP A7: the "
-            f"vision family); ported: {ARCH_IDS}")
+        raise ValueError(f"unknown architecture {arch!r}; known: {ARCH_IDS}")
     return name
 
 

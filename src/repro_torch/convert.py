@@ -13,10 +13,10 @@ params on ``device``:
     ``VQWeight``, and a VQLogitsHead-like node (``codebook``, ``assign``,
     ``scale``) the port's ``VQLogitsHead``;
   * the stacked layer axes the reference scans over (``"layers"``,
-    deepseek's dense prefix ``"pre_layers"``, the xLSTM and RecurrentGemma
-    ``"groups"``, RecurrentGemma's ``"trail"`` and Whisper's ``"encoder"``
-    and ``"decoder"``, leading dim L on every leaf) become lists of L
-    per-layer dicts —
+    deepseek's dense prefix ``"pre_layers"``, the xLSTM, RecurrentGemma and
+    Vision ``"groups"``, RecurrentGemma's ``"trail"`` and Whisper's
+    ``"encoder"`` and ``"decoder"``, leading dim L on every leaf) become
+    lists of L per-layer dicts (an (L,) leaf, Vision's gates, L scalars),
     attached KV-VQ codebooks included: an attention node's ``kv_cb``
     {"k", "v"} of shape (L, Hk, R, 256, vd) becomes one (Hk, R, 256, vd)
     pair per layer (an MLA node's {"lat"} (L, 1, R, 256, vd) likewise).

@@ -11,8 +11,10 @@ seeded with ``seed``, then quantized (``quantize(method="synthetic")``);
 at full width the block linears are built as synthetic VQ weights
 straight from their shapes (``Model.init(..., block_device="meta")``),
 so the model never holds its dense block weights. A whisper model
-prefills from 16 frames of d_model, as the reference CLI's, drawn from
-the same generator after the weights. The tokens differ from the
+prefills from 16 frames of d_model and a vision model from 8 image rows
+of d_model, as the reference CLI's, drawn from the same generator after
+the weights (the vision model keeps its zero gates, as the reference
+CLI's does). The tokens differ from the
 reference CLI's (another generator); the trace does not: the same numpy
 prompts, lengths, sampling and stop flags, so the schedule and the
 engine's counters match. ``--device`` (default ``cuda``) is the
@@ -31,8 +33,12 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.plan import PlanPolicy
 from repro_torch.models import RunConfig, build_model
+from repro_torch.models.api import PREFILL_EXTRAS
 from repro_torch.serve import (Engine, EngineConfig, GenerationRequest,
                                SamplingParams)
+
+# rows of d_model drawn for each prefill extra, as the reference CLI's
+_EXTRA_ROWS = {"frames": 16, "image_embeds": 8}
 
 
 def serve(arch: str = "llama2-7b", *, smoke: bool = True, requests: int = 8,
@@ -60,10 +66,9 @@ def serve(arch: str = "llama2-7b", *, smoke: bool = True, requests: int = 8,
     rc = RunConfig(mode="decode", attn_chunk=64, plan_policy=PlanPolicy(
         vq_mode=vq_mode if quantize else "none", impl="cuda"))
     ecfg = EngineConfig(num_slots=num_slots, max_len=prompt_len + max_new + 8)
-    extras = {}
-    if cfg.family == "whisper":
-        extras["frames"] = torch.randn((16, cfg.d_model), generator=gen,
-                                       device=dev)
+    extras = {k: torch.randn((_EXTRA_ROWS[k], cfg.d_model), generator=gen,
+                             device=dev)
+              for k in PREFILL_EXTRAS.get(cfg.family, ())}
     eng = Engine(model, params, rc, ecfg, extras, device=dev)
     rng = np.random.default_rng(seed)
     eos_ids = () if eos is None else (int(eos),)

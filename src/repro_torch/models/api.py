@@ -1,7 +1,8 @@
 """Model facade of the port (``repro/models/api.py``): the dense and MoE
 families (``models/transformer.py``; MLA and dense prefix layers
-included), Whisper (``models/whisper.py``), xLSTM (``models/xlstm.py``)
-and RecurrentGemma (``models/rglru.py``), dispatched on ``cfg.family``:
+included), Whisper (``models/whisper.py``), xLSTM (``models/xlstm.py``),
+RecurrentGemma (``models/rglru.py``) and Llama-3.2-Vision
+(``models/vision.py``), dispatched on ``cfg.family``:
 
     model = build_model(cfg)
     params = model.init(generator, device="cuda")
@@ -9,6 +10,8 @@ and RecurrentGemma (``models/rglru.py``), dispatched on ``cfg.family``:
     logits, caches = model.prefill(params, {"tokens": tokens}, rc)
     logits, caches = model.prefill(params, {"tokens": tokens,
                                             "frames": frames}, rc)  # whisper
+    logits, caches = model.prefill(params, {"tokens": tokens,
+                                            "image_embeds": img}, rc)  # vision
     logits, caches = model.decode(params, tokens, positions, caches, rc)
     logits, view = model.forward(params, batch, rc, caches=view)  # a chunk
 
@@ -26,11 +29,14 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.core.logits_vq import VQLogitsHead
 from repro_torch.core.quantize import quantize_params
 from repro_torch.core.vq import KVQuantConfig, VQWeight
-from repro_torch.models import rglru, transformer, whisper, xlstm
+from repro_torch.models import rglru, transformer, vision, whisper, xlstm
 from repro_torch.models.common import ModelConfig, RunConfig
 
 _FAMILY = {"dense": transformer, "moe": transformer, "xlstm": xlstm,
-           "rglru": rglru, "whisper": whisper}
+           "rglru": rglru, "whisper": whisper, "vision": vision}
+# the inputs beside the tokens a family's prefill needs, each one
+# (B, rows, d_model) array (whisper's frames, vision's image embeddings)
+PREFILL_EXTRAS = {"whisper": ("frames",), "vision": ("image_embeds",)}
 
 
 @dataclasses.dataclass
@@ -60,10 +66,11 @@ class Model:
 
     def forward(self, params: Any, batch: Dict[str, Any], rc: RunConfig,
                 caches=None) -> Tuple[torch.Tensor, Any]:
-        """``batch``: "tokens", optionally "positions", and for whisper
-        the prefill's "frames" (B, S_src, d_model)."""
-        kw = ({"frames": batch["frames"]}
-              if self.cfg.family == "whisper" and "frames" in batch else {})
+        """``batch``: "tokens", optionally "positions", and the prefill's
+        extras: whisper's "frames" (B, S_src, d_model), vision's
+        "image_embeds" (B, n_img, d_model)."""
+        kw = {k: batch[k] for k in PREFILL_EXTRAS.get(self.cfg.family, ())
+              if k in batch}
         return self.module.forward(params, batch["tokens"], rc, self.cfg,
                                    positions=batch.get("positions"),
                                    caches=caches, **kw)
@@ -84,10 +91,10 @@ class Model:
         ``core.vq.KVQuantConfig``) the int8 or KV-VQ layout; contiguous,
         or with ``paging`` (a ``serve.paging.PagingConfig``) block arenas
         and a block table (``serve.paging.init_paged_cache``). The
-        recurrent families (xLSTM, RecurrentGemma) and Whisper ignore
-        ``kv_int8`` and ``kvq``, as the reference's: recurrent state is
-        not a KV cache, and RecurrentGemma's rings and Whisper's caches
-        stay fp."""
+        recurrent families (xLSTM, RecurrentGemma), Whisper and Vision
+        ignore ``kv_int8`` and ``kvq``, as the reference's: recurrent
+        state is not a KV cache, and RecurrentGemma's rings and the
+        caches of the cross-attention families stay fp."""
         if paging is not None:
             from repro_torch.serve import paging as paging_mod
 
@@ -140,15 +147,17 @@ def build_model(cfg: ModelConfig) -> Model:
     """The model of ``cfg``: the dense or MoE family, with full,
     sliding-window or multi-head latent attention (MLA) and optional
     dense prefix layers (``first_dense_layers``), Whisper (an
-    encoder-decoder with cross-attention), xLSTM, or RecurrentGemma
-    (RG-LRU layers and local-attention rings).
+    encoder-decoder with cross-attention), xLSTM, RecurrentGemma (RG-LRU
+    layers and local-attention rings), or Llama-3.2-Vision (gated
+    cross-attention over image embeddings).
 
     Raises:
-      NotImplementedError: the vision family, or a local window outside
-        RecurrentGemma (ROADMAP A7)."""
-    if cfg.family not in _FAMILY or (cfg.local_window
-                                     and cfg.family != "rglru"):
+      ValueError: an unknown family.
+      NotImplementedError: a local window outside RecurrentGemma (the
+        reference has no such model)."""
+    if cfg.family not in _FAMILY:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    if cfg.local_window and cfg.family != "rglru":
         raise NotImplementedError(
-            f"{cfg.name}: every family but vision is ported, local "
-            "windows in RecurrentGemma only (vision: ROADMAP A7)")
+            f"{cfg.name}: local windows are ported in RecurrentGemma only")
     return Model(cfg)

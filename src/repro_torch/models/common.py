@@ -53,8 +53,7 @@ Params = Any
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture description; the same fields and defaults as the
-    reference's ``ModelConfig`` (the dense and MoE families are
-    ported)."""
+    reference's ``ModelConfig``."""
 
     name: str
     family: str                      # dense | moe | xlstm | rglru | whisper | vision

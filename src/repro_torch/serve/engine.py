@@ -51,7 +51,12 @@ rows beside cross memories that a prefill writes once and decode only
 reads: a prefill's memories (as many rows as frames) go into a slot's
 leading rows (``paging.anchored``); a paged engine pages the
 self-attention and keeps the memories pass-through; ``kv_bits`` must be
-16 and ``speculate_k`` is refused, as in the reference.
+16 and ``speculate_k`` is refused, as in the reference. A
+Llama-3.2-Vision model is served the same way from one image
+(``extras={"image_embeds": (n_img, d_model)}``, projected again by every
+prefill and chunk): its self-attention caches page, its image memories
+(``cross``: ``xk``/``xv``/``xlen``, n_img rows at a slot's leading rows
+of N_IMG_TOKENS) pass through.
 
 ``EngineConfig.kv_bits`` selects the KV cache layout: 16 = fp, 8 = int8
 values + bf16 scales (attended through plain torch), 4/2 = KV-VQ uint8
@@ -140,7 +145,7 @@ from repro_torch.checkpoint import manager as ckpt_manager
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.quantize import attach_kv_codebooks, kv_codebook_tree
 from repro_torch.core.vq import KVQuantConfig
-from repro_torch.models.api import Model
+from repro_torch.models.api import PREFILL_EXTRAS, Model
 from repro_torch.models.common import RunConfig, moe_capacity
 from repro_torch.runtime.fault_tolerance import StepWatchdog
 from repro_torch.serve import api, paging, speculative
@@ -219,14 +224,16 @@ class Engine:
                  ecfg: EngineConfig, extras: Optional[Dict[str, Any]] = None,
                  *, device: DeviceLike = None):
         """``extras``: the prefill's inputs beside the tokens, one set for
-        every request (whisper: ``{"frames": (S_src, d_model)}``), arrays
-        or tensors, batched once as the reference does (a 2-D value gets
-        a batch axis, any other keeps its first row).
+        every request (whisper: ``{"frames": (S_src, d_model)}``; vision:
+        ``{"image_embeds": (n_img, d_model)}``), arrays or tensors,
+        batched once as the reference does (a 2-D value gets a batch
+        axis, any other keeps its first row).
 
         Raises:
           ValueError: an unsupported ``kv_bits`` or ``speculate_k`` (the
             reference's messages), params off the engine's device, or a
-            whisper model without ``frames``."""
+            whisper model without ``frames`` or a vision model without
+            ``image_embeds``."""
         if ecfg.kv_bits not in (16, 8, 4, 2):
             raise ValueError(
                 f"kv_bits={ecfg.kv_bits} unsupported; expected 16/8/4/2")
@@ -257,11 +264,13 @@ class Engine:
                     "speculate_k > 0 is not supported with MLA decode")
         self.device = resolve_device(device)
         extras = dict(extras or {})
-        if model.cfg.family == "whisper" and "frames" not in extras:
-            raise ValueError("a whisper engine prefills from frames: pass "
-                             "extras={'frames': (S_src, d_model)}")
-        # prefill extras (whisper's frames), batched once, on the device:
-        # tensors every prefill graph reads
+        for k in PREFILL_EXTRAS.get(model.cfg.family, ()):
+            if k not in extras:
+                raise ValueError(
+                    f"a {model.cfg.family} engine prefills from {k}: pass "
+                    f"extras={{'{k}': (rows, d_model)}}")
+        # prefill extras (whisper's frames, vision's image), batched once,
+        # on the device: tensors every prefill graph reads
         self._extra_batch = {}
         for k, v in extras.items():
             v = torch.as_tensor(v).to(self.device)
@@ -600,7 +609,8 @@ class Engine:
         built at its first use (``trace_counts["prefill_chunk"]``): the
         model's forward over a one-slot view of the paged cache
         (``paging.slot_view``) at positions ``hist + [0, bucket)`` (with
-        the engine's extras: whisper re-encodes its frames), its K/V
+        the engine's extras: whisper re-encodes its frames, vision
+        re-projects its image), its K/V
         written through the slot's table, then the view's ``len`` and
         pass-through leaves merged back (``paging.merge_slot``). Static
         inputs: tokens, slot, bt_row, the committed length ``hist`` and
@@ -636,7 +646,7 @@ class Engine:
         """Build a paged prefill step. Its warm-up runs over the zeroed
         static inputs: slot 0 and a true length of 0, so every arena
         write goes to the sink, but slot 0's ``len`` and its column of
-        every pass-through leaf (whisper's cross memories) are written;
+        every pass-through leaf (the cross memories) are written;
         they are put back after the build."""
         slot0 = [t[:, 0] for t in (*self._len_leaves(),
                                    *paging.passthrough_leaves(self.caches))]

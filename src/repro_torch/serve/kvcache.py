@@ -5,9 +5,10 @@ for kv_bits=8, ``encode_prefill_cache`` for the KV-VQ kv_bits 4/2), then
 pad it to a fixed-capacity decode cache. Positions between the true
 prompt length and the bucket ride along unread: decode overwrites slot
 ``len`` before attention unmasks it (``pos < len``). Leaves outside the
-attention nodes pass through: recurrent state, and Whisper's static
-cross memories (``cross_k``/``cross_v``/``cross_len``), which slot
-insertion writes at a slot's leading rows; ``cache_bytes`` counts every
+attention nodes pass through: recurrent state, and the static cross
+memories (Whisper's ``cross_k``/``cross_v``/``cross_len``, Vision's
+``xk``/``xv``/``xlen``), which slot insertion writes at a slot's leading
+rows; ``cache_bytes`` counts every
 leaf.
 
 An MLA config's cache nodes hold a latent ({"latent", "k_rope",
@@ -88,8 +89,8 @@ def pad_prefill_cache(cache: Any, capacity: int, *, window: int = 0,
     -2) are padded to ``min(capacity, window)``, never ring-converted,
     as the reference's; ``true_len`` overwrites the ``len`` leaves (the
     prompt's real length inside its padded bucket). Any other leaf
-    (recurrent state beside the rings, Whisper's cross memories) passes
-    through unchanged."""
+    (recurrent state beside the rings, the cross memories) passes through
+    unchanged."""
     eff = min(capacity, window) if window else capacity
 
     def fix_time(x, axis):

@@ -31,10 +31,11 @@ Attention nodes ({"k", "v", "len"} and the int8 / KV-VQ scale leaves
 ``k_s``/``v_s``) and MLA latent nodes ({"latent", "k_rope", "len"}, under
 KV-VQ also ``latent_s``) are pageable: the dense and MoE families' only
 nodes (a ``"pre"`` subtree pages like ``"body"``, Whisper's ``"self"``
-likewise). Every other leaf is pass-through state of a fixed size a slot
-(xLSTM's recurrent state, RecurrentGemma's ``h``/``conv`` beside its
-rings, Whisper's cross memories ``cross_k``/``cross_v``/``cross_len``;
-(L, B, ...), batch on axis 1): it keeps its contiguous shape, zeroed, as
+and Vision's ``"self0"``... likewise). Every other leaf is pass-through
+state of a fixed size a slot (xLSTM's recurrent state, RecurrentGemma's
+``h``/``conv`` beside its rings, the cross memories: Whisper's
+``cross_k``/``cross_v``/``cross_len``, Vision's ``cross`` node of
+``xk``/``xv``/``xlen``; (L, B, ...), batch on axis 1): it keeps its contiguous shape, zeroed, as
 the reference's, and takes no block (``bytes_per_block`` counts arenas
 only). A paged prefill and ``merge_slot`` write the slot's column of it,
 an update shorter than the slot's capacity (a cross memory of as many

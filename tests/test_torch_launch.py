@@ -86,5 +86,8 @@ def test_serve_runs_on_the_card_by_default():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tserve.serve("llama3-8b")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tserve.serve("llama-3.2-vision-11b", device="cpu")
+    # the vision family serves its smoke config from 8 image rows
+    out = tserve.serve("llama-3.2-vision-11b", requests=2, max_new=3,
+                       num_slots=2, device="cpu")
+    assert out["engine"].model.cfg.name == "llama-3.2-vision-smoke"
+    assert out["tokens"] == 6 and len(out["results"]) == 2

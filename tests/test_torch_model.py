@@ -156,8 +156,13 @@ def test_mask_pad_vocab_and_unported_families():
     m = build_model(cfg)
     out = m._mask_pad_vocab(torch.zeros(2, cfg.padded_vocab))
     assert out.shape == (2, 512) and out[0, 500].item() == np.float32(-1e30)
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_model(ModelConfig(name="x", family="vision", num_layers=1,
+    with pytest.raises(NotImplementedError,
+                       match="local windows are ported in RecurrentGemma"):
+        build_model(ModelConfig(name="x", family="dense", num_layers=1,
+                                d_model=8, num_heads=1, num_kv_heads=1,
+                                d_ff=8, vocab_size=8, local_window=4))
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(ModelConfig(name="x", family="ssm", num_layers=1,
                                 d_model=8, num_heads=1, num_kv_heads=1,
                                 d_ff=8, vocab_size=8))
     if not torch.cuda.is_available():  # no GPU: the default device raises

@@ -117,7 +117,7 @@ def test_config_and_registry_equal_reference():
     assert tconfigs.get_config("recurrentgemma-2b") == tconfigs.get_config(ARCH)
     ids = tconfigs.ARCH_IDS
     assert ids.index("mixtral_8x22b") + 1 == ids.index(ARCH) == \
-        ids.index("llama2_7b") - 1
+        ids.index("llama_3_2_vision_11b") - 1
     model = build_model(tconfigs.get_config(ARCH))
     assert model.module is tr
     assert tr._split(tconfigs.get_config(ARCH)) == (8, 2)
