@@ -34,7 +34,10 @@ The files are the reference's files:
     cannot read such a leaf: ``jnp.asarray`` refuses ``V2``.)
 
 Optimizer state (the reference's ``__adamw__`` node) is not ported
-(ROADMAP A10): ``restore`` raises on it.
+(ROADMAP A10): ``restore`` raises on it. A VQ-Logits head (a ``vql``
+node) has no layout on disk: the reference pickles it as one object leaf
+that its own ``restore`` refuses, so ``save`` raises on it, naming the
+node.
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.convert import from_jax_params, is_vq, to_reference_layout
+from repro_torch.core.logits_vq import VQLogitsHead
 from repro_torch.core.vq import VQWeight
 
 _SENTINEL_NONE = "__none__"
@@ -133,16 +137,27 @@ def to_host(x: Any) -> Any:
     return x
 
 
-def _host_snapshot(tree: Any) -> Any:
+def _host_snapshot(tree: Any, path: str = "") -> Any:
+    """Every tensor of ``tree`` copied to the host.
+
+    Raises:
+      NotImplementedError: a VQ-Logits head (module docstring), named by
+        its path."""
+    if isinstance(tree, VQLogitsHead):
+        raise NotImplementedError(
+            f"{path}: a VQ-Logits head (a 'vql' node) has no checkpoint "
+            "layout (the reference pickles it into a file its own restore "
+            "refuses); save the dense head (core.logits_vq.expand) instead")
     if is_vq(tree):
         return VQWeight(idx=to_host(tree.idx),
                         codebooks=to_host(tree.codebooks),
                         scale=to_host(tree.scale), K=tree.K, N=tree.N,
                         d=tree.d, n=tree.n, splits=tuple(tree.splits))
     if isinstance(tree, dict):
-        return {k: _host_snapshot(v) for k, v in tree.items()}
+        return {k: _host_snapshot(v, f"{path}/{k}") for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_host_snapshot(v) for v in tree)
+        return type(tree)(_host_snapshot(v, f"{path}/{i}")
+                          for i, v in enumerate(tree))
     return to_host(tree)
 
 
@@ -247,7 +262,8 @@ class CheckpointManager:
         """state: {"params": ..., "extra": ...}, the port's trees. Every
         tensor is copied to the host (and the layers stacked) before the
         async thread starts, so the caller may go on changing them."""
-        host_state = {g: to_reference_layout(_host_snapshot(state[g]))
+        host_state = {g: to_reference_layout(_host_snapshot(state[g],
+                                                            f"/{g}"))
                       for g in sorted(state)}  # the reference's tree_map sorts
         if self._thread is not None:
             self._thread.join()

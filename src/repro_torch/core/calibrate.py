@@ -27,6 +27,10 @@ The four constants are PER BACKEND. They come from one of two places:
     packages rank alike; only the ranking they produce matters. The
     provenance is recorded on the MatmulPlan (``describe()`` prints it).
 
+Only the kernels' backends are fitted (``chip_smoke.py`` times
+``eva_fused`` and ``eva_split``): a site under ``impl="torch"`` matches
+one plain ``eva_*`` epilogue, priced by the analytic constants.
+
 The port keeps its own calibration file, never the reference's
 ``CALIBRATION.json`` (fitted on a CPU for the JAX backends): the default
 path is ``CALIBRATION_TORCH.json`` in the working directory, overridden

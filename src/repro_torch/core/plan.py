@@ -6,7 +6,7 @@ subset of ``repro/core/plan.py`` the serving path needs).
                KV-VQ decode-attention site is matmul-shaped too
                (``kvq_attention_spec``).
   PlanPolicy : frozen, validated execution policy (vq_mode, impl,
-               int8_prefill).
+               int8_prefill, and the plain EVA epilogue and block_v).
   MatmulPlan : the chosen backend, its resolved config and cost estimate,
                the predicted time that ranked it, and the ``run``
                callable.
@@ -20,8 +20,13 @@ others from the kernel wrappers and ``core/logits_vq.py``, the modules of
   dense    : ``fp`` (``torch.matmul``) on any impl;
   int8     : ``int8_torch`` | ``int8_cuda`` (kernel B6) — dense prefill
              matmuls under ``int8_prefill``;
-  vq       : ``eva_fused`` (B1) or ``eva_split`` (B4 ``vq_gemm`` then B5
-             ``oc_lookup``) in decode, ``dequant`` (B3) elsewhere;
+  vq       : in decode under ``impl="cuda"``, ``eva_fused`` (B1) or
+             ``eva_split`` (B4 ``vq_gemm`` then B5 ``oc_lookup``); under
+             ``impl="torch"`` the one of ``eva_direct`` | ``eva_flat`` |
+             ``eva_blocked`` | ``eva_recon`` (``core/ops.py``'s plain
+             epilogues, registered here) that ``select_epilogue`` or the
+             policy's ``epilogue`` names, as the reference's jnp backends;
+             ``dequant`` (B3) elsewhere;
   kvq_attn : ``kvq_dequant_torch`` | ``kvq_flash_cuda`` (B7) — decode
              attention over a vector-quantized KV cache;
   vq_logits: ``vql_gather_torch`` | ``vql_dequant_torch`` on any impl —
@@ -37,9 +42,9 @@ backend whose matcher accepts (spec, policy), prices each candidate's
 ``PlanCost`` through the per-backend time model of ``core/calibrate.py``
 (constants fitted on the card when a calibration is loaded, the shared
 analytic rates otherwise) and picks the cheapest; registration order
-breaks exact ties. Today the genuine choice is a decode VQ site, where
-``eva_fused`` and ``eva_split`` both match; analytically the fused kernel
-wins.
+breaks exact ties. Today the genuine choice is a decode VQ site under
+``impl="cuda"``, where ``eva_fused`` and ``eva_split`` both match;
+analytically the fused kernel wins.
 
 Backend quarantine, as in the reference: ``record_backend_failure``
 takes a backend out of the ranking for ``cooloff_s`` (30 s by default)
@@ -83,6 +88,7 @@ import torch
 
 from repro_torch.core import calibrate as calibrate_mod
 from repro_torch.core import ops
+from repro_torch.core.ops import EPILOGUES
 from repro_torch.core.vq import VQWeight
 
 log = logging.getLogger(__name__)
@@ -155,11 +161,22 @@ class PlanPolicy:
     ``impl``    : "cuda" (the hand-written kernels) | "torch" (the plain
                   PyTorch formulations).
     ``int8_prefill`` : route dense prefill matmuls through the INT8 GEMM.
+    ``epilogue`` : "auto" or one of ``core/ops.EPILOGUES``; only the
+                  plain EVA backends (``impl="torch"``) read it, and
+                  ``impl="cuda"`` accepts only "auto".
+    ``block_v``  : None (auto-sized) or a pinned v-block height of the
+                  v-blocked epilogues ("blocked", "recon") under
+                  ``impl="torch"``; the kernels size their own tiles.
+
+    Statically contradictory combinations raise ValueError here, with
+    the reference's messages.
     """
 
     vq_mode: str = "none"
     impl: str = "cuda"
     int8_prefill: bool = False
+    epilogue: str = "auto"
+    block_v: Optional[int] = None
 
     def __post_init__(self):
         if self.vq_mode not in VQ_MODES:
@@ -167,6 +184,25 @@ class PlanPolicy:
                 f"unknown vq_mode {self.vq_mode!r}; expected one of {VQ_MODES}")
         if self.impl not in IMPLS:
             raise ValueError(f"unknown impl {self.impl!r}; expected one of {IMPLS}")
+        if self.epilogue not in EPILOGUES + ("auto",):
+            raise ValueError(
+                f"unknown epilogue {self.epilogue!r}; expected 'auto' or one "
+                f"of {EPILOGUES}")
+        if self.block_v is not None:
+            if isinstance(self.block_v, bool) or not isinstance(self.block_v,
+                                                                int):
+                raise ValueError(f"block_v must be None ('auto') or an int, "
+                                 f"got {self.block_v!r}")
+            if self.block_v <= 0:
+                raise ValueError(
+                    f"block_v must be positive, got {self.block_v}")
+            if self.impl == "torch" and self.vq_mode != "dequant" \
+                    and self.epilogue not in ("blocked", "recon"):
+                raise ValueError(
+                    f"explicit block_v={self.block_v} conflicts with "
+                    f"epilogue={self.epilogue!r}; block_v only applies to the "
+                    "v-blocked epilogues ('blocked', 'recon') on "
+                    "impl='torch'")
 
     def resolve_vq_mode(self, mode: str) -> "PlanPolicy":
         """Resolve vq_mode="none" by run mode (decode -> EVA, else the
@@ -545,6 +581,15 @@ def plan_node(p: Dict[str, Any], x: torch.Tensor, *, mode: str,
     return _PLANNER.plan(spec, policy)
 
 
+def plan_vq(x: torch.Tensor, vq: VQWeight, policy: PlanPolicy,
+            out_dtype: Optional[torch.dtype] = None) -> MatmulPlan:
+    """Plan a bare VQ matmul at x's rows (the ``eva_matmul`` /
+    ``vq_matmul`` path): ``vq_mode="none"`` resolves as in decode."""
+    spec = LinearSpec.for_vq(vq, M=x.numel() // vq.K, x_dtype=x.dtype,
+                             out_dtype=out_dtype or x.dtype)
+    return _PLANNER.plan(spec, policy.resolve_vq_mode("decode"))
+
+
 def preplan_params(params: Any, policy: PlanPolicy, *, mode: str, m: int,
                    act_dtype: torch.dtype, planner: Optional[Planner] = None,
                    site_m: Optional[Dict[str, int]] = None,
@@ -633,7 +678,73 @@ def _plan_int8_torch(spec: LinearSpec, policy: PlanPolicy) -> MatmulPlan:
     return MatmulPlan("int8_torch", spec, policy, (), cost, run)
 
 
+def _resolve_eva_epilogue(spec: LinearSpec, policy: PlanPolicy
+                          ) -> Tuple[str, Optional[int]]:
+    """(epilogue kind, block_v) of the plain EVA backends, frozen once
+    per (spec, policy): the one call site of ``ops.select_epilogue`` and
+    the auto block sizers."""
+    epi = policy.epilogue
+    if epi == "auto":
+        return ops.select_epilogue(spec.M, spec.V, spec.N, spec.C, spec.k,
+                                   spec.d)
+    if epi == "blocked":
+        if policy.block_v is not None:
+            return "blocked", min(policy.block_v, spec.V)
+        return "blocked", ops.auto_block_v(spec.M, spec.V, spec.N, spec.C,
+                                           spec.k)
+    if epi == "recon":
+        if policy.block_v is not None:
+            return "recon", min(policy.block_v, spec.V)
+        return "recon", ops.auto_recon_block_v(spec.V, spec.N, spec.d)
+    return epi, None
+
+
+def _eva_torch_cost(spec: LinearSpec, kind: str) -> PlanCost:
+    if kind == "recon":  # dequant's algebra, slab by slab
+        return PlanCost(macs=spec.M * spec.K * spec.N,
+                        lookup_adds=spec.C * spec.V * spec.N * spec.d,
+                        weight_bytes=vq_weight_bytes(spec))
+    return PlanCost(
+        macs=ops.vq_gemm_macs(spec.M, spec.K, max(spec.k.bit_length() - 1, 0),
+                              spec.C, spec.d),
+        lookup_adds=ops.epilogue_adds(spec.M, spec.K, spec.N, spec.C, spec.d),
+        weight_bytes=vq_weight_bytes(spec))
+
+
+def _make_eva_torch_planner(kind: str):
+    def planner_fn(spec: LinearSpec, policy: PlanPolicy) -> MatmulPlan:
+        resolved, bv = _resolve_eva_epilogue(spec, policy)
+        assert resolved == kind, (resolved, kind)
+        out_dt = getattr(torch, spec.out_dtype)
+
+        def run(x, vq):
+            return ops.eva_epilogue_exec(x, vq, kind=kind, block_v=bv,
+                                         out_dtype=out_dt)
+
+        config = (("epilogue", kind),) + ((("bv", bv),) if bv is not None
+                                          else ())
+        return MatmulPlan(f"eva_{kind}", spec, policy, config,
+                          _eva_torch_cost(spec, kind), run)
+
+    return planner_fn
+
+
 register_backend("fp", lambda s, p: s.kind == "dense", _plan_fp)
 register_backend("int8_torch",
                  lambda s, p: s.kind == "int8" and p.impl == "torch",
                  _plan_int8_torch)
+# the plain EVA decode matmul: under impl="torch" only, as the reference's
+# jnp backends match impl="jnp" only (the kernels' eva_fused / eva_split
+# match impl="cuda" only)
+def _match_eva_torch(kind: str):
+    def matcher(spec: LinearSpec, policy: PlanPolicy) -> bool:
+        return (spec.kind == "vq" and policy.impl == "torch"
+                and policy.vq_mode == "eva"
+                and _resolve_eva_epilogue(spec, policy)[0] == kind)
+
+    return matcher
+
+
+for _kind in EPILOGUES:
+    register_backend(f"eva_{_kind}", _match_eva_torch(_kind),
+                     _make_eva_torch_planner(_kind))

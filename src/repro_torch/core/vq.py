@@ -25,19 +25,22 @@ weight as contiguous views, the layout the kernels take.
 ``kmeans`` (Lloyd's, k-means++ seeded) draws from an explicit
 ``torch.Generator`` where the reference splits ``jax.random`` keys, so
 its centroids are not the reference's bit for bit; its assignment step
-is (``_assign``). The VQ-Logits head (``core/logits_vq.py``) fits with
-it.
+is (``_assign``, over chunks of points so that a full-width matrix never
+materializes its whole (P, 256) distance table). ``fit_vq`` fits a
+weight with it (greedy residual stages, then alternating refits), the
+VQ-Logits head (``core/logits_vq.py``) too.
 
 The KV half (``KVQuantConfig``, ``kv_scale``, ``kv_grid_codebooks``,
-``kv_encode``, ``kv_decode``) vector-quantizes K/V cache slices against
-per-head codebooks. ``fit_vq`` and the k-means KV codebooks
-(``fit_kv_codebooks``) are not ported yet (ROADMAP A8).
+``fit_kv_codebooks``, ``kv_encode``, ``kv_decode``) vector-quantizes K/V
+cache slices against per-head codebooks; ``fit_kv_codebooks`` runs one
+k-means with a leading head axis (``kmeans_batched``) for every head at
+once.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -63,6 +66,10 @@ class VQWeight:
     @property
     def V(self) -> int:
         return self.K // self.d
+
+    @property
+    def bits_per_weight(self) -> float:
+        return self.C * self.n / self.d
 
     @property
     def lead(self) -> int:
@@ -146,62 +153,159 @@ def split_grouped(vq: VQWeight) -> Tuple[VQWeight, ...]:
 # ---------------------------------------------------------------------------
 
 
-def _kmeans_pp_init(generator: torch.Generator, points: torch.Tensor,
-                    k: int) -> torch.Tensor:
-    """k-means++ seeding: points (P, d) -> (k, d) initial centroids, each
-    next one drawn with probability proportional to its squared distance
-    from the nearest centroid so far (uniformly where every distance is
-    0: more centroids than distinct points)."""
-    P = points.shape[0]
-    dev = points.device
-    first = points[torch.randint(0, P, (1,), generator=generator,
-                                 device=dev)[0]]
-    cents = torch.zeros((k, points.shape[1]), dtype=points.dtype, device=dev)
-    cents[0] = first
-    dists = ((points - first) ** 2).sum(dim=-1)
-    for i in range(1, k):
-        total = dists.sum()
-        probs = torch.where(total > 0, dists / total.clamp(min=1e-30),
-                            torch.full_like(dists, 1.0 / P))
-        nxt = points[torch.multinomial(probs, 1, generator=generator)[0]]
-        cents[i] = nxt
-        dists = torch.minimum(dists, ((points - nxt) ** 2).sum(dim=-1))
-    return cents
+# bytes of one chunk's (points, centroids) distance table in ``_assign``
+_ASSIGN_TABLE_BYTES = 1 << 30
 
 
 def _assign(points: torch.Tensor, cents: torch.Tensor) -> torch.Tensor:
-    """Nearest-centroid assignment, points (P, d), cents (k, d) -> (P,)
-    int32, by the reference's expansion ||c||^2 - 2 p.c (||p||^2 is the
-    same for every centroid); ties to the lowest centroid id."""
-    d2 = -2.0 * points @ cents.T + (cents ** 2).sum(dim=-1)[None, :]
-    return torch.argmin(d2, dim=-1).to(torch.int32)
+    """Nearest-centroid assignment, points (..., P, d), cents (..., k, d)
+    -> (..., P) int32, by the reference's expansion ||c||^2 - 2 p.c
+    (||p||^2 is the same for every centroid); ties to the lowest centroid
+    id. The points go in chunks whose distance table stays under
+    ``_ASSIGN_TABLE_BYTES`` (one chunk, the whole table, below it)."""
+    P, k = points.shape[-2], cents.shape[-2]
+    lead = int(np.prod(points.shape[:-2], dtype=np.int64))
+    step = max(1, _ASSIGN_TABLE_BYTES // (4 * k * lead))
+    ct = cents.transpose(-1, -2)
+    norms = (cents ** 2).sum(dim=-1).unsqueeze(-2)
+    return torch.cat([
+        torch.argmin(-2.0 * points[..., lo:lo + step, :] @ ct + norms,
+                     dim=-1).to(torch.int32)
+        for lo in range(0, P, step)], dim=-1)
 
 
 def _update(points: torch.Tensor, assign: torch.Tensor, k: int,
             generator: torch.Generator) -> torch.Tensor:
-    """The means of each centroid's points; an empty centroid is re-seeded
-    from a random point (so none collapses)."""
-    P, d = points.shape
-    idx = assign.long()
-    sums = torch.zeros((k, d), dtype=points.dtype,
-                       device=points.device).index_add_(0, idx, points)
-    counts = torch.bincount(idx, minlength=k).to(points.dtype)
-    cents = sums / counts.clamp(min=1.0)[:, None]
-    rnd = points[torch.randint(0, P, (k,), generator=generator,
-                               device=points.device)]
-    return torch.where((counts > 0)[:, None], cents, rnd)
+    """The means of each centroid's points, points (..., P, d), assign
+    (..., P) -> (..., k, d), each leading index its own set; an empty
+    centroid is re-seeded from a random point of its set (so none
+    collapses)."""
+    lead, (P, d) = points.shape[:-2], points.shape[-2:]
+    H, dev = int(np.prod(lead, dtype=np.int64)), points.device
+    pts = points.reshape(H, P, d)
+    rows = torch.arange(H, device=dev)
+    idx = (assign.reshape(H, P).long() + (rows * k)[:, None]).reshape(-1)
+    sums = torch.zeros((H * k, d), dtype=points.dtype,
+                       device=dev).index_add_(0, idx, pts.reshape(H * P, d))
+    counts = torch.bincount(idx, minlength=H * k).to(points.dtype)
+    cents = (sums / counts.clamp(min=1.0)[:, None]).reshape(H, k, d)
+    rnd = pts[rows[:, None], torch.randint(0, P, (H, k), generator=generator,
+                                           device=dev)]
+    return torch.where((counts > 0).reshape(H, k, 1), cents,
+                       rnd).reshape(*lead, k, d)
+
+
+def kmeans_batched(generator: torch.Generator, points: torch.Tensor, k: int,
+                   iters: int = 20) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lloyd's k-means of H independent fp32 point sets at once,
+    ``points`` (H, P, d), in one launch sequence: k-means++ seeding (each
+    next centroid drawn with probability proportional to its squared
+    distance from the nearest so far, uniformly where every distance is
+    0; one ``torch.multinomial`` draws the H sets' next centroids), then
+    ``iters`` assign/update rounds (an empty centroid re-seeded from a
+    random point of its set), every draw from ``generator`` (on the
+    points' device). Returns (centroids (H, k, d), assignment (H, P)
+    int32)."""
+    points = points.float()
+    H, P, d = points.shape
+    dev = points.device
+    rows = torch.arange(H, device=dev)
+    first = points[rows, torch.randint(0, P, (H,), generator=generator,
+                                       device=dev)]           # (H, d)
+    cents = torch.zeros((H, k, d), dtype=points.dtype, device=dev)
+    cents[:, 0] = first
+    dists = ((points - first[:, None]) ** 2).sum(dim=-1)      # (H, P)
+    for i in range(1, k):
+        total = dists.sum(dim=-1, keepdim=True)
+        probs = torch.where(total > 0, dists / total.clamp(min=1e-30),
+                            torch.full_like(dists, 1.0 / P))
+        nxt = points[rows, torch.multinomial(probs, 1,
+                                             generator=generator)[:, 0]]
+        cents[:, i] = nxt
+        dists = torch.minimum(dists, ((points - nxt[:, None]) ** 2).sum(-1))
+    for _ in range(iters):
+        cents = _update(points, _assign(points, cents), k, generator)
+    return cents, _assign(points, cents)
 
 
 def kmeans(generator: torch.Generator, points: torch.Tensor, k: int,
            iters: int = 20) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Lloyd's k-means over fp32 ``points`` (P, d): k-means++ seeding,
-    ``iters`` assign/update rounds, every draw from ``generator`` (on the
-    points' device). Returns (centroids (k, d), assignment (P,) int32)."""
-    points = points.float()
-    cents = _kmeans_pp_init(generator, points, k)
-    for _ in range(iters):
-        cents = _update(points, _assign(points, cents), k, generator)
-    return cents, _assign(points, cents)
+    """Lloyd's k-means over fp32 ``points`` (P, d): ``kmeans_batched`` of
+    one set. Returns (centroids (k, d), assignment (P,) int32)."""
+    cents, assign = kmeans_batched(generator, points[None], k, iters)
+    return cents[0], assign[0]
+
+
+# ---------------------------------------------------------------------------
+# Additive VQ fit (greedy residual stages + optional alternating refits)
+# ---------------------------------------------------------------------------
+
+
+def fit_vq(generator: torch.Generator,
+           W: Union[torch.Tensor, Sequence[torch.Tensor]], *, d: int = 8,
+           n: int = 8, C: int = 2, kmeans_iters: int = 20,
+           refine_rounds: int = 1) -> VQWeight:
+    """Quantize W (K, N) to an additive C-codebook VQ weight on W's
+    device, every k-means draw from ``generator`` (on that device).
+
+    The columns are normalized by their rms (``scale``, fp32 (N,)), then
+    viewed column-major as (V*N, d) points (the d consecutive elements
+    along K of each column). Codebook c is k-means over the residual of
+    codebooks < c; ``refine_rounds`` then refit each codebook against the
+    residual of all the others, at half the iterations (at least 5).
+
+    Grouped mode: a sequence of matrices of equal K is fitted as ONE
+    (K, sum N_i) matrix with one codebook set; ``splits`` records the
+    member widths.
+
+    Raises:
+      ValueError: grouped members of unequal K, or K not divisible by d.
+    """
+    splits: Tuple[int, ...] = ()
+    if isinstance(W, (list, tuple)):
+        Ks = {int(w.shape[0]) for w in W}
+        if len(Ks) != 1:
+            raise ValueError(f"grouped fit_vq requires equal K, got {Ks}")
+        splits = tuple(int(w.shape[1]) for w in W)
+        W = torch.cat(list(W), dim=1)
+    K, N = W.shape
+    if K % d:
+        raise ValueError(f"K={K} not divisible by d={d}")
+    V, k = K // d, 2 ** n
+    W = W.float()
+    scale = torch.clamp(torch.sqrt(torch.mean(W * W, dim=0)), min=1e-8)
+    pts = (W / scale[None, :]).reshape(V, d, N).transpose(1, 2).reshape(
+        V * N, d)
+    del W
+    codebooks, assigns = [], []
+    resid = pts
+    for _ in range(C):
+        cents, a = kmeans(generator, resid, k, iters=kmeans_iters)
+        codebooks.append(cents)
+        assigns.append(a)
+        resid = resid - cents[a.long()]
+    del resid
+    for _ in range(refine_rounds):
+        for c in range(C):
+            others = torch.zeros_like(pts)
+            for c2 in range(C):
+                if c2 != c:
+                    others = others + codebooks[c2][assigns[c2].long()]
+            codebooks[c], assigns[c] = kmeans(
+                generator, pts - others, k, iters=max(kmeans_iters // 2, 5))
+    B = torch.stack([cb.T for cb in codebooks])          # (C, d, k)
+    idx_dtype = torch.uint8 if n <= 8 else torch.int32
+    I = torch.stack([a.reshape(V, N) for a in assigns]).to(idx_dtype)
+    return VQWeight(idx=I, codebooks=B.contiguous(), scale=scale, K=K, N=N,
+                    d=d, n=n, splits=splits)
+
+
+def reconstruction_error(W: torch.Tensor, vq: VQWeight) -> torch.Tensor:
+    """Relative Frobenius reconstruction error ||W - W_hat|| / ||W||
+    (fp32, 0-d)."""
+    W = W.float()
+    return (torch.linalg.norm(W - dequantize(vq))
+            / torch.linalg.norm(W).clamp(min=1e-30))
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +397,7 @@ def kv_grid_codebooks(num_heads: int, dim: int, kvq: KVQuantConfig, *,
     if levels ** vd != kvq.entries:
         raise ValueError(
             f"no integral grid: entries={kvq.entries} has no {vd}-th root "
-            "(fitted KV codebooks are not ported yet, ROADMAP A8)")
+            "(use fit_kv_codebooks for this geometry)")
     kvq.groups(dim)  # validate divisibility here, not at encode
     axis = np.linspace(-1.0, 1.0, levels, dtype=np.float32)
     grid = np.stack(np.meshgrid(*([axis] * vd), indexing="ij"),
@@ -303,11 +407,36 @@ def kv_grid_codebooks(num_heads: int, dim: int, kvq: KVQuantConfig, *,
         num_heads, R, kvq.entries, vd).contiguous()
 
 
-def fit_kv_codebooks(*args, **kwargs):
-    """Not ported: the reference seeds its k-means from ``jax.random``."""
-    raise NotImplementedError(
-        "fit_kv_codebooks (k-means KV codebooks) is not ported yet "
-        "(ROADMAP A8); use kv_grid_codebooks")
+def fit_kv_codebooks(generator: torch.Generator, samples: torch.Tensor,
+                     kvq: KVQuantConfig, *, kmeans_iters: int = 12
+                     ) -> torch.Tensor:
+    """Per-head KV codebooks fitted to calibration K/V slices.
+
+    Args:
+      generator: the k-means draws' generator (on the samples' device).
+      samples: (T, Hk, dim) calibration slices (a prefill's K or V,
+        flattened over batch and time).
+      kvq: geometry and scale variant to fit.
+      kmeans_iters: Lloyd iterations a stage.
+
+    Returns:
+      (Hk, R, 256, vec_d) fp32 codebooks: stage r of head h is k-means
+      over head h's scale-normalized residual after stages < r, every
+      head in one ``kmeans_batched``.
+    """
+    T, Hk, dim = samples.shape
+    G, vd = kvq.groups(dim), kvq.vec_d
+    s = kv_scale(samples, kvq.variant)                      # (T, Hk)
+    pts = (samples.float() / s[..., None]).reshape(T, Hk, G, vd)
+    pts = pts.transpose(0, 1).reshape(Hk, T * G, vd)        # per-head points
+    rows = torch.arange(Hk, device=pts.device)[:, None]
+    stages = []
+    for _ in range(kvq.residual):
+        cents, assign = kmeans_batched(generator, pts, kvq.entries,
+                                       iters=kmeans_iters)
+        stages.append(cents)                                # (Hk, E, vd)
+        pts = pts - cents[rows, assign.long()]
+    return torch.stack(stages, dim=1)                       # (Hk, R, E, vd)
 
 
 def kv_encode(x: torch.Tensor, cb: torch.Tensor, variant: str = "outlier"

@@ -105,7 +105,7 @@ def fused_vq_matmul(x: torch.Tensor, vq: VQWeight, *,
     elif use_kernel and X.device.type != "cpu":
         raise ValueError(f"{_NAME}: no kernel for device {X.device}")
     else:
-        y = fused_vq_matmul_ref(X, vq.codebooks, vq.idx, vq.scale)
+        y = fused_vq_matmul_ref(X, vq)
     return y.reshape(*lead, vq.N).to(out_dtype)
 
 
@@ -114,16 +114,23 @@ fused_vq_matmul.launches = 0
 
 def _match_eva_fused(spec: plan_mod.LinearSpec,
                      policy: plan_mod.PlanPolicy) -> bool:
-    return spec.kind == "vq" and policy.vq_mode == "eva"
+    # the kernel's backend, under impl="cuda" only (as the reference's
+    # eva_fused_pallas matches impl="pallas" only); impl="torch" runs the
+    # plain epilogues of core/plan.py
+    return (spec.kind == "vq" and policy.vq_mode == "eva"
+            and policy.impl == "cuda")
 
 
 def _plan_eva_fused(spec: plan_mod.LinearSpec,
                     policy: plan_mod.PlanPolicy) -> plan_mod.MatmulPlan:
+    if policy.epilogue != "auto":
+        raise ValueError(
+            "impl='cuda' always runs the EVA kernels; epilogue="
+            f"{policy.epilogue!r} does not apply")
     out_dt = getattr(torch, spec.out_dtype)
-    use_kernel = policy.impl == "cuda"
 
     def run(x, vq):
-        return fused_vq_matmul(x, vq, out_dtype=out_dt, use_kernel=use_kernel)
+        return fused_vq_matmul(x, vq, out_dtype=out_dt)
 
     cost = plan_mod.PlanCost(
         macs=core_ops.vq_gemm_macs(spec.M, spec.K,

@@ -138,16 +138,18 @@ def eva_split_matmul(x: torch.Tensor, vq: VQWeight, *,
 
 def _match_eva_split(spec: plan_mod.LinearSpec,
                      policy: plan_mod.PlanPolicy) -> bool:
-    return spec.kind == "vq" and policy.vq_mode == "eva"
+    # impl="cuda" only, and epilogue "auto" (any other stays eva_fused's
+    # error), as the reference's eva_split_pallas
+    return (spec.kind == "vq" and policy.vq_mode == "eva"
+            and policy.impl == "cuda" and policy.epilogue == "auto")
 
 
 def _plan_eva_split(spec: plan_mod.LinearSpec,
                     policy: plan_mod.PlanPolicy) -> plan_mod.MatmulPlan:
     out_dt = getattr(torch, spec.out_dtype)
-    use_kernel = policy.impl == "cuda"
 
     def run(x, vq):
-        return eva_split_matmul(x, vq, out_dtype=out_dt, use_kernel=use_kernel)
+        return eva_split_matmul(x, vq, out_dtype=out_dt)
 
     # the reference's terms: one launch per kernel (the lookup's split
     # reduce is not counted, so rankings compare one to one with it) and

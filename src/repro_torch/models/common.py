@@ -4,8 +4,9 @@ through the planner), rmsnorm and layernorm, rotary embeddings, blocked
 prefill attention (causal, optionally within a sliding window, or
 bidirectional: an encoder, or cross-attention over a memory through
 ``attention_fwd``'s ``kv_source``), decode attention over the KV cache — fp, int8 (``k``/
-``v`` int8 + bf16 ``k_s``/``v_s``) or KV-VQ (uint8 codebook indices +
-bf16 scales, the codebooks under the attention params' ``kv_cb``),
+``v`` int8 + bf16 ``k_s``/``v_s``), int4 (two nibbles packed a byte,
+``pack_int4``) or KV-VQ (uint8 codebook indices + bf16 scales, the
+codebooks under the attention params' ``kv_cb``),
 contiguous or paged (block arenas and a block table,
 ``serve/paging.py``), a full cache or a sliding-window ring (``window >
 0``: the cache holds ``min(max_len, window)`` positions and position p
@@ -13,7 +14,7 @@ lives at slot ``p % S``) — the chunked-prefill continuation over a paged
 slot view, multi-head latent attention (MLA, deepseek-v2: a latent
 cache of ``kv_lora_rank`` + a shared rope key per token, fp or KV-VQ,
 contiguous or paged), the SwiGLU and GELU MLPs, the top-k MoE layer
-with capacity routing, embedding and LM head.
+with capacity routing, embedding, LM head and the training loss.
 
 Params are plain dicts of tensors (VQWeight nodes after quantization);
 every initializer draws from an explicit ``torch.Generator``. A MoE
@@ -454,13 +455,55 @@ def paged_view(arena: torch.Tensor, block_table: torch.Tensor
     return arena.index_select(0, idx).reshape((B, W * bs) + arena.shape[2:])
 
 
-def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-(token, head) symmetric int8 quantization of a K/V slice: x
-    (B, S, Hk, hd) -> (int8 values, bf16 (B, S, Hk) scales)."""
+def _quantize_kv(x: torch.Tensor, int4: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int quantization of a K/V slice: x
+    (B, S, Hk, hd) -> (values, bf16 (B, S, Hk) scales): int8 values in
+    [-127, 127], or with ``int4`` values in [-7, 7] packed two a byte
+    (``pack_int4``: (B, S, Hk, hd / 2) int8)."""
+    qmax = 7.0 if int4 else 127.0
     absmax = x.float().abs().amax(dim=-1)
-    scale = torch.clamp(absmax, min=1e-8) / 127.0
-    q = torch.clamp(torch.round(x.float() / scale[..., None]), -127, 127)
-    return q.to(torch.int8), scale.to(torch.bfloat16)
+    scale = torch.clamp(absmax, min=1e-8) / qmax
+    q = torch.clamp(torch.round(x.float() / scale[..., None]), -qmax,
+                    qmax).to(torch.int8)
+    return (pack_int4(q) if int4 else q), scale.to(torch.bfloat16)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-8, 7] (..., hd) -> (..., hd / 2) int8 bytes, two
+    two's-complement nibbles a byte: the even column in the low nibble,
+    the odd column in the high one. Torch has no int4 dtype."""
+    lo, hi = q[..., 0::2], q[..., 1::2]
+    return ((lo & 0xF) | (hi << 4)).to(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """``pack_int4``'s inverse: (..., hd / 2) int8 bytes -> (..., hd)
+    int8 values (each nibble sign-extended by arithmetic shifts)."""
+    lo = (packed << 4) >> 4
+    hi = packed >> 4
+    return torch.stack([lo, hi], dim=-1).flatten(-2)
+
+
+def kv_layout(cache: Dict, head_dim: int) -> str:
+    """The layout of an attention cache node, the one place that tells
+    them apart: "kvq" (uint8 codebook indices), "int4" (int8 bytes of
+    packed nibbles: the cache's last dim is half the new rows' head dim
+    ``head_dim``), "int8", or "fp"."""
+    if "k_s" not in cache:
+        return "fp"
+    if cache["k"].dtype == torch.uint8:
+        return "kvq"
+    return "int4" if cache["k"].shape[-1] * 2 == head_dim else "int8"
+
+
+def _dequantize_kv(q: torch.Tensor, s: torch.Tensor, layout: str
+                   ) -> torch.Tensor:
+    """An int8 or int4 cache leaf and its scales as bf16 rows, as the
+    reference reads them (``q.astype(bf16) * s.astype(bf16)``)."""
+    bf = torch.bfloat16
+    vals = unpack_int4(q) if layout == "int4" else q
+    return vals.to(bf) * s[..., None].to(bf)
 
 
 def _kvq_decode_attention(q, k_idx, v_idx, k_s, v_s, lengths, cb_k, cb_v,
@@ -498,16 +541,19 @@ def _kvq_decode_attention(q, k_idx, v_idx, k_s, v_s, lengths, cb_k, cb_v,
 def _encoded_rows(p: Params, k: torch.Tensor, v: torch.Tensor,
                   cache: Dict, rc: RunConfig) -> Dict[str, torch.Tensor]:
     """The new tokens' cache rows in the cache's layout, by leaf name:
-    fp ``k``/``v``; int8-quantized values and scales; or KV-VQ indices
-    and scales, encoded against the attention params' codebooks."""
-    if "k_s" in cache and cache["k"].dtype == torch.uint8:     # KV-VQ
+    fp ``k``/``v``; int8- or int4-quantized values and scales; or KV-VQ
+    indices and scales, encoded against the attention params'
+    codebooks."""
+    layout = kv_layout(cache, k.shape[-1])
+    if layout == "kvq":
         variant = rc.kv_vq.variant if rc.kv_vq is not None else "outlier"
         (k, k_s), (v, v_s) = (kv_encode(k, p["kv_cb"]["k"], variant),
                               kv_encode(v, p["kv_cb"]["v"], variant))
-    elif "k_s" in cache:                                         # int8
-        (k, k_s), (v, v_s) = _quantize_kv(k), _quantize_kv(v)
-    else:
+    elif layout == "fp":
         return {"k": k, "v": v}
+    else:
+        int4 = layout == "int4"
+        (k, k_s), (v, v_s) = _quantize_kv(k, int4), _quantize_kv(v, int4)
     return {"k": k, "v": v, "k_s": k_s, "v_s": v_s}
 
 
@@ -551,15 +597,15 @@ def _decode_contiguous(p, q, rows, cache, rc: RunConfig,
         buf[b_iota, slot] = torch.where(keep, new, buf[b_iota, slot])
     cache["len"].copy_(cache_len + S)
     new_len = cache["len"]
-    if "k_s" in cache and cache["k"].dtype == torch.uint8:
+    layout = kv_layout(cache, q.shape[-1])
+    if layout == "kvq":
         return _kvq_decode_attention(q, cache["k"], cache["v"], cache["k_s"],
                                      cache["v_s"], new_len, p["kv_cb"]["k"],
                                      p["kv_cb"]["v"], rc, window=window)
-    if "k_s" in cache:
-        bf = torch.bfloat16
+    if layout != "fp":
         return decode_attention(
-            q, cache["k"].to(bf) * cache["k_s"][..., None].to(bf),
-            cache["v"].to(bf) * cache["v_s"][..., None].to(bf), new_len,
+            q, _dequantize_kv(cache["k"], cache["k_s"], layout),
+            _dequantize_kv(cache["v"], cache["v_s"], layout), new_len,
             ring=ring)
     if rc.policy.impl == "cuda" and S == 1 and not ring:
         from repro_torch.kernels.flash_decode import flash_decode
@@ -595,17 +641,17 @@ def _decode_paged(p, q, rows, cache, rc: RunConfig,
     cache["len"].copy_(cache_len + S)
     new_len = cache["len"]
     arena = {n: cache[n][:NB] for n in rows}                       # no sink
-    if "k_s" in cache and cache["k"].dtype == torch.uint8:
+    layout = kv_layout(cache, q.shape[-1])
+    if layout == "kvq":
         return _kvq_decode_attention(
             q, arena["k"], arena["v"], arena["k_s"], arena["v_s"], new_len,
             p["kv_cb"]["k"], p["kv_cb"]["v"], rc, block_table=bt,
             window=window)
-    if "k_s" in cache:
-        bf = torch.bfloat16
+    if layout != "fp":
         view = {n: paged_view(a, bt) for n, a in arena.items()}
         return decode_attention(
-            q, view["k"].to(bf) * view["k_s"][..., None].to(bf),
-            view["v"].to(bf) * view["v_s"][..., None].to(bf), new_len,
+            q, _dequantize_kv(view["k"], view["k_s"], layout),
+            _dequantize_kv(view["v"], view["v_s"], layout), new_len,
             ring=ring)
     if rc.policy.impl == "cuda" and S == 1 and not ring:
         from repro_torch.kernels.flash_decode import flash_decode_paged
@@ -1016,3 +1062,17 @@ def lm_head(p: Optional[Params], x: torch.Tensor, rc: RunConfig,
         w = emb_params["emb"].t().to(x.dtype)
         return core_ops.fp_matmul(x, w, out_dtype=torch.float32)
     return linear(p, x, rc, out_dtype=torch.float32)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token negative log-likelihood: logits (B, S, V) fp32,
+    labels (B, S) int; with ``mask`` (B, S) the mask-weighted mean (over
+    at least one position)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

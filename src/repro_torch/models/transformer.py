@@ -11,7 +11,7 @@ stacked layer axis; here each segment is a list of per-layer dicts
 walked by a Python loop, and the decode cache keeps the reference's
 stacked layout, e.g. ``{"body": {"k": (L, B, S, Hk, hd), "v": ...,
 "len": (L, B)}}`` (plus ``k_s``/``v_s`` (L, B, S, Hk) scale leaves for
-the int8 and KV-VQ layouts; MLA: ``latent`` (L, B, S, r), ``k_rope``
+the int8, int4 and KV-VQ layouts; MLA: ``latent`` (L, B, S, r), ``k_rope``
 (L, B, S, dr), under KV-VQ uint8 ``latent`` indices and a ``latent_s``
 (L, B, S, 1) scale), so each layer reads and updates its slice in
 place.
@@ -131,15 +131,16 @@ def forward(params: Any, tokens: torch.Tensor, rc: RunConfig,
 
 
 def _layer_cache(cfg: ModelConfig, L: int, batch: int, S: int, dtype,
-                 device, kv_int8: bool, kvq: Optional[KVQuantConfig]
-                 ) -> Dict[str, torch.Tensor]:
+                 device, kv_int8: bool, kvq: Optional[KVQuantConfig],
+                 kv_int4: bool = False) -> Dict[str, torch.Tensor]:
     """One segment's stacked cache node of L layers."""
     zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
     length = zeros((L, batch), torch.int32)
     if cfg.use_mla:
-        if kv_int8:
-            raise ValueError("kv_bits=8 has no MLA latent layout; use 16 or "
-                             "the KV-VQ 4/2-bit modes")
+        if kv_int8 or kv_int4:
+            raise ValueError(f"kv_bits={4 if kv_int4 else 8} integer caches "
+                             "have no MLA latent layout; use 16 or the KV-VQ "
+                             "4/2-bit modes")
         r = cfg.kv_lora_rank
         node = ({"latent": zeros((L, batch, S, kvq.idx_width(r)),
                                  torch.uint8),
@@ -151,9 +152,10 @@ def _layer_cache(cfg: ModelConfig, L: int, batch: int, S: int, dtype,
         return node
     lead = (L, batch, S, cfg.num_kv_heads)
     node = {"len": length}
-    if kvq is not None or kv_int8:
+    if kvq is not None or kv_int8 or kv_int4:
         width, kdt = ((kvq.idx_width(cfg.head_dim), torch.uint8)
-                      if kvq is not None else (cfg.head_dim, torch.int8))
+                      if kvq is not None
+                      else (cfg.head_dim // (2 if kv_int4 else 1), torch.int8))
         for n in ("k", "v"):
             node[n] = zeros(lead + (width,), kdt)
             node[n + "_s"] = zeros(lead, torch.bfloat16)
@@ -164,12 +166,15 @@ def _layer_cache(cfg: ModelConfig, L: int, batch: int, S: int, dtype,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device, *,
-               kv_int8: bool = False,
+               kv_int8: bool = False, kv_int4: bool = False,
                kvq: Optional[KVQuantConfig] = None) -> Dict[str, Any]:
     """Zeroed stacked decode cache, contiguous, ``{"body": ...}`` and,
     with ``first_dense_layers``, ``"pre"``: fp ``k``/``v`` in ``dtype``;
     with ``kv_int8``, int8 ``k``/``v`` and bf16 per-(token, head)
-    ``k_s``/``v_s`` scales; with ``kvq``, uint8 codebook indices
+    ``k_s``/``v_s`` scales; with ``kv_int4``, the same scales beside
+    int4 values packed two a byte (``k``/``v`` (..., head_dim / 2) int8,
+    ``common.pack_int4``: the reference's ``jnp.int4`` leaves take a
+    byte a value); with ``kvq``, uint8 codebook indices
     (``kvq.idx_width(head_dim)`` per token and head) and the same bf16
     scale leaves. An MLA config caches ``latent`` (fp, or under ``kvq``
     ``kvq.idx_width(kv_lora_rank)`` uint8 indices and a bf16 ``latent_s``
@@ -179,14 +184,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device, *,
     ``serve/paging.init_paged_cache`` (``Model.init_cache(paging=...)``).
 
     Raises:
-      ValueError: ``kvq`` with ``kv_int8``; ``kv_int8`` on an MLA
-        config."""
-    if kvq is not None and kv_int8:
-        raise ValueError("kvq is mutually exclusive with kv_int8")
+      ValueError: two of ``kvq``, ``kv_int8`` and ``kv_int4``;
+        ``kv_int8`` or ``kv_int4`` on an MLA config."""
+    if kvq is not None and (kv_int8 or kv_int4):
+        raise ValueError("kvq is mutually exclusive with kv_int8/kv_int4")
+    if kv_int8 and kv_int4:
+        raise ValueError("kv_int8 is mutually exclusive with kv_int4")
     S = (min(max_len, cfg.sliding_window) if cfg.sliding_window
          else max_len)
     node = lambda L: _layer_cache(cfg, L, batch, S, dtype, device, kv_int8,
-                                  kvq)
+                                  kvq, kv_int4)
     caches = {"body": node(cfg.num_layers - cfg.first_dense_layers)}
     if cfg.first_dense_layers:
         caches["pre"] = node(cfg.first_dense_layers)

@@ -1,7 +1,9 @@
 """KV-cache utilities for serving (``repro/serve/kvcache.py``, the
 contiguous full-attention subset): quantize the fp cache that prefill
 returns into the engine's compressed layout (``quantize_prefill_cache_int8``
-for kv_bits=8, ``encode_prefill_cache`` for the KV-VQ kv_bits 4/2), then
+for kv_bits=8 and, with ``int4``, the packed int4 cache that
+``Model.init_cache(kv_int4=True)`` lays out, ``encode_prefill_cache`` for
+the KV-VQ kv_bits 4/2), then
 pad it to a fixed-capacity decode cache. Positions between the true
 prompt length and the bucket ride along unread: decode overwrites slot
 ``len`` before attention unmasks it (``pos < len``). Leaves outside the
@@ -126,18 +128,20 @@ def pad_prefill_cache(cache: Any, capacity: int, *, window: int = 0,
     return walk(cache)
 
 
-def quantize_prefill_cache_int8(cache: Any) -> Any:
+def quantize_prefill_cache_int8(cache: Any, *, int4: bool = False) -> Any:
     """Quantize every fp attention node of a prefill cache into the int8
-    ``k``/``v`` + bf16 ``k_s``/``v_s`` layout (kv_bits=8) by the rule
-    decode appends use. Prefill runs in fp; the engine calls this before
-    slot insertion, which would otherwise truncate rather than quantize."""
+    ``k``/``v`` + bf16 ``k_s``/``v_s`` layout (kv_bits=8), or with
+    ``int4`` the int4 one (values in [-7, 7] packed two a byte, (..., hd
+    / 2) int8), by the rule decode appends use. Prefill runs in fp; the
+    engine calls this before slot insertion, which would otherwise
+    truncate rather than quantize."""
 
     def walk(node):
         if isinstance(node, dict):
             if ("k" in node and "v" in node and "len" in node
                     and node["k"].is_floating_point()):
-                kq, ks = _quantize_kv(node["k"])
-                vq, vs = _quantize_kv(node["v"])
+                kq, ks = _quantize_kv(node["k"], int4)
+                vq, vs = _quantize_kv(node["v"], int4)
                 return {"k": kq, "v": vq, "k_s": ks, "v_s": vs,
                         "len": node["len"]}
             return {k: walk(v) for k, v in node.items()}

@@ -203,13 +203,16 @@ def _walk(node: Any, page, keep) -> Any:
 def make_paging_config(model, num_slots: int, max_len: int, *,
                        window: int = 0, block_size: int = 16,
                        num_blocks: Optional[int] = None,
-                       kv_int8: bool = False, kvq=None) -> PagingConfig:
+                       kv_int8: bool = False, kv_int4: bool = False,
+                       kvq=None) -> PagingConfig:
     """The pool geometry of ``model`` at ``num_slots`` x ``max_len``
     (``window > 0``: rings of ``min(max_len, window)`` positions).
     ``num_blocks`` defaults to ``num_slots * blocks_per_slot``, the
-    contiguous cache's capacity, now shared. ``kv_int8`` / ``kvq`` select
-    the compressed layouts; ``bytes_per_block`` sums every arena leaf of
-    that layout (0 for a model with pass-through state only)."""
+    contiguous cache's capacity, now shared. ``kv_int8`` / ``kv_int4`` /
+    ``kvq`` select the compressed layouts; ``bytes_per_block`` sums every
+    arena leaf of that layout (0 for a model with pass-through state
+    only): the port's own bytes, so an int4 value counts half a byte
+    where the reference's ``jnp.int4`` leaves count one."""
     page_len = min(max_len, window) if window else max_len
     bs = effective_block_size(block_size, page_len)
     W = page_len // bs
@@ -220,7 +223,7 @@ def make_paging_config(model, num_slots: int, max_len: int, *,
             f"num_blocks={num_blocks} cannot hold even one full slot "
             f"(blocks_per_slot={W})")
     specs = model.init_cache(num_slots, max_len, device="meta",
-                             **_cache_kw(kv_int8, kvq))
+                             **_cache_kw(kv_int8, kvq, kv_int4))
     per_block = 0
 
     def count(node):
@@ -238,12 +241,14 @@ def make_paging_config(model, num_slots: int, max_len: int, *,
                         bytes_per_block=per_block, sentinel=num_blocks)
 
 
-def _cache_kw(kv_int8: bool, kvq) -> dict:
+def _cache_kw(kv_int8: bool, kvq, kv_int4: bool = False) -> dict:
     """The cache layout kwargs, passed only when set (model stubs need
     not take them)."""
     kw = {}
     if kv_int8:
         kw["kv_int8"] = True
+    if kv_int4:
+        kw["kv_int4"] = True
     if kvq is not None:
         kw["kvq"] = kvq
     return kw
@@ -251,7 +256,7 @@ def _cache_kw(kv_int8: bool, kvq) -> dict:
 
 def init_paged_cache(model, num_slots: int, max_len: int,
                      meta: PagingConfig, *, device, kv_int8: bool = False,
-                     kvq=None) -> Any:
+                     kv_int4: bool = False, kvq=None) -> Any:
     """The paged decode cache, zeroed: each attention (or MLA latent)
     leaf becomes an arena ``(L, NB + 1, bs, ...)`` (the last block the
     sink), ``len`` stays ``(L, B)``, and a sentinel-filled
@@ -259,7 +264,7 @@ def init_paged_cache(model, num_slots: int, max_len: int,
     leaf keeps its shape (zeros, as the reference's: a prefill writes a
     slot's row before anything reads it)."""
     specs = model.init_cache(num_slots, max_len, device="meta",
-                             **_cache_kw(kv_int8, kvq))
+                             **_cache_kw(kv_int8, kvq, kv_int4))
 
     def page(node):
         out = {}

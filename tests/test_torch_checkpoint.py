@@ -13,8 +13,10 @@ splits, qwen2's qkv biases drawn at random, the KV-VQ codebooks):
     leaf but bf16, which the reference's own restore cannot read);
   * the manager's mechanics: atomic rename, keep-K, async save then
     wait, ``.tmp`` directories ignored, FileNotFoundError on an empty
-    directory, NotImplementedError on optimizer state, and a port
-    round trip (tuples, None, scalars, bf16) bit for bit.
+    directory, NotImplementedError on optimizer state and on a VQ-Logits
+    head (which the reference pickles into a file its own restore
+    refuses), and a port round trip (tuples, None, scalars, bf16) bit
+    for bit.
 """
 import dataclasses
 import json
@@ -326,3 +328,26 @@ def test_optimizer_state_raises(tmp_path):
         {"opt": adamw_init(params, AdamWConfig())}))
     with pytest.raises(NotImplementedError, match="A10"):
         unflatten_from_paths(flat)
+
+
+@pytest.mark.parametrize("async_save", [False, True])
+def test_vq_logits_head_refused_by_name(tmp_path, async_save):
+    """``save`` of a tree with a ``vql`` node raises NotImplementedError
+    naming the node, before it writes anything; the reference writes
+    the head as one pickled object leaf, which its own restore refuses."""
+    from repro.core import logits_vq as jlvq
+    from repro_torch.core import logits_vq as tlvq
+
+    head = tlvq.synthetic_logits_vq(torch.Generator().manual_seed(0), 64,
+                                    512, 16, device="cpu")
+    mgr = CheckpointManager(str(tmp_path), async_save=async_save)
+    params = {"lm_head": {"vql": head}, "final_norm": {"g": torch.ones(64)}}
+    with pytest.raises(NotImplementedError, match="/params/lm_head/vql"):
+        mgr.save(3, {"params": params})
+    assert os.listdir(tmp_path) == [] and mgr.latest_step() is None
+    jhead = jlvq.synthetic_logits_vq(KEY, 64, 512, 16)
+    jmanager.CheckpointManager(str(tmp_path / "ref")).save(
+        1, {"params": {"lm_head": {"vql": jhead}}})
+    with pytest.raises(ValueError, match="allow_pickle"):
+        jmanager.CheckpointManager(str(tmp_path / "ref")).restore()
+

@@ -201,6 +201,7 @@ def test_port_quantize_groups_as_reference(arch):
     s = _setup(arch)
     cfg = s["cfg"]
     mine = tq.quantize_params(s["params"]["dense"][1], cfg,
+                              method="synthetic",
                               generator=torch.Generator().manual_seed(0),
                               device="cpu")
     want = s["params"]["vq"][1]
@@ -287,7 +288,7 @@ def test_meta_block_init_quantizes(arch):
     gen = torch.Generator().manual_seed(0)
     params = s["m"].quantize(s["m"].init(gen, device="cpu",
                                          block_device="meta"),
-                             generator=gen, device="cpu")
+                             method="synthetic", generator=gen, device="cpu")
     want = s["params"]["vq"][1]
     assert tq.count_vq_layers(params) == tq.count_vq_layers(want)
     for lm, lw in zip(params["layers"], want["layers"]):

@@ -149,7 +149,8 @@ def _model_and_params(device):
     cfg = get_smoke_config("llama2_7b")
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(0)
-    params = model.quantize(model.init(gen, device=device), generator=gen,
+    params = model.quantize(model.init(gen, device=device), method="synthetic",
+                            generator=gen,
                             device=device)
     return model, params
 
@@ -426,7 +427,8 @@ def xlstm_served(request):
     cfg = get_smoke_config("xlstm_125m")
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(0)
-    params = model.quantize(model.init(gen, device="cpu"), generator=gen,
+    params = model.quantize(model.init(gen, device="cpu"), method="synthetic",
+                            generator=gen,
                             device="cpu")
     calls, eager = [], []
     kw = {"paged": True, "block_size": 4} if request.param else {}

@@ -95,9 +95,10 @@ def test_config_errors_match_reference(kw, match):
             mod.KVQuantConfig(**kw)
     with pytest.raises(ValueError, match="vec_d"):
         tvq.KVQuantConfig(kv_bits=2).groups(30)
-    for deferred in (tvq.fit_kv_codebooks, tq.calibrate_kv_codebooks):
-        with pytest.raises(NotImplementedError, match="A8"):
-            deferred()
+    for mod in (tvq, jvq):  # no grid: 12 channels a group, the fit's job
+        with pytest.raises(ValueError, match="use fit_kv_codebooks"):
+            mod.kv_grid_codebooks(4, 36, mod.KVQuantConfig(kv_bits=2,
+                                                           residual=3))
 
 
 @pytest.mark.parametrize("variant", ["outlier", "rms"])

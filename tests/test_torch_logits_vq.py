@@ -236,7 +236,7 @@ def test_attach_pass_idempotent_and_guarded(smoke):
         quantize.attach_vq_logits_head(vq_head, 8)
     # a compressed head passes the block quantization untouched
     g = torch.Generator().manual_seed(0)
-    qq = m.quantize(q, generator=g, device="cpu")
+    qq = m.quantize(q, method="synthetic", generator=g, device="cpu")
     assert qq["lm_head"]["vql"] is head
     assert head.codebook.data_ptr() in {t.data_ptr()
                                         for t in param_tensors(qq)}

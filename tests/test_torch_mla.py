@@ -272,6 +272,7 @@ def test_mla_grouped_matches_split_members():
     gen = torch.Generator().manual_seed(0)
     block = tcm.make_mla(gen, cfg, device="cpu", block_device="cpu")
     pg = tq.quantize_params({"layers": [{"attn": block}]}, cfg,
+                            method="synthetic",
                             generator=gen, device="cpu")["layers"][0]["attn"]
     assert pg["wq_kva"]["vq"].splits == (192, 80)
     ps = {k: v for k, v in pg.items() if k != "wq_kva"}
@@ -295,7 +296,8 @@ def test_mla_q_kva_grouped_where_the_reference_groups():
     splits = (cfg.num_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim),
               cfg.kv_lora_rank + cfg.qk_rope_dim)
     gen = torch.Generator().manual_seed(1)
-    own = s["m"].quantize(s["m"].init(gen, device="cpu"), generator=gen,
+    own = s["m"].quantize(s["m"].init(gen, device="cpu"), method="synthetic",
+                          generator=gen,
                           device="cpu")
     for tree in (own, s["params"]["vq"][1]):
         for seg in ("pre_layers", "layers"):

@@ -324,6 +324,7 @@ def test_port_quantize_stacks_experts_and_groups_gu():
     s = _setup()
     cfg = s["cfg"]
     mine = tq.quantize_params(s["params"]["dense"][1], cfg,
+                              method="synthetic",
                               generator=torch.Generator().manual_seed(0),
                               device="cpu")
     want = s["params"]["vq"][1]
@@ -358,7 +359,7 @@ def test_meta_block_init_quantizes_experts():
     raw = m.init(gen, device="cpu", block_device="meta")
     assert raw["layers"][0]["moe"]["experts"]["gate"]["w"].is_meta
     assert not raw["layers"][0]["moe"]["router"]["wr"].is_meta
-    params = m.quantize(raw, generator=gen, device="cpu")
+    params = m.quantize(raw, method="synthetic", generator=gen, device="cpu")
     assert tq.count_vq_layers(params) == tq.count_vq_layers(
         s["params"]["vq"][1])
 

@@ -568,18 +568,22 @@ def _vq_spec():
 
 @pytest.mark.parametrize("impl", ["cuda", "torch"])
 def test_all_eva_quarantined_degrades_to_dequant_same_impl(impl):
-    """The port's divergence: no plain degrade step. Both EVA backends
-    quarantined, an eva plan is ``dequant`` under the SAME impl (under
-    ``impl="cuda"`` the B3 kernel); with ``dequant`` quarantined too, the
-    quarantine is ignored and the EVA kernels re-ranked."""
+    """The port's divergence: no plain degrade step. Every matched EVA
+    backend quarantined (under ``impl="cuda"`` both kernels, under
+    ``impl="torch"`` the plain epilogue the site resolves to), an eva plan
+    is ``dequant`` under the SAME impl (under ``impl="cuda"`` the B3
+    kernel); with ``dequant`` quarantined too, the quarantine is ignored
+    and the EVA backends re-ranked."""
     spec = _vq_spec()
     policy = PlanPolicy(vq_mode="eva", impl=impl)
     pl = Planner(calibration=None, cooloff_s=60.0)
     matched = {be.name for be in Planner._match_all(spec, policy)}
-    assert matched == {"eva_fused", "eva_split"}
-    pl.record_backend_failure("eva_fused")
-    assert pl.plan(spec, policy).backend == "eva_split"
-    pl.record_backend_failure("eva_split")
+    evas = ["eva_fused", "eva_split"] if impl == "cuda" else ["eva_direct"]
+    assert matched == set(evas)
+    for name, nxt in zip(evas, evas[1:]):
+        pl.record_backend_failure(name)
+        assert pl.plan(spec, policy).backend == nxt
+    pl.record_backend_failure(evas[-1])
     got = pl.plan(spec, policy)
     assert got.backend == "dequant" and got.policy.impl == impl
     assert got.policy.vq_mode == "dequant"
@@ -588,7 +592,7 @@ def test_all_eva_quarantined_degrades_to_dequant_same_impl(impl):
     last = pl.plan(spec, policy)
     assert last.backend == "dequant" and last.policy.impl == impl
     pl.reset_quarantine()
-    assert pl.plan(spec, policy).backend == "eva_fused"
+    assert pl.plan(spec, policy).backend == evas[0]
 
 
 def test_backend_exception_propagates_unquarantined(monkeypatch):
@@ -600,7 +604,8 @@ def test_backend_exception_propagates_unquarantined(monkeypatch):
     cfg = dataclasses.replace(get_smoke_config("llama2_7b"), dtype="float32")
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(0)
-    params = model.quantize(model.init(gen, device="cpu"), generator=gen,
+    params = model.quantize(model.init(gen, device="cpu"), method="synthetic",
+                            generator=gen,
                             device="cpu")
     eng = Engine(model, params, RunConfig(attn_chunk=16),
                  EngineConfig(num_slots=2, max_len=32), device="cpu")
@@ -635,7 +640,8 @@ def test_restore_equals_uninterrupted_on_card():
     cfg = get_smoke_config("llama2_7b")
     model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = model.quantize(model.init(gen, device="cuda"), generator=gen,
+    params = model.quantize(model.init(gen, device="cuda"), method="synthetic",
+                            generator=gen,
                             device="cuda")
     rng = np.random.default_rng(0)
     reqs = [GenerationRequest(

@@ -378,7 +378,8 @@ def test_port_quantize_groups_qkv_and_gu_only():
     stay dense."""
     cfg = tconfigs.get_smoke_config(ARCH)
     dense, gen = _port_dense(cfg)
-    qp = tq.quantize_params(dense, cfg, generator=gen, device="cpu")
+    qp = tq.quantize_params(dense, cfg, method="synthetic",
+                            generator=gen, device="cpu")
     attn = qp["groups"][0][ATTN]["attn"]
     assert attn["wqkv"]["vq"].splits == (cfg.q_dim, cfg.kv_dim, cfg.kv_dim)
     for rec in (qp["groups"][0]["b1_rec"], qp["trail"][0]):
@@ -403,7 +404,8 @@ def _narrow_full():
 def full_width():
     cfgs = _narrow_full()
     dense, gen = _port_dense(cfgs["torch"], block_device="meta")
-    return cfgs, tq.quantize_params(dense, cfgs["torch"], generator=gen,
+    return cfgs, tq.quantize_params(dense, cfgs["torch"], method="synthetic",
+                                    generator=gen,
                                     device="cpu")
 
 

@@ -485,7 +485,8 @@ def test_port_quantize_keeps_xattn_ungrouped():
     cfg = tconfigs.get_smoke_config(ARCH)
     gen = torch.Generator().manual_seed(0)
     dense = build_model(cfg).init(gen, device="cpu")
-    qp = tq.quantize_params(dense, cfg, generator=gen, device="cpu")
+    qp = tq.quantize_params(dense, cfg, method="synthetic",
+                            generator=gen, device="cpu")
     g = qp["groups"][0]
     assert set(g["self0"]["attn"]) == {"wqkv", "wo"}
     assert g["self0"]["attn"]["wqkv"]["vq"].splits == (128, 64, 64)
@@ -523,7 +524,8 @@ def full_width():
     gen = torch.Generator().manual_seed(0)
     dense = build_model(cfg).init(gen, device="cpu", block_device="meta")
     with mock.patch.object(tq, "synthetic_vq", _meta_vq):
-        return cfg, tq.quantize_params(dense, cfg, generator=gen,
+        return cfg, tq.quantize_params(dense, cfg, method="synthetic",
+                                       generator=gen,
                                        device="cpu")
 
 

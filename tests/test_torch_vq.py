@@ -103,8 +103,8 @@ def test_quantize_params_groups_like_jax():
     cfg = get_smoke_config("llama2_7b")
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(0)
-    qp = model.quantize(model.init(gen, device="cpu"), generator=gen,
-                        device="cpu")
+    qp = model.quantize(model.init(gen, device="cpu"), method="synthetic",
+                        generator=gen, device="cpu")
     # the reference stacks layers; the port lists them
     jlayers = {path[1:]: v for path, v in _vq_layout(jparams).items()}
     for i in range(cfg.num_layers):
@@ -127,14 +127,16 @@ def test_quantize_builds_from_meta_block_weights():
     gen = torch.Generator().manual_seed(0)
     params = model.init(gen, device="cpu", block_device="meta")
     assert params["layers"][0]["mlp"]["down"]["w"].is_meta
-    qp = model.quantize(params, generator=gen, device="cpu")
+    qp = model.quantize(params, method="synthetic", generator=gen,
+                        device="cpu")
     vq = qp["layers"][1]["mlp"]["down"]["vq"]
     assert vq.idx.device.type == "cpu" and (vq.K, vq.N) == (384, 128)
+    with pytest.raises(ValueError, match="meta device"):  # fit needs values
+        model.quantize(params, method="fit", device="cpu")
     params["final_norm"]["g"] = torch.empty(cfg.d_model, device="meta")
     with pytest.raises(ValueError, match="meta"):
-        model.quantize(params, generator=gen, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        model.quantize(params, method="fit", device="cpu")
+        model.quantize(params, method="synthetic", generator=gen,
+                       device="cpu")
 
 
 def test_from_jax_params_unstacks_layers():

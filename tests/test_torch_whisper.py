@@ -385,7 +385,8 @@ def test_port_quantize_groups_self_attention_only():
     gen = torch.Generator().manual_seed(0)
     dense = build_model(cfg).init(gen, device="cpu")
     dense["decoder"][0]["self_attn"]["wk"]["b"].fill_(2.0)
-    qp = tq.quantize_params(dense, cfg, generator=gen, device="cpu")
+    qp = tq.quantize_params(dense, cfg, method="synthetic",
+                            generator=gen, device="cpu")
     for seg, attn in (("encoder", "attn"), ("decoder", "self_attn")):
         a = qp[seg][0][attn]
         assert set(a) == {"wqkv", "wo"} and a["wqkv"]["vq"].splits == \
@@ -408,7 +409,8 @@ def full_width():
     cfg = dataclasses.replace(tconfigs.get_config(ARCH), vocab_size=512)
     gen = torch.Generator().manual_seed(0)
     dense = build_model(cfg).init(gen, device="cpu", block_device="meta")
-    return cfg, tq.quantize_params(dense, cfg, generator=gen, device="cpu")
+    return cfg, tq.quantize_params(dense, cfg, method="synthetic",
+                                   generator=gen, device="cpu")
 
 
 def test_quantized_dtypes_equal_reference_param_specs(full_width):

@@ -354,7 +354,8 @@ def test_port_quantize_groups_mlstm_qkv_only():
     ``rz`` stay dense."""
     cfg = tconfigs.get_smoke_config(ARCH)
     dense, gen = _port_dense(cfg)
-    qp = tq.quantize_params(dense, cfg, generator=gen, device="cpu")
+    qp = tq.quantize_params(dense, cfg, method="synthetic",
+                            generator=gen, device="cpu")
     m, sl = qp["groups"][0]["b0_mlstm"], qp["groups"][0]["b1_slstm"]
     assert m["wqkv"]["vq"].splits == (128, 128, 128)
     assert not {"wq", "wk", "wv"} & set(m)
@@ -387,7 +388,8 @@ def full_width():
     shapes (meta), quantized synthetically on the CPU (0.2 GB)."""
     cfg = tconfigs.get_config(ARCH)
     dense, gen = _port_dense(cfg, block_device="meta")
-    return cfg, tq.quantize_params(dense, cfg, generator=gen, device="cpu")
+    return cfg, tq.quantize_params(dense, cfg, method="synthetic",
+                                   generator=gen, device="cpu")
 
 
 def test_quantized_dtypes_equal_reference_param_specs(full_width):
