@@ -221,11 +221,13 @@ Phases (any failure exits non-zero):
      encoder over one set of 1500 frames, drawn on the card and given to
      the engine as its extras, read by every request's prefill; the
      decoder's self-attention cache beside 1500-row cross memories that a
-     prefill writes once and decode only reads) at full width and all 24
-     + 24 layers, `serve`'s traffic through the graphed engine: weight
+     prefill writes once and decode only reads) at full width and 12 +
+     12 of its 24 + 24 layers (WHISPER_LAYERS), `serve`'s traffic
+     through the graphed engine: weight
      bytes against bf16 dense, the cross memories' and the self cache's
      bytes, peak memory, decode ms a step, tok/s, prefill s, launches (B1
-     144 and B2 24 a replayed step, at head dim 64; B3 288 a prefill),
+     72 and B2 12 a replayed step, at head dim 64; B3 144 a prefill;
+     144, 24 and 288 at 24 + 24 layers),
      the caches after the decode graph's build as init_cache made them,
      the plain decode step at bf16 within WHISPER_PLAIN_REL (two faulty
      controls above it) and at fp32 within 1e-3, graph_step (decode and
@@ -248,12 +250,14 @@ Phases (any failure exits non-zero):
      of 1601 patch embeddings, drawn on the card and given to the engine
      as its extras, projected by every request's prefill; the self caches
      beside 1601-row image memories that a prefill writes once and decode
-     only reads) at full width and all 40 layers, the cross layers' gates
+     only reads) at full width and 20 of its 40 layers (VISION_LAYERS),
+     the cross layers' gates
      set non-zero (the reference draws them at zero, which leaves the
      image unread), `serve`'s traffic through the graphed engine: weight
      bytes against bf16 dense, the image memories' and the self caches'
      bytes, peak memory, decode ms a step, tok/s, prefill s, launches (B1
-     160 and B2 32 a replayed step; B3 176 a prefill), the caches after
+     80 and B2 16 a replayed step; B3 88 a prefill; 160, 32 and 176 at
+     40 layers), the caches after
      the decode graph's build as init_cache made them, the plain decode
      step at bf16 within VISION_PLAIN_REL (three faulty controls above
      it, one with the memories zeroed) and at fp32 within 1e-3,
@@ -269,7 +273,27 @@ Phases (any failure exits non-zero):
      the CLI (`--arch llama-3.2-vision-11b --full`); the check phase
      holds B1, B4, B5 and the pair at its decode linears, B3 at its
      prefill linears of a 200-token prompt and at the cross wk/wv of 1601
-     image rows, and B6 at img_proj (1601 rows) and the head;
+     image rows, and B6 at img_proj (1601 rows) and the head; then
+     `serve_llama2_7b_fit` (llama2-7b cut to FIT_LAYERS layers, its
+     dense weights fitted on the card and served, ``serve_fit``);
+  13b. `train_qwen3_0_6b` (``train_qwen3``): qwen3-0.6b trained at full
+     width and depth (751.6 M fp32 params, bf16 activations, AdamW under
+     warmup_cosine, remat, 16 steps of 8 x 1024 tokens of the affine
+     task over TRAIN_DATA_VOCAB ids): the loss a step (finite, the last
+     below 0.95x the first), median step ms, tokens/s, the share of the
+     fp32 peak, of the bf16 peak and of the step's mixed bound (the
+     head's product in fp32, the rest in bf16), peak bytes with remat on
+     and off (off runs out of the card's memory), one profiled step's
+     idle share; its params and AdamW state saved and restored (bitwise,
+     bytes and s); the step itself at full width and STEP_LAYERS layers
+     against the plain fp32 step on the CPU (loss, gnorm, every
+     gradient leaf), beside two processes: a SMOKE run restarted from
+     its checkpoint equal to an uninterrupted one under deterministic
+     algorithms, and the training CLI (`--full --steps 5 --seq-len
+     256`); the trained params fitted and
+     served (B1, B2, B3 required) beside the dense model: the losses on
+     a held-out batch under the reference's three conditions, the share
+     of greedy tokens that follow the affine rule, their agreement;
   14. a {"kernels": [...]} summary line (fused_vq_matmul's row also
      sums its verify-window rows, `verify_window`; B1's and B3's carry
      their mixtral, deepseek, xlstm, recurrentgemma, whisper and vision
@@ -286,6 +310,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -395,6 +420,7 @@ RGLRU_B3_T = 200
 # serve's traffic, one set of S_SRC frames (the engine's extras) for every
 # request's prefill; the cache holds the S_SRC-row cross memories
 WHISPER = "whisper_medium"
+WHISPER_LAYERS = 12            # encoder and decoder, each of 24 since PR 30
 WHISPER_FRAMES = 1500
 # its bf16 plain decode step against the kernels' step: 2.4x the sound
 # step's drift on the first run (0.0102 of the max logit) and under two
@@ -414,6 +440,7 @@ WHISPER_REQUIRED = ("fused_vq_matmul", "flash_decode", "dequant_gemv")
 # patch embeddings (the engine's extras; one tile, the cache's capacity)
 # for every request's prefill
 VISION = "llama_3_2_vision_11b"
+VISION_LAYERS = 20             # 4 of its 8 groups since PR 30
 VISION_IMG = 1601
 # the cross layers' (attn_gate, mlp_gate): the reference draws them at
 # zero, which would leave the image path unread
@@ -444,6 +471,27 @@ VISION_REQUIRED = ("fused_vq_matmul", "flash_decode", "dequant_gemv")
 # FIT_KV_STEPS teacher-forced steps from one prefill, and the KV-VQ
 # codebooks are calibrated on CALIB_ROWS prompts of CALIB_LEN tokens
 FIT = "llama2_7b"
+FIT_LAYERS = 16                # of 32 since PR 30: the run's time limit
+# train_qwen3_0_6b: qwen3-0.6b at full width and depth, trained
+TRAIN = "qwen3-0.6b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 1024, 16, 1e-3
+TRAIN_HELD_OUT = 99            # the data step whose batch the losses read
+# the affine task over the first 512 token ids (the reference's SMOKE
+# vocabulary, whose task its test_system trains): over all 151936 ids
+# each step's 8192 pairs are new, and 16 steps at lr 1e-3 moved the loss
+# 1.4%; over 4096 the model learned which ids occur but no pair (none of
+# its greedy tokens followed the rule), and the fitted model's loss came
+# out 0.2% below the dense one's (an H100 at 700 W, PR 30)
+TRAIN_DATA_VOCAB = 512
+RESTART_STEPS, RESTART_FAIL = 10, 6   # the restart identity (SMOKE config)
+# the train step held against the plain fp32 step on the CPU: qwen3-0.6b
+# at full width and STEP_LAYERS layers, STEP_BATCH x STEP_SEQ tokens.
+# bf16 activations against fp32 put a gradient leaf within about 1e-2
+# of the plain one (relative L2); a dropped or wrong layer gradient is
+# about 1 off, a sign flip 2
+STEP_LAYERS, STEP_BATCH, STEP_SEQ = 2, 2, 64
+STEP_GRAD_REL = 0.1
+STEP_LOSS_REL = 1e-2
 FIT_KV_STEPS = 16
 CALIB_ROWS, CALIB_LEN = 4, 128
 LINEARS = (("wqkv", 4096, 12288), ("wo", 4096, 4096), ("gu", 4096, 22016),
@@ -3134,14 +3182,16 @@ def serve_whisper(torch):
     set of WHISPER_FRAMES frames, given to the engine as its extras and
     read by every request's prefill; the decoder's self-attention cache
     beside the S_SRC-row cross memories a prefill writes once and decode
-    only reads) at full width and all 24 + 24 layers, 2-bit VQ weights
+    only reads) at full width and WHISPER_LAYERS + WHISPER_LAYERS of its
+    24 + 24 layers (the run's time limit, since PR 30), 2-bit VQ weights
     drawn on the card from their shapes, bf16 activations, a dense bf16
     head; serve's traffic (4 slots, max_len MAX_LEN, 8 greedy requests of
     32-200 prompt tokens, MAX_NEW each) through the graphed engine (decode
     captured at construction, prefill buckets at first use): the weights'
     bytes against bf16 dense, the cross memories' and the self cache's
     bytes, peak memory, decode ms a step, tok/s, prefill s, the launches
-    (B1 144 a replayed step, B2 24 at head dim 64, B3 288 a prefill), the
+    (B1 6 a decoder layer a replayed step, B2 one at head dim 64, B3 6 a
+    layer a prefill: 144, 24 and 288 at 24 + 24 layers), the
     caches after the decode graph's build as init_cache made them
     (``cross_len`` S_SRC); the engine's checks (``engine_checks``: the
     bf16 plain step within WHISPER_PLAIN_REL with two faulty controls,
@@ -3162,6 +3212,7 @@ def serve_whisper(torch):
     import numpy as np
     from repro_torch.core.plan import PlanPolicy
     from repro_torch.models import RunConfig
+    from repro_torch.configs import get_config
     from repro_torch.models.whisper import S_SRC
     from repro_torch.serve import Engine, EngineConfig, cache_bytes
     from repro_torch.serve.graphs import tensor_leaves
@@ -3170,14 +3221,23 @@ def serve_whisper(torch):
     name = f"serve_{WHISPER}"
     rc = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
     torch.cuda.reset_peak_memory_stats()
-    model, params, prompts = build_weights(torch, WHISPER)
+    full = get_config(WHISPER)
+    emit({"phase": name, "reduced": {
+        "encoder_layers": [full.encoder_layers, WHISPER_LAYERS],
+        "num_layers": [full.num_layers, WHISPER_LAYERS],
+        "why": "the whole run's time limit"}})
+    model, params, prompts = build_weights(torch, WHISPER, dataclasses.replace(
+        full, encoder_layers=WHISPER_LAYERS, num_layers=WHISPER_LAYERS))
     cfg = model.cfg
     wb = weight_bytes(torch, params)
-    assert 0.35e9 < wb["weight_bytes_on_card"] < 0.45e9, wb
+    # 0.401 GB at 24 + 24 layers, 0.308 at 12 + 12
+    assert 0.28e9 < wb["weight_bytes_on_card"] < 0.34e9, wb
     lin = whisper_linears(cfg)
     b1_step = sum(ln[3] for ln in lin)
     b3_prefill = sum(ln[4] for ln in lin)
-    assert b1_step == 144 and b3_prefill == wb["vq_linears"] == 288, \
+    # 144 and 288 at 24 + 24 layers: 6 a decoder layer, 6 an encoder one
+    assert b1_step == 6 * cfg.num_layers and b3_prefill == \
+        wb["vq_linears"] == 6 * (cfg.num_layers + cfg.encoder_layers), \
         (b1_step, b3_prefill, wb)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     extras = {"frames": torch.randn((WHISPER_FRAMES, cfg.d_model),
@@ -3343,16 +3403,19 @@ def serve_vision(torch):
     a patch) and given to the engine as its extras,
     projected by every request's prefill; the self-attention caches
     beside VISION_IMG-row image memories that a prefill writes once and
-    decode only reads) at full width and all 40 layers, 2-bit VQ weights
+    decode only reads) at full width and VISION_LAYERS of its 40 layers
+    (the run's time limit, since PR 30), 2-bit VQ weights
     drawn on the card from their shapes with the cross layers' gates set
     to VISION_GATES (zero at init: the image would change nothing), bf16
     activations, a dense bf16 head; serve's traffic (4 slots, max_len
     MAX_LEN, 8 greedy requests of 32-200 prompt tokens, MAX_NEW each)
     through the graphed engine: the weights' bytes against bf16 dense,
     the image memories' and the self cache's bytes, peak memory, decode
-    ms a step, tok/s, prefill s, the launches (B1 160 and B2 32 a
-    replayed step, B3 176 a prefill), the caches after the decode graph's
-    build as init_cache made them (``xlen`` VISION_IMG); the engine's
+    ms a step, tok/s, prefill s, the launches (B1 4 a layer and B2 one a
+    self layer a replayed step, B3 4 a layer and 2 a cross layer a
+    prefill: 160, 32 and 176 at 40 layers), the caches after the decode
+    graph's build as init_cache made them (``xlen`` VISION_IMG); the
+    engine's
     checks (``engine_checks``: the bf16 plain step within
     VISION_PLAIN_REL with three faulty controls, the third the memories
     zeroed, fp32 within 1e-3, graph_step over the self caches and the
@@ -3382,17 +3445,22 @@ def serve_vision(torch):
     name = f"serve_{VISION}"
     rc = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
     torch.cuda.reset_peak_memory_stats()
-    model, params, prompts = build_weights(torch, VISION)
+    model, params, prompts = build_weights(torch, VISION,
+                                           reduced(VISION, VISION_LAYERS))
     cfg = model.cfg
     for g in params["groups"]:
         g["cross"]["attn_gate"].fill_(VISION_GATES[0])
         g["cross"]["mlp_gate"].fill_(VISION_GATES[1])
     wb = weight_bytes(torch, params)
-    assert 4.1e9 < wb["weight_bytes_on_card"] < 4.6e9, wb
+    # 4.33 GB at 40 layers, 3.23 at 20
+    assert 3.0e9 < wb["weight_bytes_on_card"] < 3.5e9, wb
     lin = vision_linears(cfg)
     b1_step = sum(ln[3] for ln in lin)
     b3_prefill = sum(ln[4] for ln in lin)
-    assert b1_step == 160 and b3_prefill == wb["vq_linears"] == 176, \
+    # 160 and 176 at 40 layers: 4 a layer, and 2 (wk, wv) a cross layer
+    assert b1_step == 4 * cfg.num_layers and b3_prefill == \
+        wb["vq_linears"] == b1_step + 2 * (cfg.num_layers
+                                           // cfg.cross_attn_period), \
         (b1_step, b3_prefill, wb)
     n_self = cfg.num_layers - cfg.num_layers // cfg.cross_attn_period
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
@@ -3561,12 +3629,13 @@ def drift_from(got, want) -> dict:
 
 
 def serve_fit(torch):
-    """Phase 14, `serve_llama2_7b_fit`: llama2-7b at full width and depth
-    FITTED on the card. Its dense block weights (6.48 G, fp32) are drawn
+    """Phase 14, `serve_llama2_7b_fit`: llama2-7b at full width, cut to
+    FIT_LAYERS of its 32 layers (the run's time limit), FITTED on the
+    card. Its dense block weights (3.24 G at 16 layers, fp32) are drawn
     on the card from SEED and quantized there by k-means
     (``Model.quantize(method="fit")``): the seconds, the peak device
     bytes, bits a weight and each linear's relative reconstruction error
-    (mean and max over the 32 layers). `serve`'s traffic through the
+    (mean and max over the layers). `serve`'s traffic through the
     graphed engine (B1, B2, B3; ``serve_phase``: replays bitwise equal to
     the eager steps, the plain ``impl="torch"`` step within PLAIN_REL);
     the same model dense in bf16 served beside it: its greedy token
@@ -3584,7 +3653,6 @@ def serve_fit(torch):
     import gc
 
     import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.core.plan import PlanPolicy
     from repro_torch.core.quantize import (attach_kv_codebooks,
                                            calibrate_kv_codebooks,
@@ -3597,7 +3665,7 @@ def serve_fit(torch):
 
     t_phase = time.perf_counter()
     name = f"serve_{FIT}_fit"
-    cfg = get_config(FIT)
+    cfg = reduced(FIT, FIT_LAYERS)
     model = build_model(cfg)
     rc = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
     ecfg = EngineConfig(num_slots=SLOTS, max_len=MAX_LEN)
@@ -3760,6 +3828,434 @@ def serve_fit(torch):
     phase_seconds(f"{name}_kvq_calibrated", t0)
     phase_seconds(f"{name} (+ fit, dense, int4, calibrated)", t_phase)
     return {name: fitted["launches"], f"{name}_kvq_calibrated": launches}
+
+
+def train_flops(cfg, params, batch, seq, remat) -> float:
+    """Operations of one train step: 6 N per token (N every param, the
+    embedding and the head included), the attention's score and value
+    products over the full S x S square that ``blocked_attention``
+    visits (forward 4 B H S^2 hd a layer, backward twice that), and with
+    ``remat`` the attention forward once more (the linears' outputs are
+    kept, ``common.remat_layer``)."""
+    from repro_torch.models.api import param_count
+
+    attn = 4 * batch * cfg.num_heads * seq * seq * cfg.head_dim \
+        * cfg.num_layers
+    return 6 * param_count(params) * batch * seq + 3 * attn \
+        + (attn if remat else 0)
+
+
+def step_profile(torch, run) -> dict:
+    """One call of ``run`` (a train step) under torch.profiler (device
+    activity): its host wall, the device's busy ms (the kernels on the
+    one stream) and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall if busy else None}
+
+
+def restart_identity() -> None:
+    """`train_qwen3_0_6b_restart`: ``launch.train.train`` of the SMOKE
+    config (RESTART_STEPS steps, a checkpoint every 4) with one injected
+    failure at RESTART_FAIL, restarted from its checkpoint, against the
+    same run uninterrupted, under ``torch.use_deterministic_algorithms``
+    (the embedding's and ``gather``'s backward otherwise add with float
+    atomics): the losses and the final params must be equal exactly. Run
+    by ``train_qwen3`` in a process of its own with
+    ``CUBLAS_WORKSPACE_CONFIG`` set; raises on a failed check, an op of
+    the step without a deterministic CUDA version included."""
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import flatten_with_paths
+    from repro_torch.launch.train import train
+
+    t0 = time.perf_counter()
+    kw = dict(smoke=True, steps=RESTART_STEPS, seq_len=64, global_batch=8,
+              lr=3e-3, ckpt_every=4, log_every=0, device="cuda")
+    torch.use_deterministic_algorithms(True)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        runs = {label: train(TRAIN, ckpt_dir=f"{d}/{label}", fail_at=fail,
+                             **kw)
+                for label, fail in (("uninterrupted", None),
+                                    ("restarted", RESTART_FAIL))}
+    a, b = (dict(flatten_with_paths(runs[k]["params"]))
+            for k in ("uninterrupted", "restarted"))
+    exact = (runs["restarted"]["losses"] == runs["uninterrupted"]["losses"]
+             and a.keys() == b.keys()
+             and all(torch.equal(a[k], b[k]) for k in a))
+    emit({"phase": "train_qwen3_0_6b_restart", "deterministic": True,
+          "restarts": runs["restarted"]["restarts"],
+          "losses": {k: [r["losses"][s] for s in sorted(r["losses"])]
+                     for k, r in runs.items()},
+          "exact": exact, "seconds": time.perf_counter() - t0})
+    assert runs["restarted"]["restarts"] == 1
+    assert exact
+
+
+def train_step_vs_plain(torch, cfg=None, device="cuda") -> dict:
+    """`train_qwen3_0_6b_step`: the train step itself held against a
+    plain computation. qwen3-0.6b at full width cut to STEP_LAYERS layers
+    (or ``cfg``), params drawn on ``device`` from SEED: one
+    ``launch.steps.make_train_step`` step there (bf16 activations, remat
+    on, as the main path) and its gradients by autograd, against the same
+    params copied to the CPU and run at fp32 with remat off: the step's
+    loss within STEP_LOSS_REL, its gnorm and every gradient leaf within
+    STEP_GRAD_REL (relative L2 distance). The affine task's falling loss
+    shows only that the embedding and the head learn which ids occur; a
+    layer whose gradient is dropped or wrong fails here."""
+    from repro_torch.checkpoint import flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, global_batch_at
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import RunConfig, build_model
+    from repro_torch.optim import (AdamWConfig, adamw_init, global_norm,
+                                   map_leaves)
+
+    t0 = time.perf_counter()
+    cfg = cfg or dataclasses.replace(get_config(TRAIN),
+                                     num_layers=STEP_LAYERS)
+    model = build_model(cfg)
+    rc = RunConfig(mode="train", remat=True, attn_chunk=STEP_SEQ)
+    ocfg = AdamWConfig(lr=TRAIN_LR)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED),
+                        device=device)
+    batch = global_batch_at(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=STEP_SEQ,
+                                       global_batch=STEP_BATCH), 0)
+    on_dev = device_batch(batch, device)
+    step = make_train_step(model, ocfg, rc, total_steps=TRAIN_STEPS,
+                           warmup=1)
+    _, _, met = step(params, adamw_init(params, ocfg), on_dev)
+    _, grads = value_and_grad(model, params, on_dev, rc)
+    plain = build_model(dataclasses.replace(cfg, dtype="float32"))
+    cpu = map_leaves(lambda x: x.detach().cpu(), params)
+    del params
+    loss, want = value_and_grad(plain, cpu, device_batch(batch, "cpu"),
+                                rc.replace(remat=False))
+    got = dict(flatten_with_paths(grads))
+    rel = {}
+    for k, w in flatten_with_paths(want):
+        g = got[k].float().cpu()
+        rel[k] = ((g - w).norm() / w.norm()).item() if w.norm() > 0 \
+            else g.norm().item()
+    worst = max(rel, key=rel.get)
+    row = {"phase": "train_qwen3_0_6b_step", "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "tokens": STEP_BATCH * STEP_SEQ,
+           "loss": [met["loss"].item(), loss.item()],
+           "gnorm": [met["gnorm"].item(), global_norm(want).item()],
+           "leaves": len(rel), "max_grad_rel": rel[worst],
+           "worst_leaf": worst, "median_grad_rel": statistics.median(
+               rel.values()),
+           "bounds": {"loss_rel": STEP_LOSS_REL, "grad_rel": STEP_GRAD_REL},
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    (l_dev, l_cpu), (n_dev, n_cpu) = row["loss"], row["gnorm"]
+    assert abs(l_dev - l_cpu) <= STEP_LOSS_REL * abs(l_cpu), row["loss"]
+    assert abs(n_dev - n_cpu) <= STEP_GRAD_REL * n_cpu, row["gnorm"]
+    assert rel[worst] <= STEP_GRAD_REL, (worst, rel[worst])
+    return row
+
+
+def _wait(proc, t0, timeout):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def start_beside(cmds: dict, timeout: float = 600):
+    """Start every ``name: (argv, env)`` of ``cmds`` at once from the
+    repo's root, each drained by a thread of its own and killed past
+    ``timeout``: (the processes, and futures of their (returncode,
+    stdout, stderr, seconds))."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(len(cmds))
+    procs, futs = {}, {}
+    for k, (argv, env) in cmds.items():
+        t0 = time.perf_counter()
+        procs[k] = subprocess.Popen(argv, cwd=ROOT, env=env, text=True,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE)
+        futs[k] = pool.submit(_wait, procs[k], t0, timeout)
+    pool.shutdown(wait=False)
+    return procs, futs
+
+
+def train_qwen3(torch):
+    """Phase 15, `train_qwen3_0_6b`: training, then the trained model
+    fitted and served. qwen3-0.6b at full width and depth (28 layers, d
+    1024, untied head, vocab 151936), params drawn on the card from SEED
+    in fp32, bf16 activations; AdamW (lr TRAIN_LR) under warmup_cosine,
+    remat on, the affine task over TRAIN_DATA_VOCAB token ids,
+    TRAIN_BATCH x TRAIN_SEQ tokens a step,
+    TRAIN_STEPS steps through ``launch.steps.make_train_step``: the loss
+    at every step, the median step ms, tokens/s, the shares of the fp32
+    and bf16 peaks and of the mixed bound of ``train_flops``, the peak
+    device bytes, one profiled step's idle share, and one step's peak
+    with remat off. The loss must be finite and fall below 0.95x the
+    first (the reference's rule). Then: the trained params and AdamW
+    state saved and restored at full width (bitwise; bytes and seconds);
+    ``train_step_vs_plain``, while two processes run beside it:
+    ``launch.train.train`` with ``fail_at`` restarted from its
+    checkpoint against an uninterrupted run (SMOKE config, 10 steps,
+    ``restart_identity``) under ``torch.use_deterministic_algorithms``:
+    losses and final params equal exactly; and the training CLI; then
+    the trained params fitted to 2-bit VQ
+    (``quantize(method="fit")``) and served (8 affine prompts, 4 slots,
+    greedy, MAX_NEW tokens) through the engine, B1, B2 and B3 required,
+    beside the dense model: the share of generated tokens that follow
+    the affine rule, their greedy agreement, and the dense and VQ losses
+    on the held-out batch under the reference's three conditions.
+    Returns the served run's launches."""
+    import gc
+    import statistics as stats
+    import tempfile
+
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager, flatten_with_paths
+    from repro_torch.core.plan import PlanPolicy
+    from repro_torch.data import DataPipeline, global_batch_at
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import build_trainer, device_batch
+    from repro_torch.models import RunConfig
+    from repro_torch.models.api import param_count
+    from repro_torch.optim import adamw_init
+    from repro_torch.serve import Engine, EngineConfig
+
+    name = "train_qwen3_0_6b"
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, _, rc, ocfg, dcfg = build_trainer(
+        TRAIN, smoke=False, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        lr=TRAIN_LR)
+    cfg = model.cfg
+    dcfg = dataclasses.replace(dcfg, vocab_size=TRAIN_DATA_VOCAB)
+    sched = dict(total_steps=TRAIN_STEPS, warmup=max(TRAIN_STEPS // 10, 1))
+    step = make_train_step(model, ocfg, rc, **sched)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
+                        device="cuda")
+    opt = adamw_init(params, ocfg)
+    n_params = param_count(params)
+    state_bytes = torch.cuda.memory_allocated()
+    pipe = DataPipeline(dcfg)
+    losses, times = [], []
+    try:
+        for i in range(TRAIN_STEPS):
+            batch = device_batch(next(pipe), "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            loss = met["loss"].item()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss)
+            emit({"phase": name, "step": i, "loss": loss,
+                  "gnorm": met["gnorm"].item(),
+                  "lr_scale": met["lr_scale"].item(), "ms": times[-1] * 1e3})
+    finally:
+        pipe.close()
+    peak = torch.cuda.max_memory_allocated()
+    med = stats.median(times[1:])
+    flops = train_flops(cfg, params, TRAIN_BATCH, TRAIN_SEQ, rc.remat)
+    # the head's product runs in fp32 (fp32 logits; TF32 is off), every
+    # other product in bf16 on the tensor cores: the step's bound
+    head = 6 * cfg.d_model * cfg.vocab_size * TRAIN_BATCH * TRAIN_SEQ
+    mixed_ms = (head / FP32_FLOPS + (flops - head) / BF16_FLOPS) * 1e3
+    batch = device_batch(global_batch_at(dcfg, TRAIN_STEPS), "cuda")
+    prof = step_profile(torch, lambda: step(params, opt, batch))
+    # one step with remat off: its peak (the step's outputs dropped)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plain = make_train_step(model, ocfg, rc.replace(remat=False), **sched)
+    no_remat = {"out_of_memory": False}
+    try:
+        out = plain(params, opt, batch)
+        torch.cuda.synchronize()
+        del out
+    except torch.cuda.OutOfMemoryError as e:
+        no_remat = {"out_of_memory": True, "error": str(e).splitlines()[0]}
+    # at an OOM: the peak reached before the allocation that failed
+    no_remat["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"phase": name, "params": n_params, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ, "losses": losses,
+           "median_step_ms": med * 1e3, "first_step_ms": times[0] * 1e3,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
+           "step_flops": flops, "fp32_peak_share": flops / med / FP32_FLOPS,
+           "bf16_peak_share": flops / med / BF16_FLOPS,
+           "mixed_bound_ms": mixed_ms, "mixed_peak_share": mixed_ms / med
+           / 1e3,
+           "state_bytes": state_bytes, "peak_device_bytes": peak,
+           "no_remat_step": no_remat, "data_vocab": dcfg.vocab_size,
+           "profiled_step": prof}
+    emit(row)
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < 0.95 * losses[0], (losses[0], losses[-1])
+    phase_seconds(f"{name} (training)", t_phase)
+
+    # the trained state saved and restored at full width, bit for bit
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        mgr = CheckpointManager(d)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mgr.save(TRAIN_STEPS, {"params": params, "opt": opt}, block=True)
+        save_s = time.perf_counter() - t1
+        files = Path(d) / f"step_{TRAIN_STEPS:010d}"
+        nbytes = sum(f.stat().st_size for f in files.iterdir())
+        t1 = time.perf_counter()
+        _, back = mgr.restore(device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+    want = dict(flatten_with_paths({"params": params, "opt": opt}))
+    got = dict(flatten_with_paths(back))
+    same = want.keys() == got.keys() and all(
+        torch.equal(got[k], want[k]) for k in want if want[k] is not None)
+    del back, got, want
+    emit({"phase": f"{name}_checkpoint", "bytes": nbytes, "save_s": save_s,
+          "restore_s": restore_s, "bitwise": same})
+    assert same
+    phase_seconds(f"{name}_checkpoint", t0)
+
+    # restarted == uninterrupted (the SMOKE config: exactness, not size)
+    # in a process of its own, since cuBLAS's fixed workspaces, which
+    # deterministic algorithms need, are read when its first handle is
+    # made; and the training CLI (five steps: the reference logs every
+    # fifth). Both run beside the step check.
+    t0 = time.perf_counter()
+    argv = ["--arch", TRAIN, "--full", "--steps", "5", "--seq-len", "256"]
+    procs, futs = start_beside({
+        "restart": ([sys.executable, "-c",
+                     "import chip_smoke; chip_smoke.restart_identity()"],
+                    {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}),
+        "cli": ([sys.executable, "-m", "repro_torch.launch.train", *argv],
+                {**os.environ, "PYTHONPATH": str(ROOT / "src")})})
+    try:
+        train_step_vs_plain(torch)
+    except BaseException:
+        for p in procs.values():
+            p.kill()
+        raise
+    finally:
+        done = {k: f.result() for k, f in futs.items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+    code, out, err, secs = done["restart"]
+    print(out.strip(), flush=True)
+    assert code == 0, f"the restart identity failed\n{err[-3000:]}"
+    emit({"phase": f"{name}_restart_process", "seconds": secs})
+    code, out, err, secs = done["cli"]
+    lines = out.strip().splitlines()
+    ok = (code == 0 and len(lines) == 2
+          and re.fullmatch(r"step +5 loss \d+\.\d{4} gnorm \d+\.\d{3}",
+                           lines[0]) is not None
+          and re.fullmatch(r"final loss: \d+\.\d{4} restarts: 0",
+                           lines[1]) is not None)
+    emit({"phase": f"{name}_cli", "argv": argv, "returncode": code,
+          "stdout": lines, "seconds": secs})
+    assert ok, f"the training CLI failed: {code}\n{err[-3000:]}"
+    phase_seconds(f"{name}_step, _restart and _cli", t0)
+
+    # train -> fit -> serve
+    t0 = time.perf_counter()
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    qparams = model.quantize(params, generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 1), device="cuda")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    errors = fit_errors(torch, params, qparams)
+    held = {k: torch.from_numpy(v).to("cuda")
+            for k, v in global_batch_at(dcfg, TRAIN_HELD_OUT).items()}
+    with torch.no_grad():
+        dense_loss = model.loss(params, held, rc).item()
+        vq_loss = model.loss(qparams, held, rc.replace_policy(
+            vq_mode="eva")).item()
+    # the dense model in bf16, as a served model's weights
+    bf16 = lambda t: (t.to(torch.bfloat16)
+                      if t.dtype == torch.float32 and t.dim() >= 2 else t)
+
+    def tree_map(fn, t):
+        if isinstance(t, dict):
+            return {k: tree_map(fn, v) for k, v in t.items()}
+        return [tree_map(fn, v) for v in t] if isinstance(t, list) else fn(t)
+
+    dense = tree_map(bf16, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED)
+    rows = held["tokens"].cpu().numpy()
+    prompts = [rows[i, :int(n)] for i, n in
+               enumerate(rng.integers(32, 201, N_REQUESTS))]
+    srv = RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda"))
+    ecfg = EngineConfig(num_slots=SLOTS, max_len=MAX_LEN)
+    toks = {}
+    for label, p in (("vq", qparams), ("dense", dense)):
+        eng = Engine(model, p, srv, ecfg, device="cuda")
+        outs, counts, wall = drain(torch, eng, prompts)
+        toks[label] = [list(o.tokens) for o in outs]
+        if label == "vq":
+            launches, vq_wall = counts, wall
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def affine_share(streams):
+        hit = n = 0
+        for prompt, out in zip(prompts, streams):
+            prev = [int(prompt[-1])] + out[:-1]
+            hit += sum((31 * a + 17) % dcfg.vocab_size == b
+                       for a, b in zip(prev, out))
+            n += len(out)
+        return hit / n
+
+    row = {"phase": f"{name}_fit_serve", "fit_s": fit_s,
+           "rel_error": errors,
+           "mean_rel_error": sum(e["mean"] for e in errors.values())
+           / len(errors),
+           "dense_loss": dense_loss, "vq_loss": vq_loss,
+           "ln_vocab": float(np.log(cfg.vocab_size)),
+           "affine_share": {k: affine_share(v) for k, v in toks.items()},
+           "greedy_token_agreement": sum(
+               x == y for a, b in zip(toks["vq"], toks["dense"])
+               for x, y in zip(a, b)) / (N_REQUESTS * MAX_NEW),
+           "vq_wall_s": vq_wall, "launches": launches}
+    emit(row)
+    assert all(launches[k] > 0 for k in ("fused_vq_matmul", "flash_decode",
+                                          "dequant_gemv")), launches
+    assert np.isfinite(vq_loss) and vq_loss < 1.2 * np.log(cfg.vocab_size)
+    assert dense_loss <= vq_loss, (dense_loss, vq_loss)
+    del qparams, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_seconds(f"{name}_fit_serve", t0)
+    phase_seconds(name, t_phase)
+    return {name: launches}
 
 
 def pin_split():
@@ -4716,6 +5212,7 @@ def main() -> int:
     launches.update(serve_whisper(torch))
     launches.update(serve_vision(torch))
     launches.update(serve_fit(torch))
+    launches.update(train_qwen3(torch))
     phase_of = {"flash_decode": "serve", "flash_decode_kvq": "serve_kvq",
                 "int8_gemm": "serve_kvq", "vq_gemm": "serve_split",
                 "oc_lookup": "serve_split",

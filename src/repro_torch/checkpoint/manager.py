@@ -33,11 +33,13 @@ The files are the reference's files:
     void leaf back as bfloat16 bits. (The reference's own ``restore``
     cannot read such a leaf: ``jnp.asarray`` refuses ``V2``.)
 
-Optimizer state (the reference's ``__adamw__`` node) is not ported
-(ROADMAP A10): ``restore`` raises on it. A VQ-Logits head (a ``vql``
-node) has no layout on disk: the reference pickles it as one object leaf
-that its own ``restore`` refuses, so ``save`` raises on it, naming the
-node.
+Optimizer state is the reference's ``__adamw__`` node: an
+``optim.AdamWState`` is written under ``.../__adamw__/{step,m,v,master}``
+(``m``, ``v`` and ``master`` in the stacked layout, ``master`` a
+``__none__`` path when absent) and read back as one. A VQ-Logits head
+(a ``vql`` node) has no layout on disk: the reference pickles it as one
+object leaf that its own ``restore`` refuses, so ``save`` raises on it,
+naming the node.
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.convert import from_jax_params, is_vq, to_reference_layout
 from repro_torch.core.logits_vq import VQLogitsHead
 from repro_torch.core.vq import VQWeight
+from repro_torch.optim.adamw import AdamWState
 
 _SENTINEL_NONE = "__none__"
 _BF16 = np.dtype("V2")      # how numpy holds a bf16 leaf without ml_dtypes
@@ -77,6 +80,12 @@ def flatten_with_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
              "__vqmeta__": np.asarray(
                  [tree.K, tree.N, tree.d, tree.n, *tree.splits])},
             f"{prefix}/__vq__")
+    elif isinstance(tree, AdamWState):
+        out += flatten_with_paths(
+            {"step": tree.step, "m": tree.m, "v": tree.v,
+             "master": (tree.master if tree.master is not None
+                        else _SENTINEL_NONE)},
+            f"{prefix}/__adamw__")
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             out += flatten_with_paths(v, f"{prefix}/__seq__{i}")
@@ -89,11 +98,8 @@ def flatten_with_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
 
 def unflatten_from_paths(flat: Dict[str, Any]) -> Any:
     """Rebuild the nested structure from path -> leaf: dicts, VQWeight
-    nodes (the port's), tuples for ``__seq__`` nodes, None.
-
-    Raises:
-      NotImplementedError: an optimizer (``__adamw__``) node.
-    """
+    nodes (the port's), ``AdamWState`` for ``__adamw__`` nodes, tuples
+    for ``__seq__`` nodes, None."""
     root: Dict[str, Any] = {}
     for path, leaf in flat.items():
         parts = [p for p in path.split("/") if p]
@@ -115,9 +121,10 @@ def unflatten_from_paths(flat: Dict[str, Any]) -> Any:
                             d=int(meta[2]), n=int(meta[3]),
                             splits=tuple(int(s) for s in meta[4:]))
         if "__adamw__" in node:
-            raise NotImplementedError(
-                "the checkpoint holds optimizer state (an __adamw__ node); "
-                "the optimizer is not ported yet (ROADMAP A10)")
+            sub = node["__adamw__"]
+            return AdamWState(step=sub["step"], m=rebuild(sub["m"]),
+                              v=rebuild(sub["v"]),
+                              master=rebuild(sub["master"]))
         if any(k.startswith("__seq__") for k in node):
             items = sorted(node.items(), key=lambda kv: int(kv[0][7:]))
             return tuple(rebuild(v) for _, v in items)
@@ -155,6 +162,9 @@ def _host_snapshot(tree: Any, path: str = "") -> Any:
                         d=tree.d, n=tree.n, splits=tuple(tree.splits))
     if isinstance(tree, dict):
         return {k: _host_snapshot(v, f"{path}/{k}") for k, v in tree.items()}
+    if isinstance(tree, AdamWState):
+        return AdamWState(*(_host_snapshot(v, f"{path}/{f}")
+                            for f, v in zip(tree._fields, tree)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_host_snapshot(v, f"{path}/{i}")
                           for i, v in enumerate(tree))
@@ -259,7 +269,8 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     def save(self, step: int, state: Dict[str, Any], *, block: bool = False):
-        """state: {"params": ..., "extra": ...}, the port's trees. Every
+        """state: {"params": ..., "opt": ..., "extra": ...}, the port's
+        trees (``"opt"`` an ``optim.AdamWState``). Every
         tensor is copied to the host (and the layers stacked) before the
         async thread starts, so the caller may go on changing them."""
         host_state = {g: to_reference_layout(_host_snapshot(state[g],
@@ -298,7 +309,6 @@ class CheckpointManager:
 
         Raises:
           FileNotFoundError: no checkpoint in the directory.
-          NotImplementedError: the checkpoint holds optimizer state.
         """
         dev = resolve_device(device)
         step = step if step is not None else self.latest_step()

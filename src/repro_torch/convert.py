@@ -22,7 +22,8 @@ params on ``device``:
     pair per layer (an MLA node's {"lat"} (L, 1, R, 256, vd) likewise).
 
 The leaves may also be tensors (on any device; they are moved to
-``device``), tuples and None, as ``checkpoint.manager`` restores them.
+``device``), tuples (a named tuple, the optimizer's ``AdamWState``, keeps
+its type) and None, as ``checkpoint.manager`` restores them.
 
 ``to_reference_layout(tree)`` is the inverse of the unstacking: every
 list of per-layer dicts under one of those keys becomes one node
@@ -90,7 +91,8 @@ def _convert(node: Any, device: torch.device,
                     else _convert(v, device, stacked))
                 for k, v in node.items()}
     if isinstance(node, tuple):
-        return tuple(_convert(v, device, stacked) for v in node)
+        items = (_convert(v, device, stacked) for v in node)
+        return type(node)(*items) if hasattr(node, "_fields") else tuple(items)
     if node is None:
         return None
     return to_tensor(node, device)
@@ -157,5 +159,7 @@ def to_reference_layout(tree: Any) -> Any:
         return {k: (_stack(v) if k in _STACKED and isinstance(v, list)
                     else to_reference_layout(v)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(to_reference_layout(v) for v in tree)
+        items = (to_reference_layout(v) for v in tree)
+        return type(tree)(*items) if hasattr(tree, "_fields") else \
+            type(tree)(items)
     return tree

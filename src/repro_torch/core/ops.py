@@ -139,11 +139,15 @@ def fp_matmul(x: torch.Tensor, w: torch.Tensor, *,
     accumulator itself, never a product rounded to x's dtype: on CUDA
     ``torch.mm(..., out_dtype=torch.float32)`` over the 2-D view of x
     (no upcast copy of w), on the CPU the product of both operands upcast
-    to fp32 (exact upcasts; ``aten::mm.dtype`` has no CPU kernel). Every
+    to fp32 (exact upcasts; ``aten::mm.dtype`` has no CPU kernel), and
+    on every device while autograd records the product (a training
+    step: the upcast product's derivative is the plain one's). Every
     other case is ``torch.matmul`` cast to ``out_dtype``."""
     out_dtype = out_dtype or x.dtype
     if out_dtype == torch.float32 and x.dtype != torch.float32:
-        if x.is_cuda and w.dtype == x.dtype and w.dim() == 2:
+        grad = torch.is_grad_enabled() and (x.requires_grad
+                                            or w.requires_grad)
+        if x.is_cuda and w.dtype == x.dtype and w.dim() == 2 and not grad:
             y = torch.mm(x.reshape(-1, x.shape[-1]), w,
                          out_dtype=torch.float32)
             return y.reshape(*x.shape[:-1], w.shape[-1])

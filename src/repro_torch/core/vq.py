@@ -195,13 +195,56 @@ def _update(points: torch.Tensor, assign: torch.Tensor, k: int,
                        rnd).reshape(*lead, k, d)
 
 
+# ``torch.multinomial`` draws from at most 2^24 categories: a k-means++
+# seed over more points per set is drawn by inverse CDF instead
+MULTINOMIAL_MAX_POINTS = 1 << 24
+_CDF_CHUNK = 1 << 22      # points a chunk of the fp64 cumulative sum
+
+
+def _inverse_cdf_draw(dists: torch.Tensor,
+                      generator: torch.Generator) -> torch.Tensor:
+    """One index a set of ``dists`` (H, P) fp32 >= 0, drawn with
+    probability proportional to its distance: one fp64 uniform u per set
+    from ``generator``, the first index whose running fp64 sum exceeds
+    u x the total (the sum taken chunk by chunk, ``_CDF_CHUNK`` points at
+    a time, twice, the same way: first for the total, then to search), so
+    a zero-distance point is never picked; a set whose every distance is
+    0 takes floor(u x P), a uniform index. Returns (H,) int64."""
+    H, P = dists.shape
+    u = torch.rand((H,), generator=generator, device=dists.device,
+                   dtype=torch.float64)
+
+    def running():
+        run = torch.zeros((H,), dtype=torch.float64, device=dists.device)
+        for lo in range(0, P, _CDF_CHUNK):
+            c = torch.cumsum(dists[:, lo:lo + _CDF_CHUNK].double(), dim=-1)
+            c = c + run[:, None]
+            yield lo, c
+            run = c[:, -1]
+
+    for _, c in running():
+        total = c[:, -1]
+    # strictly below the total, so the last point with a distance is hit
+    target = torch.minimum(u * total, torch.nextafter(total,
+                                                      torch.zeros_like(total)))
+    pick = torch.full((H,), P, dtype=torch.int64, device=dists.device)
+    for lo, c in running():
+        j = torch.searchsorted(c, target[:, None], right=True)[:, 0]
+        pick = torch.minimum(pick, torch.where(j < c.shape[1], lo + j,
+                                               torch.full_like(j, P)))
+    uniform = (u * P).long().clamp(max=P - 1)
+    return torch.where(total > 0, pick, uniform)
+
+
 def kmeans_batched(generator: torch.Generator, points: torch.Tensor, k: int,
                    iters: int = 20) -> Tuple[torch.Tensor, torch.Tensor]:
     """Lloyd's k-means of H independent fp32 point sets at once,
     ``points`` (H, P, d), in one launch sequence: k-means++ seeding (each
     next centroid drawn with probability proportional to its squared
     distance from the nearest so far, uniformly where every distance is
-    0; one ``torch.multinomial`` draws the H sets' next centroids), then
+    0; one ``torch.multinomial`` draws the H sets' next centroids, or
+    above ``MULTINOMIAL_MAX_POINTS`` points a set, ``torch.multinomial``'s
+    limit, an inverse-CDF draw, ``_inverse_cdf_draw``), then
     ``iters`` assign/update rounds (an empty centroid re-seeded from a
     random point of its set), every draw from ``generator`` (on the
     points' device). Returns (centroids (H, k, d), assignment (H, P)
@@ -216,11 +259,14 @@ def kmeans_batched(generator: torch.Generator, points: torch.Tensor, k: int,
     cents[:, 0] = first
     dists = ((points - first[:, None]) ** 2).sum(dim=-1)      # (H, P)
     for i in range(1, k):
-        total = dists.sum(dim=-1, keepdim=True)
-        probs = torch.where(total > 0, dists / total.clamp(min=1e-30),
-                            torch.full_like(dists, 1.0 / P))
-        nxt = points[rows, torch.multinomial(probs, 1,
-                                             generator=generator)[:, 0]]
+        if P > MULTINOMIAL_MAX_POINTS:
+            pick = _inverse_cdf_draw(dists, generator)
+        else:
+            total = dists.sum(dim=-1, keepdim=True)
+            probs = torch.where(total > 0, dists / total.clamp(min=1e-30),
+                                torch.full_like(dists, 1.0 / P))
+            pick = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        nxt = points[rows, pick]
         cents[:, i] = nxt
         dists = torch.minimum(dists, ((points - nxt[:, None]) ** 2).sum(-1))
     for _ in range(iters):

@@ -30,8 +30,9 @@ of the cache per step; ``attention_fwd`` returns the same cache dict.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -117,8 +118,9 @@ class ModelConfig:
 class RunConfig:
     """Static execution-mode knobs: the run ``mode`` (train | prefill |
     decode), the matmul ``plan_policy``, the prefill attention chunk,
-    ``lm_head_last_only`` (an xLSTM prefill projects only the last token
-    onto the vocabulary), ``mla_absorb`` (MLA decode attends in the
+    ``remat`` (train mode recomputes each layer's activations in the
+    backward, ``remat_layer``), ``lm_head_last_only`` (an xLSTM prefill
+    projects only the last token onto the vocabulary), ``mla_absorb`` (MLA decode attends in the
     latent space, ``wkv_b`` folded into the query and output sides,
     instead of expanding the whole latent cache through ``wkv_b``) and
     ``kv_vq``, the KV-VQ config whose scale variant decode appends
@@ -128,6 +130,7 @@ class RunConfig:
     mode: str = "train"
     plan_policy: PlanPolicy = PlanPolicy()
     attn_chunk: int = 1024
+    remat: bool = True
     lm_head_last_only: bool = False
     mla_absorb: bool = False
     kv_vq: Optional[KVQuantConfig] = None
@@ -142,6 +145,39 @@ class RunConfig:
     def replace_policy(self, **kw) -> "RunConfig":
         return dataclasses.replace(
             self, plan_policy=dataclasses.replace(self.plan_policy, **kw))
+
+
+def _save_dots():
+    # the products without batch dims (the linears: ``aten.mm``, and
+    # ``aten.addmm``) are kept, everything else is recomputed: the
+    # reference's ``dots_with_no_batch_dims_saveable``
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    keep = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def remat_layer(fn: Callable, rc: RunConfig) -> Callable:
+    """``fn`` (a layer or a group of layers) as the reference wraps it in
+    ``jax.checkpoint``: in train mode with ``rc.remat``, while autograd
+    records, under ``torch.utils.checkpoint`` (non-reentrant), which
+    keeps the layer's inputs and the outputs of its products without
+    batch dims and recomputes the rest in the backward (the models draw
+    no random numbers, so no RNG state is kept); otherwise ``fn``
+    itself."""
+    if not (rc.remat and rc.mode == "train" and torch.is_grad_enabled()):
+        return fn
+    from torch.utils.checkpoint import checkpoint
+
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             context_fn=_save_dots,
+                             preserve_rng_state=False)
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +330,9 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
         # an fp32 product then a cast: two vectorized kernels, faster on
         # the card than the one below, which casts element by element
         return (y * g).to(x.dtype)
+    if g.requires_grad or y.requires_grad:
+        # autograd takes no ``out=``: the same product, upcast, then cast
+        return (y * g.float()).to(x.dtype)
     # a bf16 gain (a stacked leaf's serving dtype): one kernel takes the
     # fp32 product and rounds it to x's dtype as it stores, bit for bit
     # the upcast gain's product (faster than an upcast kernel or a

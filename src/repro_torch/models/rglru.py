@@ -234,8 +234,8 @@ def forward(params: Any, tokens: torch.Tensor, rc: RunConfig,
     fresh: Dict[str, Any] = {}
     for seg, layers, blocks in segments:
         stacked = None if caches is None else caches[seg]
-        made = []
-        for g, lp in enumerate(layers):
+
+        def group_fwd(lp, x, g, blocks=blocks, stacked=stacked):
             new = {}
             for name, kind in blocks:
                 node = (None if stacked is None else
@@ -244,6 +244,13 @@ def forward(params: Any, tokens: torch.Tensor, rc: RunConfig,
                          {n: t[g] for n, t in node.items()})
                 x, new[name] = _layer(kind, lp if name is None else lp[name],
                                       x, rc, cfg, positions, cache)
+            return x, new
+
+        made = []
+        group = (cm.remat_layer(group_fwd, rc) if seg == "groups"
+                 else group_fwd)
+        for g, lp in enumerate(layers):
+            x, new = group(lp, x, g)
             made.append(new)
         if caches is None and rc.mode == "prefill":
             stack = lambda nodes: {n: torch.stack([c[n] for c in nodes])

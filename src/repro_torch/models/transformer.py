@@ -98,7 +98,8 @@ def forward(params: Any, tokens: torch.Tensor, rc: RunConfig,
     layers returned); ``caches`` updated in place in decode, and in
     prefill over a paged slot view (a chunked-prefill continuation,
     ``serve/paging.slot_view``); None otherwise. The ``"pre_layers"``
-    run before the ``"layers"``."""
+    run before the ``"layers"``, each layer through
+    ``common.remat_layer``."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
@@ -110,11 +111,11 @@ def forward(params: Any, tokens: torch.Tensor, rc: RunConfig,
             continue
         stacked = None if caches is None else caches[sub]
         made = []
+        layer = cm.remat_layer(_layer_fwd, rc)
         for i, lp in enumerate(params[seg]):
             cache = (None if stacked is None
                      else {n: t[i] for n, t in stacked.items()})
-            x, nc = _layer_fwd(lp, x, rc, cfg, positions=positions,
-                               cache=cache)
+            x, nc = layer(lp, x, rc, cfg, positions=positions, cache=cache)
             if stacked is None and nc is not None:
                 made.append(nc)
         if made:

@@ -165,14 +165,20 @@ def forward(params: Any, tokens: torch.Tensor, rc: RunConfig,
     names = _self_names(cfg)
     at = lambda g, node: None if caches is None else {
         n: t[g] for n, t in caches[node].items()}
-    made = []
-    for g, gp in enumerate(params["groups"]):
+
+    def group_fwd(gp, x, img, g):
         new = {}
         for name in names:
             x, new[name] = _self_fwd(gp[name], x, rc, cfg, positions,
                                      at(g, name))
         x, new["cross"] = _cross_fwd(gp["cross"], x, rc, cfg, img,
                                      at(g, "cross"))
+        return x, new
+
+    made = []
+    group = cm.remat_layer(group_fwd, rc)
+    for g, gp in enumerate(params["groups"]):
+        x, new = group(gp, x, img, g)
         made.append(new)
     if rc.mode == "prefill" and rc.lm_head_last_only:
         x = x[:, -1:]  # skip the vocab projection of the prompt's tokens

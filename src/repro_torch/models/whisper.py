@@ -177,13 +177,14 @@ def forward(params: Any, tokens: torch.Tensor, rc: RunConfig,
     x = cm.embed(params["embedding"], tokens, cfg.act_dtype)
     x = x + sinusoid_at(positions, cfg.d_model, cfg.act_dtype)
     made = []
+    layer = cm.remat_layer(_dec_layer_fwd, rc)
     for i, lp in enumerate(params["decoder"]):
         cache = None
         if caches is not None:
             cache = {"self": {n: t[i] for n, t in caches["self"].items()},
                      **{n: caches[n][i] for n in _CROSS}}
-        x, nc = _dec_layer_fwd(lp, x, rc, cfg, positions=positions,
-                               memory=memory, cache=cache)
+        x, nc = layer(lp, x, rc, cfg, positions=positions, memory=memory,
+                      cache=cache)
         made.append(nc)
     if rc.mode == "prefill" and rc.lm_head_last_only:
         x = x[:, -1:]  # skip the vocab projection of the prompt's tokens

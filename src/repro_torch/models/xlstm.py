@@ -325,11 +325,12 @@ def forward(params: Any, tokens: torch.Tensor, rc: RunConfig,
     the position."""
     x = cm.embed(params["embedding"], tokens, cfg.act_dtype)
     made = []
+    group = cm.remat_layer(_group_fwd, rc)
     for g, gp in enumerate(params["groups"]):
         cache = (None if caches is None else
                  {name: {n: t[g] for n, t in node.items()}
                   for name, node in caches.items()})
-        x, nc = _group_fwd(gp, x, rc, cfg, cache)
+        x, nc = group(gp, x, rc, cfg, cache)
         if caches is None and nc is not None:
             made.append(nc)
     if rc.mode == "prefill" and rc.lm_head_last_only:

@@ -13,10 +13,12 @@ splits, qwen2's qkv biases drawn at random, the KV-VQ codebooks):
     leaf but bf16, which the reference's own restore cannot read);
   * the manager's mechanics: atomic rename, keep-K, async save then
     wait, ``.tmp`` directories ignored, FileNotFoundError on an empty
-    directory, NotImplementedError on optimizer state and on a VQ-Logits
-    head (which the reference pickles into a file its own restore
-    refuses), and a port round trip (tuples, None, scalars, bf16) bit
-    for bit.
+    directory, NotImplementedError on a VQ-Logits head (which the
+    reference pickles into a file its own restore refuses), and a port
+    round trip (tuples, None, scalars, bf16) bit for bit;
+  * optimizer state (the ``__adamw__`` node, with and without fp32
+    master copies): the reference's restored by the port, the port's
+    files byte-equal to the reference's and restored by it.
 """
 import dataclasses
 import json
@@ -38,7 +40,7 @@ from repro.core import quantize as jq
 from repro.core import vq as jvq
 from repro.models import build_model as jax_build_model
 from repro.models import common as jcm
-from repro.optim.adamw import AdamWConfig, adamw_init
+from repro.optim.adamw import AdamWConfig, AdamWState, adamw_init, adamw_update
 from repro.serve import Engine as JaxEngine, EngineConfig as JaxEngineConfig
 from repro_torch import configs as tconfigs
 from repro_torch.checkpoint import (CheckpointManager, flatten_with_paths,
@@ -48,6 +50,7 @@ from repro_torch.core import quantize as tq
 from repro_torch.core import vq as tvq
 from repro_torch.core.vq import VQWeight
 from repro_torch.models import RunConfig, build_model
+from repro_torch.optim import AdamWState as TAdamWState
 from repro_torch.serve import Engine, EngineConfig
 
 torch.set_num_threads(1)
@@ -318,16 +321,92 @@ def test_tmp_dirs_and_empty_directory(tmp_path):
         mgr.restore(device="cpu")
 
 
+def _adamw_states(use_master):
+    """The reference's AdamWState after two updates of qwen3 SMOKE at fp32
+    (nonzero m and v; with ``use_master`` fp32 master copies), its dense
+    params, and both as the port's trees."""
+    jcfg = _smoke(jconfigs, "qwen3_0_6b")
+    jm = jax_build_model(jcfg)
+    jp = jm.init(KEY)
+    cfg = AdamWConfig(lr=1e-2, use_master=use_master)
+    st = adamw_init(jp, cfg)
+    toks = jnp.asarray(np.random.default_rng(2).integers(
+        0, jcfg.vocab_size, (2, 8)), jnp.int32)
+    batch = {"tokens": toks, "labels": jnp.roll(toks, -1, axis=1)}
+    rc = jcm.RunConfig(remat=False, attn_chunk=8)
+    for _ in range(2):
+        grads = jax.grad(lambda p: jm.loss(p, batch, rc))(jp)
+        jp, st, _ = adamw_update(grads, st, jp, cfg)
+    state = TAdamWState(step=torch.tensor(int(st.step), dtype=torch.int32),
+                        m=_conv(st.m), v=_conv(st.v),
+                        master=None if st.master is None else _conv(st.master))
+    return jp, st, _conv(jp), state
+
+
 def test_optimizer_state_raises(tmp_path):
-    params = {"w": jnp.ones((4, 4))}
+    """Optimizer state no longer raises: the reference's ``__adamw__``
+    node, written by the JAX manager beside the params, restores in the
+    port as an ``AdamWState`` (step, m, v; no master) bit for bit, and
+    ``unflatten_from_paths`` rebuilds one from the reference's paths."""
+    jp, jst, params, state = _adamw_states(False)
     jmanager.CheckpointManager(str(tmp_path)).save(
-        1, {"params": params, "opt": adamw_init(params, AdamWConfig())})
-    with pytest.raises(NotImplementedError, match="A10"):
-        CheckpointManager(str(tmp_path)).restore(device="cpu")
-    flat = dict(jmanager.flatten_with_paths(
-        {"opt": adamw_init(params, AdamWConfig())}))
-    with pytest.raises(NotImplementedError, match="A10"):
-        unflatten_from_paths(flat)
+        1, {"params": jp, "opt": jst})
+    step, got = CheckpointManager(str(tmp_path)).restore(device="cpu")
+    assert step == 1 and isinstance(got["opt"], TAdamWState)
+    assert got["opt"].master is None
+    _assert_bitwise(got["opt"], state)
+    _assert_bitwise(got["params"], params)
+    flat = dict(jmanager.flatten_with_paths({"opt": jst}))
+    rebuilt = unflatten_from_paths(flat)["opt"]
+    assert isinstance(rebuilt, TAdamWState) and rebuilt.master is None
+    assert int(rebuilt.step) == 2
+
+
+@pytest.mark.parametrize("use_master", [False, True])
+def test_adamw_state_files_equal_reference(tmp_path, use_master):
+    """The port writes the reference's files for an AdamWState: the same
+    MANIFEST.json (``__adamw__/{step,m,v,master}`` paths, ``master``
+    ``__none__`` when absent) and the same npz members, byte for byte."""
+    jp, jst, params, state = _adamw_states(use_master)
+    jmanager.CheckpointManager(str(tmp_path / "ref")).save(
+        3, {"params": jp, "opt": jst})
+    CheckpointManager(str(tmp_path / "port")).save(
+        3, {"params": params, "opt": state})
+    ref, port = (tmp_path / d / "step_0000000003" for d in ("ref", "port"))
+    manifest = (ref / "MANIFEST.json").read_bytes()
+    assert (port / "MANIFEST.json").read_bytes() == manifest
+    assert (b"/__adamw__/master/__none__" in manifest) != use_master
+    for group in ("params", "opt"):
+        mine = _npz_members(port / f"{group}.npz")
+        want = _npz_members(ref / f"{group}.npz")
+        assert list(mine) == list(want)
+        for name, data in want.items():
+            assert mine[name] == data, (group, name)
+
+
+@pytest.mark.parametrize("use_master", [False, True])
+def test_adamw_state_round_trips(tmp_path, use_master):
+    """Both directions: the reference restores what the port wrote (every
+    leaf equal to its own state's), the port restores what the reference
+    wrote and what it wrote itself, bit for bit."""
+    jp, jst, params, state = _adamw_states(use_master)
+    CheckpointManager(str(tmp_path / "port")).save(
+        4, {"params": params, "opt": state})
+    _, back = jmanager.CheckpointManager(str(tmp_path / "port")).restore()
+    assert isinstance(back["opt"], AdamWState)
+    assert jax.tree_util.tree_structure(back["opt"]) == \
+        jax.tree_util.tree_structure(jst)
+    for a, b in zip(jax.tree_util.tree_leaves(back["opt"]),
+                    jax.tree_util.tree_leaves(jst)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    _, mine = CheckpointManager(str(tmp_path / "port")).restore(device="cpu")
+    _assert_bitwise(mine["opt"], state)
+    jmanager.CheckpointManager(str(tmp_path / "ref")).save(
+        4, {"params": jp, "opt": jst})
+    _, got = CheckpointManager(str(tmp_path / "ref")).restore(device="cpu")
+    _assert_bitwise(got["opt"], state)
+    assert (got["opt"].master is None) != use_master
 
 
 @pytest.mark.parametrize("async_save", [False, True])

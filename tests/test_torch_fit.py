@@ -13,7 +13,12 @@ fit is held by what does not depend on the draws:
     every leaf's relative error at most 1.05x the reference's fit of the
     same weight;
   * a JAX-fitted model (and JAX-calibrated KV codebooks), converted,
-    gives the JAX engine's greedy streams at fp32.
+    gives the JAX engine's greedy streams at fp32;
+  * the k-means++ seed draw (C8): at or below ``MULTINOMIAL_MAX_POINTS``
+    a set, bit for bit the ``torch.multinomial`` seeding it had before
+    the inverse-CDF draw; above it (the cutoff lowered) the inverse-CDF
+    draw's seeds are points of their set, never a zero-distance point
+    while another is left, and proportional to the distances.
 """
 import dataclasses
 
@@ -142,6 +147,92 @@ def test_assign_in_chunks_equals_one_table(monkeypatch):
     ref = np.asarray(jvq._assign(jnp.asarray(pts.numpy()),
                                  jnp.asarray(cents.numpy())))
     np.testing.assert_array_equal(whole.numpy(), ref)
+
+
+def _parent_seeds(generator, points, k):
+    """k-means++ seeding as ``kmeans_batched`` drew it before the
+    inverse-CDF draw existed: one ``torch.multinomial`` a centroid."""
+    H, P, d = points.shape
+    rows = torch.arange(H)
+    first = points[rows, torch.randint(0, P, (H,), generator=generator)]
+    cents = torch.zeros((H, k, d))
+    cents[:, 0] = first
+    dists = ((points - first[:, None]) ** 2).sum(dim=-1)
+    for i in range(1, k):
+        total = dists.sum(dim=-1, keepdim=True)
+        probs = torch.where(total > 0, dists / total.clamp(min=1e-30),
+                            torch.full_like(dists, 1.0 / P))
+        nxt = points[rows, torch.multinomial(probs, 1,
+                                             generator=generator)[:, 0]]
+        cents[:, i] = nxt
+        dists = torch.minimum(dists, ((points - nxt[:, None]) ** 2).sum(-1))
+    return cents
+
+
+def test_kmeans_seeds_below_the_cutoff_bit_equal_the_parents():
+    """Every set at most ``MULTINOMIAL_MAX_POINTS`` points keeps its
+    ``torch.multinomial`` draw: the seeds (``iters=0``) and a full fit
+    equal the previous seeding's, bit for bit."""
+    pts = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (3, 500, 8)).astype(np.float32))
+    seeds, _ = tvq.kmeans_batched(torch.Generator().manual_seed(5), pts, 16,
+                                  iters=0)
+    assert torch.equal(seeds, _parent_seeds(torch.Generator().manual_seed(5),
+                                            pts, 16))
+    gen = torch.Generator().manual_seed(6)
+    want = tvq._update(pts, tvq._assign(pts, _parent_seeds(gen, pts, 16)),
+                       16, gen)
+    got, _ = tvq.kmeans_batched(torch.Generator().manual_seed(6), pts, 16,
+                                iters=1)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("chunk", [3, 1 << 22])
+def test_kmeans_seeds_above_the_cutoff_by_inverse_cdf(monkeypatch, chunk):
+    """With the cutoff lowered below P, the seeds come from the
+    inverse-CDF draw (over chunks of 3 points and in one): every seed is
+    a point of its own set, a set of exactly k distinct points (each
+    repeated) gets each of them once (a zero-distance point is never
+    drawn while another is left), and a set whose points are all equal
+    takes the uniform fallback."""
+    monkeypatch.setattr(tvq, "MULTINOMIAL_MAX_POINTS", 16)
+    monkeypatch.setattr(tvq, "_CDF_CHUNK", chunk)
+    rng = np.random.default_rng(4)
+    k, P = 8, 40
+    distinct = rng.standard_normal((k, 2)).astype(np.float32)
+    sets = np.stack([rng.standard_normal((P, 2)).astype(np.float32),
+                     distinct[rng.permutation(np.arange(P) % k)],
+                     np.full((P, 2), 1.5, np.float32)])
+    pts = torch.from_numpy(sets)
+    calls = []
+    draw = tvq._inverse_cdf_draw
+    monkeypatch.setattr(tvq, "_inverse_cdf_draw",
+                        lambda *a: calls.append(1) or draw(*a))
+    seeds, _ = tvq.kmeans_batched(torch.Generator().manual_seed(0), pts, k,
+                                  iters=0)
+    assert len(calls) == k - 1
+    for h in range(3):
+        member = (seeds[h][:, None, :] == pts[h][None]).all(-1).any(-1)
+        assert member.all(), h
+    assert len({tuple(r) for r in seeds[0].tolist()}) == k
+    assert sorted(map(tuple, seeds[1].tolist())) == sorted(
+        map(tuple, distinct.tolist()))
+    assert (seeds[2] == 1.5).all()
+
+
+def test_inverse_cdf_draw_frequencies(monkeypatch):
+    """Draws proportional to the distances across chunk boundaries, never
+    a zero-distance point; the all-zero set uniform."""
+    monkeypatch.setattr(tvq, "_CDF_CHUNK", 2)
+    d = torch.tensor([[0.0, 1.0, 3.0, 0.0, 4.0], [0.0] * 5])
+    gen = torch.Generator().manual_seed(0)
+    picks = torch.stack([tvq._inverse_cdf_draw(d, gen) for _ in range(4000)])
+    freq = torch.bincount(picks[:, 0], minlength=5).double() / 4000
+    np.testing.assert_allclose(freq.numpy(), [0, 0.125, 0.375, 0, 0.5],
+                               atol=0.03)
+    assert freq[0] == 0 and freq[3] == 0
+    uni = torch.bincount(picks[:, 1], minlength=5).double() / 4000
+    np.testing.assert_allclose(uni.numpy(), [0.2] * 5, atol=0.03)
 
 
 def test_kmeans_batched_recovers_each_heads_points():
