@@ -276,6 +276,14 @@ Phases (any failure exits non-zero):
      image rows, and B6 at img_proj (1601 rows) and the head; then
      `serve_llama2_7b_fit` (llama2-7b cut to FIT_LAYERS layers, its
      dense weights fitted on the card and served, ``serve_fit``);
+  6b. `dryrun_serve` (after `serve`): the port's dry run
+     (``launch/dryrun.py``'s counting, ``steps.lower_serve_decode_step``)
+     of the exact `serve` decode step, llama2-7b at SLOTS slots and
+     MAX_LEN on a one-rank mesh over meta tensors: its compute, memory
+     and collective terms at the H100 data-sheet rates and its
+     bottleneck, beside the `serve` replay's measured busy ms a step;
+     the bound must not exceed that busy time (a bound above the card's
+     own time is a wrong count);
   13b. `train_qwen3_0_6b` (``train_qwen3``): qwen3-0.6b trained at full
      width and depth (751.6 M fp32 params, bf16 activations, AdamW under
      warmup_cosine, remat, 16 steps of 8 x 1024 tokens of the affine
@@ -321,10 +329,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-FP32_FLOPS = 67e12             # H100 SXM, fp32 outside the tensor cores
-INT8_OPS = 1979e12             # H100 SXM, dense int8 tensor cores
-BF16_FLOPS = 989e12            # H100 SXM, dense bf16 tensor cores
+# H100 SXM data-sheet rates, kept in one place with the dry run's roofline
+from repro_torch.roofline.analysis import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS as BF16_FLOPS,
+    PEAK_FLOPS_FP32 as FP32_FLOPS, PEAK_INT8_OPS as INT8_OPS)
 SLOTS, MAX_LEN, N_REQUESTS, MAX_NEW = 4, 512, 8, 32
 BLOCK = 16                     # paged KV: positions a block
 PREFILL_CHUNK = 64             # chunked prefill (prompts of 32-200 tokens)
@@ -1260,6 +1268,7 @@ def serve(torch, timer):
         RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda")),
         EngineConfig(num_slots=SLOTS, max_len=MAX_LEN),
         ("fused_vq_matmul", "flash_decode", "dequant_gemv"))
+    dryrun_serve(torch, fp["decode_busy_ms"])
     kvq = serve_phase(
         torch, model, params, prompts, "serve_kvq",
         RunConfig(plan_policy=PlanPolicy(vq_mode="none", impl="cuda",
@@ -1883,6 +1892,45 @@ def serve_resilience(torch, model, params, prompts, fp, spec):
     assert not missing, f"serve_resilience: never launched: {missing}"
     phase_seconds("serve_resilience", t_phase)
     return launches
+
+
+def dryrun_serve(torch, busy: float) -> None:
+    """Phase 6b: the dry run of ``serve``'s decode step (module
+    docstring), held to ``busy``, the replay's busy ms a step that
+    ``profile_decode`` measured in the ``serve`` phase."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import fake_mesh
+    from repro_torch.models import build_model
+    from repro_torch.roofline.analysis import analyze_counted
+
+    t0 = time.perf_counter()
+    model = build_model(get_config("llama2_7b"))
+    meta = lambda shape: torch.empty(shape, dtype=torch.int32, device="meta")
+    specs = {"tokens": meta((SLOTS, 1)), "positions": meta((SLOTS, 1)),
+             "caches": model.cache_specs(SLOTS, MAX_LEN)}
+    try:
+        low = steps.lower_serve_decode_step(
+            model, fake_mesh({"data": 1, "model": 1}), specs)
+    finally:
+        dist.destroy_process_group()
+    rep = analyze_counted(low.costs, arch="llama2_7b",
+                          shape=f"serve_{SLOTS}x{MAX_LEN}", mesh_name="one",
+                          chips=1, step_kind="decode")
+    seconds = time.perf_counter() - t0
+    emit({"phase": "dryrun_serve", "t_compute_ms": rep.t_compute * 1e3,
+          "t_memory_ms": rep.t_memory * 1e3,
+          "t_collective_ms": rep.t_collective * 1e3,
+          "bottleneck": rep.bottleneck, "bound_ms": rep.bound_time * 1e3,
+          "flops": rep.flops_per_device,
+          "hbm_bytes": rep.hbm_bytes_per_device,
+          "argument_bytes": rep.argument_bytes,
+          "serve_replay_busy_ms": busy, "bound_share_of_busy":
+          rep.bound_time * 1e3 / busy, "seconds": seconds})
+    assert rep.bound_time * 1e3 <= busy, (rep.bound_time * 1e3, busy)
+    assert seconds <= 15.0, seconds
+    phase_seconds("dryrun_serve", t0)
 
 
 def phase_seconds(name, t0) -> None:
@@ -4542,10 +4590,11 @@ def serve_phase(torch, model, params, prompts, name, rc, ecfg, required,
     peak_over_base = torch.cuda.max_memory_allocated() - before
     toks = torch.tensor(np.stack([p[:64] for p in prompts[:SLOTS]]),
                         dtype=torch.int32, device="cuda")
-    engine_checks(torch, model, eng, toks, name, required,
-                  eager_profiles=eager_profiles, auto_plain=True)
+    busy = engine_checks(torch, model, eng, toks, name, required,
+                         eager_profiles=eager_profiles, auto_plain=True)
     phase_seconds(name, t_phase)
     return {"launches": launches, "tokens": tokens, "metrics": m,
+            "decode_busy_ms": busy,
             "kv_bytes": m["kv_bytes_in_use"] or alloc, "wall_s": wall,
             "peak_over_base": peak_over_base,
             "decode_launches": eng.decode_graph.launches,
@@ -4720,8 +4769,8 @@ def engine_checks(torch, model, eng, toks, name, required, rel=PLAIN_REL,
               "index_select": gathers})
         assert gathers == 0, f"{name}: the paged decode step gathers a view"
     graph_step(torch, model, eng, base, clone, name)
-    profile_decode(torch, model, eng, clone(), step, name, required,
-                   eager_profiles=eager_profiles)
+    return profile_decode(torch, model, eng, clone(), step, name, required,
+                          eager_profiles=eager_profiles)
 
 
 def zeroed_memories(caches):
@@ -5141,6 +5190,7 @@ def profile_decode(torch, model, eng, cache, step, name, required,
                    "device_ms_by_kernel"]]
     assert not missing, (f"{name}: kernels absent from the replays' device "
                          f"events: {missing}")
+    return replay["device_busy_ms_per_step"]
 
 
 def model_rows(rows, model, name, phase) -> dict:

@@ -53,6 +53,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.convert import from_jax_params, is_vq, to_reference_layout
@@ -142,6 +143,15 @@ def to_host(x: Any) -> Any:
             return x.view(torch.int16).numpy().view(_BF16)
         return x.numpy()
     return x
+
+
+def _has_dtensor(tree: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+    from repro_torch.runtime import tensor_parallel as tp
+
+    found: List[bool] = []
+    tp.map_tensors(lambda x: found.append(isinstance(x, DTensor)) or x, tree)
+    return any(found)
 
 
 def _host_snapshot(tree: Any, path: str = "") -> Any:
@@ -272,7 +282,18 @@ class CheckpointManager:
         """state: {"params": ..., "opt": ..., "extra": ...}, the port's
         trees (``"opt"`` an ``optim.AdamWState``). Every
         tensor is copied to the host (and the layers stacked) before the
-        async thread starts, so the caller may go on changing them."""
+        async thread starts, so the caller may go on changing them.
+
+        A state holding DTensors (params sharded over a mesh's ``model``
+        axis) is written whole, the same files whatever mesh holds it:
+        every rank of the process group calls ``save`` (the shards are
+        gathered), and only rank 0 writes."""
+        if _has_dtensor(state):
+            from repro_torch.runtime import tensor_parallel as tp
+
+            state = {g: tp.full(v) for g, v in state.items()}
+            if dist.get_rank() != 0:
+                return
         host_state = {g: to_reference_layout(_host_snapshot(state[g],
                                                             f"/{g}"))
                       for g in sorted(state)}  # the reference's tree_map sorts

@@ -1,26 +1,36 @@
-"""Step builders shared by the training and serving drivers
-(``repro/launch/steps.py``): the train step (loss, gradients, the
-schedule and AdamW; data-parallel over a mesh's ``("pod", "data")``
-ranks with ZeRO-1 optimizer state), its sharding specs, and the
-prefill, decode and serving decode steps with their meta-device specs.
+"""Step builders shared by the training and serving drivers and the
+multi-pod dry run (``repro/launch/steps.py``): the train step (loss,
+gradients, the schedule and AdamW; data-parallel over a mesh's
+``("pod", "data")`` ranks with ZeRO-1 optimizer state, tensor-parallel
+over its ``model`` ranks), its sharding specs, the prefill, decode and
+serving decode steps with their meta-device specs, and the four
+``lower_*`` builders of the dry run.
 
-Data-parallel execution (``mesh`` given): each rank computes the loss
-and gradients of its own shard of the global batch, the gradients (and
-the loss) are mean all-reduced over the data-parallel group, and each
-rank updates only the leaves whose optimizer state it owns under ZeRO-1
+Sharded execution (``mesh`` given): each rank computes the loss and
+gradients of its own shard of the global batch; with ``model`` > 1 every
+param is a DTensor on the ``model`` sub-mesh, placed by its spec
+(``runtime/tensor_parallel.py``), and the model's code runs on those
+shards. The gradients (and the loss) are mean all-reduced over the ranks
+that share this rank's ``model`` coordinate, and each rank updates only
+the leaves whose optimizer state it owns under ZeRO-1
 (``runtime.sharding.zero1_owners``: blocks of layers a data rank; the
 other leaves are replicated and updated by every rank alike), then
 broadcasts them to the rest of its ``data`` group. A rank holds no
 ``m``, ``v`` or ``master`` for a leaf another rank owns (an empty
-tensor); ``DataParallel.gather_opt`` rebuilds the whole state, for a
-checkpoint. Tensor parallelism over ``model`` is not ported (ROADMAP
-A10): a mesh whose ``model`` axis is larger than 1 raises.
+tensor), and of its own leaves only its ``model`` shard;
+``DataParallel.gather_opt`` rebuilds the whole state and
+``DataParallel.full_params`` the whole params, for a checkpoint.
 
-The reference's ``lower_*`` functions lower XLA programs for the
-multi-pod dry run, which the port does not have yet.
+A "lower" in the port (``lower_train_step`` and the three serving
+ones) builds the step with the mesh's shardings and runs it once on
+meta tensors under ``roofline.counting.StepCounter``, on a process group
+of the mesh's size (the dry run's is a fake one): per-device FLOPs,
+collective wire bytes and argument / output / temp bytes, where the
+reference lowers an XLA program and reads its HLO.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional
 
@@ -30,33 +40,27 @@ import torch.distributed as dist
 from repro_torch.models.api import Model
 from repro_torch.models.common import RunConfig
 from repro_torch.optim.adamw import (AdamWConfig, AdamWState,
-                                     adamw_update, clip_by_global_norm,
-                                     float_leaves, global_norm, map_leaves,
-                                     tree_flatten, tree_unflatten)
+                                     adamw_update, float_leaves,
+                                     map_leaves, tree_flatten,
+                                     tree_unflatten)
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.runtime import sharding as shd
+from repro_torch.runtime import tensor_parallel as tp
 
 
 # ---------------------------------------------------------------- training
 
 
 class DataParallel:
-    """A ``DeviceMesh``'s data-parallel ranks (axes ``("pod", "data")``,
-    and ``model`` of size 1): this rank's shard of the batch, the
-    gradient all-reduce and the ZeRO-1 ownership of the optimizer state.
-    Every rank of the mesh constructs it at the same time (it creates a
-    process group).
-
-    Raises:
-      NotImplementedError: a ``model`` axis larger than 1.
-    """
+    """A ``DeviceMesh``'s ranks for the train step: its data-parallel
+    ranks (axes ``("pod", "data")``: this rank's shard of the batch, the
+    gradient all-reduce, the ZeRO-1 ownership of the optimizer state)
+    and, where ``model`` is larger than 1, its tensor-parallel ranks (the
+    params as DTensors on the ``model`` sub-mesh). Every rank of the mesh
+    constructs it at the same time (it creates process groups)."""
 
     def __init__(self, mesh: Any):
         axes = shd.mesh_axes(mesh)
-        if axes.get("model", 1) > 1:
-            raise NotImplementedError(
-                f"tensor parallelism over the 'model' axis ({axes}) is not "
-                "ported yet (ROADMAP A10): use a mesh with model=1")
         self.mesh, self.axes = mesh, axes
         names = mesh.mesh_dim_names
         coord = {n: mesh.get_local_rank(n) for n in names}
@@ -65,9 +69,28 @@ class DataParallel:
         self.rank = coord.get("pod", 0) * axes.get("data", 1) \
             + coord.get("data", 0)
         self.data_rank = coord.get("data", 0)
-        self.group = dist.new_group(sorted(mesh.mesh.flatten().tolist()))
+        self.tp = tp.model_mesh(mesh)
+        # the data-parallel group: the ranks of this rank's model column
+        grid = mesh.mesh
+        if "model" in names:
+            grid = grid.movedim(names.index("model"), -1)
+            cols = [grid[..., j].flatten().tolist()
+                    for j in range(grid.shape[-1])]
+        else:
+            cols = [grid.flatten().tolist()]
+        for j, ranks in enumerate(cols):
+            g = dist.new_group(sorted(ranks))
+            if j == coord.get("model", 0):
+                self.group = g
         self.data_group = mesh.get_group("data") if "data" in names else None
         self._owners: Optional[list] = None
+        self._specs: Any = None
+
+    def specs(self, params: Any) -> Any:
+        """Each tensor's spec in the port's layout, computed once."""
+        if self._specs is None:
+            self._specs = tp.port_specs(params, self.mesh)
+        return self._specs
 
     def owners(self, params: Any) -> list:
         """The ZeRO-1 owner of each leaf of ``params`` (``tree_flatten``
@@ -80,6 +103,18 @@ class DataParallel:
     def mine(self, owner: Optional[int]) -> bool:
         return owner is None or owner == self.data_rank
 
+    def shard_params(self, params: Any) -> Any:
+        """Whole ``params`` (the same on every rank) as this rank holds
+        them: DTensors on the ``model`` sub-mesh, or as they are when
+        ``model`` is 1."""
+        if self.tp is None:
+            return params
+        return tp.distribute(params, self.mesh, self.specs(params))
+
+    def full_params(self, params: Any) -> Any:
+        """The whole params on every rank (a collective over ``model``)."""
+        return params if self.tp is None else tp.full(params)
+
     def mean(self, tree: Any) -> Any:
         """The mean over the data-parallel ranks of every float leaf."""
         def one(t):
@@ -88,18 +123,37 @@ class DataParallel:
             return t / self.size
         return map_leaves(one, tree)
 
+    def global_norm(self, grads: Any, params: Any) -> torch.Tensor:
+        """The global norm of the gradients whose ``model`` shards this
+        rank holds: the sharded leaves' squares summed over ``model``."""
+        sums = {True: [], False: []}
+        map_leaves(lambda g, p: sums[tp.sharded(p)].append(
+            torch.sum(torch.square(g.float()))), grads, params)
+        dev = next(iter(sums[True] + sums[False])).device
+        total = lambda xs: (torch.sum(torch.stack(xs)) if xs else
+                            torch.zeros((), dtype=torch.float32, device=dev))
+        part = total(sums[True])
+        if self.tp is not None:
+            dist.all_reduce(part, group=self.tp.get_group())
+        return torch.sqrt(part + total(sums[False]))
+
     def shard_opt(self, params: Any, opt: AdamWState) -> AdamWState:
-        """``opt`` with an empty tensor in place of every leaf another
-        rank owns (its own leaves as they are)."""
+        """``opt`` (whole) as this rank holds it: an empty tensor in place
+        of every leaf another rank owns, its own leaves' ``model``
+        shards."""
         own = self.owners(params)
+        specs = tp.flat_specs(self.specs(params), params)
+        shard = ((lambda x, i: x) if self.tp is None else
+                 (lambda x, i: tp.local_shard(x, specs[i], self.mesh)))
 
         def cut(tree):
             if tree is None:
                 return None
             flat, tdef = tree_flatten(tree)
             return tree_unflatten(tdef, [
-                x if x is None or self.mine(o) else x.new_empty(0)
-                for x, o in zip(flat, own)])
+                x if x is None else shard(x, i) if self.mine(o)
+                else x.new_empty(0)
+                for i, (x, o) in enumerate(zip(flat, own))])
 
         return opt._replace(m=cut(opt.m), v=cut(opt.v),
                             master=cut(opt.master))
@@ -118,8 +172,9 @@ class DataParallel:
         return out
 
     def broadcast_params(self, params: Any) -> Any:
-        """Every owned leaf of ``params`` from its owner (a new tensor on
-        the other ranks, never written into the one given)."""
+        """Every owned leaf of ``params`` (this rank's shards) from its
+        owner (a new tensor on the other ranks, never written into the
+        one given)."""
         flat, tdef = tree_flatten(params)
         if self.data_group is None:
             return params
@@ -130,19 +185,26 @@ class DataParallel:
 
     def gather_opt(self, params: Any, opt: AdamWState) -> AdamWState:
         """The whole optimizer state on every rank (each leaf's m, v and
-        master from its owner), as a checkpoint holds it."""
-        if self.data_group is None:
-            return opt
-        own, shapes = self.owners(params), tree_flatten(params)[0]
+        master from its owner, its ``model`` shards joined), as a
+        checkpoint holds it."""
+        own = self.owners(params)
+        local = tree_flatten(tp.to_local(params))[0]
+        placed = tree_flatten(params)[0]
 
-        def full(tree):
+        def whole(tree):
             if tree is None:
                 return None
             flat, tdef = tree_flatten(tree)
-            return tree_unflatten(tdef, self._broadcast(flat, own, shapes))
+            if self.data_group is not None:
+                flat = self._broadcast(flat, own, local)
+            if self.tp is not None:
+                flat = [x if x is None else
+                        tp.full(tp.from_local(x, p)) for x, p in
+                        zip(flat, placed)]
+            return tree_unflatten(tdef, flat)
 
-        return opt._replace(m=full(opt.m), v=full(opt.v),
-                            master=full(opt.master))
+        return opt._replace(m=whole(opt.m), v=whole(opt.v),
+                            master=whole(opt.master))
 
 
 def value_and_grad(model: Model, params: Any, batch: Any, rc: RunConfig):
@@ -160,6 +222,22 @@ def value_and_grad(model: Model, params: Any, batch: Any, rc: RunConfig):
     return loss.detach(), map_leaves(lambda x: next(it), params)
 
 
+def _local_grads(loss, grads, params):
+    """A sharded step's loss and gradients as this rank's plain tensors:
+    each gradient placed as its param (a partial sum reduced over
+    ``model``), then its shard."""
+    from torch.distributed.tensor import DTensor
+
+    def one(g, p):
+        if isinstance(g, DTensor):
+            g = g.redistribute(p.device_mesh, p.placements).to_local()
+        return g
+
+    if isinstance(loss, DTensor):
+        loss = loss.full_tensor()
+    return loss, map_leaves(one, grads, params)
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig, rc: RunConfig, *,
                     total_steps: int = 100000, warmup: int = 1000,
                     accum_steps: int = 1, mesh: Any = None):
@@ -169,31 +247,36 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, rc: RunConfig, *,
     microbatches, their losses and gradients summed in order, then
     divided), the ``warmup_cosine`` multiplier at ``opt_state.step``,
     then ``adamw_update``. New tensors throughout: the step before stays
-    as it was. With ``mesh`` (a ``DeviceMesh``) the step is data-parallel
-    (module docstring); ``batch`` is then this rank's shard.
-
-    Raises:
-      NotImplementedError: a mesh whose ``model`` axis is larger than 1
-        (ROADMAP A10).
-    """
+    as it was. With ``mesh`` (a ``DeviceMesh``) the step is sharded
+    (module docstring): ``batch`` is this rank's shard, ``params`` as
+    ``train_step.dp.shard_params`` places them and ``opt_state`` as
+    ``train_step.dp.shard_opt`` cuts it."""
     dp = DataParallel(mesh) if mesh is not None else None
+    sharded = dp is not None and dp.tp is not None
+
+    def grads_of(params, batch):
+        region = tp.tp_region() if sharded else contextlib.nullcontext()
+        with region:
+            loss, grads = value_and_grad(model, params, batch, rc)
+            if sharded:
+                loss, grads = _local_grads(loss, grads, params)
+        return loss, grads
 
     def train_step(params, opt_state: AdamWState, batch):
         if accum_steps == 1:
-            loss, grads = value_and_grad(model, params, batch, rc)
+            loss, grads = grads_of(params, batch)
         else:
             split = lambda x: x.reshape(accum_steps, x.shape[0] // accum_steps,
                                         *x.shape[1:])
             micro = {k: split(v) for k, v in batch.items()}
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=next(iter(batch.values())).device)
-            grads = map_leaves(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            loss, grads = None, None
             for i in range(accum_steps):
-                l, g = value_and_grad(model, params,
-                                      {k: v[i] for k, v in micro.items()}, rc)
-                loss = loss + l
-                grads = map_leaves(torch.add, grads, g)
+                l, g = grads_of(params, {k: v[i] for k, v in micro.items()})
+                if loss is None:  # fp32 sums, whatever the params' dtype
+                    loss, grads = l.float(), map_leaves(torch.Tensor.float, g)
+                else:
+                    loss = loss + l
+                    grads = map_leaves(torch.add, grads, g)
             loss = loss / accum_steps
             grads = map_leaves(lambda g: g / accum_steps, grads)
         lr_scale = warmup_cosine(opt_state.step, warmup_steps=warmup,
@@ -204,18 +287,21 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, rc: RunConfig, *,
         else:
             grads, loss = dp.mean(grads), dp.mean(loss)
             # the clip needs every leaf; each rank then updates its own
+            gnorm = dp.global_norm(grads, params)
             if opt_cfg.grad_clip > 0:
-                grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
-            else:
-                gnorm = global_norm(grads)
+                scale = torch.clamp(opt_cfg.grad_clip
+                                    / torch.clamp(gnorm, min=1e-12), max=1.0)
+                grads = map_leaves(lambda g: g * scale.to(g.dtype), grads)
             flat, tdef = tree_flatten(grads)
             grads = tree_unflatten(tdef, [
                 g if dp.mine(o) else None
                 for g, o in zip(flat, dp.owners(params))])
             new_params, new_opt, _ = adamw_update(
-                grads, opt_state, params,
+                grads, opt_state, tp.to_local(params),
                 dataclasses.replace(opt_cfg, grad_clip=0.0), lr_scale)
             new_params = dp.broadcast_params(new_params)
+            if sharded:
+                new_params = tp.from_local(new_params, params)
         metrics = {"loss": loss, "gnorm": gnorm,
                    "lr_scale": torch.as_tensor(lr_scale, dtype=torch.float32)}
         return new_params, new_opt, metrics
@@ -315,3 +401,169 @@ def serve_state_specs(batch: int) -> Dict[str, torch.Tensor]:
             "remaining": meta((batch,), torch.int32),
             "active": meta((batch,), torch.bool),
             "poison": meta((batch,), torch.float32)}
+
+
+# ---------------------------------------------------------------- lowering
+
+
+@dataclasses.dataclass
+class Lowered:
+    """One run of a step over meta tensors on one rank of a mesh,
+    counted: the port's counterpart of a lowered XLA program. ``costs``
+    is a ``roofline.counting.StepCosts``; ``replicated_ops`` the ops
+    DTensor had no rule for (``tensor_parallel.ReplicateFallback``)."""
+    kind: str
+    costs: Any
+    replicated_ops: Dict[str, int]
+    cache_bytes: float = 0.0
+
+
+def _local_input(x: torch.Tensor, spec: Any, mesh: Any) -> Any:
+    """This rank's part of a whole (meta) input placed by ``spec``: each
+    dim split by the data-parallel axes it names (a plain tensor of the
+    local size), then sharded over ``model`` where it names that too (a
+    DTensor on the ``model`` sub-mesh)."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    axes = shd.mesh_axes(mesh)
+    shape, on_model = list(x.shape), None
+    for d, part in enumerate(spec):
+        for name in (part if isinstance(part, tuple) else (part,)):
+            if name == "model":
+                on_model = d
+            elif name is not None:
+                shape[d] //= axes[name]
+    local = torch.empty(shape, dtype=x.dtype, device=x.device)
+    mm = tp.model_mesh(mesh)
+    if on_model is None or mm is None:
+        return local
+    return distribute_tensor(local, mm, [Shard(on_model)], src_data_rank=None)
+
+
+def _place_inputs(tree: Any, specs: Any, mesh: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _place_inputs(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return _local_input(tree, specs, mesh)
+    return tree
+
+
+def _place_params(params: Any, mesh: Any) -> Any:
+    if tp.model_mesh(mesh) is None:
+        return params
+    return tp.distribute(params, mesh, tp.port_specs(params, mesh))
+
+
+def _count(kind: str, run, inputs: Any, sharded: bool,
+           cache: Any = None) -> Lowered:
+    from repro_torch.roofline.counting import StepCounter
+
+    counter = StepCounter()
+    counter.arguments(inputs)
+    fb = tp.ReplicateFallback()
+    region = tp.tp_region(fb) if sharded else contextlib.nullcontext()
+    with torch.no_grad() if kind != "train" else contextlib.nullcontext():
+        with counter, region:
+            out = run()
+    cache_bytes = 0.0
+    if cache is not None:
+        cache_bytes = float(sum(
+            t.numel() * t.element_size()
+            for t in tree_flatten(tp.to_local(cache))[0]
+            if isinstance(t, torch.Tensor)))
+    return Lowered(kind=kind, costs=counter.finish(out),
+                   replicated_ops=dict(fb.ops), cache_bytes=cache_bytes)
+
+
+def lower_train_step(model: Model, mesh: Any, specs: Dict[str, Any],
+                     rc: Optional[RunConfig] = None,
+                     opt_cfg: Optional[AdamWConfig] = None) -> Lowered:
+    """The sharded train step built on ``mesh`` and run once over meta
+    params, optimizer state and batch (``model.input_specs``), counted."""
+    from repro_torch.optim.adamw import adamw_init
+
+    rc = rc or RunConfig(mode="train", remat=True)
+    opt_cfg = opt_cfg or AdamWConfig()
+    step = make_train_step(model, opt_cfg, rc, mesh=mesh)
+    dp = step.dp
+    whole = model.param_specs()
+    params = dp.shard_params(whole)
+    opt = dp.shard_opt(whole, adamw_init(whole, opt_cfg))
+    batch = _place_inputs(specs, shd.batch_pspecs(specs, mesh), mesh)
+    # the step enters the tensor-parallel region itself
+    return _count("train", lambda: step(params, opt, batch),
+                  (params, opt, batch), sharded=False)
+
+
+def lower_prefill_step(model: Model, mesh: Any, specs: Dict[str, Any],
+                       rc: Optional[RunConfig] = None, *,
+                       quantized: bool = True) -> Lowered:
+    from repro_torch.core.plan import PlanPolicy
+
+    rc = rc or RunConfig(mode="prefill", remat=False,
+                         plan_policy=PlanPolicy(int8_prefill=True,
+                                                impl="torch"))
+    params = _place_params(model.param_specs(quantized=quantized), mesh)
+    batch = _place_inputs(specs, shd.batch_pspecs(specs, mesh), mesh)
+    step = make_prefill_step(model, rc)
+    return _count("prefill", lambda: step(params, batch), (params, batch),
+                  sharded=tp.model_mesh(mesh) is not None)
+
+
+def _decode_rc(rc: Optional[RunConfig], quantized: bool,
+               vq_mode: str) -> RunConfig:
+    from repro_torch.core.plan import PlanPolicy
+
+    rc = rc or RunConfig(mode="decode", remat=False,
+                         plan_policy=PlanPolicy(vq_mode=vq_mode,
+                                                impl="torch"))
+    return rc.replace_policy(vq_mode=vq_mode if quantized else "none")
+
+
+def lower_decode_step(model: Model, mesh: Any, specs: Dict[str, Any],
+                      rc: Optional[RunConfig] = None, *,
+                      quantized: bool = True,
+                      vq_mode: str = "eva") -> Lowered:
+    """specs: {"tokens", "positions", "caches"} from model.input_specs.
+    The cache is updated in place, as the engine's is."""
+    rc = _decode_rc(rc, quantized, vq_mode)
+    params = _place_params(model.param_specs(quantized=quantized), mesh)
+    caches = _place_inputs(specs["caches"],
+                           shd.cache_pspecs(specs["caches"], mesh), mesh)
+    tok = {k: specs[k] for k in ("tokens", "positions")}
+    tok = _place_inputs(tok, shd.batch_pspecs(tok, mesh), mesh)
+    step = make_decode_step(model, rc)
+    return _count("decode", lambda: step(params, tok["tokens"],
+                                         tok["positions"], caches),
+                  (params, tok, caches),
+                  sharded=tp.model_mesh(mesh) is not None, cache=caches)
+
+
+def lower_serve_decode_step(model: Model, mesh: Any, specs: Dict[str, Any],
+                            rc: Optional[RunConfig] = None, *,
+                            quantized: bool = True,
+                            vq_mode: str = "eva") -> Lowered:
+    """The full serving decode step (decode, then the sampling and
+    stopping epilogue). It runs greedy: the port draws sampled tokens
+    from per-slot ``torch.Generator``s, which have no meta counterpart,
+    and a greedy lane reads none. Its per-slot state is split over the
+    data-parallel ranks with the cache's batch (the reference replicates
+    those few bytes)."""
+    rc = _decode_rc(rc, quantized, vq_mode)
+    params = _place_params(model.param_specs(quantized=quantized), mesh)
+    caches = _place_inputs(specs["caches"],
+                           shd.cache_pspecs(specs["caches"], mesh), mesh)
+    gb = int(specs["tokens"].shape[0])
+    state = serve_state_specs(gb)
+    state = _place_inputs(state, shd.batch_pspecs(state, mesh), mesh)
+    b = int(state["tokens"].shape[0])
+    step = make_serve_decode_step(model, rc)
+    order = ("tokens", "positions")
+    return _count(
+        "decode",
+        lambda: step(params, caches, *[state[k] for k in order],
+                     [None] * b, state["temperature"], state["top_k"],
+                     state["top_p"], [True] * b, state["stop_ids"],
+                     state["remaining"], state["active"], state["poison"]),
+        (params, caches, state), sharded=tp.model_mesh(mesh) is not None,
+        cache=caches)

@@ -15,8 +15,10 @@ the device, in fp32, with the config's activation dtype (the
 reference's ``model.init``); the tokens are the reference's, bit for
 bit.
 
-Data-parallel training: ``train(..., mesh=...)`` over a ``DeviceMesh``
-of the process group (``launch/steps.py``); from the command line,
+Sharded training: ``train(..., mesh=...)`` over a ``DeviceMesh`` of the
+process group (``launch/steps.py``): data-parallel over its ``("pod",
+"data")`` axes, tensor-parallel over ``model`` where that axis is larger
+than 1; the returned ``params`` are whole. From the command line,
 ``--dist-file PATH --world-size N --rank R`` for each of N processes
 initialises the group through a ``file://`` store at PATH (no port to
 collide) over ``gloo`` on the CPU, ``nccl`` on CUDA devices.
@@ -67,7 +69,7 @@ def train(arch: str = "qwen3-0.6b", *, smoke: bool = True, steps: int = 20,
           log_every: int = 5, mesh: Any = None, seed: int = 0,
           remat: bool = True, device: DeviceLike = None) -> Dict[str, Any]:
     """Train ``arch`` for ``steps`` steps on ``device`` (default "cuda");
-    with ``mesh`` data-parallel, this process one rank. Returns the
+    with ``mesh`` sharded over it, this process one rank. Returns the
     reference's ``losses`` (step -> loss), ``restarts``, ``stragglers``
     and ``final_loss``, and the final ``params``."""
     dev = resolve_device(device)
@@ -89,6 +91,7 @@ def train(arch: str = "qwen3-0.6b", *, smoke: bool = True, steps: int = 20,
     def save(step, params, opt, block=False):
         if dp is not None:  # every rank takes part; the first one writes
             opt = dp.gather_opt(params, opt)
+            params = dp.full_params(params)
             block = True
         if lead:
             mgr.save(step, {"params": params, "opt": opt}, block=block)
@@ -132,7 +135,7 @@ def train(arch: str = "qwen3-0.6b", *, smoke: bool = True, steps: int = 20,
         if mgr is not None:
             save(steps, params, opt, block=True)
             mgr.wait()
-        out["params"] = params
+        out["params"] = params if dp is None else dp.full_params(params)
         return steps
 
     def on_failure(e, n):

@@ -39,6 +39,7 @@ from repro_torch.core.logits_vq import VQLogitsHead
 from repro_torch.core.quantize import quantize_params
 from repro_torch.core.vq import KVQuantConfig, VQWeight
 from repro_torch.models import rglru, transformer, vision, whisper, xlstm
+from repro_torch.runtime import tensor_parallel as tp
 from repro_torch.models.common import (ModelConfig, RunConfig,
                                        cross_entropy_loss)
 
@@ -103,6 +104,10 @@ class Model:
         ``batch["labels"]`` (weighted by ``batch["loss_mask"]`` when
         given), the padded vocabulary's columns masked out."""
         logits, _ = self.forward(params, batch, rc)
+        if tp.is_dtensor(logits):  # a model sharded over ``model``
+            return tp.vocab_parallel_cross_entropy(
+                logits, batch["labels"], batch.get("loss_mask"),
+                self.cfg.vocab_size)
         return cross_entropy_loss(self._mask_pad_vocab(logits),
                                   batch["labels"], batch.get("loss_mask"))
 

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from repro_torch.core import ops as core_ops
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.plan import PlanPolicy
+from repro_torch.runtime import tensor_parallel as tp
 from repro_torch.core.vq import (KVQuantConfig, dequantize, kv_decode,
                                  kv_encode, vq_index)
 
@@ -302,10 +303,20 @@ def linear(p: Params, x: torch.Tensor, rc: RunConfig, *,
     ``eva_fused`` in decode, ``dequant`` elsewhere; a VQ-Logits head
     ``{"vql": ...}`` through ``vql_gather_torch``)."""
     out_dtype = out_dtype or x.dtype
-    pl = plan_mod.plan_node(p, x, mode=rc.mode, policy=rc.policy,
-                            out_dtype=out_dtype)
     leaf = next(p[k] for k in ("vq", "vql", "w") if k in p)
-    y = pl.execute(x, leaf)
+    if "vq" in p and tp.is_dtensor(leaf):
+        # a VQ weight sharded over ``model``: planned and run on its shard
+        def run(xl, vl):
+            return plan_mod.plan_node({"vq": vl}, xl, mode=rc.mode,
+                                      policy=rc.policy,
+                                      out_dtype=out_dtype).execute(xl, vl)
+
+        y = tp.vq_linear(x, leaf, run)
+    else:
+        pl = plan_mod.plan_node(p, x, mode=rc.mode, policy=rc.policy,
+                                out_dtype=out_dtype)
+        y = pl.execute(x, leaf)
+    y = tp.reduce_partial(y)  # a row-parallel output, whole again
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -412,6 +423,9 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     behind each query (sliding-window attention). ``q_offset`` is the
     absolute position of q[0], an int or a 0-dim device tensor (the
     chunked-prefill continuation: no host sync)."""
+    if tp.is_dtensor(q) or tp.is_dtensor(k):  # heads over ``model``
+        return tp.by_heads(blocked_attention, q, k, v, chunk=chunk,
+                           window=window, q_offset=q_offset, causal=causal)
     B, Sq, H, hd = q.shape
     hd_v = v.shape[-1]
     Skv = k.shape[1]
@@ -605,6 +619,9 @@ def _decode_contiguous(p, q, rows, cache, rc: RunConfig,
     Sc = cache["k"].shape[1]
     cache_len = cache["len"]                                       # (B,)
     ring = window > 0
+    if S == 1 and tp.time_sharded(cache) \
+            and kv_layout(cache, q.shape[-1]) == "fp":
+        return tp.sp_decode_attention(q, rows, cache, ring=ring)
     # the reference drops the positions past capacity (mode="drop").
     # With fixed shapes and no host sync, each dropped position of a
     # window repeats the write of its row's last position that fits,
@@ -1092,6 +1109,8 @@ def moe_fwd(p: Params, x: torch.Tensor, rc: RunConfig,
 
 
 def embed(p: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if tp.rows_sharded(p["emb"]):  # a vocab sharded over ``model``
+        return tp.vocab_parallel_embed(p["emb"], tokens).to(dtype)
     return p["emb"][tokens].to(dtype)
 
 

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import common as cm
+from repro_torch.roofline import counting
 from repro_torch.models.common import ModelConfig, RunConfig
 
 MLSTM_PF = 2      # mLSTM up-projection factor
@@ -218,21 +219,29 @@ def slstm_scan(p, z_in, i_in, f_in, o_in, state, H: int, hd: int):
     zs, is_, fs, os_ = (t.float() for t in (z_in, i_in, f_in, o_in))
     c, n, h, m = state["c"], state["n"], state["h"], state["m"]
     hs = []
-    for t in range(S):
-        rec = torch.einsum("bhk,hvk->bhv", h, rz)
-        z = torch.tanh(zs[:, t].reshape(B, H, hd) + rec)
-        li = is_[:, t]                    # log-space input gate preact
-        lf = F.logsigmoid(fs[:, t])       # sigmoid forget gate
-        m_new = torch.maximum(lf + m, li)
-        i_ = torch.exp(li - m_new)
-        f_ = torch.exp(lf + m - m_new)
-        c = f_[..., None] * c + i_[..., None] * z
-        n = f_[..., None] * n + i_[..., None]
-        h = torch.sigmoid(os_[:, t].reshape(B, H, hd)) * c / torch.clamp(
-            n, min=1e-6)
-        m = m_new
-        hs.append(h)
-    return torch.stack(hs, dim=1), {"c": c, "n": n, "h": h, "m": m}
+    run, count = counting.scan_steps(S, zs)   # the dry run: one step
+    with counting.repeated(count):
+        for t in range(run):
+            h, c, n, m = _slstm_step(rz, zs[:, t], is_[:, t], fs[:, t],
+                                     os_[:, t], c, n, h, m, H, hd)
+            hs.append(h)
+    return torch.stack(hs * count, dim=1), {"c": c, "n": n, "h": h, "m": m}
+
+
+def _slstm_step(rz, z_t, i_t, f_t, o_t, c, n, h, m, H: int, hd: int):
+    """One sLSTM step: (h, c, n, m) after it."""
+    B = z_t.shape[0]
+    rec = torch.einsum("bhk,hvk->bhv", h, rz)
+    z = torch.tanh(z_t.reshape(B, H, hd) + rec)
+    li = i_t                          # log-space input gate preact
+    lf = F.logsigmoid(f_t)            # sigmoid forget gate
+    m_new = torch.maximum(lf + m, li)
+    i_ = torch.exp(li - m_new)
+    f_ = torch.exp(lf + m - m_new)
+    c = f_[..., None] * c + i_[..., None] * z
+    n = f_[..., None] * n + i_[..., None]
+    h = torch.sigmoid(o_t.reshape(B, H, hd)) * c / torch.clamp(n, min=1e-6)
+    return h, c, n, m_new
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, device,

@@ -26,8 +26,9 @@ fp32 reassociation. It checks:
     steps above;
   * ``to_placements`` on the mesh: the batch's spec, distributed as a
     ``DTensor``, gives each rank its pipeline shard;
-  * a mesh with ``model`` = 2 refused with NotImplementedError naming
-    ROADMAP A10.
+  * a (data=2, model=2) mesh, which the port refused before ROADMAP
+    A10's tensor parallelism: 2 ``model`` ranks a data-parallel group
+    of 2.
 """
 import json
 import os
@@ -209,14 +210,11 @@ def four_ranks(rank, tmp):
     out["compress_rel"] = err1 / true.abs().max().item()
     out["ef_improves"] = (applied / 8 - true).abs().max().item() < 0.5 * err1
 
-    # the model axis: refused
-    refused = ""
-    tp_mesh = make_mesh((2, 2), ("data", "model"))
-    try:
-        DataParallel(tp_mesh)
-    except NotImplementedError as e:
-        refused = str(e)
-    out["refused"] = refused
+    # the model axis (refused before ROADMAP A10 was ported): the ranks
+    # split into 2 data-parallel ranks of 2 tensor-parallel ranks each
+    tp_dp = DataParallel(make_mesh((2, 2), ("data", "model")))
+    out["tp"] = [tp_dp.tp.size(), tp_dp.size,
+                 dist.get_world_size(tp_dp.group)]
 
     # elastic: a checkpoint at step 2, then a failure there
     try:
@@ -342,8 +340,11 @@ def test_batch_placements(result):
 
 
 def test_model_axis_refused(result):
+    """A mesh with ``model`` = 2 was refused naming ROADMAP A10; it now
+    splits into tensor-parallel and data-parallel groups
+    (``tests/test_torch_tensor_parallel.py`` trains on such meshes)."""
     for r in result["four"]:
-        assert "ROADMAP A10" in r["refused"]
+        assert r["tp"] == [2, 2, 2]
 
 
 if __name__ == "__main__":

@@ -380,10 +380,37 @@ def test_trained_then_fitted_model_within_reference_bounds():
 
 
 def test_model_axis_refused_naming_a10():
-    m = build_model(get_smoke_config("qwen3_0_6b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        make_train_step(m, AdamWConfig(), RunConfig(),
-                        mesh={"data": 1, "model": 2})
+    """A ``model`` axis of 2, refused until ROADMAP A10's tensor
+    parallelism: on a fake 2-rank process group (rank 0; its collectives
+    do nothing, so only the structure is held here, the numbers in
+    ``tests/test_torch_tensor_parallel.py``) the step takes the params
+    as DTensors, rank 0 holding half the vocabulary's rows of ``emb``,
+    and returns them so, with a finite loss."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.mesh import make_mesh
+
+    m = build_model(dataclasses.replace(get_smoke_config("qwen3_0_6b"),
+                                        dtype="float32"))
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        step = make_train_step(m, AdamWConfig(), RunConfig(attn_chunk=8),
+                               mesh=make_mesh((1, 2), ("data", "model")))
+        whole = m.init(torch.Generator().manual_seed(0), device="cpu")
+        params = step.dp.shard_params(whole)
+        emb = params["embedding"]["emb"]
+        assert isinstance(emb, DTensor)
+        assert emb.to_local().shape[0] == m.cfg.padded_vocab // 2
+        batch = {k: torch.from_numpy(v) for k, v in global_batch_at(
+            DataConfig(vocab_size=m.cfg.vocab_size, seq_len=16,
+                       global_batch=2), 0).items()}
+        new, _, met = step(params, step.dp.shard_opt(
+            whole, adamw_init(whole, AdamWConfig())), batch)
+        assert torch.isfinite(met["loss"])
+        assert isinstance(new["embedding"]["emb"], DTensor)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_valid_dp_sizes_equal_reference():
