@@ -128,6 +128,15 @@ default planner (``core/plan.py``), re-plans, rebuilds the decode graph
 over the live caches (kept bit for bit) and drops the prefill graphs,
 which rebuild at first use. A kernel's own exception is never caught:
 it raises out of ``step()``.
+
+``Engine.tracer`` records spans of ``step()``'s phases (sweep, each
+admission and prefill, the decode step's graph, epilogue, readback and
+events, delivery) and, on CUDA, device marks around the graph calls and
+the eager epilogues (``serve/tracing.py``). It is off unless the caller
+sets a ``tracing.Tracer``; off, a span costs a shared no-op context, or
+a ``record_function`` range under an outside profiler.
+``EngineMetrics.prefill_bucket_tokens`` counts the tokens prefill steps
+ran, padding included, beside ``prefill_prompt_tokens``.
 """
 from __future__ import annotations
 
@@ -148,7 +157,7 @@ from repro_torch.core.vq import KVQuantConfig
 from repro_torch.models.api import PREFILL_EXTRAS, Model
 from repro_torch.models.common import RunConfig, moe_capacity
 from repro_torch.runtime.fault_tolerance import StepWatchdog
-from repro_torch.serve import api, paging, speculative
+from repro_torch.serve import api, paging, speculative, tracing
 from repro_torch.serve.api import (GenerationRequest, RequestEvicted,
                                    RequestOutput, SamplingParams, StreamEvent)
 from repro_torch.serve.graphs import (EagerStep, HostInputs, StepGraph,
@@ -302,6 +311,9 @@ class Engine:
         self._bucketed = model.cfg.family in _BUCKETABLE_FAMILIES
         self.sched = Scheduler(ecfg.num_slots, max_queue=ecfg.max_queue)
         self.metrics_counters = EngineMetrics(num_slots=ecfg.num_slots)
+        # spans of step() (serve/tracing.py): off unless a caller sets a
+        # tracing.Tracer
+        self.tracer: Any = tracing.OFF
         B = ecfg.num_slots
         if ecfg.paged:
             self.paging: Optional[paging.PagingConfig] = \
@@ -485,7 +497,7 @@ class Engine:
         if len(request.stop_set) > api.MAX_STOP_IDS:
             raise ValueError(f"request has {len(request.stop_set)} stop ids; "
                              f"the engine supports at most {api.MAX_STOP_IDS}")
-        self.metrics_counters.submitted += 1
+        self.metrics_counters.count_submit()
         if not self.healthy:
             return self._reject(
                 f"engine unhealthy: circuit breaker tripped after "
@@ -674,17 +686,31 @@ class Engine:
                                                   np.int32)])
         return seq
 
-    def _prefill_one(self, slot: int, tr: TrackedRequest
+    def _prefill_extent(self, tr: TrackedRequest) -> Tuple[int, int, bool]:
+        """(c, bucket, final) of the request's next prefill step: the
+        positions it prefills (the whole target, or under chunked prefill
+        its next ``prefill_chunk``), the length they run at, and whether
+        they reach the target."""
+        target = self._prefill_target(tr)
+        chunked = self._chunked and target > self.ecfg.prefill_chunk
+        pos0 = tr.prefill_pos
+        c = (min(self.ecfg.prefill_chunk, target - pos0) if chunked
+             else target)
+        bucket = api.bucket_for(c, self._buckets) if self._bucketed else c
+        return c, bucket, pos0 + c >= target
+
+    def _prefill_one(self, slot: int, tr: TrackedRequest, c: int,
+                     bucket: int, final: bool
                      ) -> Tuple[Optional[int], bool, bool]:
-        """Advance the request in ``slot`` by one prefill step: the whole
-        target, or under chunked prefill its next ``prefill_chunk``
-        positions. Returns (token, bad, final): ``final`` False after a
+        """Advance the request in ``slot`` by one prefill step of ``c``
+        positions at length ``bucket`` (``_prefill_extent``). Returns
+        (token, bad, final): ``final`` False after a
         non-final chunk (the slot stays occupied but inactive); ``bad``
         when the sampled row holds a NaN/Inf (the slot is not activated);
         ``token`` the first sampled token on the final step, None for a
         chunk and for a preempted request's resume, whose decode state is
         restored from the preemption instead."""
-        fp = self.fault_plan
+        fp, tracer = self.fault_plan, self.tracer
         poison = 0.0
         if fp is not None:
             if fp.poll("prefill", self._tick, tr.uid) is not None:
@@ -694,36 +720,35 @@ class Engine:
                 poison = float("nan") if spec.mode == "nan" else float("inf")
         req, sp = tr.request, tr.request.sampling
         target = self._prefill_target(tr)
-        chunked = self._chunked and target > self.ecfg.prefill_chunk
         pos0 = tr.prefill_pos
-        c = (min(self.ecfg.prefill_chunk, target - pos0) if chunked
-             else target)
-        final = pos0 + c >= target
-        bucket = api.bucket_for(c, self._buckets) if self._bucketed else c
         # edge-pad to the bucket: causally masked for the real rows
         chunk = np.pad(self._prefill_tokens(tr)[pos0:pos0 + c],
                        (0, bucket - c), mode="edge")[None]
         cache = None
         # the graph's outputs are consumed (sample, pad, insert) before
         # any other replay: all of it is ordered on one stream
-        if self.paging is None:
-            logits, cache = self.prefill_graph(bucket)(tokens=chunk)
-        elif pos0 == 0:
-            logits = self.prefill_graph(bucket)(
-                tokens=chunk, slot=[slot], bt_row=self.tables[slot],
-                true_len=[c])
-        else:
-            logits = self.chunk_graph(bucket)(
-                tokens=chunk, slot=[slot], bt_row=self.tables[slot],
-                hist=[pos0], true_len=[c])
-            self.metrics_counters.prefill_chunks += 1
-        with torch.no_grad():
+        with torch.no_grad(), tracer.span("prefill.replay", device=True):
+            if self.paging is None:
+                logits, cache = self.prefill_graph(bucket)(tokens=chunk)
+            elif pos0 == 0:
+                logits = self.prefill_graph(bucket)(
+                    tokens=chunk, slot=[slot], bt_row=self.tables[slot],
+                    true_len=[c])
+            else:
+                logits = self.chunk_graph(bucket)(
+                    tokens=chunk, slot=[slot], bt_row=self.tables[slot],
+                    hist=[pos0], true_len=[c])
+                self.metrics_counters.prefill_chunks += 1
             last = logits[0, c - 1, :self.model.cfg.vocab_size][None]
             if fp is not None:
                 last = last + poison
-            if not bool(torch.isfinite(last).all()):
-                return None, True, final
-            if cache is not None:
+            finite = torch.isfinite(last).all()
+        with tracer.span("prefill.sync", wait=True):
+            finite = bool(finite)
+        if not finite:
+            return None, True, final
+        if cache is not None:
+            with torch.no_grad(), tracer.span("prefill.insert", device=True):
                 _insert_slot(self.caches, pad_prefill_cache(
                     cache, self.ecfg.max_len, window=self.window,
                     true_len=c), slot)
@@ -756,12 +781,14 @@ class Engine:
             tr.preempted = False
             self._prime_spec(slot, tr)
             return None, False, True
-        with torch.no_grad():
+        with torch.no_grad(), tracer.span("prefill.sample", device=True):
             tok, lp = self._sample_row(last, slot)
-        tok = int(tok[0])
+        with tracer.span("prefill.sync", wait=True):
+            tok = int(tok[0])
+            lp = float(lp[0]) if sp.logprobs else None
         tr.generated.append(tok)
-        if sp.logprobs:
-            tr.logprobs.append(float(lp[0]))
+        if lp is not None:
+            tr.logprobs.append(lp)
         self.last_token[slot] = tok
         # a paged full cache admits length-aware: the budget clamps to
         # the capacity left past the prompt (a ring wraps instead)
@@ -797,11 +824,15 @@ class Engine:
         tr = self.sched.slots[slot]
         t0 = time.perf_counter()
         pos0 = tr.prefill_pos
-        tok, bad, final = self._prefill_one(slot, tr)
+        c, bucket, final = self._prefill_extent(tr)
+        with self.tracer.span("engine.prefill", tr.uid, bucket=bucket,
+                              true_len=c, chunk=pos0 > 0 or not final):
+            tok, bad, final = self._prefill_one(slot, tr, c, bucket, final)
         dt = time.perf_counter() - t0
         tr.prefill_s += dt
         m.prefill_s += dt
         m.prefill_prompt_tokens += tr.prefill_pos - pos0
+        m.prefill_bucket_tokens += bucket
         if bad:
             m.prefills += 1
             m.poisoned_slot_steps += 1
@@ -997,9 +1028,11 @@ class Engine:
         logits first. Returns host arrays (tokens (B, S), logprobs (B,
         S), emitted counts e (B,), drafts accepted (B,), done, bad), S =
         K + 1; a token is emitted where its column is below e."""
-        act = self.active
-        out = self.decode_graph(tokens=np.where(act, self.last_token, 0),
-                                positions=np.where(act, self.positions, 0))
+        act, tracer = self.active, self.tracer
+        with tracer.span("decode.graph", device=True):
+            out = self.decode_graph(
+                tokens=np.where(act, self.last_token, 0),
+                positions=np.where(act, self.positions, 0))
         host = {"temperature": self.temperature, "top_k": self.top_k,
                 "top_p": self.top_p, "stop_ids": self.stop_ids,
                 "remaining": self.remaining, "active": act}
@@ -1007,13 +1040,13 @@ class Engine:
             host["spec_on"] = self.spec_on
         if poison is not None:
             host["poison"] = poison
-        k = self._knobs.load(host)
-        if poison is not None:
-            p = k["poison"]
-            out = (out + p[:, None] if not self.spec_k
-                   else (out[0] + p[:, None, None], out[1]))
         greedy = list(np.where(act, self.greedy, True))
-        with torch.no_grad():
+        with torch.no_grad(), tracer.span("decode.epilogue", device=True):
+            k = self._knobs.load(host)
+            if poison is not None:
+                p = k["poison"]
+                out = (out + p[:, None] if not self.spec_k
+                       else (out[0] + p[:, None, None], out[1]))
             if not self.spec_k:
                 tok, done, bad = api.sample_and_stop(
                     out, generators=self.generators,
@@ -1037,7 +1070,9 @@ class Engine:
                 cols = [toks, lps.view(torch.int32)]
             packed = torch.cat(cols + [torch.stack(
                 [e, accepted, done.to(torch.int32), bad.to(torch.int32)],
-                dim=1)], dim=1).cpu().numpy()
+                dim=1)], dim=1)
+        with tracer.span("decode.readback", wait=True):
+            packed = packed.cpu().numpy()
         S = self.spec_k + 1
         e = packed[:, 2 * S]
         if states is not None:
@@ -1090,11 +1125,18 @@ class Engine:
         (a scripted prefill, decode or sample fault, or a real one) leaves
         the tick's events undelivered: a snapshot restore is the
         recovery."""
-        m = self.metrics_counters
+        with self.tracer.span("engine.step", tick=self._tick) as span:
+            events = self._step()
+            span.set(events=len(events))
+        return events
+
+    def _step(self) -> List[StreamEvent]:
+        m, tracer = self.metrics_counters, self.tracer
         tick, fp = self._tick, self.fault_plan
         events: List[StreamEvent] = list(self._pending)
         self._pending.clear()
-        events.extend(self._timeout_sweep())
+        with tracer.span("engine.sweep"):
+            events.extend(self._timeout_sweep())
 
         if fp is not None:
             spec = fp.poll("backend", tick)
@@ -1121,12 +1163,15 @@ class Engine:
         for slot in self.sched.admit(can_admit if self.paging else None):
             tr = self.sched.slots[slot]
             tr.queue_wait_s = time.perf_counter() - tr.submit_t
-            m.admitted += 1
-            m.queue_wait_s += tr.queue_wait_s
-            if self.paging is not None:
-                ok = self._alloc_blocks(
-                    slot, self.paging.blocks_for(self._prefill_target(tr)))
-                assert ok, "can_admit reserved blocks the pool cannot supply"
+            with tracer.span("engine.admit", tr.uid,
+                             queue_wait=tr.queue_wait_s):
+                m.admitted += 1
+                m.queue_wait_s += tr.queue_wait_s
+                if self.paging is not None:
+                    ok = self._alloc_blocks(
+                        slot, self.paging.blocks_for(self._prefill_target(tr)))
+                    assert ok, ("can_admit reserved blocks the pool cannot "
+                                "supply")
             did_work = True
             poisoned |= self._prefill_step_events(slot, events)
 
@@ -1136,24 +1181,48 @@ class Engine:
         active_idx = np.nonzero(self.active)[0]
         if active_idx.size:
             did_work = True
-            self._sync_tables()
-            poison = None
-            if fp is not None:
-                if fp.poll("decode", tick) is not None:
-                    raise InjectedFault("decode", tick)
-                poison = np.zeros((self.ecfg.num_slots,), np.float32)
-                for b in active_idx:
-                    spec = fp.poll("poison", tick, self.sched.slots[b].uid)
-                    if spec is not None:
-                        poison[b] = np.nan if spec.mode == "nan" else np.inf
-            t0 = time.perf_counter()
-            self.watchdog.start_step()
-            toks, lps, e_cnt, acc, done, bad = self._decode(poison)
-            if self.watchdog.end_step().is_straggler:
-                m.straggler_steps += 1
-            if fp is not None and fp.poll("sample", tick) is not None:
-                # the device stepped, the host did not: a torn state
-                raise InjectedFault("sample", tick)
+            with tracer.span("engine.decode", lanes=int(active_idx.size)):
+                poisoned |= self._decode_step_events(active_idx, events)
+
+        if did_work:
+            was_tripped = self.breaker.tripped
+            if self.breaker.record(poisoned) and not was_tripped:
+                events.extend(self._reject_pending_unhealthy())
+
+        with tracer.span("engine.deliver"):
+            for ev in events:
+                buf = self._buffers.get(ev.uid)
+                if buf is not None:
+                    buf.append(ev)
+        self._tick += 1
+        return events
+
+    def _decode_step_events(self, active_idx: np.ndarray,
+                            events: List[StreamEvent]) -> bool:
+        """The decode step of the tick over the active slots
+        ``active_idx``: the step, its counters and its events (finishing
+        the slots whose stop condition it met). Returns whether a lane
+        poisoned."""
+        m, tick, fp = self.metrics_counters, self._tick, self.fault_plan
+        self._sync_tables()
+        poison = None
+        if fp is not None:
+            if fp.poll("decode", tick) is not None:
+                raise InjectedFault("decode", tick)
+            poison = np.zeros((self.ecfg.num_slots,), np.float32)
+            for b in active_idx:
+                spec = fp.poll("poison", tick, self.sched.slots[b].uid)
+                if spec is not None:
+                    poison[b] = np.nan if spec.mode == "nan" else np.inf
+        t0 = time.perf_counter()
+        self.watchdog.start_step()
+        toks, lps, e_cnt, acc, done, bad = self._decode(poison)
+        if self.watchdog.end_step().is_straggler:
+            m.straggler_steps += 1
+        if fp is not None and fp.poll("sample", tick) is not None:
+            # the device stepped, the host did not: a torn state
+            raise InjectedFault("sample", tick)
+        with self.tracer.span("decode.events"):
             n_bad = int(np.count_nonzero(bad))
             n_emit = int(e_cnt.sum())
             m.decode_steps += 1
@@ -1162,7 +1231,6 @@ class Engine:
             m.tokens_generated += n_emit
             m.extra_decode_tokens += n_emit - (int(active_idx.size) - n_bad)
             m.poisoned_slot_steps += n_bad
-            poisoned |= n_bad > 0
             if self.spec_k:
                 lanes = self.active & ~bad & self.spec_on
                 n_spec = int(np.count_nonzero(lanes))
@@ -1202,18 +1270,7 @@ class Engine:
                     tr.generated.append(t)
                 if reason is not None:
                     self._finish_slot(b, reason)
-
-        if did_work:
-            was_tripped = self.breaker.tripped
-            if self.breaker.record(poisoned) and not was_tripped:
-                events.extend(self._reject_pending_unhealthy())
-
-        for ev in events:
-            buf = self._buffers.get(ev.uid)
-            if buf is not None:
-                buf.append(ev)
-        self._tick += 1
-        return events
+        return n_bad > 0
 
     def _reject_pending_unhealthy(self) -> List[StreamEvent]:
         """The breaker just tripped: reject every queued request (the

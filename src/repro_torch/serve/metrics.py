@@ -13,7 +13,9 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict
+from typing import Dict, Optional
+
+_CLOCKS = ("started_at", "first_submit_at")
 
 
 @dataclasses.dataclass
@@ -29,6 +31,10 @@ class EngineMetrics:
     timeouts: int = 0                # deadline_s expiries
     prefills: int = 0
     prefill_prompt_tokens: int = 0
+    # the tokens prefill steps ran: each step's length bucket (its true
+    # length where nothing is bucketed), a poisoned step's too; less
+    # prefill_prompt_tokens, the padding
+    prefill_bucket_tokens: int = 0
     prefill_chunks: int = 0          # chunked-prefill continuations (paged)
     preemptions: int = 0             # out-of-blocks decode evictions (paged)
     # KV memory gauges: a paged engine updates them at every block alloc
@@ -56,6 +62,12 @@ class EngineMetrics:
     prefill_s: float = 0.0
     decode_s: float = 0.0
     started_at: float = dataclasses.field(default_factory=time.perf_counter)
+    first_submit_at: Optional[float] = None
+
+    def count_submit(self) -> None:
+        self.submitted += 1
+        if self.first_submit_at is None:
+            self.first_submit_at = time.perf_counter()
 
     def count_finish(self, reason: str) -> None:
         self.finished += 1
@@ -104,13 +116,17 @@ class EngineMetrics:
 
     @property
     def tokens_per_s(self) -> float:
-        dt = time.perf_counter() - self.started_at
+        """Tokens over the seconds since the first submit (since
+        construction before one): the engine's set-up does not count."""
+        t0 = (self.started_at if self.first_submit_at is None
+              else self.first_submit_at)
+        dt = time.perf_counter() - t0
         return self.tokens_generated / dt if dt > 0.0 else 0.0
 
     def state(self) -> Dict[str, float]:
-        """Every counter but the wall clock (``Engine.snapshot``)."""
+        """Every counter but the wall clocks (``Engine.snapshot``)."""
         return {f.name: getattr(self, f.name)
-                for f in dataclasses.fields(self) if f.name != "started_at"}
+                for f in dataclasses.fields(self) if f.name not in _CLOCKS}
 
     def restore(self, state: Dict[str, float]) -> None:
         for name, value in state.items():
